@@ -1,29 +1,42 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA H100.
 
-Drives ``mxnet_tpu_torch`` — paged decode serving of a GPT-2-small-width
-``TransformerDecoderLM`` (random fp32 weights from seed 0) — on the
-card, through the entry points a user calls.  Phases, each printed as
-one JSON line:
+Drives ``mxnet_tpu_torch``'s two paths on the card, through the entry
+points a user calls: paged decode serving of a GPT-2-small-width
+``TransformerDecoderLM`` (random fp32 weights from seed 0), and
+``ShardedTrainer.step`` on ``BERTForPretrain`` over ``bert_24_1024_16``
+with ``use_flash=True``.  Phases, each printed as one JSON line:
 
 1. ``device``  — card name, device count, power limit;
-2. ``build``   — compile the two CUDA kernels (``nvcc``, ``sm_90a``);
-3. ``kernels`` — each kernel against its plain PyTorch version at the
-   slice's shapes, fp32 and bf16, with its time, the plain version's
-   time, one PyTorch library call's time and the roofline bound; then
-   ``head_dims`` — both kernels at every compiled head dim, small shapes;
-4. ``parity``  — ``paged_prefill`` + 32 ``paged_decode_step``s, a
+2. ``build``   — compile the five CUDA kernels (``nvcc``, ``sm_90a``,
+   one process per source, all started together);
+3. ``kernels`` — B4/B5 (paged decode / verify attention) against their
+   plain PyTorch versions at the serving shapes, fp32 and bf16, with
+   their times, the plain versions' times, one PyTorch library call's
+   time and the roofline bound; then ``head_dims`` — both kernels at
+   every compiled head dim, small shapes;
+4. ``flash_kernels`` — B1/B2/B3 (flash-attention forward, dQ, dK/dV)
+   against their plain versions at BERT-large's shapes (the training
+   batch, lengths 0/1/37/512, causal, causal + window 128, Lq != Lk,
+   head dim 128, L = 2048), fp32 and bf16, with times, bounds and the
+   ``scaled_dot_product_attention`` yardstick (forward; backward);
+5. ``parity``  — ``paged_prefill`` + 32 ``paged_decode_step``s, a
    width-37 ``paged_verify`` and the same window through
    ``paged_verify_batch`` against the dense full forward, and the launch
    counters rising by ``num_layers`` per call;
-5. ``serve``   — 8 threads calling ``DecodeEngine.generate`` at once,
+6. ``serve``   — 8 threads calling ``DecodeEngine.generate`` at once,
    then 4 requests sharing a 256-token prefix (prefix-cache hits run
-   the verify kernel); the launch counters are zeroed just before and
+   the verify kernel); the B4/B5 counters are zeroed just before and
    read just after;
-6. ``profile`` — one decode step through ``PagedLMAdapter`` at batch 8,
-   host-timed, then traced with ``torch.profiler`` (device time by
-   kernel family, the costliest kernels, and the device idle share
-   against the untraced step time).
+7. ``train_parity`` — BERT-large fp32: the flash path's loss and every
+   parameter gradient against the dense additive-mask path on the same
+   weights and batch (B = 8, L = 512);
+8. ``train``   — 2 warm-up + 10 timed adamw ``ShardedTrainer`` steps,
+   fp32 then bf16; the B1-B3 counters are zeroed just before and read
+   just after, and rise by 24 (one per layer) each step;
+9. ``profile`` / ``profile_train`` — one decode step and one bf16
+   training step traced with ``torch.profiler`` (device time by kernel
+   family, the device idle share against the untraced step time).
 
 Then the kernel summary line, the ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -46,11 +59,29 @@ import numpy as np
 GPT2_SMALL = dict(vocab_size=50257, units=768, hidden_size=3072,
                   num_layers=12, num_heads=12, max_length=1024,
                   activation="gelu_tanh", layer_norm_eps=1e-5)
+# BERT-large (google-research/bert BERT-Large bert_config.json): hidden
+# 1024, 24 layers, 16 heads, intermediate 4096, gelu (erf), vocab 30522,
+# type vocab 2, max_position 512, layer_norm_eps 1e-12
+BERT_LARGE = dict(vocab_size=30522, units=1024, hidden_size=4096,
+                  num_layers=24, num_heads=16, max_length=512)
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=0.0)}
+# Flash kernels vs their plain versions.  fp32 (TF32 off): both sides sum
+# the same fp32 products in other orders, so O and LSE agree to 1e-4;
+# a gradient sums up to 2048 rows or keys, so it is held to 1e-3 of its
+# tensor's max|grad|.  bf16: inputs, P and dS are rounded to bf16 at the
+# same places on both sides, but the kernel rounds P against the running
+# max of its key tile and the plain version against the row's final
+# max, a bf16 ulp (2^-8) apart, so O is held to 2e-2 absolute and the
+# gradients to 5e-2 of max|grad|; LSE stays fp32 arithmetic (1e-4).
+FLASH_TOL = {"float32": dict(out=1e-4, out_rtol=1e-4, grad=1e-3),
+             "bfloat16": dict(out=2e-2, out_rtol=0.0, grad=5e-2)}
 PAGE_SIZE, POOL_PAGES, MAX_BATCH = 16, 513, 8
+# substrings of cuBLAS / CUTLASS matrix-product kernel names (nvjet_*
+# are the H100 cuBLAS kernels of this PyTorch build)
+GEMM_TAGS = ("gemm", "cutlass", "sm90_", "nvjet")
 
 
 def emit(phase, **fields):
@@ -271,6 +302,159 @@ def phase_head_dims(torch, dev):
         verify), max_abs_err=worst)
 
 
+# --------------------------------------------------------- flash kernels
+def _train_batch(vocab, B=8, L=512, seed=0):
+    """The training slice's batch (numpy, from ``RandomState(seed)``):
+    valid lengths over 128..512 with one row at 512, 0.15 * L masked
+    positions per row inside its valid length, MLM and NSP labels."""
+    rs = np.random.RandomState(seed)
+    valid = rs.randint(128, L + 1, B)
+    valid[0] = L
+    n_mask = int(0.15 * L)
+    inputs = rs.randint(0, vocab, (B, L)).astype(np.int32)
+    types = (np.arange(L)[None, :] >= (valid // 2)[:, None]).astype(np.int32)
+    positions = np.stack([np.sort(rs.choice(int(v), n_mask, replace=False))
+                          for v in valid]).astype(np.int32)
+    mlm_y = rs.randint(0, vocab, (B, n_mask)).astype(np.int32)
+    nsp_y = rs.randint(0, 2, (B,)).astype(np.int32)
+    return (inputs, types, valid.astype(np.float32), positions), \
+        (mlm_y, nsp_y)
+
+
+def _flash_cases():
+    """(label, BH, Lq, Lk, D, causal, window, per-row key lengths)."""
+    H = BERT_LARGE["num_heads"]
+    (_, _, valid, _), _ = _train_batch(BERT_LARGE["vocab_size"])
+    train_lens = np.repeat(valid.astype(np.int32), H).tolist()
+    mixed = np.repeat([0, 1, 37, 512, 128, 300, 411, 512], H).tolist()
+    return [
+        ("train_batch", 8 * H, 512, 512, 64, False, -1, train_lens),
+        ("lengths_0_1_37_512", 8 * H, 512, 512, 64, False, -1, mixed),
+        ("causal", 8 * H, 512, 512, 64, True, -1, None),
+        ("causal_window128_lengths", 8 * H, 512, 512, 64, True, 128, mixed),
+        ("ragged_Lq37_Lk100", 16, 37, 100, 64, False, -1,
+         [37, 100, 5, 0] * 4),
+        ("head_dim_128", 8 * 8, 512, 512, 128, False, -1,
+         np.repeat([512, 300, 1, 0, 77, 512, 256, 129], 8).tolist()),
+        ("flash2048", 2 * H, 2048, 2048, 64, False, -1, None),
+    ]
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def phase_flash_kernels(torch, dev, timer):
+    """B1, B2 and B3 against their plain versions on the card, fp32 and
+    bf16, at the training slice's shapes; each kernel's time, the plain
+    version's, the roofline bound and a library yardstick
+    (``scaled_dot_product_attention`` and its backward, timed only)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator().manual_seed(5)
+    rows = []
+    for label, BH, Lq, Lk, D, causal, window, lens in _flash_cases():
+        q32 = torch.randn(BH, Lq, D, generator=g)
+        k32 = torch.randn(BH, Lk, D, generator=g)
+        v32 = torch.randn(BH, Lk, D, generator=g)
+        do32 = torch.randn(BH, Lq, D, generator=g)
+        ln = torch.tensor(lens if lens is not None else [Lk] * BH,
+                          dtype=torch.int32, device=dev)
+        vis = fa._visible(Lq, Lk, ln, causal, window, dev).expand(
+            BH, Lq, Lk)
+        pairs = int(vis.sum())
+        keys = int(ln.clamp(max=Lk).sum())
+        empty_rows = ~vis.any(-1)                            # (BH, Lq)
+        sc = 1.0 / D ** 0.5
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q, k, v, do = (t.to(dev, dt) for t in (q32, k32, v32, do32))
+            args = (ln, causal, sc, window)
+            out, lse = fa.flash_attention_fwd(q, k, v, *args)
+            r_out, r_lse = fa.flash_attention_fwd_reference(q, k, v, *args)
+            delta = (do.float() * r_out.float()).sum(-1, keepdim=True)
+            bargs = (ln, r_lse, delta, causal, sc, window)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, *bargs)
+            r_dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, *bargs)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, *bargs)
+            r_dk, r_dv = fa.flash_attention_bwd_dkv_reference(q, k, v, do,
+                                                              *bargs)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[dtype]
+            err = dict(
+                out=float((out.float() - r_out.float()).abs().max()),
+                lse=float((lse - r_lse).abs().max()),
+                dq=_rel_err(dq, r_dq), dk=_rel_err(dk, r_dk),
+                dv=_rel_err(dv, r_dv))
+            ok = (torch.allclose(out.float(), r_out.float(), atol=tol["out"],
+                                 rtol=tol["out_rtol"])
+                  and torch.allclose(lse, r_lse, atol=1e-4, rtol=1e-4)
+                  and max(err["dq"], err["dk"], err["dv"]) <= tol["grad"])
+            # rows that see no key: exact zeros and LSE -1e30
+            zero_ok = bool(torch.all(out[empty_rows] == 0)) and bool(
+                torch.all(lse[..., 0][empty_rows] == -1e30)) and bool(
+                torch.all(dq[empty_rows] == 0))
+            check(ok and zero_ok, f"flash kernels {label} {dtype}: errors "
+                                  f"{err} (empty rows zero: {zero_ok})")
+            abs_err = dict(
+                out=err["out"],
+                dq=float((dq.float() - r_dq.float()).abs().max()),
+                dkv=max(float((dk.float() - r_dk.float()).abs().max()),
+                        float((dv.float() - r_dv.float()).abs().max())))
+            elt = q.element_size()
+            qbytes = BH * Lq * D * elt
+            kbytes = keys * D * elt
+            stats = BH * Lq * 4
+            # bytes each kernel must move once (keys past a row's
+            # length are never needed) and the flops of the visible pairs
+            b1 = bound(2 * qbytes + 2 * kbytes + stats + BH * 4,
+                       4 * pairs * D, dtype)
+            b2 = bound(3 * qbytes + 2 * kbytes + 2 * stats + BH * 4,
+                       6 * pairs * D, dtype)
+            b3 = bound(2 * qbytes + 2 * kbytes + 2 * stats + BH * 4
+                       + 2 * BH * Lk * D * elt, 8 * pairs * D, dtype)
+            # library yardstick: SDPA with a boolean mask (rows with no
+            # visible key come out NaN there; timed only)
+            q4, k4, v4 = (t[None].detach().requires_grad_()
+                          for t in (q, k, v))
+            mask4 = vis[None]
+            lib_out = F.scaled_dot_product_attention(q4, k4, v4,
+                                                     attn_mask=mask4)
+            row = dict(
+                shape=label, dtype=dtype, BH=BH, Lq=Lq, Lk=Lk, D=D,
+                causal=causal, window=window, visible_pairs=pairs,
+                rel_err=err, max_abs_err=abs_err,
+                fwd=dict(ms=timer(lambda: fa.flash_attention_fwd(
+                    q, k, v, *args)),
+                    plain_ms=timer(lambda: fa.flash_attention_fwd_reference(
+                        q, k, v, *args)),
+                    library_ms=timer(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask4)),
+                    bound_ms=b1[0], bound_by=b1[1]),
+                bwd_dq=dict(ms=timer(lambda: fa.flash_attention_bwd_dq(
+                    q, k, v, do, *bargs)),
+                    plain_ms=timer(
+                        lambda: fa.flash_attention_bwd_dq_reference(
+                            q, k, v, do, *bargs)),
+                    bound_ms=b2[0], bound_by=b2[1]),
+                bwd_dkv=dict(ms=timer(lambda: fa.flash_attention_bwd_dkv(
+                    q, k, v, do, *bargs)),
+                    plain_ms=timer(
+                        lambda: fa.flash_attention_bwd_dkv_reference(
+                            q, k, v, do, *bargs)),
+                    bound_ms=b3[0], bound_by=b3[1]),
+                # one backward through SDPA computes dQ, dK and dV: the
+                # yardstick of B2 and B3 together
+                library_bwd_ms=timer(lambda: torch.autograd.grad(
+                    lib_out, (q4, k4, v4), do[None], retain_graph=True)))
+            rows.append(row)
+            emit("flash_kernels", **row)
+            del lib_out, q4, k4, v4
+    return rows
+
+
 # ---------------------------------------------------------------- parity
 def assert_logits(got, want, where):
     """rtol 1e-3, atol 1e-3 * max|logit|: 12 fp32 layers summed in
@@ -425,7 +609,7 @@ def phase_profile(torch, dev, lm):
         top.append((us, evt.count, evt.key[:90]))
         if "ragged_paged_attention" in key:
             split["ragged_paged_attention"] += us
-        elif "gemm" in key or "cutlass" in key or "sm90_" in key:
+        elif any(t in key for t in GEMM_TAGS):
             split["gemm"] += us
         else:
             split["other"] += us
@@ -549,6 +733,152 @@ def phase_serve(torch, dev, lm):
     return launches
 
 
+# ----------------------------------------------------------------- train
+def phase_train_parity(torch, dev):
+    """BERT-large ``BERTForPretrain``, fp32, dropout 0: the flash path
+    (kernels B1-B3) against the dense additive-mask path on the same
+    weights and batch — loss and every parameter gradient."""
+    from mxnet_tpu_torch import models
+    V = BERT_LARGE["vocab_size"]
+    dense = models.BERTForPretrain(models.bert_24_1024_16(
+        dropout=0.0, device=dev, generator=torch.Generator().manual_seed(0)))
+    flash = models.BERTForPretrain(models.bert_24_1024_16(
+        dropout=0.0, use_flash=True, device="meta"))
+    flash.to_empty(device=dev)
+    flash.load_state_dict(dense.state_dict())
+    feats, labels = _train_batch(V)
+    tf = [torch.from_numpy(a).to(dev) for a in feats]
+    tl = [torch.from_numpy(a).to(dev) for a in labels]
+    out = {}
+    for name, head in (("dense", dense), ("flash", flash)):
+        params = [p for _, p in head.named_parameters()]
+        loss = models.pretrain_loss(head(*tf), *tl)
+        grads = torch.autograd.grad(loss, params)
+        out[name] = (float(loss.detach()), grads)
+        del loss
+    torch.cuda.synchronize()
+    names = [n for n, _ in dense.named_parameters()]
+    (l_d, g_d), (l_f, g_f) = out["dense"], out["flash"]
+    check(abs(l_f - l_d) <= 1e-4 * abs(l_d),
+          f"train_parity: flash loss {l_f} vs dense {l_d}")
+    # 1e-3 of each tensor's max|grad|: 24 fp32 layers, attention summed
+    # in another order (online softmax vs dense softmax), TF32 off
+    worst = (0.0, None)
+    for n, a, b in zip(names, g_f, g_d):
+        ratio = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                  1e-30)
+        worst = max(worst, (ratio, n))
+    check(worst[0] <= 1e-3, f"train_parity: gradient of {worst[1]} off by "
+                            f"{worst[0]} of its max")
+    emit("train_parity", model="bert_24_1024_16", dtype="float32",
+         batch=int(feats[0].shape[0]), seq_len=int(feats[0].shape[1]),
+         valid_lengths=feats[2].astype(int).tolist(),
+         masked_per_row=int(feats[3].shape[1]), loss_dense=l_d,
+         loss_flash=l_f, worst_grad_rel_err=worst[0],
+         worst_grad_tensor=worst[1], grad_tensors=len(names))
+    del dense, out, g_d, g_f
+    return flash, feats, labels
+
+
+def phase_train(torch, dev, head, feats, labels):
+    """``ShardedTrainer.step`` on BERT-large with ``use_flash=True``:
+    2 warm-up + 10 timed adamw steps on the fixed batch, fp32 then bf16.
+    The flash kernels' counters are zeroed just before and read just
+    after; each step must launch each of B1-B3 once per layer."""
+    from mxnet_tpu_torch import models, parallel, perf_account
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    layers = BERT_LARGE["num_layers"]
+    batch = feats + labels
+    B, L = feats[0].shape
+    peak = perf_account.detect_peak_tflops()
+    for kern in kernels:
+        kern.launches = 0
+    results, keep = {}, None
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.reset_peak_memory_stats()
+        trainer = parallel.ShardedTrainer(
+            head, models.pretrain_loss, parallel.make_mesh(dp=1),
+            optimizer="adamw",
+            optimizer_params={"learning_rate": 1e-4}, example_inputs=feats,
+            n_labels=2, dtype=None if dtype == "float32" else torch.bfloat16)
+        losses = []
+        for i in range(12):
+            before = [kern.launches for kern in kernels]
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(trainer.step(*batch))
+            rose = [kern.launches - b for kern, b in zip(kernels, before)]
+            check(rose == [layers] * 3,
+                  f"train {dtype} step {i}: flash launches rose by {rose}, "
+                  f"want {layers} each")
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 10
+        losses = [float(x) for x in losses]
+        timed = losses[2:]
+        check(all(np.isfinite(losses)), f"train {dtype}: loss {losses}")
+        check(timed[-1] < timed[0], f"train {dtype}: loss did not fall over "
+                                    f"the timed steps: {timed}")
+        flops = perf_account.step_flops(trainer, batch)
+        results[dtype] = dict(
+            ms_per_step=dt * 1e3, samples_per_s=B / dt,
+            tflops_per_s=flops / dt / 1e12,
+            mfu_vs_bf16_peak=flops / dt / (peak * 1e12) if peak else None,
+            step_flops=flops,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            loss_step1=timed[0], loss_step10=timed[-1], losses=losses)
+        if dtype == "bfloat16":
+            keep = (trainer, dt * 1e3)
+        del trainer
+    launches = {kern.__name__: kern.launches for kern in kernels}
+    emit("train", model="bert_24_1024_16", use_flash=True, batch=int(B),
+         seq_len=int(L), optimizer="adamw", learning_rate=1e-4,
+         peak_tflops=peak, kernel_launches=launches,
+         launches_per_step_each=layers, **results)
+    return launches, keep, batch
+
+
+def phase_profile_train(torch, trainer, batch, step_ms):
+    """Where one bf16 ``ShardedTrainer.step`` of BERT-large goes: device
+    time by family (B1, B2, B3, GEMMs, other) from ``torch.profiler``,
+    and the device idle share against the untraced step time."""
+    from torch.profiler import ProfilerActivity, profile
+    families = (("flash_fwd", "flash_fwd_kernel"),
+                ("flash_bwd_dq", "flash_bwd_dq_kernel"),
+                ("flash_bwd_dkv", "flash_bwd_dkv_kernel"))
+    trainer.step(*batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step(*batch)
+        torch.cuda.synchronize()
+    split = {name: 0.0 for name, _ in families}
+    split.update(gemm=0.0, other=0.0)
+    kernels, top = 0, []
+    for evt in prof.key_averages():
+        us = _kernel_us(evt, torch)
+        if not us:
+            continue
+        key = evt.key.lower()
+        kernels += evt.count
+        top.append((us, evt.count, evt.key[:90]))
+        fam = next((name for name, tag in families if tag in key), None)
+        if fam is None:
+            fam = "gemm" if any(t in key for t in GEMM_TAGS) else "other"
+        split[fam] += us
+    busy_ms = sum(split.values()) / 1e3
+    emit("profile_train", dtype="bfloat16", step_ms_host=step_ms,
+         device_ms_per_step=busy_ms if busy_ms else None,
+         device_ms_per_step_by_family={k: v / 1e3 for k, v in split.items()}
+         if busy_ms else None,
+         device_idle_share=(1.0 - busy_ms / step_ms) if busy_ms else None,
+         kernel_launches_per_step=kernels if busy_ms else None,
+         top_kernels=[dict(kernel=k, ms_per_step=us / 1e3, launches=c)
+                      for us, c, k in sorted(top, reverse=True)[:8]])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -574,21 +904,27 @@ def main():
                                  if "registers" in ln or "spill" in ln])
                   for n, b in built.items()})
 
-    report = phase_kernels(torch, dev, Timer(torch, dev))
+    timer = Timer(torch, dev)
+    report = phase_kernels(torch, dev, timer)
     phase_head_dims(torch, dev)
+    flash_rows = phase_flash_kernels(torch, dev, timer)
     lm = TransformerDecoderLM(**GPT2_SMALL, device=dev,
                               generator=torch.Generator().manual_seed(0))
     lm.eval()
     phase_parity(torch, dev, lm)
     launches = phase_serve(torch, dev, lm)
+    head, feats, labels = phase_train_parity(torch, dev)
+    train_launches, (trainer, step_ms), batch = phase_train(
+        torch, dev, head, feats, labels)
+    launches.update(train_launches)
     # last: the profiler's device tracing slows every later launch
     phase_profile(torch, dev, lm)
+    phase_profile_train(torch, trainer, batch, step_ms)
 
-    sources = {"ragged_paged_attention": ("mxnet_tpu/ops/pallas_kernels.py"
-                                          ":586"),
-               "ragged_paged_verify": "mxnet_tpu/ops/pallas_kernels.py:751"}
+    pk = "mxnet_tpu/ops/pallas_kernels.py"
     kernels = []
-    for name, replaces in sources.items():
+    for name, replaces in (("ragged_paged_attention", f"{pk}:586"),
+                           ("ragged_paged_verify", f"{pk}:751")):
         rows = [r for r in report[name] if r["dtype"] == "float32"]
         main_row = max(rows, key=lambda r: r.get("W", 0))
         kernels.append(dict(
@@ -599,6 +935,26 @@ def main():
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"]))
+    # flash kernels: times at the training batch's shape, fp32; errors
+    # the largest fp32 one over every shape; the library time of B2 and
+    # B3 is one SDPA backward computing dQ, dK and dV together
+    fp32 = [r for r in flash_rows if r["dtype"] == "float32"]
+    main_row = next(r for r in fp32 if r["shape"] == "train_batch")
+    for name, key, err, replaces, lib in (
+            ("flash_attention_fwd", "fwd", "out", f"{pk}:83",
+             main_row["fwd"]["library_ms"]),
+            ("flash_attention_bwd_dq", "bwd_dq", "dq", f"{pk}:144",
+             main_row["library_bwd_ms"]),
+            ("flash_attention_bwd_dkv", "bwd_dkv", "dkv", f"{pk}:191",
+             main_row["library_bwd_ms"])):
+        t = main_row[key]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"mxnet_tpu_torch/csrc/{name}.cu", replaces=replaces,
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"][err] for r in fp32),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=lib))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,7 +64,8 @@ def entropy_rng():
     return _random.Random(os.urandom(16))
 
 
-# Knobs the serving slice reads (names and defaults as in mxnet_tpu).
+# Knobs the serving and training slices read (names and defaults as in
+# mxnet_tpu).
 declare_env("MXNET_ENGINE_SANITIZE", "0",
             "1 = concurrency sanitizer: engine/serving locks record "
             "per-thread acquisition order and raise MXNetError on a "
@@ -92,6 +93,13 @@ declare_env("MXNET_TRACE", "0",
             "overload incidents. Off by default; the disabled path is "
             "a single flag check per site and compiles zero additional "
             "XLA programs.")
+declare_env("MXNET_PEAK_TFLOPS", 0.0,
+            "Per-card peak TFLOP/s used as the train.mfu denominator "
+            "(perf_account.detect_peak_tflops).  0 (default) = "
+            "detect from the card's name (H100/H200: 989, the dense "
+            "bf16 data-sheet peak; any other card or no card: unknown, "
+            "MFU reports 0); set explicitly for hardware the table "
+            "does not know.")
 declare_env("MXNET_TRACE_SAMPLE", 1.0,
             "Head-based trace sampling rate in [0, 1]: the keep/drop "
             "decision is made once per request at root-span start "

@@ -1,0 +1,151 @@
+// Shared tile and masking code of the three flash-attention kernels
+// (flash_attention_fwd.cu, flash_attention_bwd_dq.cu,
+// flash_attention_bwd_dkv.cu).
+//
+// Contract of the Pallas kernels they replace
+// (mxnet_tpu/ops/pallas_kernels.py, _fwd_kernel / _bwd_dq_kernel /
+// _bwd_dkv_kernel): tensors (BH, L, D) in fp32 or bf16, per-(b, h) key
+// lengths, optional causal masking with an optional causal sliding window
+// (query q sees keys in [q - window + 1, q]), the mask value -1e30, fp32
+// softmax statistics and accumulators, and P (and dS in the backward)
+// rounded to the storage dtype before each product.  One departure: a
+// query row that sees no key at all gets O = 0 and LSE = -1e30, and P is
+// exactly 0 wherever the mask is false (the Pallas forward left
+// block-size-dependent junk in such rows).
+//
+// Tiles: 64 query rows x 64 keys, 256 threads.  Thread (ty, tx), ty = tid
+// / 16, tx = tid % 16, owns rows ty + 16 i and columns tx + 16 j (i, j < 4)
+// of a score tile, so the 16 threads that share a row are one half-warp
+// and row reductions are four xor shuffles.  Tiles sit in shared memory
+// as fp32 with a row stride of D + 1 floats, so that 16 threads reading
+// 16 different rows at one column hit 16 different banks.
+#pragma once
+
+#include "paged_common.cuh"  // kMaskValue, dtype codes, load16, from_float
+
+namespace mxtt {
+
+constexpr int kBlockQ = 64;
+constexpr int kBlockK = 64;
+constexpr int kThreads = 256;
+constexpr int kSStride = kBlockK + 1;  // row stride of a score tile in smem
+
+// fp32 value rounded through the storage dtype (identity for fp32)
+template <typename T> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Rows [row0, row0 + 64) of a contiguous (L, D) matrix into smem as fp32
+// with row stride D + 1; rows at or past L are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+                                          int L, int tid) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int CHUNKS = D / VEC;
+  for (int i = tid; i < kBlockQ * CHUNKS; i += kThreads) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
+    float v[VEC];
+    if (row0 + r < L) {
+      load16(src + (size_t)(row0 + r) * D + c, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[e] = 0.f;
+    }
+    float* d = dst + r * (D + 1) + c;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) d[e] = v[e];
+  }
+}
+
+// Whether query row r sees key c.  kv_len is already clamped to Lk.
+__device__ __forceinline__ bool visible(int r, int c, int Lq, int kv_len,
+                                        int causal, int window) {
+  bool ok = r < Lq && c < kv_len;
+  if (causal) {
+    ok = ok && c <= r;
+    if (window > 0) ok = ok && c >= r - (window - 1);
+  }
+  return ok;
+}
+
+// The key tiles [k_begin, k_end) that a query tile starting at q0 needs:
+// keys below the key length, at or left of the diagonal when causal, and
+// inside the window (the Pallas `needed` rule, pallas_kernels.py:101-107).
+__device__ __forceinline__ void key_range(int q0, int Lq, int kv_len,
+                                          int causal, int window,
+                                          int* k_begin, int* k_end) {
+  const int q_last = min(q0 + kBlockQ, Lq) - 1;
+  int hi = kv_len, lo = 0;
+  if (causal) {
+    hi = min(hi, q_last + 1);
+    if (window > 0) lo = max(0, q0 - (window - 1));
+  }
+  *k_begin = lo / kBlockK * kBlockK;
+  *k_end = hi;
+}
+
+// The query tiles [q_begin, q_end) that need a key tile starting at k0
+// (the same rule seen from the key side, pallas_kernels.py:206-212).
+__device__ __forceinline__ void query_range(int k0, int Lq, int causal,
+                                            int window, int* q_begin,
+                                            int* q_end) {
+  int lo = 0, hi = Lq;
+  if (causal) {
+    lo = k0 / kBlockQ * kBlockQ;
+    if (window > 0) hi = min(hi, k0 + kBlockK - 1 + window);
+  }
+  *q_begin = lo;
+  *q_end = hi;
+}
+
+// Max / sum over the 16 lanes of a half-warp (all 32 lanes must call).
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// acc[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over smem tiles of
+// row stride D + 1: the 4 x 4 micro-tile of a 64 x 64 product A * B^T.
+template <int D>
+__device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* A,
+                                         const float* B, int ty, int tx) {
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+  }
+}
+
+// Set the dynamic shared memory a kernel may use, then launch it; returns
+// the launch's cudaError_t.
+template <typename Kernel, typename... Args>
+static int launch_with_smem(Kernel kernel, dim3 grid, size_t smem,
+                            cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mxtt

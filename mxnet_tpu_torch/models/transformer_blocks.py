@@ -1,25 +1,39 @@
-"""Decoder-only transformer LM and its paged decode-mode forwards.
+"""Transformer blocks: the encoder cell and its parts, the decoder-only
+LM, and the LM's paged decode-mode forwards.
 
-The PyTorch port of the decoder half of
-``mxnet_tpu/models/transformer_blocks.py``:
+The PyTorch port of ``mxnet_tpu/models/transformer_blocks.py``:
 
-- :class:`TransformerDecoderLM` — a GPT-layout causal LM as an
-  ``nn.Module`` with the JAX block's submodule and parameter names
-  (``embed``, ``cells[i].attention.qkv``, ``cells[i].attn_norm.gamma``,
-  ``cells[i].ffn.ffn_1``, ``final_norm``, ``proj``, ...).  Its
+- :class:`PositionwiseFFN`, :class:`MultiHeadSelfAttention` and
+  :class:`TransformerEncoderCell` — the encoder blocks BERT and the LM
+  are built from, as ``nn.Module``\\ s with the JAX blocks' submodule
+  names (``qkv``, ``out_proj``, ``attn_norm``, ``ffn.ffn_1``, ...).  They
+  keep the JAX (L, B, C) time-major layout at ``forward`` and the
+  interleaved per-head ``[q|k|v]`` projection.  ``use_flash=True``
+  routes self-attention to :mod:`mxnet_tpu_torch.ops.flash_attention`
+  (kernels B1-B3 on CUDA tensors); the dense path is plain torch
+  matmuls + softmax with an additive mask, as the JAX package computes
+  it outside any kernel.
+- :class:`TransformerDecoderLM` — a GPT-layout causal LM whose cells are
+  ``TransformerEncoderCell(pre_norm=True)``, as in the JAX package.  Its
   ``forward(tokens (B, L)) -> logits (B, L, V)`` is the dense causal
   full forward: the plain reference the paged path is held to.
-- :func:`paged_lm_params` snapshots the module into the flat parameter
-  dict the paged forwards consume; :func:`load_paged_params` builds the
-  same dict from the numpy image of the JAX package's
-  ``paged_lm_params(lm)``, so both packages compute on one set of
-  weights.
+- :func:`paged_lm_params` snapshots the LM into the flat parameter dict
+  the paged forwards consume; :func:`load_paged_params` builds the same
+  dict from the numpy image of the JAX package's ``paged_lm_params(lm)``.
 - :func:`paged_prefill` / :func:`paged_decode_step` /
   :func:`paged_verify` / :func:`paged_verify_batch` — the serving
   decode-mode forwards over the paged KV pool.  Decode and verify
   attention go through :mod:`mxnet_tpu_torch.ops.paged_attention`
   (the CUDA kernels on CUDA tensors); prefill attention is plain torch
   matmul + softmax, as the JAX package computes it outside any kernel.
+
+Blocks built on ``device="meta"`` stay unmaterialised (a parent model
+materialises and draws them once); on any other device a block draws
+its weights from ``generator`` (a CPU ``torch.Generator``, seed 0 when
+omitted) by the JAX package's ``initialize()`` rule (:func:`init_params`).
+``gluon_names()`` maps each block's parameters to the names of the JAX
+block's ``collect_params()`` below the block's own prefix, which is how
+weights are carried across between the two packages.
 
 The paged forwards write the K/V pools IN PLACE (the JAX versions
 returned new arrays) and return ``(logits, k_pages, v_pages)`` with the
@@ -35,9 +49,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..base import MXNetError
+from ..ops.flash_attention import (_merge_heads, _split_qkv, flash_selfatt,
+                                   flash_selfatt_nomask)
 from ..ops.paged_attention import ragged_paged_attention, ragged_paged_verify
 
-__all__ = ["TransformerDecoderLM", "NEG_INF", "load_paged_params",
+__all__ = ["PositionwiseFFN", "MultiHeadSelfAttention",
+           "TransformerEncoderCell", "TransformerDecoderLM", "NEG_INF",
+           "init_params", "load_gluon_params", "load_paged_params",
            "paged_lm_params", "paged_prefill", "paged_decode_step",
            "paged_verify", "paged_verify_batch"]
 
@@ -54,13 +72,81 @@ def _sinusoid_table(max_len, units):
 
 
 NEG_INF = -1e9
+_META = torch.device("meta")
 
 
 # ---------------------------------------------------------------------------
-# modules (names mirror the Gluon blocks of the JAX package)
+# weights: the JAX package's initialize() rule and its parameter names
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def init_params(module, generator=None, normal=()):
+    """Draw every parameter of ``module`` as the JAX package's
+    ``initialize()`` does with its default initializer: names ending in
+    ``gamma`` -> 1, in ``beta`` or ``bias`` -> 0, in one of ``normal``
+    (the parameters declared ``init="normal"``) -> N(0, 0.01), every
+    other weight -> U(-0.07, 0.07).  Values are drawn on the CPU from
+    ``generator`` (seed 0 when omitted), in ``named_parameters`` order."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    normal = tuple(normal)
+    for name, p in module.named_parameters():
+        if name.endswith("gamma"):
+            val = torch.ones(p.shape)
+        elif name.endswith(("beta", "bias")):
+            val = torch.zeros(p.shape)
+        elif normal and name.endswith(normal):
+            val = torch.empty(p.shape).normal_(0.0, 0.01,
+                                               generator=generator)
+        else:
+            val = torch.empty(p.shape).uniform_(-0.07, 0.07,
+                                                generator=generator)
+        p.copy_(val)
+
+
+def _materialize(module, device, generator, normal=()):
+    """Allocate a module built on the meta device on ``device`` and draw
+    its weights (:func:`init_params`); a no-op for ``device="meta"``."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return module
+    module.to_empty(device=device)
+    init_params(module, generator, normal)
+    return module
+
+
+def _dense_names(prefix, layer):
+    return {f"{prefix}weight": layer.weight, f"{prefix}bias": layer.bias}
+
+
+def _scoped(prefix, names):
+    return {prefix + k: v for k, v in names.items()}
+
+
+@torch.no_grad()
+def load_gluon_params(names, np_params, who):
+    """Copy ``{gluon name: np.ndarray}`` into the tensors of ``names``
+    (a block's :meth:`gluon_names`).  Raises :class:`MXNetError` on a
+    missing or unknown name or a wrong shape."""
+    missing = sorted(set(names) - set(np_params))
+    extra = sorted(set(np_params) - set(names))
+    if missing or extra:
+        raise MXNetError(f"{who}.load_numpy_params: missing {missing[:5]}"
+                         f"{'...' if len(missing) > 5 else ''}, unknown "
+                         f"{extra[:5]}{'...' if len(extra) > 5 else ''}")
+    for name, p in names.items():
+        a = np.asarray(np_params[name])
+        if tuple(a.shape) != tuple(p.shape):
+            raise MXNetError(f"{who}.load_numpy_params: {name!r} has shape "
+                             f"{tuple(a.shape)}, want {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(a, np.float32)).to(p.dtype))
+
+
+# ---------------------------------------------------------------------------
+# encoder blocks
 # ---------------------------------------------------------------------------
 class _LayerNorm(nn.Module):
-    """LayerNorm with the Gluon parameter names ``gamma`` / ``beta``."""
+    """LayerNorm over the last axis with the Gluon parameter names
+    ``gamma`` / ``beta``."""
 
     def __init__(self, units, eps, device):
         super().__init__()
@@ -71,69 +157,180 @@ class _LayerNorm(nn.Module):
     def forward(self, x):
         return _f_ln(x, self.gamma, self.beta, self.eps)
 
+    def gluon_names(self):
+        return {"gamma": self.gamma, "beta": self.beta}
 
-class _SelfAttention(nn.Module):
-    """Dense multi-head self-attention over an interleaved per-head
-    [q|k|v] projection (the layout of the JAX package's
-    ``MultiHeadSelfAttention``)."""
 
-    def __init__(self, units, num_heads, dropout, device):
+_ACTIVATIONS = ("relu", "gelu", "gelu_erf", "gelu_tanh")
+
+
+def _f_act(x, activation):
+    if activation == "relu":
+        return F.relu(x)
+    if activation in ("gelu", "gelu_erf"):
+        return F.gelu(x, approximate="none")
+    if activation == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    raise MXNetError(f"unsupported activation {activation!r}; known: "
+                     f"{_ACTIVATIONS}")
+
+
+class PositionwiseFFN(nn.Module):
+    """FFN(x) = W2 act(W1 x) with residual + LayerNorm (post-norm, the
+    BERT layout) or LayerNorm first (``pre_norm=True``).  ``gelu`` is
+    the erf GELU, ``gelu_tanh`` its tanh approximation."""
+
+    def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
+                 layer_norm_eps=1e-5, pre_norm=False, device="cuda",
+                 generator=None):
         super().__init__()
-        self.num_heads = num_heads
-        self.qkv = nn.Linear(units, 3 * units, device=device)
-        self.out_proj = nn.Linear(units, units, device=device)
+        if activation not in _ACTIVATIONS:
+            raise MXNetError(f"unsupported activation {activation!r}; "
+                             f"known: {_ACTIVATIONS}")
+        self._pre_norm = pre_norm
+        self._activation = activation
+        self.ffn_1 = nn.Linear(units, hidden_size, device=_META)
+        self.ffn_2 = nn.Linear(hidden_size, units, device=_META)
+        self.layer_norm = _LayerNorm(units, layer_norm_eps, _META)
         self.dropout_layer = nn.Dropout(dropout)
-
-    def forward(self, x, mask):
-        B, L, C = x.shape
-        H = self.num_heads
-        D = C // H
-        q, k, v = self.qkv(x).reshape(B, L, H, 3, D).unbind(3)
-        s = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(D) + mask
-        att = self.dropout_layer(torch.softmax(s, dim=-1))
-        o = torch.einsum("bhlm,bmhd->blhd", att, v).reshape(B, L, C)
-        return self.out_proj(o)
-
-
-class _PositionwiseFFN(nn.Module):
-    """Pre-norm FFN block: x + W2 act(W1 LN(x))."""
-
-    def __init__(self, units, hidden_size, dropout, activation, eps,
-                 device):
-        super().__init__()
-        self.ffn_1 = nn.Linear(units, hidden_size, device=device)
-        self.ffn_2 = nn.Linear(hidden_size, units, device=device)
-        self.layer_norm = _LayerNorm(units, eps, device)
-        self.dropout_layer = nn.Dropout(dropout)
-        self.activation = activation
+        _materialize(self, device, generator)
 
     def forward(self, x):
-        h = _f_act(self.ffn_1(self.layer_norm(x)), self.activation)
-        return x + self.dropout_layer(self.ffn_2(h))
+        residual = x
+        if self._pre_norm:
+            x = self.layer_norm(x)
+        out = self.ffn_2(_f_act(self.ffn_1(x), self._activation))
+        out = self.dropout_layer(out) + residual
+        if not self._pre_norm:
+            out = self.layer_norm(out)
+        return out
+
+    def gluon_names(self):
+        return {**_dense_names("ffn_1_", self.ffn_1),
+                **_dense_names("ffn_2_", self.ffn_2),
+                **_scoped("layernorm0_", self.layer_norm.gluon_names())}
 
 
-class _PreNormCell(nn.Module):
-    """Pre-norm self-attention cell (the JAX package's
-    ``TransformerEncoderCell(pre_norm=True)``)."""
+class MultiHeadSelfAttention(nn.Module):
+    """Self-attention over (L, B, C) through an interleaved per-head
+    ``[q|k|v]`` projection.
 
-    def __init__(self, units, hidden_size, num_heads, dropout, activation,
-                 eps, device):
+    ``use_flash=True`` routes the qk -> softmax -> valatt chain to flash
+    attention whenever the mask is expressible as key valid-lengths (+
+    optional causal / sliding window), i.e. ``mask is None``; the flash
+    path applies dropout to the attention OUTPUT (the score matrix never
+    materialises).  The dense path adds an explicit additive ``mask``
+    (broadcastable to (B*H, L, L)) to the scores and applies dropout to
+    the probabilities."""
+
+    def __init__(self, units, num_heads, dropout=0.0, use_flash=False,
+                 causal=False, window=None, device="cuda", generator=None):
         super().__init__()
-        self.attention = _SelfAttention(units, num_heads, dropout, device)
-        self.attn_norm = _LayerNorm(units, eps, device)
+        if units % num_heads:
+            raise MXNetError(f"units {units} not divisible by heads "
+                             f"{num_heads}")
+        if causal and not use_flash:
+            raise MXNetError(
+                "causal=True requires use_flash=True; on the dense path "
+                "pass an explicit additive causal mask instead")
+        if window is not None:
+            if not (use_flash and causal):
+                raise MXNetError(
+                    "window (sliding-window attention) requires "
+                    "use_flash=True and causal=True")
+            if int(window) < 1:
+                raise MXNetError(f"window must be >= 1, got {window}")
+        self._units = units
+        self._heads = num_heads
+        self._use_flash = use_flash
+        self._causal = causal
+        self._window = -1 if window is None else int(window)
+        self.qkv = nn.Linear(units, 3 * units, device=_META)
+        self.out_proj = nn.Linear(units, units, device=_META)
         self.dropout_layer = nn.Dropout(dropout)
-        self.ffn = _PositionwiseFFN(units, hidden_size, dropout,
-                                    activation, eps, device)
+        _materialize(self, device, generator)
 
-    def forward(self, x, mask):
-        h = self.attention(self.attn_norm(x), mask)
-        return self.ffn(x + self.dropout_layer(h))
+    def forward(self, x, mask=None, valid_length=None):
+        # x: (L, B, C); qkv: (L, B, 3C) interleaved per head [q|k|v]
+        qkv = self.qkv(x)
+        if self._use_flash and mask is None:
+            if valid_length is None:
+                out = flash_selfatt_nomask(qkv, heads=self._heads,
+                                           causal=self._causal,
+                                           window=self._window)
+            else:
+                out = flash_selfatt(qkv, valid_length, heads=self._heads,
+                                    causal=self._causal,
+                                    window=self._window)
+            return self.out_proj(self.dropout_layer(out))
+        if self._window > 0:
+            raise MXNetError(
+                "window (sliding-window attention) is only honored on "
+                "the flash path (mask=None); passing an explicit mask "
+                "would silently drop the window — fold the window into "
+                "the mask instead")
+        if valid_length is not None:
+            raise MXNetError(
+                "valid_length is only consumed by the flash path "
+                "(use_flash=True, mask=None); the dense path needs an "
+                "explicit additive mask — it would otherwise be silently "
+                "ignored")
+        L, B, _ = qkv.shape
+        q, k, v = _split_qkv(qkv, self._heads)              # (B*H, L, D)
+        scores = torch.bmm(q * (1.0 / math.sqrt(q.shape[-1])),
+                           k.transpose(1, 2))               # (B*H, L, L)
+        if mask is not None:
+            scores = scores + mask
+        att = self.dropout_layer(torch.softmax(scores, dim=-1))
+        out = torch.bmm(att.to(v.dtype), v)
+        return self.out_proj(_merge_heads(out, L, B, self._heads))
+
+    def gluon_names(self):
+        return {**_dense_names("qkv_", self.qkv),
+                **_dense_names("out_proj_", self.out_proj)}
 
 
+class TransformerEncoderCell(nn.Module):
+    """Transformer encoder layer: post-norm (the BERT layout) or
+    pre-norm (``pre_norm=True``, the GPT layout of the LM)."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 activation="gelu", layer_norm_eps=1e-5, pre_norm=False,
+                 use_flash=False, device="cuda", generator=None):
+        super().__init__()
+        self._pre_norm = pre_norm
+        self.attention = MultiHeadSelfAttention(units, num_heads, dropout,
+                                                use_flash=use_flash,
+                                                device=_META)
+        self.attn_norm = _LayerNorm(units, layer_norm_eps, _META)
+        self.dropout_layer = nn.Dropout(dropout)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout, activation,
+                                   layer_norm_eps, pre_norm, device=_META)
+        _materialize(self, device, generator)
+
+    def forward(self, x, mask=None, valid_length=None):
+        residual = x
+        h = self.attn_norm(x) if self._pre_norm else x
+        h = self.attention(h, mask, valid_length)
+        h = self.dropout_layer(h) + residual
+        if not self._pre_norm:
+            h = self.attn_norm(h)
+        return self.ffn(h)
+
+    def gluon_names(self):
+        return {**_scoped("multiheadselfattention0_",
+                          self.attention.gluon_names()),
+                **_scoped("layernorm0_", self.attn_norm.gluon_names()),
+                **_scoped("positionwiseffn0_", self.ffn.gluon_names())}
+
+
+# ---------------------------------------------------------------------------
+# decoder-only LM
+# ---------------------------------------------------------------------------
 class TransformerDecoderLM(nn.Module):
     """Decoder-only causal LM (GPT layout): embedding + sinusoid
-    positions, pre-norm self-attention cells, final LayerNorm, untied
-    vocab projection with bias.
+    positions, pre-norm :class:`TransformerEncoderCell` layers, final
+    LayerNorm, untied vocab projection with bias.
 
     Two forwards share the SAME parameters:
 
@@ -156,7 +353,6 @@ class TransformerDecoderLM(nn.Module):
         if units % num_heads:
             raise MXNetError(f"units {units} not divisible by heads "
                              f"{num_heads}")
-        _f_act(torch.zeros(1), activation)          # reject unknown names
         self.vocab_size = int(vocab_size)
         self.units = int(units)
         self.num_heads = int(num_heads)
@@ -165,15 +361,16 @@ class TransformerDecoderLM(nn.Module):
         self.max_context = int(max_length)
         self._activation = activation
         self._eps = layer_norm_eps
-        meta = torch.device("meta")
-        self.embed = nn.Embedding(vocab_size, units, device=meta)
+        self.embed = nn.Embedding(vocab_size, units, device=_META)
         self.dropout_layer = nn.Dropout(dropout)
         self.cells = nn.ModuleList(
-            _PreNormCell(units, hidden_size, num_heads, dropout,
-                         activation, layer_norm_eps, meta)
+            TransformerEncoderCell(units, hidden_size, num_heads, dropout,
+                                   activation=activation,
+                                   layer_norm_eps=layer_norm_eps,
+                                   pre_norm=True, device=_META)
             for _ in range(num_layers))
-        self.final_norm = _LayerNorm(units, layer_norm_eps, meta)
-        self.proj = nn.Linear(units, vocab_size, device=meta)
+        self.final_norm = _LayerNorm(units, layer_norm_eps, _META)
+        self.proj = nn.Linear(units, vocab_size, device=_META)
         self.to_empty(device=device)
         self.register_buffer(
             "pos_embed",
@@ -198,14 +395,14 @@ class TransformerDecoderLM(nn.Module):
     def forward(self, tokens):
         # tokens: (B, L) int ids -> logits (B, L, V)
         L = tokens.shape[1]
-        x = self.embed(tokens.long()) * math.sqrt(self.units) \
-            + self.pos_embed[:L]
+        x = self.embed(tokens.long()) * math.sqrt(self.units)
+        x = x.transpose(0, 1) + self.pos_embed[:L, None]      # (L, B, C)
         x = self.dropout_layer(x)
         steps = torch.arange(L, device=x.device)
         mask = (steps[None, :] > steps[:, None]).to(x.dtype) * NEG_INF
         for cell in self.cells:
             x = cell(x, mask)
-        return self.proj(self.final_norm(x))
+        return self.proj(self.final_norm(x)).transpose(0, 1)
 
     @torch.no_grad()
     def load_numpy_params(self, np_params):
@@ -285,20 +482,7 @@ def load_paged_params(np_params, device="cuda"):
 
 
 def _f_ln(x, gamma, beta, eps=1e-5):
-    mu = x.mean(-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(-1, keepdim=True)
-    return (x - mu) / torch.sqrt(var + eps) * gamma + beta
-
-
-def _f_act(x, activation):
-    if activation == "relu":
-        return F.relu(x)
-    if activation in ("gelu", "gelu_erf"):
-        return F.gelu(x, approximate="none")
-    if activation == "gelu_tanh":
-        return F.gelu(x, approximate="tanh")
-    raise MXNetError(f"paged decode forward: unsupported activation "
-                     f"{activation!r}")
+    return F.layer_norm(x, gamma.shape, gamma, beta, eps)
 
 
 def _f_ffn(x, cp, activation):

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds).  Libraries go to
 ``build/mxnet_tpu_torch/`` at the repository root, named by a digest of
-their sources and flags, so an edited source is rebuilt and a stale
-library is never loaded.  Nothing is built at import time: the first
+their source, every ``csrc/*.cuh`` header and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.  Nothing is built at import time: the first
 kernel launch builds what it needs, and :func:`build` compiles a list
 of sources in parallel (one ``nvcc`` per source, all started together).
 """
@@ -21,17 +21,21 @@ import time
 
 from ..base import KernelError
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "library_path"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "entry", "load",
+           "library_path"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "mxnet_tpu_torch")
-SOURCES = ("ragged_paged_attention", "ragged_paged_verify")
+SOURCES = ("ragged_paged_attention", "ragged_paged_verify",
+           "flash_attention_fwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIBS = {}
+_ENTRIES = {}
 
 
 def _nvcc():
@@ -48,9 +52,12 @@ def _nvcc():
 
 def library_path(name):
     """Where ``csrc/<name>.cu`` builds to: the file name carries a
-    digest of the source, the shared header and the flags."""
+    digest of the source, every header in ``csrc/`` and the flags, so
+    an edited header rebuilds every library that may include it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fname in (f"{name}.cu", "paged_common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in (f"{name}.cu", *headers):
+        h.update(fname.encode())
         with open(os.path.join(CSRC, fname), "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
@@ -104,3 +111,16 @@ def load(name):
                 raise KernelError(f"cannot load {path}: {e}") from e
             _LIBS[name] = lib
         return lib
+
+
+def entry(name, argtypes):
+    """The C entry point ``mxtt_<name>`` of ``csrc/<name>.cu`` with its
+    ``ctypes`` signature declared (``int`` return: a ``cudaError_t``),
+    building the library on first use."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = getattr(load(name), f"mxtt_{name}")
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
+    return fn

@@ -51,20 +51,11 @@ _ARGTYPES = {
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          ctypes.c_float, _I, _P]),
 }
-_FNS = {}
 
 
 def _kernel(name):
-    """The C entry point ``mxtt_<name>`` of ``csrc/<name>.cu`` with its
-    ctypes signature declared (building the library on first use)."""
-    fn = _FNS.get(name)
-    if fn is None:
-        from . import build
-        fn = getattr(build.load(name), f"mxtt_{name}")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return fn
+    from . import build
+    return build.entry(name, _ARGTYPES[name])
 
 
 def _check_launchable(name, q, k_pages, v_pages, ints):

@@ -3,7 +3,9 @@
 The PyTorch port's copy of ``mxnet_tpu.runtime_metrics``: the same
 registry, exporters and metric names for the serving slice
 (``serving.decode.*``, ``serving.decode.prefix.*``,
-``serving.decode.spec.*``, ``kv.shared_pages``, ...), so dashboards
+``serving.decode.spec.*``, ``kv.shared_pages``, ...) and the training
+slice (``trainer.step.seconds``, ``train.step.breakdown.seconds``,
+``train.mfu``, ``train.bottleneck``), so dashboards
 read either package unchanged.  Exporters: ``dump_prometheus()`` (text
 exposition) and ``chrome_counter_events()`` (chrome-trace counters).
 
@@ -704,6 +706,33 @@ SERVING_DECODE_QUARANTINED = counter(
     "Sequences evicted alone after a decode/prefill step failure was "
     "bisected down to them (pages reclaimed, batchmates keep "
     "decoding), per model.", labelnames=("model",))
+
+TRAINER_STEP_SECONDS = histogram(
+    "trainer.step.seconds",
+    "Wall-clock time of one optimizer step (an attributed "
+    "ShardedTrainer.step, device-synchronised).")
+TRAIN_STEP_BREAKDOWN_SECONDS = histogram(
+    "train.step.breakdown.seconds",
+    "Per-phase decomposition of one attributed ShardedTrainer step "
+    "(perf_account.StepAttribution): data_wait (iterator next + host "
+    "staging), h2d (device transfer), compute (forward + backward to "
+    "device completion), optimizer (the in-place update to device "
+    "completion) and collective (a 0s marker: one card, no "
+    "collective).  Phases tile the train.step span interval.",
+    labelnames=("phase",))
+TRAIN_MFU = gauge(
+    "train.mfu",
+    "Model FLOPs utilization over the attribution window: analytic "
+    "FLOPs of the step (6 * params * tokens + 12 * layers * B * L^2 * "
+    "units) / measured step time / per-card peak (MXNET_PEAK_TFLOPS or "
+    "the card-name default).  0 when the peak is unknown.")
+TRAIN_BOTTLENECK = gauge(
+    "train.bottleneck",
+    "Windowed bottleneck verdict from the step breakdown: 0 "
+    "compute_bound, 1 input_bound (data_wait + h2d dominate), 2 "
+    "comm_bound (collective dominates).  A non-compute verdict "
+    "requires its phases to reach the StepAttribution threshold "
+    "(default 25%) of windowed wall time.")
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,248 @@
+"""PyTorch port, flash attention: the port's ``flash_attention`` (its
+``_Flash`` autograd function over the plain versions of kernels B1-B3,
+which CPU tensors take) against the JAX package's Pallas
+``flash_attention`` run in interpreter mode on the CPU, on the same numpy
+inputs; the cases of ``tests/test_pallas.py``.
+
+The CUDA kernels need a card: ``chip_smoke.py`` holds each against its
+plain version on the H100.  Tolerances: fp32 atol 1e-5 on outputs and
+1e-4 on gradients (the two frameworks sum in different orders); bf16
+inputs against the fp32 dense oracle within 0.06, as the JAX test holds
+its own kernel.  Rows that see no key are compared only where both
+packages define them (``lengths == 0`` rows: zeros); the port writes
+zeros for every such row (a departure from the Pallas forward).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mxnet_tpu import nd
+from mxnet_tpu.ops.pallas_kernels import flash_attention as jax_flash
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import flash_attention as fa
+
+ATOL, GRAD_ATOL = 1e-5, 1e-4
+
+
+def _rand(shape, seed):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def _qkv(BH=4, L=48, D=16, seed=0, Lk=None):
+    Lk = L if Lk is None else Lk
+    return (_rand((BH, L, D), seed), _rand((BH, Lk, D), seed + 100),
+            _rand((BH, Lk, D), seed + 200))
+
+
+def _jax(q, k, v, lens=None, **kw):
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+    return jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     lengths=jl, block_q=16, block_k=16, **kw)
+
+
+def _port(q, k, v, lens=None, **kw):
+    tl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    return fa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              lengths=tl, **kw)
+
+
+def _grads(q, k, v, cot, lens=None, **kw):
+    """(q, k, v) gradients of sum(flash(q, k, v) * cot), both packages."""
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+    jg = jax.grad(lambda a, b, c: (jax_flash(
+        a, b, c, lengths=jl, block_q=16, block_k=16, **kw) * cot).sum(),
+        argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    tl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    out = fa.flash_attention(tq, tk, tv, lengths=tl, **kw)
+    tg = torch.autograd.grad((out * torch.from_numpy(cot)).sum(),
+                             (tq, tk, tv))
+    return [np.asarray(g) for g in jg], [g.numpy() for g in tg]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_lens", [False, True])
+def test_forward_matches_jax(causal, with_lens):
+    q, k, v = _qkv()
+    lens = [48, 17, 32, 5] if with_lens else None
+    want = np.asarray(_jax(q, k, v, lens, causal=causal))
+    got = _port(q, k, v, lens, causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+def test_nondivisible_length_matches_jax():
+    """L = 37: the JAX wrapper pads to its blocks and slices back; the
+    port's kernels mask the ragged edge themselves."""
+    q, k, v = _qkv(BH=2, L=37, D=8, seed=3)
+    np.testing.assert_allclose(_port(q, k, v).numpy(),
+                               np.asarray(_jax(q, k, v)), atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_unequal_query_and_key_lengths_match_jax(causal):
+    q, k, v = _qkv(BH=3, L=37, D=8, seed=4, Lk=53)
+    lens = [53, 20, 7]
+    np.testing.assert_allclose(
+        _port(q, k, v, lens, causal=causal).numpy(),
+        np.asarray(_jax(q, k, v, lens, causal=causal)), atol=ATOL)
+
+
+def test_grads_match_jax():
+    q, k, v = _qkv(seed=7)
+    cot = _rand(q.shape, 8)
+    jg, tg = _grads(q, k, v, cot, lens=[48, 20, 48, 9], causal=True)
+    for want, got in zip(jg, tg):
+        np.testing.assert_allclose(got, want, atol=GRAD_ATOL)
+
+
+def test_noncausal_grads_with_lengths_match_jax():
+    q, k, v = _qkv(BH=3, L=37, D=8, seed=9)
+    cot = _rand(q.shape, 10)
+    jg, tg = _grads(q, k, v, cot, lens=[37, 11, 30])
+    for want, got in zip(jg, tg):
+        np.testing.assert_allclose(got, want, atol=GRAD_ATOL)
+
+
+def test_sliding_window_forward_and_grads_match_jax():
+    q, k, v = _qkv(BH=2, L=48, D=8, seed=11)
+    out_j = np.asarray(_jax(q, k, v, causal=True, window=12))
+    out_t = _port(q, k, v, causal=True, window=12)
+    np.testing.assert_allclose(out_t.numpy(), out_j, atol=ATOL)
+    cot = _rand(q.shape, 12)
+    jg, tg = _grads(q, k, v, cot, causal=True, window=12)
+    for want, got in zip(jg, tg):
+        np.testing.assert_allclose(got, want, atol=GRAD_ATOL)
+
+
+def test_window_requires_causal_and_positive():
+    q, k, v = (torch.zeros(1, 16, 8) for _ in range(3))
+    with pytest.raises(MXNetError, match="causal"):
+        fa.flash_attention(q, k, v, causal=False, window=4)
+    with pytest.raises(MXNetError, match=">= 1"):
+        fa.flash_attention(q, k, v, causal=True, window=0)
+
+
+def test_bf16_inputs_close_to_fp32_dense():
+    """bf16 storage (fp32 statistics): within bf16-grade tolerance of
+    the fp32 dense oracle, as ``test_pallas.py`` holds the JAX kernel."""
+    q, k, v = _qkv(BH=4, L=64, D=16, seed=0)
+    out = fa.flash_attention(*(torch.from_numpy(a).bfloat16()
+                               for a in (q, k, v)), causal=True)
+    assert out.dtype == torch.bfloat16
+    D = q.shape[-1]
+    s = np.einsum("bqd,bkd->bqk", q, k) / np.sqrt(D)
+    s[:, np.triu(np.ones((64, 64), bool), k=1)] = -1e30
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    ref = np.einsum("bqk,bkd->bqd", p, v)
+    assert np.abs(out.float().numpy() - ref).max() < 0.06
+
+
+def test_flash_selfatt_matches_interleaved_chain():
+    """flash_selfatt == interleaved qk -> masked softmax -> valatt (the
+    JAX registry ops), and == the JAX flash_selfatt."""
+    L, B, H, D = 24, 3, 2, 8
+    qkv = _rand((L, B, H * 3 * D), 0)
+    valid = np.array([24, 10, 17], np.float32)
+    scores = nd.interleaved_matmul_selfatt_qk(nd.array(qkv), heads=H)
+    neg = np.zeros((B, 1, 1, L), np.float32)
+    for b in range(B):
+        neg[b, 0, 0, np.arange(L) >= int(valid[b])] = -1e30
+    mask = nd.array(np.broadcast_to(neg, (B, H, L, L)).reshape(
+        B * H, L, L).copy())
+    dense = nd.interleaved_matmul_selfatt_valatt(
+        nd.array(qkv), nd.softmax(scores + mask, axis=-1), heads=H)
+    got = fa.flash_selfatt(torch.from_numpy(qkv), torch.from_numpy(valid),
+                           heads=H)
+    np.testing.assert_allclose(got.numpy(), dense.asnumpy(), atol=1e-4)
+    jflash = nd.flash_selfatt(nd.array(qkv), nd.array(valid), heads=H)
+    np.testing.assert_allclose(got.numpy(), jflash.asnumpy(), atol=ATOL)
+    full = fa.flash_selfatt_nomask(torch.from_numpy(qkv), heads=H)
+    jfull = nd.flash_selfatt_nomask(nd.array(qkv), heads=H)
+    np.testing.assert_allclose(full.numpy(), jfull.asnumpy(), atol=ATOL)
+
+
+def test_zero_length_rows_give_zeros_and_zero_grads():
+    q, k, v = _qkv(BH=3, L=40, D=8, seed=5)
+    lens = [40, 0, 9]
+    cot = _rand(q.shape, 6)
+    got = _port(q, k, v, lens, causal=True)
+    want = np.asarray(_jax(q, k, v, lens, causal=True))
+    assert np.all(got[1].numpy() == 0)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    jg, tg = _grads(q, k, v, cot, lens=lens, causal=True)
+    for want_g, got_g in zip(jg, tg):
+        assert np.all(got_g[1] == 0)
+        np.testing.assert_allclose(got_g, want_g, atol=GRAD_ATOL)
+    _, lse = fa.flash_attention_fwd_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.tensor(lens, dtype=torch.int32), True, 8 ** -0.5, -1)
+    assert lse.shape == (3, 40, 1) and torch.all(lse[1] == -1e30)
+
+
+def test_rows_with_no_visible_key_are_zero():
+    """window + lengths: padding query rows past length + window - 1 see
+    no key.  The port gives them O = 0 and LSE = -1e30 (the Pallas
+    forward leaves block-size-dependent values there); rows that see a
+    key match JAX."""
+    q, k, v = _qkv(BH=2, L=48, D=8, seed=13)
+    lens, w = [10, 48], 4
+    got = _port(q, k, v, lens, causal=True, window=w).numpy()
+    want = np.asarray(_jax(q, k, v, lens, causal=True, window=w))
+    empty = np.arange(48) >= lens[0] + w - 1
+    assert np.all(got[0, empty] == 0)
+    np.testing.assert_allclose(got[0, ~empty], want[0, ~empty], atol=ATOL)
+    np.testing.assert_allclose(got[1], want[1], atol=ATOL)
+    # gradients of the rows that see a key: dO is zero on the empty rows
+    cot = _rand(q.shape, 14)
+    cot[0, empty] = 0.0
+    jg, tg = _grads(q, k, v, cot, lens=lens, causal=True, window=w)
+    for want_g, got_g in zip(jg, tg):
+        np.testing.assert_allclose(got_g, want_g, atol=GRAD_ATOL)
+
+
+def test_plain_backward_pieces_match_autograd_of_dense():
+    """B2 and B3's plain versions (through _Flash) equal autograd of a
+    dense masked softmax in the port itself, Lq != Lk with lengths."""
+    q, k, v = (torch.tensor(a, requires_grad=True)
+               for a in _qkv(BH=2, L=19, D=8, seed=21, Lk=33))
+    lens = torch.tensor([33, 12], dtype=torch.int32)
+    cot = torch.from_numpy(_rand((2, 19, 8), 22))
+    g_flash = torch.autograd.grad((fa.flash_attention(
+        q, k, v, lengths=lens, causal=True) * cot).sum(), (q, k, v))
+    mask = fa._visible(19, 33, lens, True, -1, "cpu")
+    s = torch.where(mask, q @ k.transpose(1, 2) / np.sqrt(8), -1e30)
+    dense = torch.softmax(s, -1) @ v
+    g_dense = torch.autograd.grad((dense * cot).sum(), (q, k, v))
+    for a, b in zip(g_flash, g_dense):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=GRAD_ATOL)
+
+
+def test_cpu_never_counts_a_kernel_launch():
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    q, k, v = (torch.randn(2, 16, 8, requires_grad=True) for _ in range(3))
+    fa.flash_attention(q, k, v).sum().backward()
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == before
+
+
+def test_kernel_guards_refuse_before_launching():
+    """The CUDA path validates in Python before any pointer is passed:
+    an unsupported head dim or dtype raises KernelError."""
+    from mxnet_tpu_torch.base import KernelError
+    q = torch.zeros(1, 8, 32)
+    lens = torch.full((1,), 8, dtype=torch.int32)
+    with pytest.raises(KernelError, match="head_dim"):
+        fa._check_launchable("flash_attention_fwd", (q, q, q), lens)
+    with pytest.raises(KernelError, match="float32 or bfloat16"):
+        h = torch.zeros(1, 8, 64, dtype=torch.float16)
+        fa._check_launchable("flash_attention_fwd", (h, h, h), lens)
+    with pytest.raises(KernelError, match="no kernel for device"):
+        m = torch.zeros(1, 8, 64, device="meta")
+        fa.flash_attention_fwd(m, m, m, lens, False, 0.125, -1)
