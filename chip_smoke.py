@@ -9,7 +9,8 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
 
 1. ``device``  — card name, device count, power limit;
 2. ``build``   — compile the five CUDA kernels (``nvcc``, ``sm_90a``,
-   one process per source, all started together);
+   one process per source, all started together), with each compiled
+   kernel's registers and spills from ptxas;
 3. ``kernels`` — B4/B5 (paged decode / verify attention) against their
    plain PyTorch versions at the serving shapes, fp32 and bf16, with
    their times, the plain versions' times, one PyTorch library call's
@@ -36,9 +37,12 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
    just after, and rise by 24 (one per layer) each step;
 9. ``profile`` / ``profile_train`` — one decode step and one bf16
    training step traced with ``torch.profiler`` (device time by kernel
-   family, the device idle share against the untraced step time).
+   family, the device idle share against the untraced step time); the
+   bf16 step's dQ and dK/dV families must come from the tensor-core
+   (``wgmma``) kernels alone.
 
-Then the kernel summary line, the ``nvidia-smi`` name/power-limit line,
+Then the kernel summary line (each kernel's fp32 numbers, and its bf16
+ones under ``bfloat16``), the ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero without that line; it never
 runs on the CPU.
@@ -99,6 +103,23 @@ def nvidia_smi():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log):
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: its
+    (mangled) name with registers and spills, plus any ptxas warning
+    (e.g. wgmma serialised)."""
+    out, fn, spill = [], None, ""
+    for ln in (x.strip() for x in log.splitlines()):
+        if "Function properties for" in ln:
+            fn = ln.rsplit(" ", 1)[-1]
+        elif "spill" in ln:
+            spill = ln
+        elif "registers" in ln and fn:
+            out.append(f"{fn[:60]}: {ln.split(':', 1)[-1].strip()}; {spill}")
+        elif "arning" in ln or "Performance" in ln:
+            out.append(ln)
+    return out
 
 
 # ---------------------------------------------------------------- timing
@@ -845,9 +866,11 @@ def phase_profile_train(torch, trainer, batch, step_ms):
     time by family (B1, B2, B3, GEMMs, other) from ``torch.profiler``,
     and the device idle share against the untraced step time."""
     from torch.profiler import ProfilerActivity, profile
+    # B2's and B3's tags match both kernels of each (fp32 CUDA cores:
+    # flash_bwd_dq_kernel; bf16 tensor cores: flash_bwd_dq_wgmma_kernel)
     families = (("flash_fwd", "flash_fwd_kernel"),
-                ("flash_bwd_dq", "flash_bwd_dq_kernel"),
-                ("flash_bwd_dkv", "flash_bwd_dkv_kernel"))
+                ("flash_bwd_dq", "flash_bwd_dq_"),
+                ("flash_bwd_dkv", "flash_bwd_dkv_"))
     trainer.step(*batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -856,6 +879,7 @@ def phase_profile_train(torch, trainer, batch, step_ms):
         torch.cuda.synchronize()
     split = {name: 0.0 for name, _ in families}
     split.update(gemm=0.0, other=0.0)
+    names = {name: [] for name, _ in families}
     kernels, top = 0, []
     for evt in prof.key_averages():
         us = _kernel_us(evt, torch)
@@ -867,14 +891,23 @@ def phase_profile_train(torch, trainer, batch, step_ms):
         fam = next((name for name, tag in families if tag in key), None)
         if fam is None:
             fam = "gemm" if any(t in key for t in GEMM_TAGS) else "other"
+        else:
+            names[fam].append(evt.key[:90])
         split[fam] += us
     busy_ms = sum(split.values()) / 1e3
+    # the bf16 step's backward ran the tensor-core kernels, and only them
+    for fam in ("flash_bwd_dq", "flash_bwd_dkv"):
+        check(split[fam] > 0 and names[fam] and all(
+            "wgmma" in n for n in names[fam]),
+            f"profile_train: bf16 {fam} ran {names[fam]} "
+            f"({split[fam]} us), not the wgmma kernel")
     emit("profile_train", dtype="bfloat16", step_ms_host=step_ms,
          device_ms_per_step=busy_ms if busy_ms else None,
          device_ms_per_step_by_family={k: v / 1e3 for k, v in split.items()}
          if busy_ms else None,
          device_idle_share=(1.0 - busy_ms / step_ms) if busy_ms else None,
          kernel_launches_per_step=kernels if busy_ms else None,
+         family_kernels=names,
          top_kernels=[dict(kernel=k, ms_per_step=us / 1e3, launches=c)
                       for us, c, k in sorted(top, reverse=True)[:8]])
 
@@ -900,8 +933,7 @@ def main():
     built = build.build()
     emit("build", seconds=time.perf_counter() - t0,
          sources={n: dict(seconds=b["seconds"],
-                          ptxas=[ln.strip() for ln in b["ptxas"].splitlines()
-                                 if "registers" in ln or "spill" in ln])
+                          ptxas=ptxas_summary(b["ptxas"]))
                   for n, b in built.items()})
 
     timer = Timer(torch, dev)
@@ -923,38 +955,47 @@ def main():
 
     pk = "mxnet_tpu/ops/pallas_kernels.py"
     kernels = []
+    # each entry: the fp32 numbers, and the same numbers in bf16 beside
+    # them (training, the flash kernels' main path, runs in bf16)
     for name, replaces in (("ragged_paged_attention", f"{pk}:586"),
                            ("ragged_paged_verify", f"{pk}:751")):
-        rows = [r for r in report[name] if r["dtype"] == "float32"]
-        main_row = max(rows, key=lambda r: r.get("W", 0))
+        by_dtype = {}
+        for dtype in ("float32", "bfloat16"):
+            rows = [r for r in report[name] if r["dtype"] == dtype]
+            main_row = max(rows, key=lambda r: r.get("W", 0))
+            by_dtype[dtype] = dict(
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+                library_ms=main_row["library_ms"])
         kernels.append(dict(
             name=name, route="cuda",
             source=f"mxnet_tpu_torch/csrc/{name}.cu", replaces=replaces,
-            launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows),
-            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"]))
-    # flash kernels: times at the training batch's shape, fp32; errors
-    # the largest fp32 one over every shape; the library time of B2 and
-    # B3 is one SDPA backward computing dQ, dK and dV together
-    fp32 = [r for r in flash_rows if r["dtype"] == "float32"]
-    main_row = next(r for r in fp32 if r["shape"] == "train_batch")
-    for name, key, err, replaces, lib in (
-            ("flash_attention_fwd", "fwd", "out", f"{pk}:83",
-             main_row["fwd"]["library_ms"]),
-            ("flash_attention_bwd_dq", "bwd_dq", "dq", f"{pk}:144",
-             main_row["library_bwd_ms"]),
-            ("flash_attention_bwd_dkv", "bwd_dkv", "dkv", f"{pk}:191",
-             main_row["library_bwd_ms"])):
-        t = main_row[key]
+            launches=launches[name], **by_dtype["float32"],
+            bfloat16=by_dtype["bfloat16"]))
+    # flash kernels: times at the training batch's shape; errors the
+    # largest one over every shape; the library time of B2 and B3 is one
+    # SDPA backward computing dQ, dK and dV together
+    for name, key, err, replaces in (
+            ("flash_attention_fwd", "fwd", "out", f"{pk}:83"),
+            ("flash_attention_bwd_dq", "bwd_dq", "dq", f"{pk}:144"),
+            ("flash_attention_bwd_dkv", "bwd_dkv", "dkv", f"{pk}:191")):
+        by_dtype = {}
+        for dtype in ("float32", "bfloat16"):
+            rows = [r for r in flash_rows if r["dtype"] == dtype]
+            main_row = next(r for r in rows if r["shape"] == "train_batch")
+            t = main_row[key]
+            by_dtype[dtype] = dict(
+                max_abs_err=max(r["max_abs_err"][err] for r in rows),
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"],
+                library_ms=t["library_ms"] if key == "fwd"
+                else main_row["library_bwd_ms"])
         kernels.append(dict(
             name=name, route="cuda",
             source=f"mxnet_tpu_torch/csrc/{name}.cu", replaces=replaces,
-            launches=launches[name],
-            max_abs_err=max(r["max_abs_err"][err] for r in fp32),
-            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=lib))
+            launches=launches[name], **by_dtype["float32"],
+            bfloat16=by_dtype["bfloat16"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

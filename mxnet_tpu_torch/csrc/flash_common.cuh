@@ -13,12 +13,20 @@
 // exactly 0 wherever the mask is false (the Pallas forward left
 // block-size-dependent junk in such rows).
 //
-// Tiles: 64 query rows x 64 keys, 256 threads.  Thread (ty, tx), ty = tid
-// / 16, tx = tid % 16, owns rows ty + 16 i and columns tx + 16 j (i, j < 4)
-// of a score tile, so the 16 threads that share a row are one half-warp
-// and row reductions are four xor shuffles.  Tiles sit in shared memory
-// as fp32 with a row stride of D + 1 floats, so that 16 threads reading
-// 16 different rows at one column hit 16 different banks.
+// Tiles: 64 query rows x 64 keys in every kernel.  The `needed` tile
+// ranges (key_range, query_range) and the mask (visible) are shared by
+// all of them.
+//
+// The CUDA-core kernels (B1 in both dtypes, B2 and B3 in fp32) run 256
+// threads.  Thread (ty, tx), ty = tid / 16, tx = tid % 16, owns rows
+// ty + 16 i and columns tx + 16 j (i, j < 4) of a score tile, so the 16
+// threads that share a row are one half-warp and row reductions are four
+// xor shuffles.  Their tiles sit in shared memory as fp32 with a row
+// stride of D + 1 floats, so that 16 threads reading 16 different rows at
+// one column hit 16 different banks; their products are 4 x 4 fp32 FMA
+// micro-tiles, bound by the fp32 FMA rate and shared-memory reads.  The
+// bf16 backward (B2, B3) keeps bf16 tiles and runs its products on the
+// tensor cores instead: flash_wgmma.cuh.
 #pragma once
 
 #include "paged_common.cuh"  // kMaskValue, dtype codes, load16, from_float
@@ -136,15 +144,15 @@ __device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* A,
   }
 }
 
-// Set the dynamic shared memory a kernel may use, then launch it; returns
-// the launch's cudaError_t.
-template <typename Kernel, typename... Args>
+// Set the dynamic shared memory a kernel may use, then launch it with
+// Threads threads a block; returns the launch's cudaError_t.
+template <int Threads = kThreads, typename Kernel, typename... Args>
 static int launch_with_smem(Kernel kernel, dim3 grid, size_t smem,
                             cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, Threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 

@@ -22,7 +22,9 @@ The PyTorch port of the flash half of ``mxnet_tpu/ops/pallas_kernels.py``:
 Dispatch is by the tensors' device.  A CUDA tensor launches the kernel or
 raises :class:`~mxnet_tpu_torch.base.KernelError` — there is no
 fallback.  A CPU tensor takes the plain version, which is also what the
-kernels are checked against.
+kernels are checked against.  Inside B2 and B3 the C entry point picks
+the kernel by dtype: bf16 runs the tensor-core (``wgmma``) kernels, fp32
+the CUDA-core ones (tensor cores would round fp32 to TF32).
 
 Contract (from the Pallas kernels): mask value -1e30; fp32 softmax
 statistics and accumulators; inputs stay in their storage dtype; P, and

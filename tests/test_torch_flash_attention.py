@@ -8,7 +8,8 @@ The CUDA kernels need a card: ``chip_smoke.py`` holds each against its
 plain version on the H100.  Tolerances: fp32 atol 1e-5 on outputs and
 1e-4 on gradients (the two frameworks sum in different orders); bf16
 inputs against the fp32 dense oracle within 0.06, as the JAX test holds
-its own kernel.  Rows that see no key are compared only where both
+its own kernel; bf16 gradients against the JAX package's within 1e-2 of
+each gradient's max.  Rows that see no key are compared only where both
 packages define them (``lengths == 0`` rows: zeros); the port writes
 zeros for every such row (a departure from the Pallas forward).
 """
@@ -139,6 +140,42 @@ def test_bf16_inputs_close_to_fp32_dense():
     p /= p.sum(-1, keepdims=True)
     ref = np.einsum("bqk,bkd->bqd", p, v)
     assert np.abs(out.float().numpy() - ref).max() < 0.06
+
+
+@pytest.mark.parametrize("L", [64, 37])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_grads_match_jax(L, causal):
+    """bf16 (dQ, dK, dV): the port's backward (B2/B3's plain versions on
+    the CPU) against ``jax.grad`` of the Pallas kernel in interpreter
+    mode, on the same bf16-rounded inputs and cotangent, D = 64, with
+    lengths (one row of length 0).  This pins the rounding contract of
+    the bf16 tensor-core kernels: P and dS are rounded to bf16 before
+    their products on both sides.  Each gradient is held to 1e-2 of its
+    max: gradients are stored in bf16, whose ulp at the max is 2^-8 of
+    it, and the sums run in other orders (and JAX's forward O, hence
+    Delta, rounds P against a running max), so a value may land on a
+    neighbouring bf16."""
+    q, k, v = (torch.from_numpy(_rand((3, L, 64), s)).bfloat16()
+               for s in (31, 131, 231))
+    cot = torch.from_numpy(_rand((3, L, 64), 32)).bfloat16().float()
+    lens = [L, 20, 0]
+    jl = jnp.asarray(lens, jnp.int32)
+    jg = jax.grad(lambda a, b, c: (jax_flash(
+        a, b, c, lengths=jl, causal=causal, block_q=16,
+        block_k=16).astype(jnp.float32) * cot.numpy()).sum(),
+        argnums=(0, 1, 2))(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                             for t in (q, k, v)))
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal=causal,
+                             lengths=torch.tensor(lens, dtype=torch.int32))
+    tg = torch.autograd.grad((out.float() * cot).sum(), (tq, tk, tv))
+    for name, want, got in zip("qkv", jg, tg):
+        assert got.dtype == torch.bfloat16
+        want = np.asarray(want.astype(jnp.float32))
+        got = got.float().numpy()
+        assert np.all(got[2] == 0), f"d{name}: the length-0 row"
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= 1e-2, f"d{name}: {err} of max"
 
 
 def test_flash_selfatt_matches_interleaved_chain():
