@@ -12,10 +12,13 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
    one process per source, all started together), with each compiled
    kernel's registers and spills from ptxas;
 3. ``kernels`` — B4/B5 (paged decode / verify attention) against their
-   plain PyTorch versions at the serving shapes, fp32 and bf16, with
-   their times, the plain versions' times, one PyTorch library call's
-   time and the roofline bound; then ``head_dims`` — both kernels at
-   every compiled head dim, small shapes;
+   plain PyTorch versions at the serving shapes, fp32 and bf16 (B5 also
+   at the served prefix-hit shape: one slot, 256 cached tokens, a
+   37-token tail at the engine's width bucket), with their device times,
+   the plain versions' times, one PyTorch library call's time, the
+   roofline bound and B5's split plan; then ``head_dims`` — both kernels
+   at every compiled head dim, small shapes, and B5 over a context its
+   plan splits three ways or more with windows across its row tiles;
 4. ``flash_kernels`` — B1/B2/B3 (flash-attention forward, dQ, dK/dV)
    against their plain versions at BERT-large's shapes (the training
    batch, lengths 0/1/37/512, causal, causal + window 128, Lq != Lk,
@@ -42,7 +45,8 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
    (``wgmma``) kernels alone.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
-ones under ``bfloat16``), the ``nvidia-smi`` name/power-limit line,
+ones under ``bfloat16``; B5 also lists every ``kernels`` row with its
+split), the ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero without that line; it never
 runs on the CPU.
@@ -116,7 +120,7 @@ def ptxas_summary(log):
         elif "spill" in ln:
             spill = ln
         elif "registers" in ln and fn:
-            out.append(f"{fn[:60]}: {ln.split(':', 1)[-1].strip()}; {spill}")
+            out.append(f"{fn[:72]}: {ln.split(':', 1)[-1].strip()}; {spill}")
         elif "arning" in ln or "Performance" in ln:
             out.append(ln)
     return out
@@ -126,19 +130,31 @@ def ptxas_summary(log):
 class Timer:
     """Per-launch CUDA-event timing with the 50 MB L2 flushed before
     every launch (outside the timed window), as the decode step finds
-    the pool: each layer's pages are cold."""
+    the pool: each layer's pages are cold.
+
+    By default the card spins for ~0.5 ms (``torch.cuda._sleep``) before
+    the start event, so the host has enqueued the call before the card
+    reaches it and the events read device time only.  ``with_host=True``
+    leaves the spin out: the card then idles from the start event until
+    the host has enqueued the call, so a call whose host side (argument
+    checks, allocation, ``ctypes``) outlasts the flush reads its host
+    time instead."""
+
+    SPIN_CYCLES = 1_000_000
 
     def __init__(self, torch, dev):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
-    def __call__(self, fn, iters=30, warmup=3):
+    def __call__(self, fn, iters=30, warmup=3, with_host=False):
         torch = self.torch
         for _ in range(warmup):
             fn()
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
+            if not with_host:
+                torch.cuda._sleep(self.SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -161,6 +177,7 @@ def phase_kernels(torch, dev, timer):
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving.batcher import next_bucket
     g = torch.Generator(device="cpu").manual_seed(0)
     B, H, D, P = MAX_BATCH, GPT2_SMALL["num_heads"], 64, 64
     N = B * P + 1
@@ -172,19 +189,30 @@ def phase_kernels(torch, dev, timer):
     ctx = torch.tensor([0, 1, 16, 17, 300, 511, 777, 1024],
                        dtype=torch.int32, device=dev)
     q_dec = torch.randn(B, H, D, generator=g).to(dev)
-    verify_cases = {
-        1: ([0, 1, 15, 16, 299, 510, 776, 1023],
-            [1, 0, 1, 1, 1, 1, 1, 1]),
-        5: ([0, 4, 15, 16, 300, 700, 1019, 0], [5, 0, 5, 3, 5, 1, 5, 5]),
-        256: ([0, 0, 3, 16, 100, 511, 700, 768],
-              [256, 0, 200, 256, 17, 1, 256, 256]),
-    }
-    q_ver = {W: torch.randn(B, W, H, D, generator=g).to(dev)
-             for W in verify_cases}
+    # B5: (label, W, starts, lengths), slot b reading row b % B of the
+    # block table; "served" is what a prefix-cache hit launches:
+    # one slot, a 256-token cached prefix, the 37-token tail padded to the
+    # engine's width bucket
+    served_w = next_bucket(37, GPT2_SMALL["max_length"])
+    verify_cases = [
+        ("W1", 1, [0, 1, 15, 16, 299, 510, 776, 1023],
+         [1, 0, 1, 1, 1, 1, 1, 1]),
+        ("W5", 5, [0, 4, 15, 16, 300, 700, 1019, 0],
+         [5, 0, 5, 3, 5, 1, 5, 5]),
+        ("W256", 256, [0, 0, 3, 16, 100, 511, 700, 768],
+         [256, 0, 200, 256, 17, 1, 256, 256]),
+        ("served", served_w, [256], [37]),
+        # 24 slots x 12 heads fill two waves with 16-row tiles: no split
+        ("W1_B24", 1, [0, 1, 15, 16, 299, 510, 776, 1023] * 3,
+         [1, 0, 1, 1, 1, 1, 1, 1] * 3),
+    ]
+    q_ver = {label: torch.randn(len(st), W, H, D, generator=g).to(dev)
+             for label, W, st, _ in verify_cases}
 
-    def gathered(kp, vp):
-        k = kp[bt.long()].reshape(B, T, H, D).transpose(1, 2)
-        v = vp[bt.long()].reshape(B, T, H, D).transpose(1, 2)
+    def gathered(kp, vp, bt=bt):
+        nb = bt.shape[0]
+        k = kp[bt.long()].reshape(nb, T, H, D).transpose(1, 2)
+        v = vp[bt.long()].reshape(nb, T, H, D).transpose(1, 2)
         return k.contiguous(), v.contiguous()
 
     report = {}
@@ -212,6 +240,8 @@ def phase_kernels(torch, dev, timer):
         rows.append(dict(
             dtype=dtype, max_abs_err=err,
             ms=timer(lambda: pa.ragged_paged_attention(q, kp, vp, bt, ctx)),
+            ms_with_host=timer(lambda: pa.ragged_paged_attention(
+                q, kp, vp, bt, ctx), with_host=True),
             plain_ms=timer(lambda: pa.ragged_paged_attention_reference(
                 q, kp, vp, bt, ctx)),
             library_ms=timer(lambda: F.scaled_dot_product_attention(
@@ -223,25 +253,27 @@ def phase_kernels(torch, dev, timer):
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         kp, vp = k32.to(dt), v32.to(dt)
-        k_g, v_g = gathered(kp, vp)
-        for W, (st_l, ln_l) in verify_cases.items():
-            q = q_ver[W].to(dt)
+        for label, W, st_l, ln_l in verify_cases:
+            nb = len(st_l)
+            bt_c = bt[torch.arange(nb, device=dev) % B].contiguous()
+            k_g, v_g = gathered(kp, vp, bt_c)
+            q = q_ver[label].to(dt)
             st = torch.tensor(st_l, dtype=torch.int32, device=dev)
             ln = torch.tensor(ln_l, dtype=torch.int32, device=dev)
-            got = pa.ragged_paged_verify(q, kp, vp, bt, st, ln)
-            want = pa.ragged_paged_verify_reference(q, kp, vp, bt, st, ln)
+            got = pa.ragged_paged_verify(q, kp, vp, bt_c, st, ln)
+            want = pa.ragged_paged_verify_reference(q, kp, vp, bt_c, st, ln)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             ok = torch.allclose(got.float(), want.float(), **TOL[dtype])
             pad_zero = all(bool(torch.all(got[b, ln_l[b]:] == 0))
-                           for b in range(B))
+                           for b in range(nb))
             check(ok and pad_zero,
-                  f"ragged_paged_verify {dtype} W={W}: max error {err} "
+                  f"ragged_paged_verify {dtype} {label}: max error {err} "
                   f"(rows past lengths zero: {pad_zero})")
             if W == 1:
                 # W = 1 verify is decode attention at ctx = start + 1
                 dec = pa.ragged_paged_attention(
-                    q[:, 0], kp, vp, bt, torch.where(ln > 0, st + 1, 0))
+                    q[:, 0], kp, vp, bt_c, torch.where(ln > 0, st + 1, 0))
                 werr = float((got[:, 0].float() - dec.float()).abs().max())
                 check(werr <= TOL[dtype]["atol"],
                       f"verify W=1 vs decode {dtype}: {werr}")
@@ -254,15 +286,19 @@ def phase_kernels(torch, dev, timer):
             n_kv = sum(min(s + n, T) for s, n in zip(st_l, ln_l) if n)
             pairs = sum(min(s + w + 1, T) for s, n in zip(st_l, ln_l)
                         for w in range(n))
-            b_moved = (2 * n_kv * H * D + 2 * B * W * H * D) * elt \
-                + bt.numel() * 4 + 2 * B * 4
+            b_moved = (2 * n_kv * H * D + 2 * nb * W * H * D) * elt \
+                + bt_c.numel() * 4 + 2 * nb * 4
             bound_ms, bound_by = bound(b_moved, 4 * pairs * H * D, dtype)
+            plan = pa._verify_plan(nb, W, H, D, T, PAGE_SIZE)
             rows.append(dict(
-                dtype=dtype, W=W, max_abs_err=err,
-                ms=timer(lambda: pa.ragged_paged_verify(q, kp, vp, bt, st,
+                dtype=dtype, shape=label, W=W, B=nb, n_split=plan.n_split,
+                rows_per_block=plan.rows, chunk=plan.chunk, max_abs_err=err,
+                ms=timer(lambda: pa.ragged_paged_verify(q, kp, vp, bt_c, st,
                                                         ln)),
+                ms_with_host=timer(lambda: pa.ragged_paged_verify(
+                    q, kp, vp, bt_c, st, ln), with_host=True),
                 plain_ms=timer(lambda: pa.ragged_paged_verify_reference(
-                    q, kp, vp, bt, st, ln)),
+                    q, kp, vp, bt_c, st, ln)),
                 library_ms=timer(lambda: F.scaled_dot_product_attention(
                     qt, k_g, v_g, attn_mask=mask)),
                 bound_ms=bound_ms, bound_by=bound_by))
@@ -270,9 +306,9 @@ def phase_kernels(torch, dev, timer):
     emit("kernels", shapes=dict(B=B, H=H, D=D, page_size=PAGE_SIZE,
                                 pages_per_seq=P, pool_pages=N,
                                 context_lens=ctx.tolist(),
-                                verify={W: dict(starts=s, lengths=n)
-                                        for W, (s, n) in
-                                        verify_cases.items()}),
+                                verify={label: dict(W=W, starts=s, lengths=n)
+                                        for label, W, s, n in verify_cases},
+                                served_width=served_w),
          results=report)
     return report
 
@@ -280,16 +316,29 @@ def phase_kernels(torch, dev, timer):
 def phase_head_dims(torch, dev):
     """Every head dim the kernels are compiled for, fp32 and bf16, at a
     small shape (partial pages, an inactive slot, a multi-page context)
-    against the plain versions: the main path only runs head_dim 64."""
+    against the plain versions: the main path only runs head_dim 64.
+    B5 also runs windows that straddle its 16- and 64-row tiles (W = 17,
+    65) over contexts of up to 768 tokens, which its plan splits into at
+    least three chunks."""
     from mxnet_tpu_torch.ops import paged_attention as pa
     g = torch.Generator(device="cpu").manual_seed(3)
-    B, H, P = 3, 2, 4
+    B, H, P = 3, 2, 48
     N = B * P + 1
+    T = P * PAGE_SIZE
     bt = (torch.randperm(N - 1, generator=g)[:B * P] + 1).reshape(B, P)
     bt = bt.to(torch.int32).to(dev)
     ctx = torch.tensor([0, 7, 50], dtype=torch.int32, device=dev)
     verify = {1: ([0, 6, 49], [0, 1, 1]), 5: ([0, 3, 40], [5, 0, 5]),
-              33: ([0, 1, 30], [33, 12, 0])}
+              33: ([0, 1, 30], [33, 12, 0]),
+              17: ([0, 700, 301], [17, 16, 0]),
+              65: ([5, 640, 100], [65, 40, 64]),
+              "long_1": ([767, 0, 512], [1, 1, 1])}
+    splits = {}
+    for key, (st_l, _) in verify.items():
+        W = int(str(key).rsplit("_", 1)[-1])
+        splits[str(key)] = pa._verify_plan(B, W, H, 64, T, PAGE_SIZE).n_split
+    check(max(splits.values()) >= 3,
+          f"head_dims: no verify case spans three splits: {splits}")
     worst = {}
     for D in pa._HEAD_DIMS:
         k32 = torch.randn(N, PAGE_SIZE, H, D, generator=g).to(dev)
@@ -304,7 +353,8 @@ def phase_head_dims(torch, dev):
             check(torch.allclose(got.float(), want.float(), **TOL[dtype])
                   and bool(torch.all(got[0] == 0)),
                   f"ragged_paged_attention D={D} {dtype}: {errs[0]}")
-            for W, (st_l, ln_l) in verify.items():
+            for key, (st_l, ln_l) in verify.items():
+                W = int(str(key).rsplit("_", 1)[-1])
                 q = torch.randn(B, W, H, D, generator=g).to(dev, dt)
                 st = torch.tensor(st_l, dtype=torch.int32, device=dev)
                 ln = torch.tensor(ln_l, dtype=torch.int32, device=dev)
@@ -315,12 +365,13 @@ def phase_head_dims(torch, dev):
                 check(torch.allclose(got.float(), want.float(), **TOL[dtype])
                       and all(bool(torch.all(got[b, ln_l[b]:] == 0))
                               for b in range(B)),
-                      f"ragged_paged_verify D={D} W={W} {dtype}: "
+                      f"ragged_paged_verify D={D} W={key} {dtype}: "
                       f"{errs[-1]}")
             worst[f"{D}/{dtype}"] = max(errs)
     torch.cuda.synchronize()
-    emit("head_dims", head_dims=list(pa._HEAD_DIMS), verify_widths=list(
-        verify), max_abs_err=worst)
+    emit("head_dims", head_dims=list(pa._HEAD_DIMS),
+         verify_widths=[str(k) for k in verify], context_tokens=T,
+         verify_n_split=splits, max_abs_err=worst)
 
 
 # --------------------------------------------------------- flash kernels
@@ -968,11 +1019,18 @@ def main():
                 ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                 bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
                 library_ms=main_row["library_ms"])
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda",
             source=f"mxnet_tpu_torch/csrc/{name}.cu", replaces=replaces,
             launches=launches[name], **by_dtype["float32"],
-            bfloat16=by_dtype["bfloat16"]))
+            bfloat16=by_dtype["bfloat16"])
+        if name == "ragged_paged_verify":
+            # every row of the kernels phase, with the plan's split
+            entry["rows"] = [
+                {k: r[k] for k in ("dtype", "shape", "W", "B", "n_split",
+                                   "ms", "bound_ms", "library_ms")}
+                for r in report[name]]
+        kernels.append(entry)
     # flash kernels: times at the training batch's shape; errors the
     # largest one over every shape; the library time of B2 and B3 is one
     # SDPA backward computing dQ, dK and dV together

@@ -74,4 +74,73 @@ template <int G> __device__ __forceinline__ float group_sum(float s) {
   return s;
 }
 
+// ---- asynchronous copies, warp-level tensor-core products
+// (used by ragged_paged_verify.cu), in their own namespace because
+// flash_common.cuh includes this file.  smem_addr, cp_async16,
+// cp_async_commit and cp_async_wait are copied from flash_wgmma.cuh
+// (namespace wg), which the paged kernels do not include.
+namespace paged {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes = 0 writes 16 zero bytes and
+// reads nothing (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.  Lane i receives, of each matrix, row i / 4
+// and columns 2 (i % 4), 2 (i % 4) + 1 (trans: that element pair of the
+// transposed matrix).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += a * b, m16n8k16, bf16 in, fp32 accumulators.  With g = lane / 4,
+// t = lane % 4: a holds rows g, g + 8 and columns 2t, 2t + 1, 2t + 8,
+// 2t + 9 (a[0] (g, 2t), a[1] (g + 8, 2t), a[2] (g, 2t + 8), a[3]
+// (g + 8, 2t + 8), each a pair); b holds rows (the product's k) 2t, 2t + 1
+// and 2t + 8, 2t + 9 of column g; c holds rows g (c[0], c[1]) and g + 8
+// (c[2], c[3]) at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values as one bf16 pair (lo in the low half), rounded to
+// nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+}  // namespace paged
+
 }  // namespace mxtt

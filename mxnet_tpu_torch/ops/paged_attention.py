@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,9 +49,18 @@ _ARGTYPES = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
          _P]),
     "ragged_paged_verify": (
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-         ctypes.c_float, _I, _P]),
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         _I, ctypes.c_float, _I, _P]),
 }
+
+# B5's launch plan (_verify_plan): the H100's SMs, the waves of blocks a
+# split aims for, the fewest tokens a split's chunk holds, and the most
+# pages (block-table entries in shared memory) it holds
+# (csrc/ragged_paged_verify.cu kMaxChunkPages).
+_SMS = 132
+_WAVES = 4
+_MIN_CHUNK_TOKENS = 64
+_MAX_CHUNK_PAGES = 4096
 
 
 def _kernel(name):
@@ -230,13 +240,21 @@ def ragged_paged_verify(q, k_pages, v_pages, block_tables, starts,
                          f"{q.device}")
     bt, st, ln = _check_launchable("ragged_paged_verify", q, k_pages,
                                    v_pages, (block_tables, starts, lengths))
+    page_size = k_pages.shape[1]
+    plan = _verify_plan(B, W, H, D, bt.shape[1] * page_size, page_size)
     out = torch.empty_like(q)
+    ws = None
+    if plan.workspace is not None:
+        ws = torch.empty(plan.workspace, dtype=torch.float32,
+                         device=q.device)
     with torch.cuda.device(q.device):
         rc = _kernel("ragged_paged_verify")(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             bt.data_ptr(), st.data_ptr(), ln.data_ptr(), out.data_ptr(),
-            B, W, H, D, bt.shape[1], k_pages.shape[1], float(sm_scale),
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
+            None if ws is None else ws.data_ptr(), B, W, H, D, bt.shape[1],
+            page_size, plan.rows, plan.n_split, plan.chunk,
+            float(sm_scale), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise KernelError(f"ragged_paged_verify: kernel launch failed with "
                          f"CUDA error {rc}")
@@ -245,6 +263,39 @@ def ragged_paged_verify(q, k_pages, v_pages, block_tables, starts,
 
 
 ragged_paged_verify.launches = 0
+
+
+class _VerifyPlan(NamedTuple):
+    """How B5 is launched: ``rows`` query rows per block (16 or 64), the
+    context split into ``n_split`` chunks of ``chunk`` tokens (whole
+    pages), and the fp32 partials' shape ``(n_split, B, W, H, D + 2)``
+    (``None`` when ``n_split == 1``)."""
+    rows: int
+    n_split: int
+    chunk: int
+    workspace: Optional[Tuple[int, ...]]
+
+
+def _verify_plan(B, W, H, D, T, page_size):
+    """B5's launch plan from shapes alone (no tensor is read, so the
+    wrapper never waits on the card): ``T`` is the block tables' capacity
+    in tokens (pages_per_seq * page_size).
+
+    Row tiles of 16 rows for W <= 16, else 64.  When the row tiles alone
+    give fewer than two waves of blocks on the 132 SMs, the context is
+    split into chunks of whole pages so the grid reaches ``_WAVES`` waves,
+    no chunk shorter than ``_MIN_CHUNK_TOKENS``; no chunk holds more than
+    ``_MAX_CHUNK_PAGES`` pages."""
+    rows = 16 if W <= 16 else 64
+    tiles = B * H * -(-W // rows)
+    pages = max(1, -(-T // page_size))
+    want = 1 if tiles >= 2 * _SMS else -(-_WAVES * _SMS // max(tiles, 1))
+    chunk_pages = max(-(-pages // want),
+                      -(-_MIN_CHUNK_TOKENS // page_size))
+    chunk_pages = min(chunk_pages, pages, _MAX_CHUNK_PAGES)
+    n_split = -(-pages // chunk_pages)
+    return _VerifyPlan(rows, n_split, chunk_pages * page_size,
+                      (n_split, B, W, H, D + 2) if n_split > 1 else None)
 
 
 def ragged_paged_verify_reference(q, k_pages, v_pages, block_tables,
@@ -275,3 +326,49 @@ def ragged_paged_verify_reference(q, k_pages, v_pages, block_tables,
     out = torch.einsum("bhwt,bthd->bwhd", e, v)
     denom = torch.where(l == 0.0, 1.0, l).transpose(1, 2)    # (B, W, H)
     return (out / denom[:, :, :, None]).to(q.dtype)
+
+
+def _verify_split_reference(q, k_pages, v_pages, block_tables, starts,
+                            lengths, n_split, chunk, sm_scale=None):
+    """Plain mirror of B5's split arithmetic, for the tests: the context
+    cut into ``n_split`` chunks of ``chunk`` tokens, each chunk's partial
+    (acc, m, l) from an online softmax over 16-key tiles with P rounded to
+    the storage dtype before P V (as the kernel's warps do), then the
+    merge kernel's combine; exact zeros where no key is visible."""
+    B, W, H, D = q.shape
+    T = block_tables.shape[1] * k_pages.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, T, H, D).float()
+    v = v_pages[bt].reshape(B, T, H, D).float()
+    s = torch.einsum("bwhd,bthd->bhwt", q.float(), k) * sm_scale
+    rows = torch.arange(W)
+    vis = ((torch.arange(T)[None, None, :]
+            <= (starts.long()[:, None] + rows[None, :])[:, :, None])
+           & (rows[None, :, None] < lengths.long()[:, None, None]))
+    vis = vis[:, None]                                       # (B,1,W,T)
+    parts = []
+    for z in range(n_split):
+        m = torch.full((B, H, W), _NEG_INF)
+        l = torch.zeros(B, H, W)
+        acc = torch.zeros(B, H, W, D)
+        for kb in range(z * chunk, min((z + 1) * chunk, T), 16):
+            sl = slice(kb, min(kb + 16, (z + 1) * chunk, T))
+            vt = vis[..., sl]
+            st = torch.where(vt, s[..., sl], _NEG_INF)
+            m_new = torch.maximum(m, st.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.where(vt, torch.exp(st - m_new[..., None]), 0.0)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhwt,bthd->bhwd", p.to(v_pages.dtype).float(), v[:, sl])
+            m = m_new
+        parts.append((acc, m, l))
+    m_all = torch.stack([m for _, m, _ in parts]).amax(0)
+    l_all = sum(l * torch.exp(m - m_all) for _, m, l in parts)
+    acc_all = sum(a * torch.exp(m - m_all)[..., None] for a, m, _ in parts)
+    out = torch.where(l_all[..., None] != 0,
+                      acc_all / torch.where(l_all == 0, 1.0, l_all)[..., None],
+                      0.0)
+    return out.transpose(1, 2).to(q.dtype)
