@@ -12,18 +12,22 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
    one process per source, all started together), with each compiled
    kernel's registers and spills from ptxas;
 3. ``kernels`` — B4/B5 (paged decode / verify attention) against their
-   plain PyTorch versions at the serving shapes, fp32 and bf16 (B5 also
-   at the served prefix-hit shape: one slot, 256 cached tokens, a
-   37-token tail at the engine's width bucket), with their device times,
-   the plain versions' times, one PyTorch library call's time, the
-   roofline bound and B5's split plan; then ``head_dims`` — both kernels
-   at every compiled head dim, small shapes, and B5 over a context its
-   plan splits three ways or more with windows across its row tiles;
+   plain PyTorch versions at the serving shapes, fp32 and bf16 (B4 also
+   at the profile phase's decode contexts and against its split mirror,
+   and three interleaved calls on each of two shapes must repeat bit
+   for bit; B5 also at the served prefix-hit shape: one slot, 256
+   cached tokens, a 37-token tail at the engine's width bucket), with
+   their device times, the plain versions' times, one PyTorch library
+   call's time, the roofline bound and both kernels' split plans; then
+   ``head_dims`` — both kernels at every compiled head dim, small
+   shapes, each over a context its plan splits three ways or more (B5
+   with windows across its row tiles);
 4. ``flash_kernels`` — B1/B2/B3 (flash-attention forward, dQ, dK/dV)
    against their plain versions at BERT-large's shapes (the training
    batch, lengths 0/1/37/512, causal, causal + window 128, Lq != Lk,
-   head dim 128, L = 2048), fp32 and bf16, with times, bounds and the
-   ``scaled_dot_product_attention`` yardstick (forward; backward);
+   head dims 16, 32 and 128 beside 64, L = 2048), fp32 and bf16, with
+   times, bounds and the ``scaled_dot_product_attention`` yardstick
+   (forward; backward); head dims 24 and 256 must be refused;
 5. ``parity``  — ``paged_prefill`` + 32 ``paged_decode_step``s, a
    width-37 ``paged_verify`` and the same window through
    ``paged_verify_batch`` against the dense full forward, and the launch
@@ -45,8 +49,8 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
    (``wgmma``) kernels alone.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
-ones under ``bfloat16``; B5 also lists every ``kernels`` row with its
-split), the ``nvidia-smi`` name/power-limit line,
+ones under ``bfloat16``; B4 and B5 also list every ``kernels`` row with
+its split), the ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero without that line; it never
 runs on the CPU.
@@ -76,6 +80,13 @@ HBM_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=0.0)}
+# B4 against its split mirror (_decode_split_reference), which cuts the
+# context and rounds P to bf16 against 16-token tiles as the kernel does:
+# fp32 differs only in summation order; bf16 by one rounding of the
+# output (rtol 2^-7) and, rarely, one P rounded to the neighbouring bf16
+# value where the two sides' fp32 P straddle a rounding boundary.
+MIRROR_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+              "bfloat16": dict(atol=2e-3, rtol=2 ** -7)}
 # Flash kernels vs their plain versions.  fp32 (TF32 off): both sides sum
 # the same fp32 products in other orders, so O and LSE agree to 1e-4;
 # a gradient sums up to 2048 rows or keys, so it is held to 1e-3 of its
@@ -87,6 +98,9 @@ TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
 FLASH_TOL = {"float32": dict(out=1e-4, out_rtol=1e-4, grad=1e-3),
              "bfloat16": dict(out=2e-2, out_rtol=0.0, grad=5e-2)}
 PAGE_SIZE, POOL_PAGES, MAX_BATCH = 16, 513, 8
+# the decode batch's positions in the profile phase (B4's "decode_step"
+# row in the kernels phase runs the same contexts)
+PROFILE_POSITIONS = (377, 280, 179, 450, 112, 92, 230, 64)
 # substrings of cuBLAS / CUTLASS matrix-product kernel names (nvjet_*
 # are the H100 cuBLAS kernels of this PyTorch build)
 GEMM_TAGS = ("gemm", "cutlass", "sm90_", "nvjet")
@@ -215,39 +229,65 @@ def phase_kernels(torch, dev, timer):
         v = vp[bt.long()].reshape(nb, T, H, D).transpose(1, 2)
         return k.contiguous(), v.contiguous()
 
+    # B4: (label, context_lens); "mixed" spans an inactive slot to the
+    # full table, "decode_step" is the profile phase's decode batch (its
+    # positions + 1: the token just written is in the context)
+    decode_cases = [
+        ("mixed", ctx),
+        ("decode_step", torch.tensor(
+            [p + 1 for p in PROFILE_POSITIONS], dtype=torch.int32,
+            device=dev)),
+    ]
     report = {}
     # ---- B4: decode attention
     rows = []
+    plan = pa._decode_plan(B, H, D, T, PAGE_SIZE)
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         q, kp, vp = q_dec.to(dt), k32.to(dt), v32.to(dt)
-        got = pa.ragged_paged_attention(q, kp, vp, bt, ctx)
-        want = pa.ragged_paged_attention_reference(q, kp, vp, bt, ctx)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        ok = torch.allclose(got.float(), want.float(), **TOL[dtype])
-        zero = bool(torch.all(got[0] == 0))        # ctx 0: exact zeros
-        check(ok and zero, f"ragged_paged_attention {dtype}: max error "
-                           f"{err} (inactive slot zeros: {zero})")
         k_g, v_g = gathered(kp, vp)
-        mask = (torch.arange(T, device=dev)[None, :]
-                < ctx[:, None])[:, None, None, :]   # (B, 1, 1, T)
-        elt = kp.element_size()
-        n_tok = int(ctx.clamp(max=T).sum())
-        b_moved = (2 * n_tok * H * D + 2 * B * H * D) * elt \
-            + bt.numel() * 4 + ctx.numel() * 4
-        bound_ms, bound_by = bound(b_moved, 4 * n_tok * H * D, dtype)
-        rows.append(dict(
-            dtype=dtype, max_abs_err=err,
-            ms=timer(lambda: pa.ragged_paged_attention(q, kp, vp, bt, ctx)),
-            ms_with_host=timer(lambda: pa.ragged_paged_attention(
-                q, kp, vp, bt, ctx), with_host=True),
-            plain_ms=timer(lambda: pa.ragged_paged_attention_reference(
-                q, kp, vp, bt, ctx)),
-            library_ms=timer(lambda: F.scaled_dot_product_attention(
-                q[:, :, None], k_g, v_g, attn_mask=mask)),
-            bound_ms=bound_ms, bound_by=bound_by))
+        for label, lens in decode_cases:
+            got = pa.ragged_paged_attention(q, kp, vp, bt, lens)
+            want = pa.ragged_paged_attention_reference(q, kp, vp, bt, lens)
+            mirror = pa._decode_split_reference(
+                q.cpu(), kp.cpu(), vp.cpu(), bt.cpu(), lens.cpu(),
+                plan.n_split, plan.chunk).to(dev)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            merr = float((got.float() - mirror.float()).abs().max())
+            ok = torch.allclose(got.float(), want.float(), **TOL[dtype])
+            mok = torch.allclose(got.float(), mirror.float(),
+                                 **MIRROR_TOL[dtype])
+            # ctx 0: exact zeros
+            zero = all(bool(torch.all(got[b] == 0))
+                       for b in range(B) if int(lens[b]) == 0)
+            check(ok and mok and zero,
+                  f"ragged_paged_attention {dtype} {label}: max error "
+                  f"{err}, against the split mirror {merr} (inactive slot "
+                  f"zeros: {zero})")
+            mask = (torch.arange(T, device=dev)[None, :]
+                    < lens[:, None])[:, None, None, :]   # (B, 1, 1, T)
+            elt = kp.element_size()
+            n_tok = int(lens.clamp(max=T).sum())
+            b_moved = (2 * n_tok * H * D + 2 * B * H * D) * elt \
+                + bt.numel() * 4 + lens.numel() * 4
+            bound_ms, bound_by = bound(b_moved, 4 * n_tok * H * D, dtype)
+            rows.append(dict(
+                dtype=dtype, shape=label, context_lens=lens.tolist(),
+                n_split=plan.n_split, chunk=plan.chunk, max_abs_err=err,
+                mirror_max_abs_err=merr,
+                ms=timer(lambda: pa.ragged_paged_attention(q, kp, vp, bt,
+                                                           lens)),
+                ms_with_host=timer(lambda: pa.ragged_paged_attention(
+                    q, kp, vp, bt, lens), with_host=True),
+                plain_ms=timer(lambda: pa.ragged_paged_attention_reference(
+                    q, kp, vp, bt, lens)),
+                library_ms=timer(lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], k_g, v_g, attn_mask=mask)),
+                bound_ms=bound_ms, bound_by=bound_by))
     report["ragged_paged_attention"] = rows
+    report["ragged_paged_attention_repeat"] = _decode_repeat_check(
+        torch, pa, q_dec, k32, v32, bt, ctx)
     # ---- B5: verify attention
     rows = []
     for dtype in ("float32", "bfloat16"):
@@ -313,6 +353,43 @@ def phase_kernels(torch, dev, timer):
     return report
 
 
+def _decode_repeat_check(torch, pa, q, k32, v32, bt, ctx):
+    """B4's in-launch merge leaves its (b, h) arrival counters at zero:
+    three calls on each of two shapes, interleaved (the serving batch,
+    and three slots of it whose plan splits more finely, so another
+    workspace), must give bitwise-equal outputs for equal inputs.  A
+    counter left non-zero would make a later call merge too early or
+    never."""
+    B, H, D = q.shape
+    T = bt.shape[1] * k32.shape[1]
+    small = (bt[:3].contiguous(),
+             torch.tensor([T - 24, 0, 300], dtype=torch.int32,
+                          device=q.device))
+    plans = [pa._decode_plan(B, H, D, T, k32.shape[1]),
+             pa._decode_plan(3, H, D, T, k32.shape[1])]
+    check(plans[0].workspace != plans[1].workspace and all(
+        p.n_split > 1 for p in plans),
+        f"repeat check: the two shapes must split into different "
+        f"workspaces: {plans}")
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        kp, vp = k32.to(dt), v32.to(dt)
+        calls = [(q.to(dt), bt, ctx), (q[:3].to(dt).contiguous(), *small)]
+        runs = [[], []]
+        for _ in range(3):
+            for i, (qq, tb, ln) in enumerate(calls):
+                runs[i].append(pa.ragged_paged_attention(qq, kp, vp, tb, ln))
+        torch.cuda.synchronize()
+        same = [all(torch.equal(r[0], x) for x in r[1:]) for r in runs]
+        check(all(same), f"ragged_paged_attention {dtype}: repeated calls "
+                         f"differ (bitwise equal per shape: {same})")
+        out[dtype] = dict(calls_per_shape=3, n_split=[p.n_split
+                                                      for p in plans],
+                          bitwise_equal=same)
+    return out
+
+
 def phase_head_dims(torch, dev):
     """Every head dim the kernels are compiled for, fp32 and bf16, at a
     small shape (partial pages, an inactive slot, a multi-page context)
@@ -328,6 +405,12 @@ def phase_head_dims(torch, dev):
     bt = (torch.randperm(N - 1, generator=g)[:B * P] + 1).reshape(B, P)
     bt = bt.to(torch.int32).to(dev)
     ctx = torch.tensor([0, 7, 50], dtype=torch.int32, device=dev)
+    # B4 over contexts its plan splits: 768 tokens span 12 chunks
+    ctx_split = torch.tensor([0, 130, 768], dtype=torch.int32, device=dev)
+    decode_plan = pa._decode_plan(B, H, 64, T, PAGE_SIZE)
+    check(-(-768 // decode_plan.chunk) >= 3,
+          f"head_dims: the decode context spans under three chunks: "
+          f"{decode_plan}")
     verify = {1: ([0, 6, 49], [0, 1, 1]), 5: ([0, 3, 40], [5, 0, 5]),
               33: ([0, 1, 30], [33, 12, 0]),
               17: ([0, 700, 301], [17, 16, 0]),
@@ -347,12 +430,17 @@ def phase_head_dims(torch, dev):
             dt = getattr(torch, dtype)
             kp, vp = k32.to(dt), v32.to(dt)
             q = torch.randn(B, H, D, generator=g).to(dev, dt)
-            got = pa.ragged_paged_attention(q, kp, vp, bt, ctx)
-            want = pa.ragged_paged_attention_reference(q, kp, vp, bt, ctx)
-            errs = [float((got.float() - want.float()).abs().max())]
-            check(torch.allclose(got.float(), want.float(), **TOL[dtype])
-                  and bool(torch.all(got[0] == 0)),
-                  f"ragged_paged_attention D={D} {dtype}: {errs[0]}")
+            errs = []
+            for lens in (ctx, ctx_split):
+                got = pa.ragged_paged_attention(q, kp, vp, bt, lens)
+                want = pa.ragged_paged_attention_reference(q, kp, vp, bt,
+                                                           lens)
+                errs.append(float((got.float() - want.float()).abs().max()))
+                check(torch.allclose(got.float(), want.float(),
+                                     **TOL[dtype])
+                      and bool(torch.all(got[0] == 0)),
+                      f"ragged_paged_attention D={D} {dtype} contexts "
+                      f"{lens.tolist()}: {errs[-1]}")
             for key, (st_l, ln_l) in verify.items():
                 W = int(str(key).rsplit("_", 1)[-1])
                 q = torch.randn(B, W, H, D, generator=g).to(dev, dt)
@@ -371,7 +459,10 @@ def phase_head_dims(torch, dev):
     torch.cuda.synchronize()
     emit("head_dims", head_dims=list(pa._HEAD_DIMS),
          verify_widths=[str(k) for k in verify], context_tokens=T,
-         verify_n_split=splits, max_abs_err=worst)
+         verify_n_split=splits, decode_context_lens=[ctx.tolist(),
+                                                     ctx_split.tolist()],
+         decode_n_split=decode_plan.n_split, decode_chunk=decode_plan.chunk,
+         max_abs_err=worst)
 
 
 # --------------------------------------------------------- flash kernels
@@ -408,6 +499,12 @@ def _flash_cases():
          [37, 100, 5, 0] * 4),
         ("head_dim_128", 8 * 8, 512, 512, 128, False, -1,
          np.repeat([512, 300, 1, 0, 77, 512, 256, 129], 8).tolist()),
+        # the head-dim sweep (16, 32, 64 above, 128): bf16 B2/B3 take 16
+        # and 32 zero-padded to 64 columns
+        ("head_dim_16", 8 * 8, 512, 512, 16, True, -1,
+         np.repeat([512, 300, 1, 0, 77, 512, 256, 129], 8).tolist()),
+        ("head_dim_32", 8 * 8, 512, 512, 32, False, -1,
+         np.repeat([512, 300, 1, 0, 77, 512, 256, 129], 8).tolist()),
         ("flash2048", 2 * H, 2048, 2048, 64, False, -1, None),
     ]
 
@@ -424,7 +521,19 @@ def phase_flash_kernels(torch, dev, timer):
     (``scaled_dot_product_attention`` and its backward, timed only)."""
     import torch.nn.functional as F
 
+    from mxnet_tpu_torch.base import KernelError
     from mxnet_tpu_torch.ops import flash_attention as fa
+    # a head dim outside _HEAD_DIMS is refused before any launch: 256
+    # (B2/B3 do not fit; PERF.md) and 24
+    for D in (24, 256):
+        z = torch.zeros(1, 64, D, device=dev)
+        try:
+            fa.flash_attention(z, z, z)
+        except KernelError:
+            continue
+        check(False, f"flash_attention ran head dim {D} on the card")
+    check({c[4] for c in _flash_cases()} == set(fa._HEAD_DIMS),
+          "flash_kernels: the sweep misses a head dim of _HEAD_DIMS")
     g = torch.Generator().manual_seed(5)
     rows = []
     for label, BH, Lq, Lk, D, causal, window, lens in _flash_cases():
@@ -644,8 +753,7 @@ def phase_profile(torch, dev, lm):
                         lm.num_layers, lm.num_heads, lm.head_dim)
     adapter = PagedLMAdapter(lm, device=dev)
     adapter.setup(geom)
-    positions = np.asarray([377, 280, 179, 450, 112, 92, 230, 64],
-                           np.int32)
+    positions = np.asarray(PROFILE_POSITIONS, np.int32)
     tables = np.zeros((MAX_BATCH, geom.pages_per_seq), np.int32)
     nxt = 1
     for b, p in enumerate(positions):
@@ -1013,7 +1121,10 @@ def main():
         by_dtype = {}
         for dtype in ("float32", "bfloat16"):
             rows = [r for r in report[name] if r["dtype"] == dtype]
-            main_row = max(rows, key=lambda r: r.get("W", 0))
+            # B4: the mixed contexts (0 to 1024 tokens); B5: W = 256
+            main_row = max(rows, key=lambda r: r.get("W", 0)) \
+                if name == "ragged_paged_verify" \
+                else next(r for r in rows if r["shape"] == "mixed")
             by_dtype[dtype] = dict(
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=main_row["ms"], plain_ms=main_row["plain_ms"],
@@ -1024,12 +1135,12 @@ def main():
             source=f"mxnet_tpu_torch/csrc/{name}.cu", replaces=replaces,
             launches=launches[name], **by_dtype["float32"],
             bfloat16=by_dtype["bfloat16"])
-        if name == "ragged_paged_verify":
-            # every row of the kernels phase, with the plan's split
-            entry["rows"] = [
-                {k: r[k] for k in ("dtype", "shape", "W", "B", "n_split",
-                                   "ms", "bound_ms", "library_ms")}
-                for r in report[name]]
+        # every row of the kernels phase, with the plan's split
+        keys = ("dtype", "shape", "W", "B", "n_split", "ms", "bound_ms",
+                "library_ms") if name == "ragged_paged_verify" else (
+            "dtype", "shape", "n_split", "chunk", "ms", "ms_with_host",
+            "bound_ms", "library_ms")
+        entry["rows"] = [{k: r[k] for k in keys} for r in report[name]]
         kernels.append(entry)
     # flash kernels: times at the training batch's shape; errors the
     # largest one over every shape; the library time of B2 and B3 is one

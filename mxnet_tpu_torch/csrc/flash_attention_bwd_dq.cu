@@ -275,7 +275,9 @@ static int launch_wgmma(const void* q, const void* k, const void* v,
       sm_scale, causal, window);
 }
 
-// fp32: the CUDA-core kernel; bf16: the tensor-core kernel.
+// fp32: the CUDA-core kernel; bf16: the tensor-core kernel, whose
+// 128-byte swizzled lines hold 64 columns (ops/flash_attention.py pads a
+// bf16 head dim of 16 or 32 to 64 with zero columns before the launch).
 static int dispatch(int dtype, int D, const void* q, const void* k,
                     const void* v, const void* dout, const void* lens,
                     const void* lse, const void* delta, void* dq, int BH,
@@ -284,6 +286,8 @@ static int dispatch(int dtype, int D, const void* q, const void* k,
 #define MXTT_ARGS \
   q, k, v, dout, lens, lse, delta, dq, BH, Lq, Lk, sm_scale, causal, window, \
       stream
+  if (dtype == kFloat32 && D == 16) return launch<float, 16>(MXTT_ARGS);
+  if (dtype == kFloat32 && D == 32) return launch<float, 32>(MXTT_ARGS);
   if (dtype == kFloat32 && D == 64) return launch<float, 64>(MXTT_ARGS);
   if (dtype == kFloat32 && D == 128) return launch<float, 128>(MXTT_ARGS);
   if (dtype == kBFloat16 && D == 64) return launch_wgmma<64>(MXTT_ARGS);

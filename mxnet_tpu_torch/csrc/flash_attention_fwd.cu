@@ -21,7 +21,9 @@
 // - Q, K and V tiles are staged in shared memory as fp32 (16-byte global
 //   loads); each thread computes a 4 x 4 micro-tile of S, the running
 //   max / denominator of its 4 rows and a 4 x D/16 slice of the output
-//   accumulator, all fp32.  P goes through shared memory, rounded to the
+//   accumulator, all fp32.  Head dims 16, 32, 64 and 128 in both dtypes.
+//   D = 256 would fit (209 KB of shared memory) but is not offered: its
+//   backward does not (flash_attention_bwd_dq.cu, _dkv.cu).  P goes through shared memory, rounded to the
 //   storage dtype, for the P V product.
 // - Masked entries contribute exactly 0; a row that sees no key writes
 //   O = 0 and LSE = -1e30.  Rows past Lq and keys past Lk are masked
@@ -153,15 +155,16 @@ static int dispatch(int D, const void* q, const void* k, const void* v,
                     const void* lens, void* out, void* lse, int BH, int Lq,
                     int Lk, float sm_scale, int causal, int window,
                     cudaStream_t stream) {
+#define MXTT_ARGS \
+  q, k, v, lens, out, lse, BH, Lq, Lk, sm_scale, causal, window, stream
   switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, lens, out, lse, BH, Lq, Lk, sm_scale,
-                           causal, window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, lens, out, lse, BH, Lq, Lk, sm_scale,
-                            causal, window, stream);
+    case 16: return launch<T, 16>(MXTT_ARGS);
+    case 32: return launch<T, 32>(MXTT_ARGS);
+    case 64: return launch<T, 64>(MXTT_ARGS);
+    case 128: return launch<T, 128>(MXTT_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef MXTT_ARGS
 }
 
 }  // namespace mxtt

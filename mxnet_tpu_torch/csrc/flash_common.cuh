@@ -29,7 +29,7 @@
 // tensor cores instead: flash_wgmma.cuh.
 #pragma once
 
-#include "paged_common.cuh"  // kMaskValue, dtype codes, load16, from_float
+#include "paged_common.cuh"  // kMaskValue, dtype codes, load16, round_to
 
 namespace mxtt {
 
@@ -37,16 +37,6 @@ constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
 constexpr int kSStride = kBlockK + 1;  // row stride of a score tile in smem
-
-// fp32 value rounded through the storage dtype (identity for fp32)
-template <typename T> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // Rows [row0, row0 + 64) of a contiguous (L, D) matrix into smem as fp32
 // with row stride D + 1; rows at or past L are zero.

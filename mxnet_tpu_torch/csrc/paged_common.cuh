@@ -50,6 +50,16 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// fp32 value rounded through the storage dtype (identity for fp32)
+template <typename T> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
 // Lane layout of one head_dim-D row: the row is CHUNKS 16-byte chunks,
 // spread over a group of G lanes (a power of two <= 32), CPL chunks per
 // lane; a warp holds 32 / G groups.  Lane `gl` of a group owns chunks
@@ -74,8 +84,8 @@ template <int G> __device__ __forceinline__ float group_sum(float s) {
   return s;
 }
 
-// ---- asynchronous copies, warp-level tensor-core products
-// (used by ragged_paged_verify.cu), in their own namespace because
+// ---- asynchronous copies (used by both paged kernels), warp-level
+// tensor-core products (ragged_paged_verify.cu), in their own namespace because
 // flash_common.cuh includes this file.  smem_addr, cp_async16,
 // cp_async_commit and cp_async_wait are copied from flash_wgmma.cuh
 // (namespace wg), which the paged kernels do not include.

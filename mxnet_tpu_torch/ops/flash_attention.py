@@ -24,7 +24,11 @@ raises :class:`~mxnet_tpu_torch.base.KernelError` — there is no
 fallback.  A CPU tensor takes the plain version, which is also what the
 kernels are checked against.  Inside B2 and B3 the C entry point picks
 the kernel by dtype: bf16 runs the tensor-core (``wgmma``) kernels, fp32
-the CUDA-core ones (tensor cores would round fp32 to TF32).
+the CUDA-core ones (tensor cores would round fp32 to TF32).  On the card
+the kernels take head dims 16, 32, 64 and 128 (``_HEAD_DIMS``; 256 and
+any other raise ``KernelError``); B2 and B3 zero-pad a bf16 head dim
+under 64 to 64 columns for the tensor cores and slice the gradients
+back.
 
 Contract (from the Pallas kernels): mask value -1e30; fp32 softmax
 statistics and accumulators; inputs stay in their storage dtype; P, and
@@ -55,7 +59,14 @@ __all__ = ["flash_attention", "flash_selfatt", "flash_selfatt_nomask",
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+# Head dims the CUDA kernels take.  D = 256 is refused: the fp32
+# backward's tiles need 273 KB (B2) and 290 KB (B3) of shared memory, over
+# the H100's 227 KB, and bf16 B3's two 64 x 256 fp32 accumulators need
+# 256 registers a thread, over 255.
+_HEAD_DIMS = (16, 32, 64, 128)
+# The bf16 backward kernels (wgmma) read 128-byte swizzled lines of 64
+# columns; a narrower bf16 head dim is zero-padded to this width.
+_WGMMA_D = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -123,6 +134,17 @@ def _visible(Lq, Lk, lens, causal, window, device):
         if window > 0:
             mask = mask & (c >= r - (window - 1))[None]
     return mask
+
+
+def _pad_for_wgmma(*tensors):
+    """bf16 inputs of B2/B3 with a head dim under 64, zero-padded to 64
+    columns (``None`` when no padding is needed).  Exact: a zero column
+    adds nothing to S, dP, Delta or any product, and ``sm_scale`` comes
+    from the caller's true head dim."""
+    D = tensors[0].shape[-1]
+    if tensors[0].dtype != torch.bfloat16 or D >= _WGMMA_D:
+        return None
+    return [torch.nn.functional.pad(t, (0, _WGMMA_D - D)) for t in tensors]
 
 
 def _launch(name, *args):
@@ -202,17 +224,21 @@ def flash_attention_bwd_dq(q, k, v, dout, lens, lse, delta, causal,
                           f"{q.device}")
     _check_launchable("flash_attention_bwd_dq", (q, k, v, dout), lens,
                       (lse, delta))
-    BH, Lq, D = q.shape
+    D = q.shape[-1]
+    padded = _pad_for_wgmma(q, k, v, dout)
+    if padded is not None:
+        q, k, v, dout = padded
+    BH, Lq, DK = q.shape
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _launch("flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), dout.data_ptr(), lens.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Lq,
-                k.shape[1], D, float(sm_scale), int(bool(causal)),
+                k.shape[1], DK, float(sm_scale), int(bool(causal)),
                 int(window), _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream().cuda_stream)
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq if padded is None else dq[..., :D].contiguous()
 
 
 flash_attention_bwd_dq.launches = 0
@@ -257,17 +283,23 @@ def flash_attention_bwd_dkv(q, k, v, dout, lens, lse, delta, causal,
                           f"{q.device}")
     _check_launchable("flash_attention_bwd_dkv", (q, k, v, dout), lens,
                       (lse, delta))
-    BH, Lq, D = q.shape
+    D = q.shape[-1]
+    padded = _pad_for_wgmma(q, k, v, dout)
+    if padded is not None:
+        q, k, v, dout = padded
+    BH, Lq, DK = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
         _launch("flash_attention_bwd_dkv", q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), dout.data_ptr(), lens.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), BH, Lq, k.shape[1], D, float(sm_scale),
+                dv.data_ptr(), BH, Lq, k.shape[1], DK, float(sm_scale),
                 int(bool(causal)), int(window), _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream().cuda_stream)
     flash_attention_bwd_dkv.launches += 1
+    if padded is not None:
+        dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
 
 

@@ -12,7 +12,10 @@ Each function keeps the JAX signature and tensor layouts:
 
 Dispatch is by the tensors' device.  A CUDA tensor launches the
 hand-written CUDA kernel (``csrc/ragged_paged_attention.cu``,
-``csrc/ragged_paged_verify.cu``, built for ``sm_90a`` on first use) or
+``csrc/ragged_paged_verify.cu``, built for ``sm_90a`` on first use; both
+split long contexts across blocks by a plan made from shapes alone,
+``_decode_plan`` / ``_verify_plan``, and B4 merges the partials in the
+same launch through a workspace kept per device and stream) or
 raises :class:`~mxnet_tpu_torch.base.KernelError` (an
 :class:`MXNetError`) when the kernel cannot run the call — there is no
 fallback.  A CPU tensor takes the plain PyTorch version
@@ -28,6 +31,7 @@ its kernel launches in a plain integer attribute (``.launches``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -45,20 +49,25 @@ _HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
+    # q, k, v, block_tables, context_lens, out, workspace, counters, B, H,
+    # D, P, page_size, n_split, chunk, sm_scale, dtype, stream
     "ragged_paged_attention": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-         _P]),
+        [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P]),
     "ragged_paged_verify": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
          _I, ctypes.c_float, _I, _P]),
 }
 
-# B5's launch plan (_verify_plan): the H100's SMs, the waves of blocks a
-# split aims for, the fewest tokens a split's chunk holds, and the most
-# pages (block-table entries in shared memory) it holds
-# (csrc/ragged_paged_verify.cu kMaxChunkPages).
+# The launch plans of B4 (_decode_plan) and B5 (_verify_plan): the H100's
+# SMs, the waves of blocks a split aims for, the fewest tokens a split's
+# chunk holds, and the most pages (block-table entries in shared memory)
+# it holds (csrc/ragged_paged_verify.cu kMaxChunkPages).
 _SMS = 132
 _WAVES = 4
+# B4 aims for more waves than B5: its blocks hold one query row each, and
+# on the H100 eight waves of ~96-token chunks beat four of ~176 at the
+# serving batch (PERF.md, kernel table)
+_DECODE_WAVES = 8
 _MIN_CHUNK_TOKENS = 64
 _MAX_CHUNK_PAGES = 4096
 
@@ -153,13 +162,22 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables,
                          f"{q.device}")
     bt, lens = _check_launchable("ragged_paged_attention", q, k_pages,
                                  v_pages, (block_tables, context_lens))
+    page_size = k_pages.shape[1]
+    plan = _decode_plan(B, H, D, bt.shape[1] * page_size, page_size)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ws = counters = None
+        if plan.workspace is not None:
+            ws, counters = _decode_workspace(q.device, stream,
+                                             plan.workspace)
         rc = _kernel("ragged_paged_attention")(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            bt.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, D,
-            bt.shape[1], k_pages.shape[1], float(sm_scale),
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
+            bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), B, H, D,
+            bt.shape[1], page_size, plan.n_split, plan.chunk,
+            float(sm_scale), _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise KernelError(f"ragged_paged_attention: kernel launch failed "
                          f"with CUDA error {rc}")
@@ -168,6 +186,59 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables,
 
 
 ragged_paged_attention.launches = 0
+
+
+class _DecodePlan(NamedTuple):
+    """How B4 is launched: each (b, h) context split into ``n_split``
+    chunks of ``chunk`` tokens (whole pages), and the fp32 partials'
+    shape ``(n_split, B, H, D + 2)`` (``None`` when ``n_split == 1``)."""
+    n_split: int
+    chunk: int
+    workspace: Optional[Tuple[int, ...]]
+
+
+@functools.lru_cache(maxsize=256)
+def _decode_plan(B, H, D, T, page_size):
+    """B4's launch plan from shapes alone (no tensor is read, so the
+    wrapper never waits on the card); ``T`` is the block tables' capacity
+    in tokens (pages_per_seq * page_size).  Memoized: a decode step asks
+    for the same plan once per layer.
+
+    One block per (b, h, chunk).  When the B * H rows alone give fewer
+    than two waves of blocks on the 132 SMs, each context is split into
+    chunks of whole pages so the grid reaches ``_DECODE_WAVES`` waves, no
+    chunk shorter than ``_MIN_CHUNK_TOKENS``; no chunk holds more than
+    ``_MAX_CHUNK_PAGES`` pages."""
+    rows = B * H
+    pages = max(1, -(-T // page_size))
+    want = 1 if rows >= 2 * _SMS \
+        else -(-_DECODE_WAVES * _SMS // max(rows, 1))
+    chunk_pages = max(-(-pages // want),
+                      -(-_MIN_CHUNK_TOKENS // page_size))
+    chunk_pages = min(chunk_pages, pages, _MAX_CHUNK_PAGES)
+    n_split = -(-pages // chunk_pages)
+    return _DecodePlan(n_split, chunk_pages * page_size,
+                       (n_split, B, H, D + 2) if n_split > 1 else None)
+
+
+_DECODE_WORKSPACES = {}
+
+
+def _decode_workspace(device, stream, shape):
+    """B4's fp32 partials ``shape = (n_split, B, H, D + 2)`` and its
+    ``B * H`` int32 arrival counters for one (device, stream, shape):
+    made on first use and kept, so a decode step allocates nothing and
+    the addresses stay fixed.  The counters are zeroed once, here: the
+    kernel's last block of each (b, h) sets its counter back to 0.
+    Calls on one stream run in order, so they may share one workspace."""
+    key = (device, stream, shape)
+    found = _DECODE_WORKSPACES.get(key)
+    if found is None:
+        found = (torch.empty(shape, dtype=torch.float32, device=device),
+                 torch.zeros(shape[1] * shape[2], dtype=torch.int32,
+                             device=device))
+        _DECODE_WORKSPACES[key] = found
+    return found
 
 
 def ragged_paged_attention_reference(q, k_pages, v_pages, block_tables,
@@ -194,6 +265,23 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, block_tables,
     l = e.sum(-1, keepdim=True)                              # (B, H, 1)
     out = torch.einsum("bht,bthd->bhd", e, v)
     return (out / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
+
+
+def _decode_split_reference(q, k_pages, v_pages, block_tables,
+                            context_lens, n_split, chunk, sm_scale=None):
+    """Plain mirror of B4's split arithmetic, for the tests (CPU
+    tensors): each context cut into ``n_split`` chunks of ``chunk``
+    tokens, each chunk's partial (acc, m, l) from an online softmax over
+    16-token tiles from the chunk's start with P rounded to the storage
+    dtype before P V, then the combine; exact zeros where the context is
+    empty.  That is B5's split arithmetic for a one-row window ending at
+    the context's last token, so it is :func:`_verify_split_reference`
+    at W = 1."""
+    lens = context_lens.long()
+    out = _verify_split_reference(
+        q[:, None], k_pages, v_pages, block_tables, (lens - 1).clamp(min=0),
+        (lens > 0).long(), n_split, chunk, sm_scale)
+    return out[:, 0]
 
 
 # ---------------------------------------------------------------------------

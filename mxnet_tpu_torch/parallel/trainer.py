@@ -7,7 +7,7 @@ The trainer holds its own copy of the block's parameters (cast to
 through ``torch.func.functional_call`` — the counterpart of
 ``functionalize`` — and updates the trainable ones (``requires_grad``)
 in place with the optimizers of :mod:`.optim`.  ``write_back()`` copies
-the trained values into the block.
+the trained values, buffers included, into the block.
 
 Not in this slice: ``compression``, ``rules``, ``step_timeout_ms`` and
 ``slow_step_factor`` (and the ``StepWatchdog`` behind the last two) come
@@ -174,8 +174,11 @@ class ShardedTrainer:
         return loss
 
     def write_back(self):
-        """Copy the trained parameters back into the block (in the
-        block's own dtypes)."""
+        """Copy the trained parameters, and the buffers the steps
+        updated (BatchNorm running statistics), back into the block (in
+        the block's own dtypes)."""
         with torch.no_grad():
             for n, p in self.block.named_parameters():
                 p.copy_(self.params[n])
+            for n, b in self.block.named_buffers():
+                b.copy_(self.buffers[n])

@@ -273,7 +273,7 @@ def test_kernel_guards_refuse_before_launching():
     """The CUDA path validates in Python before any pointer is passed:
     an unsupported head dim or dtype raises KernelError."""
     from mxnet_tpu_torch.base import KernelError
-    q = torch.zeros(1, 8, 32)
+    q = torch.zeros(1, 8, 24)
     lens = torch.full((1,), 8, dtype=torch.int32)
     with pytest.raises(KernelError, match="head_dim"):
         fa._check_launchable("flash_attention_fwd", (q, q, q), lens)
@@ -283,3 +283,66 @@ def test_kernel_guards_refuse_before_launching():
     with pytest.raises(KernelError, match="no kernel for device"):
         m = torch.zeros(1, 8, 64, device="meta")
         fa.flash_attention_fwd(m, m, m, lens, False, 0.125, -1)
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_narrow_head_dims_match_jax(D):
+    """The head dims the CUDA kernels gained (16, 32): forward and the
+    three gradients against the JAX package's Pallas kernel, causal with
+    key lengths."""
+    q, k, v = _qkv(BH=3, L=40, D=D, seed=30 + D)
+    lens = [40, 17, 3]
+    np.testing.assert_allclose(
+        _port(q, k, v, lens, causal=True).numpy(),
+        np.asarray(_jax(q, k, v, lens, causal=True)), atol=ATOL)
+    jg, tg = _grads(q, k, v, _rand(q.shape, 40 + D), lens=lens, causal=True)
+    for want, got in zip(jg, tg):
+        np.testing.assert_allclose(got, want, atol=GRAD_ATOL)
+
+
+def test_cuda_head_dims_are_the_stated_set():
+    """The head dims the CUDA kernels take (README and PERF.md state the
+    same set): 16, 32, 64 and 128; 8, 24 and 256 raise KernelError."""
+    from mxnet_tpu_torch.base import KernelError
+    assert fa._HEAD_DIMS == (16, 32, 64, 128)
+    lens = torch.full((1,), 8, dtype=torch.int32)
+    for D in fa._HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.zeros(1, 8, D, dtype=dt)
+            fa._check_launchable("flash_attention_bwd_dkv", (q, q, q, q),
+                                 lens, (torch.zeros(1, 8, 1),) * 2)
+    for D in (8, 24, 256):
+        q = torch.zeros(1, 8, D)
+        with pytest.raises(KernelError, match="head_dim"):
+            fa._check_launchable("flash_attention_fwd", (q, q, q), lens)
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_bf16_backward_padding_to_64_columns_is_exact(D):
+    """bf16 B2/B3 run the tensor-core kernels at 64 columns: the wrapper
+    zero-pads q, k, v and dO and slices the gradients back.  On the plain
+    versions the padded call gives the unpadded one's gradients (within
+    one bf16 rounding: fp32 sums over 64 columns may group differently)
+    and zero columns beyond D."""
+    BH, L = 2, 40
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(BH=BH, L=L, D=D, seed=50))
+    do = torch.from_numpy(_rand((BH, L, D), 51)).to(torch.bfloat16)
+    lens = torch.tensor([40, 9], dtype=torch.int32)
+    sc = 1.0 / D ** 0.5
+    out, lse = fa.flash_attention_fwd_reference(q, k, v, lens, True, sc, -1)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (lens, lse, delta, True, sc, -1)
+    padded = fa._pad_for_wgmma(q, k, v, do)
+    assert [t.shape[-1] for t in padded] == [fa._WGMMA_D] * 4
+    assert all(t.is_contiguous() for t in padded)
+    dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, *args)
+    dq_p = fa.flash_attention_bwd_dq_reference(*padded, *args)
+    dk, dv = fa.flash_attention_bwd_dkv_reference(q, k, v, do, *args)
+    dk_p, dv_p = fa.flash_attention_bwd_dkv_reference(*padded, *args)
+    for got, want in ((dq_p, dq), (dk_p, dk), (dv_p, dv)):
+        torch.testing.assert_close(got[..., :D].float(), want.float(),
+                                   rtol=2 ** -7, atol=1e-6)
+        assert torch.all(got[..., D:] == 0)
+    assert fa._pad_for_wgmma(q.float(), k.float(), v.float(),
+                             do.float()) is None

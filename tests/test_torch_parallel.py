@@ -10,6 +10,9 @@
   one-device CPU mesh), same weights and batch: losses per step and
   parameters after them agree within atol 1e-4 (three updates of
   different summation orders);
+- ``write_back`` carries BatchNorm running statistics (buffers) to the
+  block and leaves frozen parameters untouched, against the JAX trainer
+  after one SGD step (atol 1e-5);
 - a mesh with an axis above 1 is refused.
 """
 import re
@@ -168,3 +171,73 @@ def test_make_mesh_default_device_refuses_without_a_card(monkeypatch):
     with pytest.raises(MXNetError, match="no CUDA device"):
         tpar.make_mesh()
     assert tpar.make_mesh(devices=["cpu"]).device.type == "cpu"
+
+
+def test_write_back_carries_batchnorm_stats_and_frozen_params():
+    """The dp = 1 twin of the JAX package's BatchNorm trainer test: one
+    SGD step on Dense(4 -> 8) + BatchNorm + Dense(8 -> 2) with the first
+    layer's bias frozen, same weights and batch in both packages.  The
+    trainer's running statistics move and equal the JAX trainer's (its
+    running_var keeps the biased batch variance, torch's the unbiased
+    one: n / (n - 1) apart), ``write_back`` hands them to the block, and
+    the frozen bias comes back untouched."""
+    from mxnet_tpu.gluon import nn as jnn
+    rs = np.random.RandomState(21)
+    x = (rs.rand(8, 4) + 3.0).astype(np.float32)     # nonzero-mean input
+    y = rs.rand(8, 2).astype(np.float32)
+    n = x.shape[0]
+    opt = dict(optimizer="sgd", optimizer_params={"learning_rate": 0.1})
+
+    mx.random.seed(0)
+    jnet = jnn.HybridSequential()
+    jnet.add(jnn.Dense(8, in_units=4))
+    jnet.add(jnn.BatchNorm(in_channels=8))
+    jnet.add(jnn.Dense(2, in_units=8))
+    jnet.initialize()
+    tnet = torch.nn.Sequential(torch.nn.Linear(4, 8),
+                               torch.nn.BatchNorm1d(8),
+                               torch.nn.Linear(8, 2))
+    pairs = [(tnet[0].weight, jnet[0].weight), (tnet[0].bias, jnet[0].bias),
+             (tnet[1].weight, jnet[1].gamma), (tnet[1].bias, jnet[1].beta),
+             (tnet[1].running_mean, jnet[1].running_mean),
+             (tnet[1].running_var, jnet[1].running_var),
+             (tnet[2].weight, jnet[2].weight), (tnet[2].bias, jnet[2].bias)]
+    with torch.no_grad():
+        for t, p in pairs:
+            t.copy_(torch.from_numpy(p.data().asnumpy().copy()))
+    jnet[0].bias.grad_req = "null"
+    jtr = jpar.ShardedTrainer(
+        jnet, lambda o, t: ((o - t) ** 2).mean(),
+        jpar.make_mesh(dp=1, tp=1, sp=1, devices=jax.devices()[:1]),
+        example_inputs=(nd.array(x),), n_labels=1, **opt)
+    jtr.step(nd.array(x), nd.array(y))
+
+    def jget(param):
+        return np.asarray(jax.device_get(jtr.params[param.name]))
+
+    tnet[0].bias.requires_grad_(False)
+    bias0 = tnet[0].bias.detach().clone()
+    ttr = tpar.ShardedTrainer(tnet, lambda o, t: ((o - t) ** 2).mean(),
+                              tpar.make_mesh(dp=1, device="cpu"),
+                              example_inputs=(x,), n_labels=1, **opt)
+    ttr.step(x, y)
+
+    mean = ttr.buffers["1.running_mean"].numpy()
+    var = ttr.buffers["1.running_var"].numpy()
+    assert np.abs(mean).max() > 1e-2, "running_mean did not move"
+    np.testing.assert_allclose(mean, jget(jnet[1].running_mean), atol=1e-5)
+    # running = 0.9 * 1 + 0.1 * batch variance in both packages
+    np.testing.assert_allclose(var - 0.9,
+                               (jget(jnet[1].running_var) - 0.9) * n
+                               / (n - 1),
+                               atol=1e-5)
+    assert not torch.equal(tnet[1].running_mean,
+                           ttr.buffers["1.running_mean"])
+    ttr.write_back()
+    for name, b in tnet.named_buffers():
+        assert torch.equal(b, ttr.buffers[name]), name
+    assert int(tnet[1].num_batches_tracked) == 1
+    assert torch.equal(tnet[0].bias.detach(), bias0)
+    np.testing.assert_array_equal(jget(jnet[0].bias), bias0.numpy())
+    np.testing.assert_allclose(tnet[2].weight.detach().numpy(),
+                               jget(jnet[2].weight), atol=1e-5)
