@@ -10,7 +10,9 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
 1. ``device``  — card name, device count, power limit;
 2. ``build``   — compile the five CUDA kernels (``nvcc``, ``sm_90a``,
    one process per source, all started together), with each compiled
-   kernel's registers and spills from ptxas;
+   kernel's registers and spills from ptxas; the bf16 forward's
+   tensor-core kernel must neither spill nor have its ``wgmma``
+   serialised;
 3. ``kernels`` — B4/B5 (paged decode / verify attention) against their
    plain PyTorch versions at the serving shapes, fp32 and bf16 (B4 also
    at the profile phase's decode contexts and against its split mirror,
@@ -27,7 +29,8 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
    batch, lengths 0/1/37/512, causal, causal + window 128, Lq != Lk,
    head dims 16, 32 and 128 beside 64, L = 2048), fp32 and bf16, with
    times, bounds and the ``scaled_dot_product_attention`` yardstick
-   (forward; backward); head dims 24 and 256 must be refused;
+   (forward; backward); two bf16 B1 calls on the training batch must be
+   bitwise equal; head dims 24 and 256 must be refused;
 5. ``parity``  — ``paged_prefill`` + 32 ``paged_decode_step``s, a
    width-37 ``paged_verify`` and the same window through
    ``paged_verify_batch`` against the dense full forward, and the launch
@@ -45,8 +48,8 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
 9. ``profile`` / ``profile_train`` — one decode step and one bf16
    training step traced with ``torch.profiler`` (device time by kernel
    family, the device idle share against the untraced step time); the
-   bf16 step's dQ and dK/dV families must come from the tensor-core
-   (``wgmma``) kernels alone.
+   bf16 step's forward, dQ and dK/dV families must come from the
+   tensor-core (``wgmma``) kernels alone.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; B4 and B5 also list every ``kernels`` row with
@@ -603,6 +606,14 @@ def phase_flash_kernels(torch, dev, timer):
             mask4 = vis[None]
             lib_out = F.scaled_dot_product_attention(q4, k4, v4,
                                                      attn_mask=mask4)
+            if label == "train_batch" and dtype == "bfloat16":
+                # no atomics and a fixed order of key tiles: a second
+                # call repeats the first bit for bit
+                out2, lse2 = fa.flash_attention_fwd(q, k, v, *args)
+                torch.cuda.synchronize()
+                check(torch.equal(out, out2) and torch.equal(lse, lse2),
+                      f"flash_attention_fwd {label} {dtype}: two calls "
+                      f"differ")
             row = dict(
                 shape=label, dtype=dtype, BH=BH, Lq=Lq, Lk=Lk, D=D,
                 causal=causal, window=window, visible_pairs=pairs,
@@ -1025,9 +1036,9 @@ def phase_profile_train(torch, trainer, batch, step_ms):
     time by family (B1, B2, B3, GEMMs, other) from ``torch.profiler``,
     and the device idle share against the untraced step time."""
     from torch.profiler import ProfilerActivity, profile
-    # B2's and B3's tags match both kernels of each (fp32 CUDA cores:
+    # each tag matches both kernels of its family (fp32 CUDA cores:
     # flash_bwd_dq_kernel; bf16 tensor cores: flash_bwd_dq_wgmma_kernel)
-    families = (("flash_fwd", "flash_fwd_kernel"),
+    families = (("flash_fwd", "flash_fwd_"),
                 ("flash_bwd_dq", "flash_bwd_dq_"),
                 ("flash_bwd_dkv", "flash_bwd_dkv_"))
     trainer.step(*batch)
@@ -1054,8 +1065,8 @@ def phase_profile_train(torch, trainer, batch, step_ms):
             names[fam].append(evt.key[:90])
         split[fam] += us
     busy_ms = sum(split.values()) / 1e3
-    # the bf16 step's backward ran the tensor-core kernels, and only them
-    for fam in ("flash_bwd_dq", "flash_bwd_dkv"):
+    # the bf16 step ran the tensor-core kernels, and only them
+    for fam, _ in families:
         check(split[fam] > 0 and names[fam] and all(
             "wgmma" in n for n in names[fam]),
             f"profile_train: bf16 {fam} ran {names[fam]} "
@@ -1094,6 +1105,15 @@ def main():
          sources={n: dict(seconds=b["seconds"],
                           ptxas=ptxas_summary(b["ptxas"]))
                   for n, b in built.items()})
+    if "flash_attention_fwd" in built:
+        log = built["flash_attention_fwd"]["ptxas"]
+        wgmma = [ln for ln in ptxas_summary(log)
+                 if "flash_fwd_wgmma_kernel" in ln]
+        check(wgmma and all("0 bytes spill stores, 0 bytes spill loads"
+                            in ln for ln in wgmma)
+              and "serialized" not in log,
+              f"build: the bf16 forward kernel spills or serialises its "
+              f"wgmma: {ptxas_summary(log)}")
 
     timer = Timer(torch, dev)
     report = phase_kernels(torch, dev, timer)

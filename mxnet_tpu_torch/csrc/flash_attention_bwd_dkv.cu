@@ -305,8 +305,8 @@ static int launch(const void* q, const void* k, const void* v,
                                2 * kBlockQ * kSStride + 2 * kBlockQ) *
                       sizeof(float);
   const dim3 grid(BH, (Lk + kBlockK - 1) / kBlockK);
-  return launch_with_smem(
-      flash_bwd_dkv_kernel<T, D>, grid, smem, stream,
+  return launch_with_smem<flash_bwd_dkv_kernel<T, D>>(
+      grid, smem, stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const int*>(lens), static_cast<const float*>(lse),
@@ -325,8 +325,8 @@ static int launch_wgmma(const void* q, const void* k, const void* v,
   const size_t smem = 6 * wg::tile_bytes<D>() + 4 * kBlockQ * sizeof(float) +
                       1024;
   const dim3 grid(BH, (Lk + kBlockK - 1) / kBlockK);
-  return launch_with_smem<wg::kThreads>(
-      flash_bwd_dkv_wgmma_kernel<D>, grid, smem, stream,
+  return launch_with_smem<flash_bwd_dkv_wgmma_kernel<D>, wg::kThreads>(
+      grid, smem, stream,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const int*>(lens), static_cast<const float*>(lse),

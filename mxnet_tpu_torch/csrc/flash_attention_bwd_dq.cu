@@ -249,8 +249,8 @@ static int launch(const void* q, const void* k, const void* v,
   const size_t smem =
       (size_t)(4 * kBlockQ * (D + 1) + kBlockQ * kSStride) * sizeof(float);
   const dim3 grid(BH, (Lq + kBlockQ - 1) / kBlockQ);
-  return launch_with_smem(
-      flash_bwd_dq_kernel<T, D>, grid, smem, stream, static_cast<const T*>(q),
+  return launch_with_smem<flash_bwd_dq_kernel<T, D>>(
+      grid, smem, stream, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const int*>(lens),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -266,8 +266,8 @@ static int launch_wgmma(const void* q, const void* k, const void* v,
   using bf16 = __nv_bfloat16;
   const size_t smem = 6 * wg::tile_bytes<D>() + 1024;  // + alignment slack
   const dim3 grid(BH, (Lq + kBlockQ - 1) / kBlockQ);
-  return launch_with_smem<wg::kThreads>(
-      flash_bwd_dq_wgmma_kernel<D>, grid, smem, stream,
+  return launch_with_smem<flash_bwd_dq_wgmma_kernel<D>, wg::kThreads>(
+      grid, smem, stream,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const int*>(lens), static_cast<const float*>(lse),

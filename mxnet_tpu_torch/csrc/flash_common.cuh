@@ -17,17 +17,19 @@
 // ranges (key_range, query_range) and the mask (visible) are shared by
 // all of them.
 //
-// The CUDA-core kernels (B1 in both dtypes, B2 and B3 in fp32) run 256
-// threads.  Thread (ty, tx), ty = tid / 16, tx = tid % 16, owns rows
-// ty + 16 i and columns tx + 16 j (i, j < 4) of a score tile, so the 16
-// threads that share a row are one half-warp and row reductions are four
-// xor shuffles.  Their tiles sit in shared memory as fp32 with a row
-// stride of D + 1 floats, so that 16 threads reading 16 different rows at
-// one column hit 16 different banks; their products are 4 x 4 fp32 FMA
-// micro-tiles, bound by the fp32 FMA rate and shared-memory reads.  The
-// bf16 backward (B2, B3) keeps bf16 tiles and runs its products on the
-// tensor cores instead: flash_wgmma.cuh.
+// The CUDA-core kernels (B1, B2 and B3 in fp32) run 256 threads.  Thread
+// (ty, tx), ty = tid / 16, tx = tid % 16, owns rows ty + 16 i and columns
+// tx + 16 j (i, j < 4) of a score tile, so the 16 threads that share a row
+// are one half-warp and row reductions are four xor shuffles.  Their
+// tiles sit in shared memory as fp32 with a row stride of D + 1 floats, so
+// that 16 threads reading 16 different rows at one column hit 16
+// different banks; their products are 4 x 4 fp32 FMA micro-tiles, bound
+// by the fp32 FMA rate and shared-memory reads.  The bf16 kernels (B1, B2,
+// B3) keep bf16 tiles and run their products on the tensor cores instead:
+// flash_wgmma.cuh.
 #pragma once
+
+#include <atomic>
 
 #include "paged_common.cuh"  // kMaskValue, dtype codes, load16, round_to
 
@@ -134,15 +136,28 @@ __device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* A,
   }
 }
 
-// Set the dynamic shared memory a kernel may use, then launch it with
-// Threads threads a block; returns the launch's cudaError_t.
-template <int Threads = kThreads, typename Kernel, typename... Args>
-static int launch_with_smem(Kernel kernel, dim3 grid, size_t smem,
-                            cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, Threads, smem, stream>>>(args...);
+// Launch Kernel with Threads threads a block and smem bytes of dynamic
+// shared memory; returns the launch's cudaError_t.  Above 48 KB a kernel
+// may launch only after its attribute is raised: that is done once per
+// kernel instantiation (each launches with one size, fixed by its
+// template arguments) and device, not on every launch.
+template <auto Kernel, int Threads = kThreads, typename... Args>
+static int launch_with_smem(dim3 grid, size_t smem, cudaStream_t stream,
+                            Args... args) {
+  if (smem > 48 * 1024) {
+    static std::atomic<unsigned> set_on{0};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned bit = 1u << (dev & 31);
+    if (!(set_on.load() & bit)) {
+      err = cudaFuncSetAttribute(
+          Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      set_on.fetch_or(bit);
+    }
+  }
+  Kernel<<<grid, Threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 

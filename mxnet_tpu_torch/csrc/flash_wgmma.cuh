@@ -1,5 +1,6 @@
-// Hopper tensor-core building blocks of the bf16 flash-attention backward
-// kernels (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu).
+// Hopper tensor-core building blocks of the bf16 flash-attention kernels
+// (flash_attention_fwd.cu, flash_attention_bwd_dq.cu,
+// flash_attention_bwd_dkv.cu).
 //
 // - Tiles: 64 rows x D bf16 in shared memory in the 128-byte swizzle that
 //   wgmma's descriptors name.  A tile is D / 64 column blocks of 8 KB; in

@@ -22,13 +22,13 @@ The PyTorch port of the flash half of ``mxnet_tpu/ops/pallas_kernels.py``:
 Dispatch is by the tensors' device.  A CUDA tensor launches the kernel or
 raises :class:`~mxnet_tpu_torch.base.KernelError` — there is no
 fallback.  A CPU tensor takes the plain version, which is also what the
-kernels are checked against.  Inside B2 and B3 the C entry point picks
-the kernel by dtype: bf16 runs the tensor-core (``wgmma``) kernels, fp32
-the CUDA-core ones (tensor cores would round fp32 to TF32).  On the card
-the kernels take head dims 16, 32, 64 and 128 (``_HEAD_DIMS``; 256 and
-any other raise ``KernelError``); B2 and B3 zero-pad a bf16 head dim
-under 64 to 64 columns for the tensor cores and slice the gradients
-back.
+kernels are checked against.  Inside B1, B2 and B3 the C entry point
+picks the kernel by dtype: bf16 runs the tensor-core (``wgmma``)
+kernels, fp32 the CUDA-core ones (tensor cores would round fp32 to
+TF32).  On the card the kernels take head dims 16, 32, 64 and 128
+(``_HEAD_DIMS``; 256 and any other raise ``KernelError``); in bf16 the
+wrappers zero-pad a head dim under 64 to 64 columns for the tensor cores
+and slice O and the gradients back.
 
 Contract (from the Pallas kernels): mask value -1e30; fp32 softmax
 statistics and accumulators; inputs stay in their storage dtype; P, and
@@ -64,8 +64,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the H100's 227 KB, and bf16 B3's two 64 x 256 fp32 accumulators need
 # 256 registers a thread, over 255.
 _HEAD_DIMS = (16, 32, 64, 128)
-# The bf16 backward kernels (wgmma) read 128-byte swizzled lines of 64
-# columns; a narrower bf16 head dim is zero-padded to this width.
+# The bf16 kernels (wgmma) read 128-byte swizzled lines of 64 columns; a
+# narrower bf16 head dim is zero-padded to this width.
 _WGMMA_D = 64
 
 _P = ctypes.c_void_p
@@ -137,10 +137,11 @@ def _visible(Lq, Lk, lens, causal, window, device):
 
 
 def _pad_for_wgmma(*tensors):
-    """bf16 inputs of B2/B3 with a head dim under 64, zero-padded to 64
+    """bf16 inputs of B1-B3 with a head dim under 64, zero-padded to 64
     columns (``None`` when no padding is needed).  Exact: a zero column
-    adds nothing to S, dP, Delta or any product, and ``sm_scale`` comes
-    from the caller's true head dim."""
+    adds nothing to S, dP, Delta or any product, a zero column of V gives
+    a zero column of O, and ``sm_scale`` comes from the caller's true
+    head dim."""
     D = tensors[0].shape[-1]
     if tensors[0].dtype != torch.bfloat16 or D >= _WGMMA_D:
         return None
@@ -170,17 +171,21 @@ def flash_attention_fwd(q, k, v, lens, causal, sm_scale, window):
         raise KernelError(f"flash_attention_fwd: no kernel for device "
                           f"{q.device}")
     _check_launchable("flash_attention_fwd", (q, k, v), lens)
-    BH, Lq, D = q.shape
+    D = q.shape[-1]
+    padded = _pad_for_wgmma(q, k, v)
+    if padded is not None:
+        q, k, v = padded
+    BH, Lq, DK = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, Lq, 1), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), BH, Lq, k.shape[1], D, float(sm_scale),
+                lse.data_ptr(), BH, Lq, k.shape[1], DK, float(sm_scale),
                 int(bool(causal)), int(window), _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream().cuda_stream)
     flash_attention_fwd.launches += 1
-    return out, lse
+    return (out if padded is None else out[..., :D].contiguous()), lse
 
 
 flash_attention_fwd.launches = 0

@@ -318,6 +318,32 @@ def test_cuda_head_dims_are_the_stated_set():
 
 
 @pytest.mark.parametrize("D", [16, 32])
+def test_bf16_forward_padding_to_64_columns_is_exact(D):
+    """bf16 B1 runs the tensor-core kernel at 64 columns: the wrapper
+    zero-pads q, k and v and slices O back.  On the plain version the
+    padded call gives the unpadded one's O (within one bf16 rounding:
+    fp32 sums over 64 columns may group differently) and LSE, with
+    ``sm_scale`` from the true head dim, and zero columns beyond D."""
+    BH, L = 3, 40
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(BH=BH, L=L, D=D, seed=60 + D))
+    lens = torch.tensor([40, 9, 0], dtype=torch.int32)
+    sc = 1.0 / D ** 0.5
+    out, lse = fa.flash_attention_fwd_reference(q, k, v, lens, True, sc, -1)
+    padded = fa._pad_for_wgmma(q, k, v)
+    assert [t.shape[-1] for t in padded] == [fa._WGMMA_D] * 3
+    assert all(t.is_contiguous() for t in padded)
+    out_p, lse_p = fa.flash_attention_fwd_reference(*padded, lens, True, sc,
+                                                    -1)
+    torch.testing.assert_close(out_p[..., :D].float(), out.float(),
+                               rtol=2 ** -7, atol=1e-6)
+    assert torch.all(out_p[..., D:] == 0)
+    torch.testing.assert_close(lse_p, lse, rtol=0, atol=1e-6)
+    assert torch.all(out_p[2] == 0) and torch.all(lse_p[2] == -1e30)
+    assert fa._pad_for_wgmma(q.float(), k.float(), v.float()) is None
+
+
+@pytest.mark.parametrize("D", [16, 32])
 def test_bf16_backward_padding_to_64_columns_is_exact(D):
     """bf16 B2/B3 run the tensor-core kernels at 64 columns: the wrapper
     zero-pads q, k, v and dO and slices the gradients back.  On the plain
