@@ -12,7 +12,10 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
    one process per source, all started together), with each compiled
    kernel's registers and spills from ptxas; the bf16 forward's
    tensor-core kernel must neither spill nor have its ``wgmma``
-   serialised;
+   serialised; the fp32 B2/B3 kernels must not spill at head dim 64,
+   and every instantiation's SASS must hold TF32 tensor-core products
+   (``HMMA.1688.F32.TF32``: fp32 B2/B3 run each product as 3xTF32 on
+   ``mma.sync``, ``build_sass`` lines);
 3. ``kernels`` — B4/B5 (paged decode / verify attention) against their
    plain PyTorch versions at the serving shapes, fp32 and bf16 (B4 also
    at the profile phase's decode contexts and against its split mirror,
@@ -29,8 +32,11 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
    batch, lengths 0/1/37/512, causal, causal + window 128, Lq != Lk,
    head dims 16, 32 and 128 beside 64, L = 2048), fp32 and bf16, with
    times, bounds and the ``scaled_dot_product_attention`` yardstick
-   (forward; backward); two bf16 B1 calls on the training batch must be
-   bitwise equal; head dims 24 and 256 must be refused;
+   (forward; backward); fp32 gradients are also held to 1e-5 of their
+   max (3xTF32 is fp32-accurate); two bf16 B1 calls, and two fp32 B2/B3
+   calls, on the training batch must be bitwise equal; head dims 24 and
+   256 must be refused.  Bounds take 165 TFLOP/s for fp32 (3xTF32, a
+   third of the TF32 rate) and 989 for bf16;
 5. ``parity``  — ``paged_prefill`` + 32 ``paged_decode_step``s, a
    width-37 ``paged_verify`` and the same window through
    ``paged_verify_batch`` against the dense full forward, and the launch
@@ -61,6 +67,8 @@ runs on the CPU.
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 """
 import json
+import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -80,7 +88,10 @@ GPT2_SMALL = dict(vocab_size=50257, units=768, hidden_size=3072,
 BERT_LARGE = dict(vocab_size=30522, units=1024, hidden_size=4096,
                   num_layers=24, num_heads=16, max_length=512)
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
+# H100 SXM, dense.  fp32: the least time at fp32 accuracy is 3xTF32 on the
+# tensor cores (three TF32 products per fp32 product, 494.7 / 3 = 165
+# TFLOP/s), not fp32 FMA on the CUDA cores (67 TFLOP/s); bf16 989 TFLOP/s.
+PEAK_FLOPS = {"float32": 494.7e12 / 3, "bfloat16": 989e12}
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=0.0)}
 # B4 against its split mirror (_decode_split_reference), which cuts the
@@ -100,6 +111,13 @@ MIRROR_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
 # gradients to 5e-2 of max|grad|; LSE stays fp32 arithmetic (1e-4).
 FLASH_TOL = {"float32": dict(out=1e-4, out_rtol=1e-4, grad=1e-3),
              "bfloat16": dict(out=2e-2, out_rtol=0.0, grad=5e-2)}
+# fp32 B2/B3 run 3xTF32 products, fp32-accurate: besides FLASH_TOL each
+# gradient is held to 1e-5 of its max|grad| (CPU emulation: ~1e-6).
+TF32X3_GRAD_TOL = 1e-5
+# the fp32 B2/B3 kernels and the SASS instruction of their products
+TF32_KERNELS = {"flash_attention_bwd_dq": "flash_bwd_dq_tf32_kernel",
+                "flash_attention_bwd_dkv": "flash_bwd_dkv_tf32_kernel"}
+TF32_HMMA = "HMMA.1688.F32.TF32"
 PAGE_SIZE, POOL_PAGES, MAX_BATCH = 16, 513, 8
 # the decode batch's positions in the profile phase (B4's "decode_step"
 # row in the kernels phase runs the same contexts)
@@ -124,6 +142,46 @@ def nvidia_smi():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_instructions(lib, prefix):
+    """{kernel: {mnemonic: count}} of the SASS instructions starting with
+    ``prefix`` in each kernel of the shared library ``lib``
+    (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise RuntimeError("chip_smoke: cuobjdump not found")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    found, fn = {}, None
+    for ln in out.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ", 1)[1].strip()
+            found.setdefault(fn, {})
+        elif fn is not None:
+            for tok in ln.replace(";", " ").split():
+                if tok.startswith(prefix):
+                    found[fn][tok] = found[fn].get(tok, 0) + 1
+    return found
+
+
+def check_tf32_build(build, built):
+    """fp32 B2/B3: no spills at D = 64 (ptxas), and every instantiation's
+    products are TF32 tensor-core instructions (SASS)."""
+    for src, kernel in TF32_KERNELS.items():
+        if src in built:
+            lines = [ln for ln in ptxas_summary(built[src]["ptxas"])
+                     if f"{kernel}ILi64E" in ln]
+            check(lines and all("0 bytes spill stores, 0 bytes spill loads"
+                                in ln for ln in lines),
+                  f"build: fp32 {kernel}<64> spills: {lines}")
+        sass = {fn: ops for fn, ops in sass_instructions(
+            build.library_path(src), "HMMA").items() if kernel in fn}
+        check(len(sass) == 4 and all(ops.get(TF32_HMMA) for ops in
+                                     sass.values()),
+              f"build: fp32 {kernel} lacks {TF32_HMMA}: {sass}")
+        emit("build_sass", source=src, hmma={fn[:60]: ops
+                                             for fn, ops in sass.items()})
 
 
 def ptxas_summary(log):
@@ -572,10 +630,11 @@ def phase_flash_kernels(torch, dev, timer):
                 lse=float((lse - r_lse).abs().max()),
                 dq=_rel_err(dq, r_dq), dk=_rel_err(dk, r_dk),
                 dv=_rel_err(dv, r_dv))
+            grad_tol = TF32X3_GRAD_TOL if dtype == "float32" else tol["grad"]
             ok = (torch.allclose(out.float(), r_out.float(), atol=tol["out"],
                                  rtol=tol["out_rtol"])
                   and torch.allclose(lse, r_lse, atol=1e-4, rtol=1e-4)
-                  and max(err["dq"], err["dk"], err["dv"]) <= tol["grad"])
+                  and max(err["dq"], err["dk"], err["dv"]) <= grad_tol)
             # rows that see no key: exact zeros and LSE -1e30
             zero_ok = bool(torch.all(out[empty_rows] == 0)) and bool(
                 torch.all(lse[..., 0][empty_rows] == -1e30)) and bool(
@@ -613,6 +672,15 @@ def phase_flash_kernels(torch, dev, timer):
                 torch.cuda.synchronize()
                 check(torch.equal(out, out2) and torch.equal(lse, lse2),
                       f"flash_attention_fwd {label} {dtype}: two calls "
+                      f"differ")
+            if label == "train_batch" and dtype == "float32":
+                # each block owns its output tile: fp32 B2/B3 repeat too
+                dq2 = fa.flash_attention_bwd_dq(q, k, v, do, *bargs)
+                dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, *bargs)
+                torch.cuda.synchronize()
+                check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                      and torch.equal(dv, dv2),
+                      f"flash_attention_bwd {label} {dtype}: two calls "
                       f"differ")
             row = dict(
                 shape=label, dtype=dtype, BH=BH, Lq=Lq, Lk=Lk, D=D,
@@ -1114,6 +1182,7 @@ def main():
               and "serialized" not in log,
               f"build: the bf16 forward kernel spills or serialises its "
               f"wgmma: {ptxas_summary(log)}")
+    check_tf32_build(build, built)
 
     timer = Timer(torch, dev)
     report = phase_kernels(torch, dev, timer)

@@ -30,120 +30,191 @@
 //   turn, so an SM overlaps copies, products and exponentials only across
 //   its resident blocks; at D = 128 the two 64 x 128 accumulators take
 //   128 registers a thread.
-// - fp32, flash_bwd_dkv_kernel: tensor cores take fp32 only as TF32, so
-//   fp32 stays on the CUDA cores: 256 threads, tiles in shared memory as
-//   fp32 with a row stride of D + 1, 4 x 4 micro-tiles of S and dP, P and
-//   dS through shared memory, a 4-key x D/16 slice of dK and of dV per
-//   thread.  Bound by the fp32 FMA rate and shared-memory reads.
-#include "flash_wgmma.cuh"
+// - fp32, flash_bwd_dkv_tf32_kernel: the four products on the tensor
+//   cores as error-compensated 3xTF32 (flash_tf32.cuh), fp32-accurate at
+//   a third of the TF32 rate.  Grid (BH, ceil(Lk / 64)), four warps of
+//   mma.sync m16n8k8, each owning 16 keys of the tile.  K and V stay in
+//   shared memory as fp32 tiles (row stride D + 4); Q, dO, LSE and Delta
+//   of each query tile stream through a two-stage cp.async ring.  As in
+//   the bf16 kernel a warp computes the transposed S^T = K Q^T and
+//   dP^T = V dO^T (rows keys, columns queries), builds P^T and dS^T in
+//   the accumulator registers and feeds them, split into TF32 halves, as
+//   the A operands of dV += P^T dO and dK += dS^T Q, reading dO and Q
+//   transposed.  At D >= 64 it does so for 32 query columns at a time,
+//   so that S^T, dP^T and the two 16 x D accumulators fit in registers.
+//   What bounds it now: as fp32 B2, instruction issue (a load and five
+//   instructions to split each operand element) and latency at two
+//   blocks an SM (PERF.md).
+#include "flash_tf32.cuh"
 
 namespace mxtt {
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const int* __restrict__ lens,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Lq, int Lk, float sm_scale,
-                     int causal, int window) {
-  constexpr int DP = D + 1, NJ = D / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;                  // 64 x DP
-  float* sV = sK + kBlockK * DP;     // 64 x DP
-  float* sQ = sV + kBlockK * DP;     // 64 x DP
-  float* sDO = sQ + kBlockQ * DP;    // 64 x DP
-  float* sP = sDO + kBlockQ * DP;    // 64 x kSStride (query row, key)
-  float* sDS = sP + kBlockQ * kSStride;
-  float* sLse = sDS + kBlockQ * kSStride;  // 64
-  float* sDelta = sLse + kBlockQ;          // 64
+template <int D>
+__global__ void __launch_bounds__(tf32::kThreads)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const int* __restrict__ lens,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int Lq, int Lk, float sm_scale, int causal,
+                          int window) {
+  constexpr int SD = tf32::stride<D>(), TILE = tf32::tile_floats<D>();
+  constexpr int NT = D / 8;                // 8-column blocks of the head dim
+  constexpr int NQ = D < 64 ? 64 : 32;     // query columns a pass
+  constexpr int NJ = NQ / 8;
+  constexpr int NC = NT < 4 ? NT : 4;      // blocks of dK, dV summed a pass
+  extern __shared__ float4 smem_f4[];
+  float* const sK = reinterpret_cast<float*>(smem_f4);
+  float* const sV = sK + TILE;
+  float* const sQ = sV + TILE;             // two stages
+  float* const sDO = sQ + 2 * TILE;        // two stages
+  float* const sStat = sDO + 2 * TILE;     // two stages of LSE, Delta
+  const uint32_t aStat = wg::smem_addr(sStat);
 
   const int bh = blockIdx.x, k0 = blockIdx.y * kBlockK;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4, r0 = 16 * (tid / 32);
   const int kv_len = max(0, min(lens[bh], Lk));
   const size_t qoff = (size_t)bh * Lq, koff = (size_t)bh * Lk;
+  const float* qb = q + qoff * D;
+  const float* ob = dout + qoff * D;
 
-  float dk_acc[4][NJ], dv_acc[4][NJ];
+  // this lane's accumulator rows are keys k0 + r0 + g and k0 + r0 + g + 8
+  float dk_acc[NT][4], dv_acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
+  // Q, dO, LSE and Delta of the query tile at q0 into stage st; each
+  // thread copies one row statistic (4 bytes: rows are not 16-byte
+  // aligned when Lq is odd)
+  auto load_query_tile = [&](int q0, int st) {
+    tf32::load_tile_async<D>(wg::smem_addr(sQ + st * TILE), qb, q0, Lq,
+                             tid);
+    tf32::load_tile_async<D>(wg::smem_addr(sDO + st * TILE), ob, q0, Lq,
+                             tid);
+    const int r = q0 + tid % kBlockQ;
+    const float* src = (tid < kBlockQ ? lse : delta) + qoff;
+    wg::cp_async4(aStat + st * tf32::kStatsBytes + tid * 4,
+                  src + (r < Lq ? r : 0), r < Lq ? 4 : 0);
+  };
+
+  int q_begin = 0, n_tiles = 0;
   if (k0 < kv_len) {
-    load_tile<T, D>(sK, k + koff * D, k0, Lk, tid);
-    load_tile<T, D>(sV, v + koff * D, k0, Lk, tid);
-    int q_begin, q_end;
+    int q_end;
     query_range(k0, Lq, causal, window, &q_begin, &q_end);
-    for (int q0 = q_begin; q0 < q_end; q0 += kBlockQ) {
-      __syncthreads();
-      load_tile<T, D>(sQ, q + qoff * D, q0, Lq, tid);
-      load_tile<T, D>(sDO, dout + qoff * D, q0, Lq, tid);
-      if (tid < kBlockQ) {
-        const int r = q0 + tid;
-        sLse[tid] = r < Lq ? lse[qoff + r] : 0.f;
-        sDelta[tid] = r < Lq ? delta[qoff + r] : 0.f;
-      }
-      __syncthreads();
+    n_tiles = q_end > q_begin ? (q_end - q_begin + kBlockQ - 1) / kBlockQ
+                              : 0;
+  }
+  if (n_tiles > 0) {
+    tf32::load_tile_async<D>(wg::smem_addr(sK), k + koff * D, k0, Lk, tid);
+    tf32::load_tile_async<D>(wg::smem_addr(sV), v + koff * D, k0, Lk, tid);
+    load_query_tile(q_begin, 0);
+  }
+  wg::cp_async_commit();
 
-      // rows ty + 16 i of the query tile, keys tx + 16 j of this key tile
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-      tile_abt<D>(s, sQ, sK, ty, tx);
-      tile_abt<D>(dp, sDO, sV, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int rl = ty + 16 * i, r = q0 + rl;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int cl = tx + 16 * j;
-          const float p = visible(r, k0 + cl, Lq, kv_len, causal, window)
-                              ? expf(s[i][j] * sm_scale - sLse[rl])
-                              : 0.f;
-          const float ds = p * (dp[i][j] - sDelta[rl]) * sm_scale;
-          sP[rl * kSStride + cl] = round_to<T>(p);
-          sDS[rl * kSStride + cl] = round_to<T>(ds);
-        }
-      }
-      __syncthreads();
+  const float scale_log2 = sm_scale * 1.4426950408889634f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * kBlockQ, st = it & 1;
+    const float* tQ = sQ + st * TILE;
+    const float* tDO = sDO + st * TILE;
+    const float* lse_t = sStat + st * 2 * kBlockQ;
+    const float* delta_t = lse_t + kBlockQ;
+    if (it + 1 < n_tiles) load_query_tile(q0 + kBlockQ, st ^ 1);
+    wg::cp_async_commit();
+    wg::cp_async_wait<1>();  // everything but the tile just requested
+    __syncthreads();
+    const bool whole = tf32::tile_whole(q0, k0, Lq, kv_len, causal, window);
 
-      // keys ty + 16 i, head-dim columns tx + 16 j
-      const int rows = min(kBlockQ, Lq - q0);
-#pragma unroll 2
-      for (int r = 0; r < rows; ++r) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          p[i] = sP[r * kSStride + ty + 16 * i];
-          ds[i] = sDS[r * kSStride + ty + 16 * i];
-        }
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBlockQ; c0 += NQ) {
+      // S^T = K Q^T over query columns c0 .. c0 + NQ - 1, then P^T in
+      // place: register [j][2 i + c] is key k0 + r0 + g + 8 i, query row
+      // q0 + c0 + 8 j + 2 t + c; P is exactly 0 where the mask is false
+      float s[NJ][4];
+      tf32::tile_abt<D, NJ>(s, sK, r0, tQ, c0, g, t);
+      auto make_p = [&](auto masked) {
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const float o = sDO[r * DP + tx + 16 * j];
-          const float qq = sQ[r * DP + tx + 16 * j];
+          const int col = c0 + 8 * j + 2 * t;
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv_acc[i][j] += p[i] * o;
-            dk_acc[i][j] += ds[i] * qq;
+          for (int c = 0; c < 2; ++c) {
+            const float lse_log2 = (c ? l2.y : l2.x) * 1.4426950408889634f;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float& x = s[j][2 * i + c];
+              x = exp2f(fmaf(x, scale_log2, -lse_log2));
+              if (decltype(masked)::value &&
+                  !visible(q0 + col + c, k0 + r0 + g + 8 * i, Lq, kv_len,
+                           causal, window))
+                x = 0.f;
+            }
           }
         }
+      };
+      if (whole)
+        make_p(std::false_type{});
+      else
+        make_p(std::true_type{});
+
+      // dP^T = V dO^T, then dS^T = P^T (dP^T - Delta) scale in its place
+      float dp[NJ][4];
+      tf32::tile_abt<D, NJ>(dp, sV, r0, tDO, c0, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(delta_t + c0 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = s[j][e] * (dp[j][e] - (e % 2 ? d2.y : d2.x)) * sm_scale;
+      }
+
+      // dV += P^T dO and dK += dS^T Q: k-step j takes query rows
+      // c0 + 8 j .. c0 + 8 j + 7 of the tile; the pass's products go to
+      // fresh accumulators (NC column blocks at a time), added to dV and
+      // dK once per pass (flash_tf32.cuh, accumulation)
+#pragma unroll
+      for (int n0 = 0; n0 < NT; n0 += NC) {
+        float part_v[NC][4] = {}, part_k[NC][4] = {};
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          tf32::FragA ap, ads;
+          tf32::acc_as_a(ap, s[j]);
+          tf32::acc_as_a(ads, dp[j]);
+          const int o = (c0 + 8 * j + 2 * t) * SD + 8 * n0 + g;
+#pragma unroll
+          for (int n = 0; n < NC; ++n) {
+            tf32::mma_3xtf32(part_v[n], ap, tDO[o + 8 * n],
+                             tDO[o + SD + 8 * n]);
+            tf32::mma_3xtf32(part_k[n], ads, tQ[o + 8 * n],
+                             tQ[o + SD + 8 * n]);
+          }
+        }
+        tf32::add_to(dv_acc, part_v, n0);
+        tf32::add_to(dk_acc, part_k, n0);
       }
     }
+    __syncthreads();  // this stage is consumed before it is refilled
   }
+  wg::cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int c = k0 + r0 + g + 8 * i;
     if (c >= Lk) continue;
-    T* gk = dk + (koff + c) * D;
-    T* gv = dv + (koff + c) * D;
+    float* gk = dk + (koff + c) * D + 2 * t;
+    float* gv = dv + (koff + c) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      gk[tx + 16 * j] = from_float<T>(dk_acc[i][j]);
-      gv[tx + 16 * j] = from_float<T>(dv_acc[i][j]);
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<float2*>(gk + 8 * n) =
+          make_float2(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(gv + 8 * n) =
+          make_float2(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
     }
   }
 }
@@ -295,23 +366,23 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, int D>
-static int launch(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lens, const void* lse,
-                  const void* delta, void* dk, void* dv, int BH, int Lq,
-                  int Lk, float sm_scale, int causal, int window,
-                  cudaStream_t stream) {
-  const size_t smem = (size_t)(4 * kBlockQ * (D + 1) +
-                               2 * kBlockQ * kSStride + 2 * kBlockQ) *
-                      sizeof(float);
+template <int D>
+static int launch_tf32(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lens, const void* lse,
+                       const void* delta, void* dk, void* dv, int BH, int Lq,
+                       int Lk, float sm_scale, int causal, int window,
+                       cudaStream_t stream) {
+  // K and V, two stages of Q, dO and LSE + Delta
+  const size_t smem = 6 * tf32::tile_floats<D>() * sizeof(float) +
+                      2 * tf32::kStatsBytes;
   const dim3 grid(BH, (Lk + kBlockK - 1) / kBlockK);
-  return launch_with_smem<flash_bwd_dkv_kernel<T, D>>(
-      grid, smem, stream,
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const int*>(lens), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), Lq, Lk, sm_scale, causal, window);
+  return launch_with_smem<flash_bwd_dkv_tf32_kernel<D>, tf32::kThreads>(
+      grid, smem, stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const int*>(lens),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), Lq, Lk, sm_scale,
+      causal, window);
 }
 
 template <int D>
@@ -334,7 +405,7 @@ static int launch_wgmma(const void* q, const void* k, const void* v,
       static_cast<bf16*>(dv), Lq, Lk, sm_scale, causal, window);
 }
 
-// fp32: the CUDA-core kernel; bf16: the tensor-core kernel, whose
+// fp32: the 3xTF32 mma.sync kernel; bf16: the wgmma kernel, whose
 // 128-byte swizzled lines hold 64 columns (ops/flash_attention.py pads a
 // bf16 head dim of 16 or 32 to 64 with zero columns before the launch).
 static int dispatch(int dtype, int D, const void* q, const void* k,
@@ -345,10 +416,10 @@ static int dispatch(int dtype, int D, const void* q, const void* k,
 #define MXTT_ARGS \
   q, k, v, dout, lens, lse, delta, dk, dv, BH, Lq, Lk, sm_scale, causal, \
       window, stream
-  if (dtype == kFloat32 && D == 16) return launch<float, 16>(MXTT_ARGS);
-  if (dtype == kFloat32 && D == 32) return launch<float, 32>(MXTT_ARGS);
-  if (dtype == kFloat32 && D == 64) return launch<float, 64>(MXTT_ARGS);
-  if (dtype == kFloat32 && D == 128) return launch<float, 128>(MXTT_ARGS);
+  if (dtype == kFloat32 && D == 16) return launch_tf32<16>(MXTT_ARGS);
+  if (dtype == kFloat32 && D == 32) return launch_tf32<32>(MXTT_ARGS);
+  if (dtype == kFloat32 && D == 64) return launch_tf32<64>(MXTT_ARGS);
+  if (dtype == kFloat32 && D == 128) return launch_tf32<128>(MXTT_ARGS);
   if (dtype == kBFloat16 && D == 64) return launch_wgmma<64>(MXTT_ARGS);
   if (dtype == kBFloat16 && D == 128) return launch_wgmma<128>(MXTT_ARGS);
 #undef MXTT_ARGS

@@ -25,101 +25,160 @@
 //   warpgroup waits on each product in turn (copy, S and dP, the
 //   exponentials, dQ), so an SM overlaps them only across its resident
 //   blocks.
-// - fp32, flash_bwd_dq_kernel: tensor cores take fp32 only as TF32 (about
-//   three decimal digits), so fp32 stays on the CUDA cores: 256 threads,
-//   tiles staged in shared memory as fp32 with a row stride of D + 1,
-//   4 x 4 micro-tiles of S and dP in one pass over D, dS through shared
-//   memory, a 4 x D/16 slice of dQ per thread.  Bound by the fp32 FMA
-//   rate and shared-memory reads.
-#include "flash_wgmma.cuh"
+// - fp32, flash_bwd_dq_tf32_kernel: the three products on the tensor
+//   cores as error-compensated 3xTF32 (flash_tf32.cuh), fp32-accurate at
+//   a third of the TF32 rate.  Grid (BH, ceil(Lq / 64)), four warps of
+//   mma.sync m16n8k8, each owning 16 query rows of the tile.  Q and dO
+//   stay in shared memory as fp32 tiles (row stride D + 4); K and V
+//   stream through a two-stage cp.async ring over the needed key tiles.
+//   A warp computes its 16 x 64 S and dP, builds dS in the accumulator
+//   registers (tiles every row sees whole skip the mask) and feeds it,
+//   split into TF32 halves, as the A operand of dQ += dS K, reading K
+//   transposed.  Every fragment is loaded as fp32 and split where it is
+//   used.  What bounds it now: instruction issue and latency together
+//   (PERF.md).  Each fp32 operand element costs a shared-memory
+//   load and five instructions to split, several for every mma.sync, and
+//   at 255 registers a thread an SM holds two blocks (eight warps); the
+//   products run at about a quarter of the TF32 peak.
+#include "flash_tf32.cuh"
 
 namespace mxtt {
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const int* __restrict__ lens,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int Lq, int Lk, float sm_scale, int causal, int window) {
-  constexpr int DP = D + 1, NJ = D / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;                  // 64 x DP
-  float* sDO = sQ + kBlockQ * DP;    // 64 x DP
-  float* sK = sDO + kBlockQ * DP;    // 64 x DP
-  float* sV = sK + kBlockK * DP;     // 64 x DP
-  float* sDS = sV + kBlockK * DP;    // 64 x kSStride
+template <int D>
+__global__ void __launch_bounds__(tf32::kThreads)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const int* __restrict__ lens,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int Lq, int Lk,
+                         float sm_scale, int causal, int window) {
+  constexpr int SD = tf32::stride<D>(), TILE = tf32::tile_floats<D>();
+  constexpr int NT = D / 8;  // 8-column blocks of the head dim
+  constexpr int NC = NT < 8 ? NT : 8;  // blocks of dQ summed a pass
+  extern __shared__ float4 smem_f4[];
+  float* const sQ = reinterpret_cast<float*>(smem_f4);
+  float* const sDO = sQ + TILE;
+  float* const sK = sDO + TILE;     // two stages
+  float* const sV = sK + 2 * TILE;  // two stages
 
   const int bh = blockIdx.x, q0 = blockIdx.y * kBlockQ;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4, r0 = 16 * (tid / 32);
   const int kv_len = max(0, min(lens[bh], Lk));
   const size_t qoff = (size_t)bh * Lq, koff = (size_t)bh * Lk;
-
-  load_tile<T, D>(sQ, q + qoff * D, q0, Lq, tid);
-  load_tile<T, D>(sDO, dout + qoff * D, q0, Lq, tid);
-  float row_lse[4], row_delta[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    row_lse[i] = r < Lq ? lse[qoff + r] : 0.f;
-    row_delta[i] = r < Lq ? delta[qoff + r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
+  const float* kb = k + koff * D;
+  const float* vb = v + koff * D;
   int k_begin, k_end;
   key_range(q0, Lq, kv_len, causal, window, &k_begin, &k_end);
-  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();
-    load_tile<T, D>(sK, k + koff * D, k0, Lk, tid);
-    load_tile<T, D>(sV, v + koff * D, k0, Lk, tid);
-    __syncthreads();
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBlockK - 1) /
+                                            kBlockK : 0;
 
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_abt<D>(s, sQ, sK, ty, tx);
-    tile_abt<D>(dp, sDO, sV, ty, tx);
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const float p = visible(r, c, Lq, kv_len, causal, window)
-                            ? expf(s[i][j] * sm_scale - row_lse[i])
-                            : 0.f;
-        const float ds = p * (dp[i][j] - row_delta[i]) * sm_scale;
-        sDS[(ty + 16 * i) * kSStride + tx + 16 * j] = round_to<T>(ds);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBlockK; ++c) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = sDS[(ty + 16 * i) * kSStride + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float kk = sK[c * DP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += ds[i] * kk;
-      }
-    }
+  tf32::load_tile_async<D>(wg::smem_addr(sQ), q + qoff * D, q0, Lq, tid);
+  tf32::load_tile_async<D>(wg::smem_addr(sDO), dout + qoff * D, q0, Lq,
+                           tid);
+  if (n_tiles > 0) {
+    tf32::load_tile_async<D>(wg::smem_addr(sK), kb, k_begin, Lk, tid);
+    tf32::load_tile_async<D>(wg::smem_addr(sV), vb, k_begin, Lk, tid);
   }
+  wg::cp_async_commit();
+
+  // this lane's rows: r0 + g and r0 + g + 8 of the tile
+  const float scale_log2 = sm_scale * 1.4426950408889634f;
+  float lse_log2[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + r0 + g + 8 * i;
+    lse_log2[i] = r < Lq ? lse[qoff + r] * 1.4426950408889634f : 0.f;
+    row_delta[i] = r < Lq ? delta[qoff + r] : 0.f;
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_begin + it * kBlockK;
+    const float* tK = sK + (it & 1) * TILE;
+    const float* tV = sV + (it & 1) * TILE;
+    if (it + 1 < n_tiles) {
+      const int nx = ((it + 1) & 1) * TILE;
+      tf32::load_tile_async<D>(wg::smem_addr(sK + nx), kb, k0 + kBlockK, Lk,
+                               tid);
+      tf32::load_tile_async<D>(wg::smem_addr(sV + nx), vb, k0 + kBlockK, Lk,
+                               tid);
+    }
+    wg::cp_async_commit();
+    wg::cp_async_wait<1>();  // everything but the tile just requested
+    __syncthreads();
+
+    // S = Q K^T, then P in place: register [j][2 i + c] is row
+    // r0 + g + 8 i, key k0 + 8 j + 2 t + c; P is exactly 0 where the mask
+    // is false (tiles every row sees whole skip the mask)
+    float s[8][4];
+    tf32::tile_abt<D, 8>(s, sQ, r0, tK, 0, g, t);
+    auto make_p = [&](auto masked) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = s[j][2 * i + c];
+            x = exp2f(fmaf(x, scale_log2, -lse_log2[i]));
+            if (decltype(masked)::value &&
+                !visible(q0 + r0 + g + 8 * i, k0 + 8 * j + 2 * t + c, Lq,
+                         kv_len, causal, window))
+              x = 0.f;
+          }
+    };
+    if (tf32::tile_whole(q0, k0, Lq, kv_len, causal, window))
+      make_p(std::false_type{});
+    else
+      make_p(std::true_type{});
+
+    // dP = dO V^T, then dS = P (dP - Delta) scale in place of P
+    float dp[8][4];
+    tf32::tile_abt<D, 8>(dp, sDO, r0, tV, 0, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] *= (dp[j][e] - row_delta[e / 2]) * sm_scale;
+
+    // dQ += dS K: k-step j takes keys 8 j .. 8 j + 7 of the tile; the
+    // tile's products go to a fresh accumulator (NC column blocks at a
+    // time), added to dQ once per tile (flash_tf32.cuh, accumulation)
+#pragma unroll
+    for (int n0 = 0; n0 < NT; n0 += NC) {
+      float part[NC][4] = {};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        tf32::FragA a;
+        tf32::acc_as_a(a, s[j]);
+        const float* pk = tK + (8 * j + 2 * t) * SD + 8 * n0 + g;
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+          tf32::mma_3xtf32(part[n], a, pk[8 * n], pk[SD + 8 * n]);
+      }
+      tf32::add_to(acc, part, n0);
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  wg::cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + r0 + g + 8 * i;
     if (r >= Lq) continue;
-    T* o = dq + (qoff + r) * D;
+    float* o = dq + (qoff + r) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) o[tx + 16 * j] = from_float<T>(acc[i][j]);
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(o + 8 * n) =
+          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
@@ -240,21 +299,21 @@ flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, int D>
-static int launch(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lens, const void* lse,
-                  const void* delta, void* dq, int BH, int Lq, int Lk,
-                  float sm_scale, int causal, int window,
-                  cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(4 * kBlockQ * (D + 1) + kBlockQ * kSStride) * sizeof(float);
+template <int D>
+static int launch_tf32(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lens, const void* lse,
+                       const void* delta, void* dq, int BH, int Lq, int Lk,
+                       float sm_scale, int causal, int window,
+                       cudaStream_t stream) {
+  // Q and dO, two stages of K and of V
+  const size_t smem = 6 * tf32::tile_floats<D>() * sizeof(float);
   const dim3 grid(BH, (Lq + kBlockQ - 1) / kBlockQ);
-  return launch_with_smem<flash_bwd_dq_kernel<T, D>>(
-      grid, smem, stream, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const int*>(lens),
+  return launch_with_smem<flash_bwd_dq_tf32_kernel<D>, tf32::kThreads>(
+      grid, smem, stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const int*>(lens),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), Lq, Lk, sm_scale, causal, window);
+      static_cast<float*>(dq), Lq, Lk, sm_scale, causal, window);
 }
 
 template <int D>
@@ -275,7 +334,7 @@ static int launch_wgmma(const void* q, const void* k, const void* v,
       sm_scale, causal, window);
 }
 
-// fp32: the CUDA-core kernel; bf16: the tensor-core kernel, whose
+// fp32: the 3xTF32 mma.sync kernel; bf16: the wgmma kernel, whose
 // 128-byte swizzled lines hold 64 columns (ops/flash_attention.py pads a
 // bf16 head dim of 16 or 32 to 64 with zero columns before the launch).
 static int dispatch(int dtype, int D, const void* q, const void* k,
@@ -286,10 +345,10 @@ static int dispatch(int dtype, int D, const void* q, const void* k,
 #define MXTT_ARGS \
   q, k, v, dout, lens, lse, delta, dq, BH, Lq, Lk, sm_scale, causal, window, \
       stream
-  if (dtype == kFloat32 && D == 16) return launch<float, 16>(MXTT_ARGS);
-  if (dtype == kFloat32 && D == 32) return launch<float, 32>(MXTT_ARGS);
-  if (dtype == kFloat32 && D == 64) return launch<float, 64>(MXTT_ARGS);
-  if (dtype == kFloat32 && D == 128) return launch<float, 128>(MXTT_ARGS);
+  if (dtype == kFloat32 && D == 16) return launch_tf32<16>(MXTT_ARGS);
+  if (dtype == kFloat32 && D == 32) return launch_tf32<32>(MXTT_ARGS);
+  if (dtype == kFloat32 && D == 64) return launch_tf32<64>(MXTT_ARGS);
+  if (dtype == kFloat32 && D == 128) return launch_tf32<128>(MXTT_ARGS);
   if (dtype == kBFloat16 && D == 64) return launch_wgmma<64>(MXTT_ARGS);
   if (dtype == kBFloat16 && D == 128) return launch_wgmma<128>(MXTT_ARGS);
 #undef MXTT_ARGS

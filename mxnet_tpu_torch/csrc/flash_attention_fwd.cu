@@ -31,8 +31,9 @@
 //   the P V product or the K/V streaming each saves only 10-17%, and
 //   issuing the next tile's S beside this tile's P V (FA3's overlap), two
 //   warpgroups per 128-row tile, or deeper rings were no faster (PERF.md).
-// - fp32, flash_fwd_kernel: tensor cores take fp32 only as TF32 (about
-//   three decimal digits), so fp32 stays on the CUDA cores: 256 threads
+// - fp32, flash_fwd_kernel: on the CUDA cores (fp32 B2 and B3 run
+//   fp32-accurate 3xTF32 on the tensor cores, flash_tf32.cuh, which this
+//   kernel does not use yet: ROADMAP Queue B): 256 threads
 //   per 64-row query tile; Q, K and V tiles in shared memory as fp32 with
 //   a row stride of D + 1; each thread computes a 4 x 4 micro-tile of S,
 //   the running max / denominator of its 4 rows and a 4 x D/16 slice of

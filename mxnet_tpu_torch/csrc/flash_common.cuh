@@ -17,16 +17,17 @@
 // ranges (key_range, query_range) and the mask (visible) are shared by
 // all of them.
 //
-// The CUDA-core kernels (B1, B2 and B3 in fp32) run 256 threads.  Thread
-// (ty, tx), ty = tid / 16, tx = tid % 16, owns rows ty + 16 i and columns
-// tx + 16 j (i, j < 4) of a score tile, so the 16 threads that share a row
-// are one half-warp and row reductions are four xor shuffles.  Their
-// tiles sit in shared memory as fp32 with a row stride of D + 1 floats, so
-// that 16 threads reading 16 different rows at one column hit 16
-// different banks; their products are 4 x 4 fp32 FMA micro-tiles, bound
-// by the fp32 FMA rate and shared-memory reads.  The bf16 kernels (B1, B2,
-// B3) keep bf16 tiles and run their products on the tensor cores instead:
-// flash_wgmma.cuh.
+// The CUDA-core kernel (B1 in fp32) runs 256 threads.  Thread (ty, tx),
+// ty = tid / 16, tx = tid % 16, owns rows ty + 16 i and columns tx + 16 j
+// (i, j < 4) of a score tile, so the 16 threads that share a row are one
+// half-warp and row reductions are four xor shuffles.  Its tiles sit in
+// shared memory as fp32 with a row stride of D + 1 floats, so that 16
+// threads reading 16 different rows at one column hit 16 different banks;
+// its products are 4 x 4 fp32 FMA micro-tiles, bound by the fp32 FMA rate
+// and shared-memory reads.  The other kernels run their products on the
+// tensor cores: bf16 B1, B2 and B3 on wgmma over bf16 tiles
+// (flash_wgmma.cuh), fp32 B2 and B3 on mma.sync as error-compensated
+// 3xTF32 over fp32 tiles (flash_tf32.cuh).
 #pragma once
 
 #include <atomic>

@@ -24,8 +24,11 @@ raises :class:`~mxnet_tpu_torch.base.KernelError` — there is no
 fallback.  A CPU tensor takes the plain version, which is also what the
 kernels are checked against.  Inside B1, B2 and B3 the C entry point
 picks the kernel by dtype: bf16 runs the tensor-core (``wgmma``)
-kernels, fp32 the CUDA-core ones (tensor cores would round fp32 to
-TF32).  On the card the kernels take head dims 16, 32, 64 and 128
+kernels; fp32 B2 and B3 run their products on the tensor cores as
+error-compensated 3xTF32 (each operand split into two TF32 halves,
+three ``mma.sync`` products, fp32-accurate; :func:`_bwd_tf32_mirror`
+repeats that arithmetic on the CPU), and fp32 B1 runs on the CUDA cores.
+On the card the kernels take head dims 16, 32, 64 and 128
 (``_HEAD_DIMS``; 256 and any other raise ``KernelError``); in bf16 the
 wrappers zero-pad a head dim under 64 to 64 columns for the tensor cores
 and slice O and the gradients back.
@@ -60,7 +63,7 @@ __all__ = ["flash_attention", "flash_selfatt", "flash_selfatt_nomask",
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Head dims the CUDA kernels take.  D = 256 is refused: the fp32
-# backward's tiles need 273 KB (B2) and 290 KB (B3) of shared memory, over
+# backward's tiles need 399 KB (B2) and 400 KB (B3) of shared memory, over
 # the H100's 227 KB, and bf16 B3's two 64 x 256 fp32 accumulators need
 # 256 registers a thread, over 255.
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -322,6 +325,44 @@ def flash_attention_bwd_dkv_reference(q, k, v, dout, lens, lse, delta,
                       dout.float())
     dk = torch.einsum("bqk,bqd->bkd", ds.to(q.dtype).float(), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the fp32 backward's tensor-core arithmetic, on the CPU
+# ---------------------------------------------------------------------------
+def _round_tf32(x):
+    """fp32 ``x`` rounded to TF32 (10 explicit mantissa bits, ties away
+    from zero), the kernels' ``cvt.rna.tf32.f32``: half a TF32 ulp is
+    added to the magnitude and the 13 dropped bits are cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_tf32(a, b, passes=3):
+    """``a @ b`` in fp32 with every product as the fp32 B2/B3 kernels
+    issue it: ``passes=3`` is 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi,
+    hi = tf32(x), lo = tf32(x - hi)); ``passes=1`` is one TF32 product.
+    A product of two TF32 values is exact in fp32."""
+    a_hi, b_hi = _round_tf32(a), _round_tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _round_tf32(a - a_hi), _round_tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _bwd_tf32_mirror(q, k, v, dout, lens, lse, delta, causal, sm_scale,
+                     window, passes=3):
+    """``(dq, dk, dv)`` of fp32 B2 and B3 with their products done as
+    :func:`_matmul_tf32` does them (the plain versions use fp32
+    products): the CPU model of the kernels' 3xTF32 arithmetic."""
+    mask = _visible(q.shape[1], k.shape[1], lens, causal, window, q.device)
+    s = _matmul_tf32(q, k.transpose(1, 2), passes) * sm_scale
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    dp = _matmul_tf32(dout, v.transpose(1, 2), passes)
+    ds = p * (dp - delta) * sm_scale
+    return (_matmul_tf32(ds, k, passes),
+            _matmul_tf32(ds.transpose(1, 2), q, passes),
+            _matmul_tf32(p.transpose(1, 2), dout, passes))
 
 
 # ---------------------------------------------------------------------------

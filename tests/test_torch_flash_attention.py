@@ -372,3 +372,100 @@ def test_bf16_backward_padding_to_64_columns_is_exact(D):
         assert torch.all(got[..., D:] == 0)
     assert fa._pad_for_wgmma(q.float(), k.float(), v.float(),
                              do.float()) is None
+
+
+# ---------------------------------------------------------------------------
+# fp32 B2/B3 run their products as 3xTF32 on the tensor cores
+# ---------------------------------------------------------------------------
+def _tf32_numpy(x):
+    """Round-to-nearest, ties away from zero, to 11 significant bits (TF32)
+    in float64 arithmetic: an independent reference of ``_round_tf32``
+    (normal fp32 values)."""
+    m, e = np.frexp(x.astype(np.float64))
+    m = np.sign(m) * np.floor(np.abs(m) * 2048.0 + 0.5) / 2048.0
+    return np.ldexp(m, e).astype(np.float32)
+
+
+def test_round_tf32_matches_numpy_bits_and_fixes_tf32_values():
+    x = (_rand((4096,), 70) * np.float32(3.7)) * np.exp2(
+        np.random.RandomState(71).randint(-60, 60, 4096)).astype(np.float32)
+    got = fa._round_tf32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  _tf32_numpy(x).view(np.uint32))
+    # ties go away from zero: 1 + 2^-11 lies halfway between two TF32 values
+    ties = np.array([1 + 2 ** -11, -(1 + 2 ** -11), 3 * 2 ** -11 + 1],
+                    np.float32)
+    np.testing.assert_array_equal(
+        fa._round_tf32(torch.from_numpy(ties)).numpy(),
+        np.array([1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 ** -9], np.float32))
+    # values that are TF32 already (and 0, -0) come back bit for bit
+    for v in (got, np.array([0.0, -0.0, 1.0, -2.5, 2.0 ** -100],
+                            np.float32)):
+        again = fa._round_tf32(torch.from_numpy(v)).numpy()
+        np.testing.assert_array_equal(again.view(np.uint32),
+                                      v.view(np.uint32))
+
+
+def test_tf32_split_of_the_mask_value_and_zero():
+    """The kernels split each operand into hi = tf32(x) and lo =
+    tf32(x - hi).  A masked 0 splits into (0, 0).  The mask value -1e30
+    is not a TF32 value (hi is its TF32 neighbour), but hi + lo gives it
+    back exactly; the kernels never round it (P = 0 comes from the mask,
+    not from exp)."""
+    x = torch.tensor([0.0, -1e30])
+    hi = fa._round_tf32(x)
+    lo = fa._round_tf32(x - hi)
+    assert hi[0] == 0 and lo[0] == 0
+    assert float(hi[1]) == float(_tf32_numpy(np.float32([-1e30]))[0])
+    assert hi[1] != x[1] and hi[1] + lo[1] == x[1]
+
+
+def _grads_tf32(passes, q, k, v, cot, lens, **kw):
+    """``_grads`` with the port's backward done in the fp32 kernels'
+    arithmetic (``_bwd_tf32_mirror``, ``passes`` TF32 products each)."""
+    def dq(*a):
+        return fa._bwd_tf32_mirror(*a, passes=passes)[0]
+
+    def dkv(*a):
+        return fa._bwd_tf32_mirror(*a, passes=passes)[1:]
+    mp = pytest.MonkeyPatch()
+    mp.setattr(fa, "flash_attention_bwd_dq_reference", dq)
+    mp.setattr(fa, "flash_attention_bwd_dkv_reference", dkv)
+    try:
+        return _grads(q, k, v, cot, lens=lens, **kw)
+    finally:
+        mp.undo()
+
+
+def _rel_errs(got, want):
+    return [float(np.abs(a - b).max() / np.abs(b).max())
+            for a, b in zip(got, want)]
+
+
+_TF32_CASE = dict(BH=4, L=80, D=32, seed=21)
+_TF32_LENS = [80, 33, 1, 64]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_backward_matches_jax(causal):
+    """B2/B3's arithmetic with every product as 3xTF32 against the JAX
+    package's backward: within 1e-5 of each gradient's max|.| (fp32
+    sums differ from it by ~1e-6 here too), ragged lengths over 80 rows
+    (a partial second tile of the kernels' 64)."""
+    q, k, v = _qkv(**_TF32_CASE)
+    cot = _rand(q.shape, 22)
+    jg, tg = _grads_tf32(3, q, k, v, cot, _TF32_LENS, causal=causal)
+    assert max(_rel_errs(tg, jg)) <= 1e-5
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_tf32_pass_is_100x_further_off(causal):
+    """One TF32 product (hi x hi) is at least 100 times further from the
+    JAX backward than 3xTF32 on the same inputs: the kernels' accuracy
+    comes from the split."""
+    q, k, v = _qkv(**_TF32_CASE)
+    cot = _rand(q.shape, 22)
+    jg, g3 = _grads_tf32(3, q, k, v, cot, _TF32_LENS, causal=causal)
+    _, g1 = _grads_tf32(1, q, k, v, cot, _TF32_LENS, causal=causal)
+    for e3, e1 in zip(_rel_errs(g3, jg), _rel_errs(g1, jg)):
+        assert e1 >= 100 * e3, (e1, e3)
