@@ -17,51 +17,19 @@
 // ranges (key_range, query_range) and the mask (visible) are shared by
 // all of them.
 //
-// The CUDA-core kernel (B1 in fp32) runs 256 threads.  Thread (ty, tx),
-// ty = tid / 16, tx = tid % 16, owns rows ty + 16 i and columns tx + 16 j
-// (i, j < 4) of a score tile, so the 16 threads that share a row are one
-// half-warp and row reductions are four xor shuffles.  Its tiles sit in
-// shared memory as fp32 with a row stride of D + 1 floats, so that 16
-// threads reading 16 different rows at one column hit 16 different banks;
-// its products are 4 x 4 fp32 FMA micro-tiles, bound by the fp32 FMA rate
-// and shared-memory reads.  The other kernels run their products on the
-// tensor cores: bf16 B1, B2 and B3 on wgmma over bf16 tiles
-// (flash_wgmma.cuh), fp32 B2 and B3 on mma.sync as error-compensated
-// 3xTF32 over fp32 tiles (flash_tf32.cuh).
+// Every kernel runs its products on the tensor cores: bf16 B1, B2 and B3
+// on wgmma over bf16 tiles (flash_wgmma.cuh), fp32 B1, B2 and B3 on
+// mma.sync as error-compensated 3xTF32 over fp32 tiles (flash_tf32.cuh).
 #pragma once
 
 #include <atomic>
 
-#include "paged_common.cuh"  // kMaskValue, dtype codes, load16, round_to
+#include "paged_common.cuh"  // kMaskValue, dtype codes
 
 namespace mxtt {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr int kSStride = kBlockK + 1;  // row stride of a score tile in smem
-
-// Rows [row0, row0 + 64) of a contiguous (L, D) matrix into smem as fp32
-// with row stride D + 1; rows at or past L are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int L, int tid) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int CHUNKS = D / VEC;
-  for (int i = tid; i < kBlockQ * CHUNKS; i += kThreads) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
-    float v[VEC];
-    if (row0 + r < L) {
-      load16(src + (size_t)(row0 + r) * D + c, v);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) v[e] = 0.f;
-    }
-    float* d = dst + r * (D + 1) + c;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) d[e] = v[e];
-  }
-}
 
 // Whether query row r sees key c.  kv_len is already clamped to Lk.
 __device__ __forceinline__ bool visible(int r, int c, int Lq, int kv_len,
@@ -104,45 +72,12 @@ __device__ __forceinline__ void query_range(int k0, int Lq, int causal,
   *q_end = hi;
 }
 
-// Max / sum over the 16 lanes of a half-warp (all 32 lanes must call).
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// acc[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over smem tiles of
-// row stride D + 1: the 4 x 4 micro-tile of a 64 x 64 product A * B^T.
-template <int D>
-__device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* A,
-                                         const float* B, int ty, int tx) {
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-  }
-}
-
 // Launch Kernel with Threads threads a block and smem bytes of dynamic
 // shared memory; returns the launch's cudaError_t.  Above 48 KB a kernel
 // may launch only after its attribute is raised: that is done once per
 // kernel instantiation (each launches with one size, fixed by its
 // template arguments) and device, not on every launch.
-template <auto Kernel, int Threads = kThreads, typename... Args>
+template <auto Kernel, int Threads, typename... Args>
 static int launch_with_smem(dim3 grid, size_t smem, cudaStream_t stream,
                             Args... args) {
   if (smem > 48 * 1024) {

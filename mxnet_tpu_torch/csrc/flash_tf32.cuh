@@ -1,6 +1,7 @@
-// Hopper tensor-core building blocks of the fp32 flash-attention backward
-// kernels (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu): every
-// product as error-compensated 3xTF32 on mma.sync.
+// Hopper tensor-core building blocks of the fp32 flash-attention kernels
+// (forward, flash_attention_fwd.cu; backward, flash_attention_bwd_dq.cu
+// and flash_attention_bwd_dkv.cu): every product as error-compensated
+// 3xTF32 on mma.sync.
 //
 // - 3xTF32: a tensor core reads an fp32 operand as TF32 (10 explicit
 //   mantissa bits).  Each operand x is split in registers into
@@ -102,15 +103,24 @@ struct FragA {
   }
 };
 
+// A B fragment split into its TF32 halves: (b0, b1) = hi[0], hi[1] and
+// lo[0], lo[1].
+struct FragB {
+  uint32_t hi[2], lo[2];
+  __device__ __forceinline__ void set(float b0, float b1) {
+    split(b0, hi[0], lo[0]);
+    split(b1, hi[1], lo[1]);
+  }
+};
+
 // c += a * b as 3xTF32, b given as fp32 (b0, b1) and split here.
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a,
                                            float b0, float b1) {
-  uint32_t h0, l0, h1, l1;
-  split(b0, h0, l0);
-  split(b1, h1, l1);
-  mma_tf32_1688(c, a.lo, h0, h1);
-  mma_tf32_1688(c, a.hi, l0, l1);
-  mma_tf32_1688(c, a.hi, h0, h1);
+  FragB b;
+  b.set(b0, b1);
+  mma_tf32_1688(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32_1688(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32_1688(c, a.hi, b.hi[0], b.hi[1]);
 }
 
 // A fragment of rows r0 .. r0 + 15, columns k0 .. k0 + 7 of a tile.
@@ -126,16 +136,16 @@ __device__ __forceinline__ void load_a(FragA& a, const float* tile, int r0,
 // are added to a product's running sum (tile_abt)
 constexpr int kHiSteps = 4;
 
-// out[j] = rows r0 .. r0 + 15 of tile A times rows c0 + 8 j .. + 7 of
-// tile B transposed (a 16 x 8 NJ block of A B^T over the D columns), as
-// 3xTF32.  The small terms go to their own accumulator; the hi products
-// of every kHiSteps k-steps to a fresh one, added to out with a rounded
-// add, so that no accumulator carries a long chain of truncations.
-template <int D, int NJ>
-__device__ __forceinline__ void tile_abt(float (&out)[NJ][4], const float* A,
-                                         int r0, const float* B, int c0,
-                                         int g, int t) {
-  constexpr int SD = stride<D>();
+// out[j] = rows r0 .. r0 + 15 of an A operand times rows c0 + 8 j .. + 7
+// of a B operand transposed (a 16 x 8 NJ block of A B^T over the D
+// columns), as 3xTF32.  load_a(a, s) gives A's split fragment of k-step
+// s (columns 8 s .. 8 s + 7), load_b(b, j, s) B's of block j and k-step
+// s.  The small terms go to their own accumulator; the hi products of
+// every kHiSteps k-steps to a fresh one, added to out with a rounded add,
+// so that no accumulator carries a long chain of truncations.
+template <int D, int NJ, typename LoadA, typename LoadB>
+__device__ __forceinline__ void tile_abt(float (&out)[NJ][4], LoadA&& load_a,
+                                         LoadB&& load_b) {
   constexpr int KS = kHiSteps < D / 8 ? kHiSteps : D / 8;
   float small[NJ][4];
 #pragma unroll
@@ -146,19 +156,17 @@ __device__ __forceinline__ void tile_abt(float (&out)[NJ][4], const float* A,
   for (int k0 = 0; k0 < D / 8; k0 += KS) {
     FragA a[KS];
 #pragma unroll
-    for (int s = 0; s < KS; ++s) load_a<D>(a[s], A, r0, 8 * (k0 + s), g, t);
+    for (int s = 0; s < KS; ++s) load_a(a[s], k0 + s);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       float hi[4] = {};
 #pragma unroll
       for (int s = 0; s < KS; ++s) {
-        const float* b = B + (c0 + 8 * j + g) * SD + 8 * (k0 + s) + t;
-        uint32_t h0, l0, h1, l1;
-        split(b[0], h0, l0);
-        split(b[4], h1, l1);
-        mma_tf32_1688(small[j], a[s].lo, h0, h1);
-        mma_tf32_1688(small[j], a[s].hi, l0, l1);
-        mma_tf32_1688(hi, a[s].hi, h0, h1);
+        FragB b;
+        load_b(b, j, k0 + s);
+        mma_tf32_1688(small[j], a[s].lo, b.hi[0], b.hi[1]);
+        mma_tf32_1688(small[j], a[s].hi, b.lo[0], b.lo[1]);
+        mma_tf32_1688(hi, a[s].hi, b.hi[0], b.hi[1]);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) out[j][e] += hi[e];
@@ -168,6 +176,28 @@ __device__ __forceinline__ void tile_abt(float (&out)[NJ][4], const float* A,
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) out[j][e] += small[j][e];
+}
+
+// B fragment of rows row .. row + 7 (this lane: row + g), columns
+// k0 .. k0 + 7 of a shared fp32 tile, split here.
+template <int D>
+__device__ __forceinline__ void load_b(FragB& b, const float* tile, int row,
+                                       int k0, int g, int t) {
+  const float* p = tile + (row + g) * stride<D>() + k0 + t;
+  b.set(p[0], p[4]);
+}
+
+// tile_abt with A the rows r0 .. r0 + 15 of shared tile A and B the rows
+// c0 .. of shared tile B, both read and split as each k-step needs them.
+template <int D, int NJ>
+__device__ __forceinline__ void tile_abt(float (&out)[NJ][4], const float* A,
+                                         int r0, const float* B, int c0,
+                                         int g, int t) {
+  tile_abt<D, NJ>(
+      out, [&](FragA& a, int s) { load_a<D>(a, A, r0, 8 * s, g, t); },
+      [&](FragB& b, int j, int s) {
+        load_b<D>(b, B, c0 + 8 * j, 8 * s, g, t);
+      });
 }
 
 // The accumulator (c[0], c[1], c[2], c[3]) as the A fragment of a product

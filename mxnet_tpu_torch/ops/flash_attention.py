@@ -24,10 +24,10 @@ raises :class:`~mxnet_tpu_torch.base.KernelError` — there is no
 fallback.  A CPU tensor takes the plain version, which is also what the
 kernels are checked against.  Inside B1, B2 and B3 the C entry point
 picks the kernel by dtype: bf16 runs the tensor-core (``wgmma``)
-kernels; fp32 B2 and B3 run their products on the tensor cores as
+kernels; fp32 B1, B2 and B3 run their products on the tensor cores as
 error-compensated 3xTF32 (each operand split into two TF32 halves,
-three ``mma.sync`` products, fp32-accurate; :func:`_bwd_tf32_mirror`
-repeats that arithmetic on the CPU), and fp32 B1 runs on the CUDA cores.
+three ``mma.sync`` products, fp32-accurate; :func:`_fwd_tf32_mirror`
+and :func:`_bwd_tf32_mirror` repeat that arithmetic on the CPU).
 On the card the kernels take head dims 16, 32, 64 and 128
 (``_HEAD_DIMS``; 256 and any other raise ``KernelError``); in bf16 the
 wrappers zero-pad a head dim under 64 to 64 columns for the tensor cores
@@ -328,7 +328,7 @@ def flash_attention_bwd_dkv_reference(q, k, v, dout, lens, lse, delta,
 
 
 # ---------------------------------------------------------------------------
-# the fp32 backward's tensor-core arithmetic, on the CPU
+# the fp32 kernels' tensor-core arithmetic, on the CPU
 # ---------------------------------------------------------------------------
 def _round_tf32(x):
     """fp32 ``x`` rounded to TF32 (10 explicit mantissa bits, ties away
@@ -339,7 +339,7 @@ def _round_tf32(x):
 
 
 def _matmul_tf32(a, b, passes=3):
-    """``a @ b`` in fp32 with every product as the fp32 B2/B3 kernels
+    """``a @ b`` in fp32 with every product as the fp32 B1-B3 kernels
     issue it: ``passes=3`` is 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi,
     hi = tf32(x), lo = tf32(x - hi)); ``passes=1`` is one TF32 product.
     A product of two TF32 values is exact in fp32."""
@@ -348,6 +348,23 @@ def _matmul_tf32(a, b, passes=3):
         return a_hi @ b_hi
     a_lo, b_lo = _round_tf32(a - a_hi), _round_tf32(b - b_hi)
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _fwd_tf32_mirror(q, k, v, lens, causal, sm_scale, window, passes=3):
+    """``(out, lse)`` of fp32 B1 with S = Q K^T and P V done as
+    :func:`_matmul_tf32` does them, and the masking and empty-row rules
+    of :func:`flash_attention_fwd_reference` (whose products are fp32):
+    the CPU model of the kernel's 3xTF32 arithmetic."""
+    mask = _visible(q.shape[1], k.shape[1], lens, causal, window, q.device)
+    s = torch.where(mask, _matmul_tf32(q, k.transpose(1, 2), passes)
+                    * sm_scale, _NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    empty = l == 0.0
+    safe_l = torch.where(empty, 1.0, l)
+    out = _matmul_tf32(p, v, passes) / safe_l
+    return out, torch.where(empty, _NEG_INF, m + torch.log(safe_l))
 
 
 def _bwd_tf32_mirror(q, k, v, dout, lens, lse, delta, causal, sm_scale,

@@ -36,13 +36,15 @@ TIMED = ("train_batch", "causal", "head_dim_128")
 SOURCES = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
-def build_variants(build, chip_smoke, specs):
+def build_variants(build, chip_smoke, specs, sources=SOURCES,
+                   subdir="flash_bwd_variants"):
     """{(variant, source): ctypes entry point}, after printing each
-    variant's fp32 kernels' ptxas registers and spills."""
+    variant's fp32 kernels' ptxas registers and spills; the copies go to
+    ``build/<subdir>/<variant>/``."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     procs = []
     for name, patches in specs.items():
-        d = os.path.join(ROOT, "build", "flash_bwd_variants", name)
+        d = os.path.join(ROOT, "build", subdir, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(build.CSRC, d)
         for fname, old, new in patches:
@@ -53,7 +55,7 @@ def build_variants(build, chip_smoke, specs):
                 raise SystemExit(f"variant {name}: {fname} lacks {old!r}")
             with open(path, "w") as fh:
                 fh.write(text.replace(old, new))
-        for src in SOURCES:
+        for src in sources:
             out = os.path.join(d, f"lib{src}.so")
             cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", out,
                    os.path.join(d, f"{src}.cu")]

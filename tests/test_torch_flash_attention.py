@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from mxnet_tpu import nd
+from mxnet_tpu.ops.pallas_kernels import _flash_fwd as _jax_flash_fwd
 from mxnet_tpu.ops.pallas_kernels import flash_attention as jax_flash
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as fa
@@ -469,3 +470,74 @@ def test_one_tf32_pass_is_100x_further_off(causal):
     _, g1 = _grads_tf32(1, q, k, v, cot, _TF32_LENS, causal=causal)
     for e3, e1 in zip(_rel_errs(g3, jg), _rel_errs(g1, jg)):
         assert e1 >= 100 * e3, (e1, e3)
+
+
+def _jax_fwd(q, k, v, lens, causal):
+    """The JAX package's forward (its Pallas kernel in interpreter mode,
+    16 x 16 blocks): ``(out, lse)`` as numpy."""
+    out, res = _jax_flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lens, jnp.int32), causal, 1.0 / np.sqrt(q.shape[-1]),
+        16, 16, True, -1)
+    return np.asarray(out), np.asarray(res[5])
+
+
+def _fwd_mirror(passes, q, k, v, lens, causal):
+    """fp32 B1's arithmetic on the CPU (``_fwd_tf32_mirror``)."""
+    out, lse = fa._fwd_tf32_mirror(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.tensor(lens, dtype=torch.int32), causal,
+        1.0 / np.sqrt(q.shape[-1]), -1, passes=passes)
+    return out.numpy(), lse.numpy()
+
+
+def _fwd_errs(got, want):
+    """O's largest error as a share of max|O|, and LSE's absolute one."""
+    (o, lse), (want_o, want_lse) = got, want
+    return (float(np.abs(o - want_o).max() / np.abs(want_o).max()),
+            float(np.abs(lse - want_lse).max()))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_forward_matches_jax(causal):
+    """fp32 B1's arithmetic with S = Q K^T and P V as 3xTF32 against the
+    JAX package's forward: O within 1e-5 of max|O|, LSE within 1e-5
+    (fp32 sums differ from it by ~1e-7 here), ragged lengths over 80
+    rows (a partial second tile of the kernel's 64)."""
+    q, k, v = _qkv(**_TF32_CASE)
+    want = _jax_fwd(q, k, v, _TF32_LENS, causal)
+    err_o, err_lse = _fwd_errs(_fwd_mirror(3, q, k, v, _TF32_LENS, causal),
+                               want)
+    assert err_o <= 1e-5 and err_lse <= 1e-5, (err_o, err_lse)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_tf32_pass_forward_is_100x_further_off(causal):
+    """One TF32 product in S and in P V is at least 100 times further
+    from the JAX forward than 3xTF32, in O and in LSE."""
+    q, k, v = _qkv(**_TF32_CASE)
+    want = _jax_fwd(q, k, v, _TF32_LENS, causal)
+    e3 = _fwd_errs(_fwd_mirror(3, q, k, v, _TF32_LENS, causal), want)
+    e1 = _fwd_errs(_fwd_mirror(1, q, k, v, _TF32_LENS, causal), want)
+    assert e1[0] >= 100 * e3[0] and e1[1] >= 100 * e3[1], (e1, e3)
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_tf32_forward_mirror_empty_rows(passes):
+    """A ``lengths == 0`` row gives O = 0 and LSE = -1e30 in the mirror,
+    exactly as in the plain version; the other rows agree with it, to
+    1e-5 in 3xTF32 and to 2e-3 in one TF32 pass (11 significant bits:
+    ~8e-4 here)."""
+    q, k, v = _qkv(**_TF32_CASE)
+    lens = [80, 0, 33, 0]
+    out, lse = _fwd_mirror(passes, q, k, v, lens, True)
+    r_out, r_lse = fa.flash_attention_fwd_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.tensor(lens, dtype=torch.int32), True,
+        1.0 / np.sqrt(q.shape[-1]), -1)
+    for b in (1, 3):
+        assert np.all(out[b] == 0) and np.all(lse[b] == -1e30)
+        assert torch.all(r_out[b] == 0) and torch.all(r_lse[b] == -1e30)
+    tol = 1e-5 if passes == 3 else 2e-3
+    np.testing.assert_allclose(out, r_out.numpy(), rtol=0, atol=tol)
+    np.testing.assert_allclose(lse, r_lse.numpy(), rtol=0, atol=tol)
