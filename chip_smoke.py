@@ -9,13 +9,18 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
 
 1. ``device``  — card name, device count, power limit;
 2. ``build``   — compile the five CUDA kernels (``nvcc``, ``sm_90a``,
-   one process per source, all started together), with each compiled
+   one process per source, all started together; with
+   ``MXNET_COMPILE_CACHE_DIR`` set a library the persistent cache holds
+   is copied from it instead), with each compiled
    kernel's registers and spills from ptxas; the bf16 forward's
    tensor-core kernel must neither spill nor have its ``wgmma``
    serialised; the fp32 B1/B2/B3 kernels must not spill at head dim 64,
    and every instantiation's SASS must hold TF32 tensor-core products
    (``HMMA.1688.F32.TF32``: fp32 B1-B3 run each product as 3xTF32 on
-   ``mma.sync``, ``build_sass`` lines);
+   ``mma.sync``, ``build_sass`` lines); then ``build_cache`` — two
+   builds into empty directories with one new compile cache set: the
+   first compiles and stores every library, the second must copy every
+   one from the cache, byte for byte, without ``nvcc``;
 3. ``kernels`` — B4/B5 (paged decode / verify attention) against their
    plain PyTorch versions at the serving shapes, fp32 and bf16 (B4 also
    at the profile phase's decode contexts and against its split mirror,
@@ -44,34 +49,61 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
    counters rising by ``num_layers`` per call;
 6. ``serve``   — 8 threads calling ``DecodeEngine.generate`` at once,
    then 4 requests sharing a 256-token prefix (prefix-cache hits run
-   the verify kernel); the B4/B5 counters are zeroed just before and
-   read just after;
+   the verify kernel), through the adapter's CUDA graphs, all captured
+   when the engine binds the adapter; the B4/B5 counters are zeroed
+   just before the engine is built and read just after the waves (they
+   count the captures' eager warm-up launches); then the same prompts
+   through an eager (``graphs=False``) engine, its tokens compared
+   (reported);
 7. ``train_parity`` — BERT-large fp32: the flash path's loss and every
    parameter gradient against the dense additive-mask path on the same
    weights and batch (B = 8, L = 512);
 8. ``train``   — 2 warm-up + 10 timed adamw ``ShardedTrainer`` steps,
    fp32 then bf16; the B1-B3 counters are zeroed just before and read
    just after, and rise by 24 (one per layer) each step;
-9. ``profile`` / ``profile_train`` — one decode step and one bf16
+
+The phases from here on run ``torch.profiler``, whose device tracing
+slows every later launch:
+
+9. ``profile`` / ``profile_train`` — one decode step, replaying its
+   CUDA graph and launching from Python side by side, and one bf16
    training step traced with ``torch.profiler`` (device time by kernel
-   family, the device idle share against the untraced step time); the
-   bf16 step's forward, dQ and dK/dV families must come from the
-   tensor-core (``wgmma``) kernels alone.
+   family, kernels and host calls per step, the device idle share
+   against the untraced step time, taken before the trace); the bf16
+   step's forward, dQ and dK/dV families must come from the tensor-core
+   (``wgmma``) kernels alone;
+10. ``graphs`` — ``PagedLMAdapter``'s CUDA graphs (one per (family,
+   shape) signature) against ``graphs=False`` on the same inputs at
+   GPT-2-small widths: prefill at bucket 512, the decode step at the
+   profile phase's batch, verify at width 64 and verify_batch (2, 64),
+   each held to 1e-5 of max|logit| (bitwise equality reported); a
+   family's first call counts ``num_layers`` eager launches of its
+   kernel, a replay none; three interleaved replays of two signatures
+   repeat bit for bit; traced replays hold ``num_layers`` B4 / B5
+   kernels each (``torch.profiler`` kernel records); ``compiled ==
+   programs``; ``refresh()`` with new weights serves a fresh adapter's
+   logits;
+11. ``serve_trace`` — ``serve``'s traffic on a new graphs engine under
+   ``torch.profiler``: B4/B5 kernel records must equal ``num_layers``
+   per decode / verify replay, and the wrappers count nothing.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
-ones under ``bfloat16``; B4 and B5 also list every ``kernels`` row with
-its split), the ``nvidia-smi`` name/power-limit line,
+ones under ``bfloat16``; ``launches`` is its wrapper's count on the
+main path; B4 and B5 also give ``traced_serve_kernel_records`` from
+``serve_trace``, and list every ``kernels`` row with its split), the ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero without that line; it never
 runs on the CPU.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 """
+import functools
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -126,6 +158,11 @@ TF32_KERNELS = {"flash_attention_fwd": "flash_fwd_tf32_kernel",
                 "flash_attention_bwd_dkv": "flash_bwd_dkv_tf32_kernel"}
 TF32_HMMA = "HMMA.1688.F32.TF32"
 PAGE_SIZE, POOL_PAGES, MAX_BATCH = 16, 513, 8
+# CUDA-graph replays against the eager adapter on the same inputs: the
+# same kernels run on the same data, so the logits are expected bit for
+# bit (reported); held to 1e-5 of max|logit| in case the library picks
+# another GEMM algorithm for the capture stream's workspace
+GRAPH_TOL = 1e-5
 # the decode batch's positions in the profile phase (B4's "decode_step"
 # row in the kernels phase runs the same contexts)
 PROFILE_POSITIONS = (377, 280, 179, 450, 112, 92, 230, 64)
@@ -206,6 +243,46 @@ def ptxas_summary(log):
         elif "arning" in ln or "Performance" in ln:
             out.append(ln)
     return out
+
+
+def phase_build_cache(build, compile_cache):
+    """The persistent tier on the card, as two fresh checkouts with
+    ``MXNET_COMPILE_CACHE_DIR`` set to one new directory see it: a build
+    into an empty build directory compiles every library with ``nvcc``
+    and stores it in the cache; a build into a second empty directory
+    must take every one from the cache, byte for byte, without ``nvcc``.
+    Both directories live under ``build/`` and are removed; the
+    environment and ``BUILD_DIR`` are restored."""
+    root = tempfile.mkdtemp(dir=os.path.dirname(build.BUILD_DIR))
+    saved_dir = build.BUILD_DIR
+    saved_env = os.environ.get("MXNET_COMPILE_CACHE_DIR")
+    try:
+        os.environ["MXNET_COMPILE_CACHE_DIR"] = os.path.join(root, "cache")
+        runs = {}
+        for run in ("first", "second"):
+            build.BUILD_DIR = os.path.join(root, run)
+            t0 = time.perf_counter()
+            got = build.build()
+            runs[run] = (time.perf_counter() - t0, got)
+        (cold_s, cold), (warm_s, warm) = runs["first"], runs["second"]
+        check(not any(b["cached"] for b in cold.values()),
+              "build_cache: a library came from a new, empty cache")
+        for name in build.SOURCES:
+            with open(cold[name]["path"], "rb") as f, \
+                    open(warm[name]["path"], "rb") as g:
+                check(warm[name]["cached"] and f.read() == g.read(),
+                      f"build_cache: {name} did not come from the cache "
+                      f"byte for byte")
+        emit("build_cache", nvcc_seconds=cold_s, cache_seconds=warm_s,
+             libraries=len(warm),
+             cache=compile_cache.get_default().stats())
+    finally:
+        build.BUILD_DIR = saved_dir
+        if saved_env is None:
+            os.environ.pop("MXNET_COMPILE_CACHE_DIR", None)
+        else:
+            os.environ["MXNET_COMPILE_CACHE_DIR"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------- timing
@@ -822,6 +899,172 @@ def phase_parity(torch, dev, lm):
     del pool
 
 
+# ------------------------------------------------------------- graphs
+def _graph_vs_eager(got, want, where):
+    """Graph-replayed logits against eager ones on the same inputs:
+    within 1e-5 of max|logit|; returns (max abs diff, bitwise equal)."""
+    diff = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    check(got.shape == want.shape and diff <= GRAPH_TOL * scale,
+          f"{where}: graph logits off eager by {diff} (limit "
+          f"{GRAPH_TOL} x {scale})")
+    return diff, bool(np.array_equal(got, want))
+
+
+def phase_graphs(torch, dev, lm):
+    """``PagedLMAdapter``'s CUDA graphs against ``graphs=False`` at
+    GPT-2-small widths: each captured family (prefill at bucket 512, the
+    decode step at the profile phase's batch, verify at width 64,
+    verify_batch (2, 64)) twice on other inputs, so the first call
+    (eager, then captured) and a replay are both held to the eager
+    adapter's logits; three interleaved replays of two signatures
+    repeat bit for bit and add their launches to the counters;
+    ``compiled == programs``; ``refresh()`` with new weights gives a
+    fresh adapter's logits through the surviving graphs."""
+    from mxnet_tpu_torch.models import TransformerDecoderLM
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving import PagedLMAdapter
+    from mxnet_tpu_torch.serving.batcher import next_bucket
+    from mxnet_tpu_torch.serving.kv_cache import PageGeometry
+    L = lm.num_layers
+    geom = PageGeometry(PAGE_SIZE, POOL_PAGES, lm.max_context, L,
+                        lm.num_heads, lm.head_dim)
+    # the graphs adapter's own LM (seed 0, lm's weights): refresh() below
+    # gives it new weights, and lm serves the later phases
+    lm_g = TransformerDecoderLM(**GPT2_SMALL, device=dev,
+                                generator=torch.Generator().manual_seed(0))
+    lm_g.eval()
+    check(all(torch.equal(a, b) for a, b in zip(lm_g.parameters(),
+                                                lm.parameters())),
+          "graphs: seed 0 did not rebuild the same weights")
+    graphs = PagedLMAdapter(lm_g, device=dev)
+    eager = PagedLMAdapter(lm, device=dev, graphs=False)
+    for a in (graphs, eager):
+        a.setup(geom)
+    rs = np.random.RandomState(3)
+    V = lm.vocab_size
+    dec_tokens, positions, tables, nxt = _decode_batch(geom)
+    n_prompt, start = 300, 300
+    bucket = next_bucket(n_prompt, lm.max_context)
+    width = next_bucket(37, lm.max_context)
+    table = np.zeros(geom.pages_per_seq, np.int32)
+    n_pages = geom.pages_for(start + width)
+    table[:n_pages] = np.arange(nxt, nxt + n_pages)
+
+    def prefill_args(n):
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :n] = rs.randint(0, V, n)
+        return tokens, np.int32(n), table
+
+    def verify_args(n):
+        tokens = np.zeros((1, width), np.int32)
+        tokens[0, :n] = rs.randint(0, V, n)
+        return tokens, np.int32(start), np.int32(n), table
+
+    def batch_args(n):
+        tokens = np.zeros((2, width), np.int32)
+        tokens[0, :n] = rs.randint(0, V, n)
+        return (tokens, np.asarray([start, 0], np.int32),
+                np.asarray([n, 0], np.int32),
+                np.stack([table, np.zeros_like(table)]))
+
+    # family -> two calls on other inputs: the first is run eagerly and
+    # captured, the second replays
+    calls = {
+        "prefill": [prefill_args(n_prompt), prefill_args(n_prompt - 10)],
+        "decode_step": [(dec_tokens, positions, tables),
+                        ((dec_tokens + 100) % V, positions, tables)],
+        "verify": [verify_args(37), verify_args(30)],
+        "verify_batch": [batch_args(37), batch_args(21)],
+    }
+    # the kernel each family launches L times: its wrapper counts the
+    # first call's eager launches, none for the capture that follows it
+    # and none for a replay, which does not call it
+    wrappers = {"prefill": None, "decode_step": pa.ragged_paged_attention,
+                "verify": pa.ragged_paged_verify,
+                "verify_batch": pa.ragged_paged_verify}
+    worst, bitwise = 0.0, {}
+    for family, arg_list in calls.items():
+        wrapper = wrappers[family]
+        for i, args in enumerate(arg_list):
+            before = wrapper and wrapper.launches
+            got = getattr(graphs, family)(*args)
+            if wrapper is not None:
+                rose = wrapper.launches - before
+                check(rose == (L if i == 0 else 0),
+                      f"graphs: {family} call {i + 1} counted {rose} "
+                      f"launches of {wrapper.__name__}")
+            want = getattr(eager, family)(*args)
+            diff, same = _graph_vs_eager(got, want, f"graphs {family} "
+                                         f"call {i + 1}")
+            worst = max(worst, diff)
+            bitwise[f"{family}_{i + 1}"] = same
+    check(graphs.compiled == graphs.programs() == len(calls),
+          f"graphs: compiled {graphs.compiled} != programs "
+          f"{graphs.programs()} != {len(calls)}")
+    check(eager.compiled == 0, "graphs=False captured a graph")
+
+    # three interleaved replays of two signatures repeat bit for bit
+    dec_args, ver_args = calls["decode_step"][1], calls["verify"][1]
+    outs = {"decode_step": [], "verify": []}
+    for _ in range(3):
+        for family, args in (("decode_step", dec_args),
+                             ("verify", ver_args)):
+            outs[family].append(getattr(graphs, family)(*args))
+    for family, got in outs.items():
+        check(all(np.array_equal(got[0], g) for g in got[1:]),
+              f"graphs: interleaved {family} replays differ")
+    # a traced replay of each kernel family holds num_layers kernels
+    kernels = (pa.ragged_paged_attention, pa.ragged_paged_verify)
+    counted = [w.launches for w in kernels]
+    replays = graphs.replays()
+    records = _kernel_records(torch, lambda: [
+        getattr(graphs, f)(*calls[f][1])
+        for f in ("decode_step", "verify", "verify_batch")])
+    check(records == {"ragged_paged_attention": L,
+                      "ragged_paged_verify": 2 * L},
+          f"graphs: traced replays of decode_step, verify and "
+          f"verify_batch hold {records} kernels, not {L} / {2 * L}")
+    check(graphs.replays() - replays == 3
+          and counted == [w.launches for w in kernels],
+          "graphs: a traced call did not replay its graph, or a "
+          "wrapper counted a replay")
+
+    # refresh(): new weights copied in place into the captured tensors
+    lm_new = TransformerDecoderLM(**GPT2_SMALL, device=dev,
+                                  generator=torch.Generator().manual_seed(1))
+    lm_new.eval()
+    ptrs = [t.data_ptr() for t in graphs.params["cells"][0].values()]
+    old_logits = graphs.prefill(*calls["prefill"][1])
+    with torch.no_grad():
+        for dst, src in zip(lm_g.parameters(), lm_new.parameters()):
+            dst.data = src.data
+    graphs.refresh()
+    check([t.data_ptr() for t in graphs.params["cells"][0].values()]
+          == ptrs, "graphs: refresh() moved a captured parameter")
+    fresh = PagedLMAdapter(lm_new, device=dev, graphs=False)
+    fresh.setup(geom)
+    got = graphs.prefill(*calls["prefill"][1])
+    want = fresh.prefill(*calls["prefill"][1])
+    refresh_diff, refresh_same = _graph_vs_eager(got, want,
+                                                 "graphs after refresh()")
+    check(not np.allclose(got, old_logits),
+          "graphs: refresh() did not change the replayed logits")
+    check(graphs.compiled == len(calls),
+          "graphs: refresh() recaptured a graph")
+    emit("graphs", families=list(calls), max_abs_logit_diff=worst,
+         tolerance=f"{GRAPH_TOL} x max|logit|", bitwise_equal=bitwise,
+         interleaved_replays_bitwise=True,
+         traced_replay_kernel_records=records, compiled=graphs.compiled,
+         programs=graphs.programs(), disk_hits=graphs.disk_hits,
+         capture_ms={k[0]: p.capture_s * 1e3
+                     for k, p in graphs._programs.items()},
+         refresh_max_abs_logit_diff=refresh_diff,
+         refresh_bitwise_equal=refresh_same)
+    for a in (graphs, eager, fresh):
+        a.teardown()
+
+
 # ------------------------------------------------------------- profile
 def _kernel_us(evt, torch):
     """Device microseconds of one averaged profiler entry if it is a
@@ -836,19 +1079,32 @@ def _kernel_us(evt, torch):
     return None
 
 
-def phase_profile(torch, dev, lm):
-    """Where one decode step's time goes: ``PagedLMAdapter.decode_step``
-    (numpy in, numpy out, as the engine calls it) at the serving batch of
-    8 over mixed contexts, host-timed, then traced with
-    ``torch.profiler`` and its device time split by kernel family."""
-    from torch.profiler import ProfilerActivity, profile
+KERNEL_NAMES = {"ragged_paged_attention": "ragged_paged_attention_kernel",
+                "ragged_paged_verify": "ragged_paged_verify_kernel"}
 
-    from mxnet_tpu_torch.serving import PagedLMAdapter
-    from mxnet_tpu_torch.serving.kv_cache import PageGeometry
-    geom = PageGeometry(PAGE_SIZE, POOL_PAGES, lm.max_context,
-                        lm.num_layers, lm.num_heads, lm.head_dim)
-    adapter = PagedLMAdapter(lm, device=dev)
-    adapter.setup(geom)
+
+def _kernel_records(torch, run):
+    """``run()`` traced with ``torch.profiler``: how many times B4's and
+    B5's kernels ran on the card, from the trace's kernel records
+    (launched by a wrapper or replayed by a CUDA graph alike)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for evt in prof.key_averages():
+        if _kernel_us(evt, torch) is None:
+            continue
+        for name, kernel in KERNEL_NAMES.items():
+            if kernel in evt.key:
+                counts[name] += evt.count
+    return counts
+
+
+def _decode_batch(geom):
+    """The profile phase's decode batch (``PROFILE_POSITIONS``): tokens,
+    positions and block tables over pages 1.., and the next free page."""
     positions = np.asarray(PROFILE_POSITIONS, np.int32)
     tables = np.zeros((MAX_BATCH, geom.pages_per_seq), np.int32)
     nxt = 1
@@ -857,17 +1113,22 @@ def phase_profile(torch, dev, lm):
         tables[b, :n] = np.arange(nxt, nxt + n)
         nxt += n
     tokens = np.arange(1, MAX_BATCH + 1, dtype=np.int32)
+    return tokens, positions, tables, nxt
 
-    def step():
-        return adapter.decode_step(tokens, positions, tables)
 
-    for _ in range(3):
-        step()
-    n = 20
-    t0 = time.perf_counter()
-    for _ in range(n):
-        step()
-    step_ms = (time.perf_counter() - t0) / n * 1e3
+def _is_host_call(key):
+    """A CUDA API call (``cuda*`` or ``cu*``) that puts work on a
+    stream: a kernel or graph launch, or a copy."""
+    return key.startswith("cu") and ("Launch" in key or "Memcpy" in key)
+
+
+def _trace_steps(torch, step, n, step_ms):
+    """``n`` calls of ``step`` traced with ``torch.profiler``: device
+    time by kernel family (copies count under ``other`` and are also
+    given alone), kernels and copies per step, host calls (launches,
+    graph launches and copies) per step, and the device idle share
+    against the untraced ``step_ms``."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -875,13 +1136,17 @@ def phase_profile(torch, dev, lm):
             step()
         profiled_ms = (time.perf_counter() - t0) / n * 1e3
     split = {"ragged_paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
-    kernels, top = 0, []
+    kernels, host_calls, copy_us, top = 0, 0, 0.0, []
     for evt in prof.key_averages():
         us = _kernel_us(evt, torch)
         if not us:
+            if _is_host_call(evt.key):
+                host_calls += evt.count
             continue
         key = evt.key.lower()
         kernels += evt.count
+        if "memcpy" in key:
+            copy_us += us
         top.append((us, evt.count, evt.key[:90]))
         if "ragged_paged_attention" in key:
             split["ragged_paged_attention"] += us
@@ -890,77 +1155,137 @@ def phase_profile(torch, dev, lm):
         else:
             split["other"] += us
     busy_us = sum(split.values())
-    adapter.teardown()
     top = [dict(kernel=k, ms_per_step=us / n / 1e3, launches_per_step=c / n)
            for us, c, k in sorted(top, reverse=True)[:8]]
     busy_ms = busy_us / n / 1e3
     # the idle share is taken against the UNPROFILED step: tracing
     # stretches the host's wall time, not the kernels' device time
-    emit("profile", batch=MAX_BATCH, positions=positions.tolist(),
-         step_ms_host=step_ms, step_ms_host_profiled=profiled_ms,
-         device_ms_per_step=busy_ms if busy_us else None,
-         device_ms_per_step_by_family={k: v / n / 1e3
-                                       for k, v in split.items()}
-         if busy_us else None,
-         device_idle_share=(1.0 - busy_ms / step_ms) if busy_us else None,
-         kernel_launches_per_step=kernels / n if busy_us else None,
-         top_kernels=top)
+    return dict(
+        step_ms_host=step_ms, step_ms_host_profiled=profiled_ms,
+        device_ms_per_step=busy_ms if busy_us else None,
+        device_ms_per_step_by_family={k: v / n / 1e3
+                                      for k, v in split.items()}
+        if busy_us else None,
+        device_idle_share=(1.0 - busy_ms / step_ms) if busy_us else None,
+        kernel_launches_per_step=kernels / n if busy_us else None,
+        copy_ms_per_step=copy_us / n / 1e3,
+        host_calls_per_step=host_calls / n, top_kernels=top)
+
+
+def phase_profile(torch, dev, lm):
+    """Where one decode step's time goes: ``PagedLMAdapter.decode_step``
+    (numpy in, numpy out, as the engine calls it) at the serving batch of
+    8 over mixed contexts, replaying its CUDA graph (``graphs``) and
+    launching every kernel from Python (``eager``, ``graphs=False``):
+    host-timed in turns (eager, graphs, graphs, eager), then each traced
+    with ``torch.profiler`` and its device time split by kernel family."""
+    from mxnet_tpu_torch.serving import PagedLMAdapter
+    from mxnet_tpu_torch.serving.kv_cache import PageGeometry
+    geom = PageGeometry(PAGE_SIZE, POOL_PAGES, lm.max_context,
+                        lm.num_layers, lm.num_heads, lm.head_dim)
+    tokens, positions, tables, _ = _decode_batch(geom)
+    modes = ("eager", "graphs")
+    adapters = {m: PagedLMAdapter(lm, device=dev, graphs=m == "graphs")
+                for m in modes}
+    steps = {}
+    for m, adapter in adapters.items():
+        adapter.setup(geom)
+        steps[m] = functools.partial(adapter.decode_step, tokens, positions,
+                                     tables)
+        for _ in range(3):
+            steps[m]()
+    n = 20
+    host = {m: [] for m in modes}
+    for m in modes + modes[::-1]:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            steps[m]()
+        host[m].append((time.perf_counter() - t0) / n * 1e3)
+    rows = {m: _trace_steps(torch, steps[m], n, float(np.mean(host[m])))
+            for m in modes}
+    for m in modes:
+        rows[m]["step_ms_host_turns"] = host[m]
+        adapters[m].teardown()
+    emit("profile", batch=MAX_BATCH, positions=positions.tolist(), **rows)
 
 
 # ----------------------------------------------------------------- serve
-def phase_serve(torch, dev, lm):
-    from mxnet_tpu_torch.ops import paged_attention as pa
-    from mxnet_tpu_torch.serving import (DecodeEngine, PagedLMAdapter,
-                                         ServingConfig)
+def _run_wave(eng, prompts):
+    """Every prompt of ``prompts`` generated at once, one thread each:
+    [(prompt, tokens, ttft seconds)] and the wave's wall seconds."""
+    out = [None] * len(prompts)
+
+    def one(i):
+        t0 = time.perf_counter()
+        first = []
+        toks = eng.generate(
+            prompts[i], max_new_tokens=32, timeout=600,
+            on_token=lambda _t: first or first.append(time.perf_counter()))
+        out[i] = (prompts[i], toks, first[0] - t0)
+
+    ts = [threading.Thread(target=one, args=(i,), daemon=True)
+          for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(900)
+    check(not any(t.is_alive() for t in ts), "a request hung")
+    check(all(o is not None for o in out), "a request failed")
+    return out, time.perf_counter() - t0
+
+
+def _serve_traffic(lm):
+    """The served configuration and traffic: a warm-up prompt, then 8
+    prompts of 17-511 tokens at once, one request seeding a 256-token
+    prefix, and 3 requests hitting it (``RandomState(2)``)."""
+    from mxnet_tpu_torch.serving import ServingConfig
     cfg = ServingConfig(decode_page_size=PAGE_SIZE,
                         decode_pool_pages=POOL_PAGES,
                         decode_max_batch=MAX_BATCH, prefix_cache=True,
                         decode_max_new_tokens=32)
-    eng = DecodeEngine(PagedLMAdapter(lm, device="cuda"), cfg,
-                       model_name="gpt2-small", autostart=True)
     rs = np.random.RandomState(2)
+    V = lm.vocab_size
+    warm = rs.randint(0, V, 8)
+    lens = rs.randint(17, 512, MAX_BATCH)
+    wave1 = [rs.randint(0, V, n) for n in lens]
+    prefix = rs.randint(0, V, 256)
+    seed_req = np.concatenate([prefix, rs.randint(0, V, 16)])
+    wave3 = [np.concatenate([prefix, rs.randint(0, V, 5)]),
+             np.concatenate([prefix, rs.randint(0, V, 37)]),
+             seed_req]
+    return cfg, warm, (wave1, [seed_req], wave3)
+
+
+def phase_serve(torch, dev, lm):
+    """Threaded ``DecodeEngine.generate`` through the adapter's CUDA
+    graphs (the default), every one captured when the engine binds the
+    adapter.  The B4/B5 counters are zeroed just before the engine is
+    built and read after the waves: they count the wrappers' eager
+    launches (the captures' warm-up runs); ``phase_serve_trace`` counts
+    the replayed kernels.  Then the same prompts through an eager
+    (``graphs=False``) engine, whose tokens are compared (reported, not
+    asserted)."""
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving import DecodeEngine, PagedLMAdapter
+    cfg, warm, waves = _serve_traffic(lm)
+    pa.ragged_paged_attention.launches = 0
+    pa.ragged_paged_verify.launches = 0
+    adapter = PagedLMAdapter(lm, device="cuda")
+    t0 = time.perf_counter()
+    eng = DecodeEngine(adapter, cfg, model_name="gpt2-small",
+                       autostart=True)
+    bind_s = time.perf_counter() - t0
+    check(adapter.compiled == len(eng.signatures()),
+          f"serve: {adapter.compiled} graphs captured at bind, not "
+          f"{len(eng.signatures())}")
     V = lm.vocab_size
     results = []
     try:
         # warm-up: a sub-page prompt (nothing enters the prefix cache)
-        eng.generate(rs.randint(0, V, 8), max_new_tokens=4, timeout=600)
-
-        def run_wave(prompts):
-            out = [None] * len(prompts)
-
-            def one(i):
-                t0 = time.perf_counter()
-                first = []
-                toks = eng.generate(
-                    prompts[i], max_new_tokens=32, timeout=600,
-                    on_token=lambda _t: first or first.append(
-                        time.perf_counter()))
-                out[i] = (prompts[i], toks, first[0] - t0)
-
-            ts = [threading.Thread(target=one, args=(i,), daemon=True)
-                  for i in range(len(prompts))]
-            t0 = time.perf_counter()
-            for t in ts:
-                t.start()
-            for t in ts:
-                t.join(900)
-            check(not any(t.is_alive() for t in ts), "a request hung")
-            check(all(o is not None for o in out), "a request failed")
-            return out, time.perf_counter() - t0
-
-        lens = rs.randint(17, 512, MAX_BATCH)
-        wave1 = [rs.randint(0, V, n) for n in lens]
-        prefix = rs.randint(0, V, 256)
-        seed_req = np.concatenate([prefix, rs.randint(0, V, 16)])
-        wave3 = [np.concatenate([prefix, rs.randint(0, V, 5)]),
-                 np.concatenate([prefix, rs.randint(0, V, 37)]),
-                 seed_req]
-
-        pa.ragged_paged_attention.launches = 0
-        pa.ragged_paged_verify.launches = 0
-        out1, s1 = run_wave(wave1)
-        out2, s2 = run_wave([seed_req])
-        out3, s3 = run_wave(wave3)
+        eng.generate(warm, max_new_tokens=4, timeout=600)
+        (out1, s1), (out2, s2), (out3, s3) = [_run_wave(eng, w)
+                                              for w in waves]
         launches = {"ragged_paged_attention":
                     pa.ragged_paged_attention.launches,
                     "ragged_paged_verify": pa.ragged_paged_verify.launches}
@@ -981,6 +1306,17 @@ def phase_serve(torch, dev, lm):
     check(eng.allocator.used_pages == 0,
           f"{eng.allocator.used_pages} pages still held after drain")
     eng.allocator.check_leaks()
+    # the same waves through an eager engine (reported: the graphs run the
+    # same kernels, so the tokens are expected to agree)
+    eager = DecodeEngine(PagedLMAdapter(lm, device="cuda", graphs=False),
+                         cfg, model_name="gpt2-small-eager", autostart=True)
+    try:
+        eager.generate(warm, max_new_tokens=4, timeout=600)
+        eager_out = [o for w in waves for o in _run_wave(eager, w)[0]]
+    finally:
+        check(eager.stop(timeout=120), "eager engine did not stop")
+    same = sum(int((a[1] == b[1]).sum()) for a, b in zip(results,
+                                                         eager_out))
     # greedy tokens vs the dense forward's argmax (reported: random
     # weights make near-ties, so a flip is not a failure)
     agree = total = 0
@@ -1003,10 +1339,53 @@ def phase_serve(torch, dev, lm):
          prefix_hits=st["prefix_hits"], prefix_misses=st["prefix_misses"],
          prefix_tokens_saved=st["prefix_tokens_saved"],
          programs=st["programs"], program_bound=st["program_bound"],
+         compiled=adapter.compiled, disk_hits=adapter.disk_hits,
+         bind_s=bind_s, capture_s=adapter.capture_seconds,
          used_pages_after_drain=eng.allocator.used_pages,
          kernel_launches=launches,
+         tokens_equal_to_eager_engine=same / total,
          greedy_vs_full_forward_argmax=agree / total)
     return launches
+
+
+def phase_serve_trace(torch, lm):
+    """The ``serve`` phase's traffic again, on a new engine (its graphs
+    captured at bind), traced with ``torch.profiler``: every call
+    replays a graph, so the B4/B5 wrappers count nothing, and the
+    trace's kernel records equal ``num_layers`` per decode / verify
+    replay.  Returns the records.  It runs after the training phases:
+    the profiler's device tracing slows every later launch."""
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving import DecodeEngine, PagedLMAdapter
+    cfg, warm, waves = _serve_traffic(lm)
+    adapter = PagedLMAdapter(lm, device="cuda")
+    eng = DecodeEngine(adapter, cfg, model_name="gpt2-small-traced",
+                       autostart=True)
+    kernels = (pa.ragged_paged_attention, pa.ragged_paged_verify)
+    try:
+        eng.generate(warm, max_new_tokens=4, timeout=600)
+        counted = [w.launches for w in kernels]
+        replays = {k: p.replays for k, p in adapter._programs.items()}
+        records = _kernel_records(torch, lambda: [_run_wave(eng, w)
+                                                  for w in waves])
+        ran = {k: p.replays - replays[k]
+               for k, p in adapter._programs.items()}
+    finally:
+        check(eng.stop(timeout=120), "traced engine did not stop")
+    L = lm.num_layers
+    want = {"ragged_paged_attention": L * sum(
+                n for k, n in ran.items() if k[0] == "decode"),
+            "ragged_paged_verify": L * sum(
+                n for k, n in ran.items()
+                if k[0] in ("verify", "verify_batch"))}
+    check(records == want and all(want.values()),
+          f"serve_trace: the traced waves ran {records} B4/B5 kernels; "
+          f"their graph replays hold {want}")
+    check(counted == [w.launches for w in kernels],
+          "serve_trace: a wrapper launched outside a graph")
+    emit("serve_trace", kernel_records=records,
+         replays={"/".join(map(str, k)): n for k, n in ran.items() if n})
+    return records
 
 
 # ----------------------------------------------------------------- train
@@ -1173,6 +1552,7 @@ def main():
         print("chip_smoke: no CUDA device; the port's smoke test runs "
               "only on the card", file=sys.stderr)
         return 1
+    from mxnet_tpu_torch import compile_cache
     from mxnet_tpu_torch.models import TransformerDecoderLM
     from mxnet_tpu_torch.ops import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1187,11 +1567,15 @@ def main():
     t0 = time.perf_counter()
     built = build.build()
     emit("build", seconds=time.perf_counter() - t0,
-         sources={n: dict(seconds=b["seconds"],
-                          ptxas=ptxas_summary(b["ptxas"]))
-                  for n, b in built.items()})
-    if "flash_attention_fwd" in built:
-        log = built["flash_attention_fwd"]["ptxas"]
+         sources={n: dict(seconds=b["seconds"], cached=b["cached"],
+                          ptxas=ptxas_summary(b["ptxas"] or ""))
+                  for n, b in built.items()},
+         compile_cache=compile_cache.get_default().stats())
+    # ptxas reports come with the libraries compiled in this run; one
+    # copied from the persistent cache (MXNET_COMPILE_CACHE_DIR) has none
+    compiled = {n: b for n, b in built.items() if not b["cached"]}
+    if "flash_attention_fwd" in compiled:
+        log = compiled["flash_attention_fwd"]["ptxas"]
         wgmma = [ln for ln in ptxas_summary(log)
                  if "flash_fwd_wgmma_kernel" in ln]
         check(wgmma and all("0 bytes spill stores, 0 bytes spill loads"
@@ -1199,7 +1583,8 @@ def main():
               and "serialized" not in log,
               f"build: the bf16 forward kernel spills or serialises its "
               f"wgmma: {ptxas_summary(log)}")
-    check_tf32_build(build, built)
+    check_tf32_build(build, compiled)
+    phase_build_cache(build, compile_cache)
 
     timer = Timer(torch, dev)
     report = phase_kernels(torch, dev, timer)
@@ -1214,9 +1599,12 @@ def main():
     train_launches, (trainer, step_ms), batch = phase_train(
         torch, dev, head, feats, labels)
     launches.update(train_launches)
-    # last: the profiler's device tracing slows every later launch
+    # last: the profiler's device tracing slows every later launch (the
+    # profiles take their untraced times before they trace)
     phase_profile(torch, dev, lm)
     phase_profile_train(torch, trainer, batch, step_ms)
+    phase_graphs(torch, dev, lm)
+    replayed = phase_serve_trace(torch, lm)
 
     pk = "mxnet_tpu/ops/pallas_kernels.py"
     kernels = []
@@ -1239,8 +1627,9 @@ def main():
         entry = dict(
             name=name, route="cuda",
             source=f"mxnet_tpu_torch/csrc/{name}.cu", replaces=replaces,
-            launches=launches[name], **by_dtype["float32"],
-            bfloat16=by_dtype["bfloat16"])
+            launches=launches[name],
+            traced_serve_kernel_records=replayed[name],
+            **by_dtype["float32"], bfloat16=by_dtype["bfloat16"])
         # every row of the kernels phase, with the plan's split
         keys = ("dtype", "shape", "W", "B", "n_split", "ms", "bound_ms",
                 "library_ms") if name == "ragged_paged_verify" else (

@@ -165,6 +165,17 @@ declare_env("MXNET_SERVING_RETRY_BACKOFF_MS", 10,
             "Serving: base of the jittered exponential retry backoff "
             "(sleep ~ backoff * 2^attempt * U[0.5,1.0) milliseconds "
             "between transient-failure retries).")
+declare_env("MXNET_COMPILE_CACHE_DIR", None,
+            "Persistent compile-cache directory "
+            "(mxnet_tpu_torch.compile_cache): the port keeps its nvcc-"
+            "built kernel libraries there, content-addressed on their "
+            "source digest, device topology and torch/CUDA versions, so "
+            "a fresh checkout or a new process copies them instead of "
+            "running nvcc.  Unset (default) = disabled.")
+declare_env("MXNET_COMPILE_CACHE_MAX_BYTES", 1073741824,
+            "Size bound on the compile-cache directory; least-recently-"
+            "used entries are evicted beyond it (hits refresh recency). "
+            "0 = unbounded.")
 declare_env("MXNET_FAULTS", None,
             "Deterministic fault-injection plan for chaos testing "
             "(mxnet_tpu_torch.faults): 'site=mode[,k=v...][;...]' with mode "

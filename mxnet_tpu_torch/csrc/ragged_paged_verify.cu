@@ -48,6 +48,7 @@
 //   P goes through a per-warp shared tile into O += P V.
 // - The C entry point picks the kernel by dtype and row tile; a refused
 //   launch returns its cudaError_t.
+#include <atomic>
 #include <type_traits>
 
 #include "paged_common.cuh"
@@ -63,6 +64,7 @@ constexpr int kVerifyStages = 3;
 // largest chunk of one block, in pages (its block-table entries live in
 // shared memory); ops/paged_attention.py _MAX_CHUNK_PAGES
 constexpr int kMaxChunkPages = 4096;
+constexpr int kMaxSmem = 232448;    // what one H100 block may use
 
 // Shared-memory tile shapes of one (dtype, head dim, row-tile) kernel.
 template <typename T, int D, int RW> struct VerifyTile {
@@ -656,9 +658,24 @@ static int launch(const void* q, const void* k, const void* v,
   using TL = VerifyTile<T, D, RW>;
   auto kernel = ragged_paged_verify_kernel<T, D, RW>;
   const size_t smem = TL::smem_bytes(chunk / page_size);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // The shared-memory attribute is raised once per instantiation and
+  // device, to the most any plan can ask of it (kMaxChunkPages pages of
+  // block table) capped at what one block may use, as B4 and
+  // launch_with_smem do: set on every launch it was a host call inside
+  // every captured CUDA graph.
+  static std::atomic<unsigned> set_on{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  const unsigned bit = 1u << (dev & 31);
+  if (!(set_on.load() & bit)) {
+    const size_t most = TL::smem_bytes(kMaxChunkPages);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(most < (size_t)kMaxSmem ? most : (size_t)kMaxSmem));
+    if (err != cudaSuccess) return (int)err;
+    set_on.fetch_or(bit);
+  }
   const dim3 grid(B * H, (W + TL::BW - 1) / TL::BW, n_split);
   kernel<<<grid, TL::NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

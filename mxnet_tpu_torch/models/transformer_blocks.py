@@ -491,8 +491,27 @@ def _f_ffn(x, cp, activation):
 
 
 def _scalar(v):
-    """A host int from a python/numpy scalar or a 0-d/1-element tensor."""
-    return int(v.item()) if isinstance(v, torch.Tensor) else int(v)
+    """A python int from a python/numpy scalar; a 0-d tensor from a
+    0-d/1-element tensor, left on its device and never read back to the
+    host, so a forward over it can be captured in a CUDA graph (the
+    JAX package traces these scalars, one program for every value)."""
+    return v.reshape(()) if isinstance(v, torch.Tensor) else int(v)
+
+
+def _row(x, i):
+    """``x[i]`` for an int ``i``; for a 0-d tensor ``i`` the row is
+    gathered on ``x``'s device (no read back)."""
+    if isinstance(i, torch.Tensor):
+        return x.index_select(0, i.reshape(1).to(x.device, torch.long))[0]
+    return x[i]
+
+
+def _vec1(v, device):
+    """``v`` (an int or a 0-d tensor from :func:`_scalar`) as a (1,)
+    int32 tensor on ``device``; a tensor already there is a view."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(1).to(device, torch.int32)
+    return torch.tensor([v], dtype=torch.int32, device=device)
 
 
 def paged_prefill(params, tokens, length, block_table, k_pages, v_pages,
@@ -500,7 +519,8 @@ def paged_prefill(params, tokens, length, block_table, k_pages, v_pages,
                   layer_norm_eps=1e-5):
     """Prefill ONE sequence and write its K/V into cache pages.
 
-    ``tokens``: (1, L_bucket) int, padded past ``length`` (a scalar);
+    ``tokens``: (1, L_bucket) int, padded past ``length`` (an int or a
+    0-d / 1-element int tensor on the pools' device);
     ``block_table``: (pages_per_seq,) int physical pages (null page 0
     in unused slots); ``k_pages``/``v_pages``: the full
     (layers, pool_pages, page_size, heads, head_dim) pools, written in
@@ -537,7 +557,7 @@ def paged_prefill(params, tokens, length, block_table, k_pages, v_pages,
         x = x + (o @ cp["o_w"].T + cp["o_b"])
         x = x + _f_ffn(_f_ln(x, cp["n2_g"], cp["n2_b"], layer_norm_eps),
                        cp, activation)
-    x_last = _f_ln(x[length - 1], params["fn_g"], params["fn_b"],
+    x_last = _f_ln(_row(x, length - 1), params["fn_g"], params["fn_b"],
                    layer_norm_eps)
     return (x_last @ params["proj_w"].T + params["proj_b"],
             k_pages, v_pages)
@@ -591,8 +611,10 @@ def paged_verify(params, tokens, start, length, block_table, k_pages,
     hit (docs/serving.md §9).
 
     ``tokens``: (1, W_bucket) int window, padded past ``length``;
-    ``start``: scalar global position of ``tokens[0, 0]`` (K/V of
-    positions ``< start`` already sit in cache pages); ``block_table``:
+    ``start``: global position of ``tokens[0, 0]`` (K/V of positions
+    ``< start`` already sit in cache pages); ``start`` and ``length``
+    are ints or 0-d / 1-element int tensors on the pools' device;
+    ``block_table``:
     (pages_per_seq,) int.  Writes K/V for the ``length`` valid window
     positions through the block table (padded positions route to the
     null page) and attends each window token causally over the FULL
@@ -617,8 +639,7 @@ def paged_verify(params, tokens, start, length, block_table, k_pages,
     page_idx = torch.where(
         valid, block_table.long()[(pos // page_size).clamp(max=P - 1)], 0)
     slot_idx = pos % page_size
-    starts = torch.tensor([start], dtype=torch.int32, device=dev)
-    lengths = torch.tensor([length], dtype=torch.int32, device=dev)
+    starts, lengths = _vec1(start, dev), _vec1(length, dev)
     for li, cp in enumerate(params["cells"]):
         h = _f_ln(x, cp["n1_g"], cp["n1_b"], layer_norm_eps)
         qkv = (h @ cp["qkv_w"].T + cp["qkv_b"]).reshape(W, H, 3, D)

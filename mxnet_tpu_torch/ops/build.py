@@ -8,6 +8,14 @@ their source, every ``csrc/*.cuh`` header and the flags, so an edited
 source or header is rebuilt and a stale library is never loaded.  Nothing is built at import time: the first
 kernel launch builds what it needs, and :func:`build` compiles a list
 of sources in parallel (one ``nvcc`` per source, all started together).
+
+With ``MXNET_COMPILE_CACHE_DIR`` set, the persistent compile cache
+(:mod:`mxnet_tpu_torch.compile_cache`) is the tier behind
+``BUILD_DIR``: :func:`build` looks each missing library up there under
+its digest name before it runs ``nvcc``, writes a verified hit to
+``BUILD_DIR`` atomically, and stores each library it compiles.  A
+corrupt entry is a counted miss and the library is compiled again.
+With the variable unset nothing is read or stored outside ``BUILD_DIR``.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import subprocess
 import threading
 import time
 
+from .. import compile_cache as _cc
 from ..base import KernelError
 
 __all__ = ["SOURCES", "BUILD_DIR", "build", "entry", "load",
@@ -63,27 +72,44 @@ def library_path(name):
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
+def _cache_key(path):
+    """The compile-cache key of a library: its digest file name (source,
+    headers and flags), keyed with the device topology and versions."""
+    return _cc.cache_key(os.path.basename(path), 0, ["sm_90a"])
+
+
 def build(names=SOURCES):
-    """Compile every source in ``names`` whose library is missing, one
-    ``nvcc`` per source, all started together.  Returns
-    ``{name: {"path", "seconds", "ptxas"}}`` for what was compiled
+    """Bring every library of ``names`` into ``BUILD_DIR``: from the
+    persistent compile cache where it holds a verified copy, else by
+    compiling, one ``nvcc`` per source, all started together.  Returns
+    ``{name: {"path", "seconds", "ptxas", "cached"}}`` for what was not
+    already in ``BUILD_DIR``: ``cached`` is True for a library copied
+    from the cache (its ``ptxas`` is None), False for one compiled now
     (``ptxas`` holds the compiler's register and shared-memory report).
     Raises :class:`KernelError` with the compiler's output on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
+    cache = _cc.get_default()
+    built, procs, nvcc = {}, {}, None
     for name in names:
         out = library_path(name)
         if os.path.exists(out):
             continue
+        t0 = time.perf_counter()
+        body = cache.get(_cache_key(out)) if cache.enabled else None
+        if body is not None:
+            _cc.atomic_write(out, body)
+            built[name] = {"path": out, "ptxas": None, "cached": True,
+                           "seconds": time.perf_counter() - t0}
+            continue
+        nvcc = nvcc or _nvcc()
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True),
-                       out, tmp, time.perf_counter())
-    built, failed = {}, []
+                       out, tmp, t0)
+    failed = []
     for name, (proc, out, tmp, t0) in procs.items():
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
@@ -91,7 +117,11 @@ def build(names=SOURCES):
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
-        built[name] = {"path": out, "seconds": seconds, "ptxas": log}
+        if cache.enabled:
+            with open(out, "rb") as f:
+                cache.put(_cache_key(out), f.read())
+        built[name] = {"path": out, "seconds": seconds, "ptxas": log,
+                       "cached": False}
     if failed:
         raise KernelError("nvcc failed for " + "\n".join(failed))
     return built

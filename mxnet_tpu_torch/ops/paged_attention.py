@@ -26,7 +26,12 @@ softmax statistics and accumulator over storage-dtype inputs, output in
 the query dtype, exact zeros for a row with no visible key (an inactive
 slot), and block-table entries past a sequence's context point at a
 valid page (the null page 0) and are never read.  Each wrapper counts
-its kernel launches in a plain integer attribute (``.launches``).
+its kernel launches in a plain integer attribute (``.launches``).  A
+call made while its stream is capturing a CUDA graph launches nothing:
+it records the kernel into the graph and is not counted; the graph's
+replays run the kernel without calling the wrapper, so a profiler's
+kernel records count them.  Neither wrapper reads a tensor back to the
+host, so both can be captured.
 """
 from __future__ import annotations
 
@@ -167,6 +172,7 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         ws = counters = None
         if plan.workspace is not None:
             ws, counters = _decode_workspace(q.device, stream,
@@ -181,7 +187,8 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables,
     if rc != 0:
         raise KernelError(f"ragged_paged_attention: kernel launch failed "
                          f"with CUDA error {rc}")
-    ragged_paged_attention.launches += 1
+    if not capturing:
+        ragged_paged_attention.launches += 1
     return out
 
 
@@ -230,7 +237,14 @@ def _decode_workspace(device, stream, shape):
     made on first use and kept, so a decode step allocates nothing and
     the addresses stay fixed.  The counters are zeroed once, here: the
     kernel's last block of each (b, h) sets its counter back to 0.
-    Calls on one stream run in order, so they may share one workspace."""
+    Calls on one stream run in order, so they may share one workspace.
+
+    Under CUDA-graph capture the stream is the capture stream, and the
+    workspace must already exist (an eager call on that stream makes
+    it, as ``serving.decode.PagedLMAdapter`` does before it captures):
+    each graph then holds these fixed addresses.  Two graphs that share
+    one workspace must never replay at the same time; the adapter's
+    one engine thread runs its replays one after another."""
     key = (device, stream, shape)
     found = _DECODE_WORKSPACES.get(key)
     if found is None:
@@ -333,9 +347,12 @@ def ragged_paged_verify(q, k_pages, v_pages, block_tables, starts,
     out = torch.empty_like(q)
     ws = None
     if plan.workspace is not None:
+        # per call: under CUDA-graph capture it comes from the graph's
+        # memory pool, at an address fixed for the graph's replays
         ws = torch.empty(plan.workspace, dtype=torch.float32,
                          device=q.device)
     with torch.cuda.device(q.device):
+        capturing = torch.cuda.is_current_stream_capturing()
         rc = _kernel("ragged_paged_verify")(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             bt.data_ptr(), st.data_ptr(), ln.data_ptr(), out.data_ptr(),
@@ -346,7 +363,8 @@ def ragged_paged_verify(q, k_pages, v_pages, block_tables, starts,
     if rc != 0:
         raise KernelError(f"ragged_paged_verify: kernel launch failed with "
                          f"CUDA error {rc}")
-    ragged_paged_verify.launches += 1
+    if not capturing:
+        ragged_paged_verify.launches += 1
     return out
 
 

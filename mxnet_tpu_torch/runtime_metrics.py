@@ -5,7 +5,8 @@ registry, exporters and metric names for the serving slice
 (``serving.decode.*``, ``serving.decode.prefix.*``,
 ``serving.decode.spec.*``, ``kv.shared_pages``, ...) and the training
 slice (``trainer.step.seconds``, ``train.step.breakdown.seconds``,
-``train.mfu``, ``train.bottleneck``), so dashboards
+``train.mfu``, ``train.bottleneck``) and the persistent
+compile cache (``compile.cache``), so dashboards
 read either package unchanged.  Exporters: ``dump_prometheus()`` (text
 exposition) and ``chrome_counter_events()`` (chrome-trace counters).
 
@@ -706,6 +707,13 @@ SERVING_DECODE_QUARANTINED = counter(
     "Sequences evicted alone after a decode/prefill step failure was "
     "bisected down to them (pages reclaimed, batchmates keep "
     "decoding), per model.", labelnames=("model",))
+
+COMPILE_CACHE = counter(
+    "compile.cache",
+    "Persistent compile-cache events (mxnet_tpu_torch.compile_cache): "
+    "event=hit|miss|corrupt|store|evict.  The port's payloads are the "
+    "nvcc-built kernel libraries (mxnet_tpu_torch.ops.build).",
+    labelnames=("event",))
 
 TRAINER_STEP_SECONDS = histogram(
     "trainer.step.seconds",

@@ -3,9 +3,14 @@ paged KV cache (docs/serving.md §6).
 
 The PyTorch port of ``mxnet_tpu.serving.decode``.  The scheduler
 (:class:`DecodeEngine`, with its prefix-cache and speculative-decoding
-host logic) is the JAX package's, unchanged; :class:`PagedLMAdapter`
-runs the port's eager paged forwards, whose decode and verify attention
-are hand-written CUDA kernels on the card.
+host logic) is the JAX package's; :class:`PagedLMAdapter` runs the
+port's paged forwards, whose decode and verify attention are
+hand-written CUDA kernels on the card, as one CUDA graph per (family,
+shape) signature, the counterpart of the JAX adapter's compiled
+programs.  The one addition to the scheduler: binding a model that has
+a ``warm`` method hands it every signature the engine may call
+(:meth:`DecodeEngine.signatures`), so its graphs are captured before
+the first request rather than on it.
 
 Request-level batching would hold every sequence of a batch hostage to
 its longest member; this engine reschedules at TOKEN granularity
@@ -65,6 +70,7 @@ speculation is on).
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import threading
@@ -302,16 +308,9 @@ class DecodeEngine:
             if self.prefix_cache is not None:
                 bound += 1                          # draft COW program
         self.program_bound = bound
-        setup = getattr(model, "setup", None)
-        if setup is not None:
-            setup(self.geometry)
-        self._model_bound = setup is not None
-        self._draft_bound = False
-        if self.spec_k:
-            draft_setup = getattr(draft, "setup", None)
-            if draft_setup is not None:
-                draft_setup(self.draft_geometry)
-                self._draft_bound = True
+        self._model_bound = self._bind(model)
+        self._draft_bound = bool(self.spec_k) and self._bind(draft,
+                                                             draft=True)
         self._cond = _engine.make_condition("serving.DecodeEngine._cond")
         self._waiting = []                # FIFO of GenerateRequest
         self._running = {}                # slot -> GenerateRequest
@@ -338,21 +337,47 @@ class DecodeEngine:
             self.start()
 
     # ----------------------------------------------------------- lifecycle
+    def signatures(self, draft=False):
+        """The (family, shape) programs this engine may call on its
+        model, or with ``draft=True`` on its draft, as the adapter keys
+        them: every prefill bucket and the decode batch, the verify
+        family where prefix hits or speculation use it, and the one
+        batched verify of a speculating target.  This is the set
+        ``program_bound`` counts, less the COW copy."""
+        B, buckets = self.max_batch, self.prefill_buckets
+        model = self.draft if draft else self.model
+        sigs = [("prefill", b) for b in buckets] + [("decode", B)]
+        if self.prefix_cache is not None or (self.spec_k and not draft):
+            sigs += [("verify", b) for b in buckets]
+        if self.spec_k and not draft \
+                and getattr(model, "verify_batch", None) is not None:
+            sigs.append(("verify_batch", B, next_bucket(
+                self.spec_k + 1, self.geometry.max_context)))
+        return sigs
+
+    def _bind(self, model, draft=False):
+        """Bind ``model`` to this engine's page geometry (its ``setup``)
+        and build its programs ahead of serving (its ``warm``, where it
+        has one).  Returns whether it had a ``setup``."""
+        setup = getattr(model, "setup", None)
+        if setup is None:
+            return False
+        setup(self.draft_geometry if draft else self.geometry)
+        warm = getattr(model, "warm", None)
+        if warm is not None:
+            warm(self.signatures(draft=draft))
+        return True
+
     def start(self):
-        setup = getattr(self.model, "setup", None)
-        draft_setup = getattr(self.draft, "setup", None) \
-            if self.spec_k else None
         with self._cond:
             if self._started:
                 return self
             # restart after a stop(): the stop tore the adapter's
             # device pool down — bind it again before serving
-            if setup is not None and not self._model_bound:
-                setup(self.geometry)
-                self._model_bound = True
-            if draft_setup is not None and not self._draft_bound:
-                draft_setup(self.draft_geometry)
-                self._draft_bound = True
+            if not self._model_bound:
+                self._model_bound = self._bind(self.model)
+            if self.spec_k and not self._draft_bound:
+                self._draft_bound = self._bind(self.draft, draft=True)
             self._started = True
             self._stopping = False
             self._thread = _engine.make_thread(
@@ -1461,26 +1486,196 @@ class DecodeEngine:
 # ---------------------------------------------------------------------------
 # model adapters
 # ---------------------------------------------------------------------------
+class _Program:
+    """One (family, shape) signature of a :class:`PagedLMAdapter`: the
+    counterpart of one compiled XLA program of the JAX adapter.
+
+    The int32 inputs live in ONE static device buffer (a view per
+    argument, each on a 16-byte boundary), staged from one packed host
+    buffer (pinned on CUDA) by one non-blocking copy; the logits come
+    back through a pinned host buffer.  On CUDA the program is built
+    once: ``fn`` runs eagerly on the adapter's stream (which loads the
+    kernel libraries and makes cuBLAS's and B4's workspaces on that
+    stream), then is captured over the static buffers as a CUDA graph
+    in the adapter's memory pool.  :meth:`build` does that ahead of
+    serving (the engine's warm-up, on inputs whose result is dropped);
+    otherwise the first call does it and serves its eager result.
+    Every later call stages its inputs, replays the graph and copies its
+    static output out.  The kernel wrappers count only their eager
+    launches: a replay runs the captured kernels without calling them.
+    On the CPU every call stages into the static buffers and calls
+    ``fn`` on them: the same data path without a graph.  A capture or
+    replay that fails raises :class:`~mxnet_tpu_torch.base.KernelError`;
+    nothing runs the call another way.
+    """
+
+    def __init__(self, adapter, family, fn, shapes):
+        self.family = family
+        self.fn = fn
+        self.device = adapter.device
+        self.stream = adapter._stream
+        self.pool = adapter._graph_pool
+        cuda = self.device.type == "cuda"
+        sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
+        offs = np.cumsum([0] + [-(-n // 4) * 4 for n in sizes]).tolist()
+        self._host = torch.zeros(offs[-1], dtype=torch.int32,
+                                 pin_memory=cuda)
+        # every call overwrites the whole buffer before it is read; made
+        # on the adapter's stream, which is the only one that uses it
+        with contextlib.ExitStack() as ctx:
+            if cuda:
+                ctx.enter_context(torch.cuda.stream(self.stream))
+            self._dev = torch.empty(offs[-1], dtype=torch.int32,
+                                    device=self.device)
+        host = self._host.numpy()
+        self._host_views = [host[o:o + n].reshape(s)
+                            for o, n, s in zip(offs, sizes, shapes)]
+        self.args = [self._dev[o:o + n].view(s)
+                     for o, n, s in zip(offs, sizes, shapes)]
+        self.built = False              # captured (CUDA) / first run (CPU)
+        self.capture_s = 0.0            # host seconds of the capture
+        self.graph = None
+        self.out = None                 # the graph's static output
+        self.replays = 0                # graph launches
+        self._out_host = None
+
+    def _stage(self, arrays):
+        for view, a in zip(self._host_views, arrays):
+            view[...] = a
+        self._dev.copy_(self._host, non_blocking=True)
+
+    def __call__(self, *arrays):
+        if self.device.type != "cuda":
+            self._stage(arrays)
+            self.built = True
+            return self.fn(*self.args).numpy()
+        with torch.cuda.stream(self.stream):
+            self._stage(arrays)
+            if self.graph is None:
+                out = self.fn(*self.args)       # served, then captured
+                self._capture()
+                return self._read(out)
+            try:
+                self.graph.replay()
+                self.replays += 1
+                return self._read(self.out)
+            except Exception as e:
+                raise KernelError(
+                    f"PagedLMAdapter: replay of the {self.family} CUDA "
+                    f"graph failed: {e}") from e
+
+    def build(self, *arrays):
+        """Build the program ahead of serving (CUDA only): ``fn`` runs
+        eagerly on ``arrays`` and is captured; nothing is read back."""
+        with torch.cuda.stream(self.stream):
+            self._stage(arrays)
+            self.fn(*self.args)
+            self._capture()
+        self.stream.synchronize()
+
+    def _capture(self):
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                out = self.fn(*self.args)
+        except Exception as e:
+            raise KernelError(
+                f"PagedLMAdapter: capture of the {self.family} program as "
+                f"a CUDA graph failed: {e}") from e
+        self.graph, self.out, self.built = graph, out, True
+        self.capture_s = time.perf_counter() - t0
+
+    def _read(self, out):
+        if self._out_host is None:
+            self._out_host = torch.empty(out.shape, dtype=out.dtype,
+                                         pin_memory=True)
+        self._out_host.copy_(out, non_blocking=True)
+        self.stream.synchronize()
+        return self._out_host.numpy().copy()
+
+
+def _warm_args(key, pages_per_seq):
+    """Inputs for building signature ``key`` ahead of serving: all-zero
+    block tables, so the forward writes K/V only into the null page 0,
+    which no sequence reads.  A kernel's launch plan depends on its
+    shapes alone, so these inputs capture the graph that serves every
+    call of ``key``."""
+    family, shape, P = key[0], key[1:], pages_per_seq
+    if family in ("prefill", "verify"):
+        start = [np.int32(0)] if family == "verify" else []
+        return [np.zeros((1,) + shape, np.int32)] + start \
+            + [np.int32(1), np.zeros(P, np.int32)]
+    if family == "decode":
+        return [np.zeros(shape, np.int32), np.zeros(shape, np.int32),
+                np.zeros(shape + (P,), np.int32)]
+    B = shape[0]                        # verify_batch: (B, W)
+    return [np.zeros(shape, np.int32), np.zeros(B, np.int32),
+            np.zeros(B, np.int32), np.zeros((B, P), np.int32)]
+
+
+def _param_items(params):
+    """(name, tensor) over a ``paged_lm_params`` dict, cells included."""
+    for k, v in params.items():
+        if k == "cells":
+            for i, cp in enumerate(v):
+                for ck, cv in cp.items():
+                    yield f"cells.{i}.{ck}", cv
+        else:
+            yield k, v
+
+
 class PagedLMAdapter:
     """Decode-model protocol over a
     :class:`~mxnet_tpu_torch.models.transformer_blocks.TransformerDecoderLM`.
 
     Owns the device KV pools and runs the LM's paged decode-mode
-    forwards eagerly — ``paged_prefill`` / ``paged_decode_step`` /
+    forwards — ``paged_prefill`` / ``paged_decode_step`` /
     ``paged_verify`` / ``paged_verify_batch``, plus the copy-on-write
     page copy.  Decode and verify attention launch the hand-written CUDA
     kernels on a CUDA device and take their plain PyTorch versions on
     ``device="cpu"``: dispatch is by the tensors' device, with no
     fallback between the two.
 
+    With ``graphs=True`` (the default) each (family, shape) signature is
+    one :class:`_Program`, the counterpart of the JAX adapter's compiled
+    programs: on CUDA the forward runs once eagerly and is captured as a
+    CUDA graph that every later call replays (one host-to-device copy,
+    one graph launch, one copy back).  A :class:`DecodeEngine` builds
+    every signature it may call when it binds the adapter
+    (:meth:`warm`), so no request waits for a capture; a signature
+    called before it was built is built by its first call, which serves
+    its eager result.  All graphs of one adapter share one memory pool,
+    since the engine's one thread replays them one at a time, and all
+    of the adapter's device work runs on its own stream.  The COW page
+    copy stays eager.  ``graphs=False`` launches every kernel from
+    Python on each call; only a caller that asks for it gets it
+    (``chip_smoke.py`` compares the two), and nothing switches to it on
+    a failure.  On the CPU, ``graphs=True`` stages every call's inputs
+    through the program's static buffers and calls the forward on them,
+    so the staging that the graphs replay over is tested without a card.
+
+    Lifecycle: a CUDA graph holds the addresses it captured, so
+    :meth:`teardown` drops the graphs with the KV pool, and the engine
+    that binds the adapter next captures them again after its
+    :meth:`setup` (``compiled`` counts every capture).  That differs
+    from the JAX adapter, whose compiled programs survive a rebind.
+    :meth:`refresh` copies new weights into the captured parameter
+    tensors in place, so the graphs survive it, as the JAX adapter's
+    programs survive a refresh.
+
     The engine's protocol stays numpy-facing: int32 inputs move to the
     device, logits come back as host numpy arrays.  :meth:`programs`
-    counts the distinct (family, shape) signatures launched — the eager
-    counterpart of the JAX adapter's compiled-program count, so the
-    engine's ``programs <= program_bound`` check keeps its meaning.
+    counts the distinct (family, shape) signatures launched, so the
+    engine's ``programs <= program_bound`` check keeps its meaning;
+    ``compiled`` counts the programs built (graphs captured) in this
+    process and ``disk_hits`` stays 0 (a CUDA graph cannot outlive its
+    process; the persistent tier holds the kernel libraries,
+    :mod:`mxnet_tpu_torch.ops.build`).
     """
 
-    def __init__(self, lm, eos_id=None, device="cuda"):
+    def __init__(self, lm, eos_id=None, device="cuda", graphs=True):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise MXNetError(
@@ -1500,14 +1695,52 @@ class PagedLMAdapter:
         self.pool = None
         self._kw = None
         self._signatures = set()        # (family, shape...) launched
+        self.graphs = bool(graphs)
+        self.compiled = 0               # programs built in this process
+        self.capture_seconds = 0.0      # host time those captures took
+        self.disk_hits = 0              # graphs do not persist
+        self._programs = {}             # signature -> _Program
+        # one model call or refresh() at a time: refresh() copies weights
+        # in place, so a call must see all old or all new weights (the
+        # JAX adapter swaps one reference)
+        self._lock = _engine.make_lock("PagedLMAdapter._lock")
+        self._stream = torch.cuda.Stream(device) \
+            if self.graphs and device.type == "cuda" else None
+        self._graph_pool = None
 
     def refresh(self):
-        """Re-snapshot the LM's parameters (publish new weights)."""
-        self.params = paged_lm_params(self.lm, device=self.device)
+        """Publish the LM's current weights: copied in place into the
+        parameter tensors the programs were captured over (a tensor that
+        shares storage with the LM already holds them), between two
+        model calls, never during one.  Raises :class:`MXNetError` if a
+        shape changed."""
+        new = dict(_param_items(paged_lm_params(self.lm,
+                                                device=self.device)))
+        old = dict(_param_items(self.params))
+        if new.keys() != old.keys() or any(
+                new[k].shape != t.shape for k, t in old.items()):
+            raise MXNetError(
+                "PagedLMAdapter.refresh: the LM's parameter shapes "
+                "changed; build a new adapter for a new architecture")
+        with self._lock:
+            if self._stream is not None:
+                self._stream.wait_stream(
+                    torch.cuda.current_stream(self.device))
+            with self._on_stream(), torch.no_grad():
+                for k, t in old.items():
+                    if t.data_ptr() != new[k].data_ptr():
+                        t.copy_(new[k])
+            if self._stream is not None:
+                self._stream.synchronize()
 
     def teardown(self):
         """Unbind from a stopped engine: drop the device pool (a retired
-        engine must not pin KV memory) so a later engine can bind."""
+        engine must not pin KV memory) and, with it, the captured graphs,
+        which hold the pool's addresses."""
+        if self._stream is not None:
+            self._stream.synchronize()
+        self._programs = {}
+        self._graph_pool = None
         self.pool = None
 
     def setup(self, geometry):
@@ -1525,74 +1758,135 @@ class PagedLMAdapter:
                         page_size=geometry.page_size,
                         activation=self.lm._activation,
                         layer_norm_eps=self.lm._eps)
+        if self._stream is not None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            # the pool was zeroed on the current stream
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
 
     def programs(self):
-        """Distinct (family, shape) signatures launched so far across
-        prefill, decode, verify, batched verify and the COW copy."""
+        """Distinct (family, shape) signatures built ahead (:meth:`warm`)
+        or launched so far across prefill, decode, verify, batched
+        verify and the COW copy."""
         return len(self._signatures)
+
+    def replays(self):
+        """CUDA-graph replays since the graphs were captured."""
+        return sum(p.replays for p in self._programs.values())
 
     def _dev(self, a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
             self.device)
 
+    def _on_stream(self):
+        return torch.cuda.stream(self._stream) \
+            if self._stream is not None else contextlib.nullcontext()
+
+    def _program(self, key, fn, arrays):
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = _Program(self, key[0], fn, [np.shape(a) for a in arrays])
+            self._programs[key] = prog
+        return prog
+
+    def _built(self, prog, was_built):
+        if not was_built and prog.built:
+            self.compiled += 1
+            self.capture_seconds += prog.capture_s
+
+    def _call(self, key, fn, *arrays):
+        """One call of signature ``key``: through its :class:`_Program`
+        (``graphs=True``), else ``fn`` on fresh device copies."""
+        self._signatures.add(key)
+        with self._lock, torch.no_grad():
+            if not self.graphs:
+                return fn(*(a if np.ndim(a) == 0 else self._dev(a)
+                            for a in arrays)).cpu().numpy()
+            prog = self._program(key, fn, arrays)
+            was_built = prog.built
+            out = prog(*arrays)
+            self._built(prog, was_built)
+            return out
+
+    def warm(self, signatures):
+        """Build the CUDA graphs of ``signatures`` now, ahead of serving,
+        so that no request waits for a capture: the engine passes every
+        signature it may call when it binds this adapter
+        (:meth:`DecodeEngine.signatures`).  Each forward runs on inputs
+        that write K/V only into the null page 0 and is captured; each
+        built signature counts in :meth:`programs` and ``compiled``.
+        Without graphs (``graphs=False``, or the CPU) nothing is built
+        ahead."""
+        if self._stream is None:
+            return
+        P = self.pool.geometry.pages_per_seq
+        fns = {"prefill": self._prefill, "decode": self._decode,
+               "verify": self._verify, "verify_batch": self._verify_batch}
+        for key in signatures:
+            args = _warm_args(key, P)
+            with self._lock, torch.no_grad():
+                prog = self._program(key, fns[key[0]], args)
+                if not prog.built:
+                    prog.build(*args)
+                    self._built(prog, False)
+            self._signatures.add(key)
+
+    # ------------------------------------------------------ the forwards
+    def _prefill(self, tokens, length, block_table):
+        return paged_prefill(
+            self.params, tokens, length, block_table,
+            self.pool.k_pages, self.pool.v_pages, **self._kw)[0]
+
+    def _decode(self, tokens, positions, block_tables):
+        return paged_decode_step(
+            self.params, tokens, positions, block_tables,
+            self.pool.k_pages, self.pool.v_pages, **self._kw)[0]
+
+    def _verify(self, tokens, start, length, block_table):
+        return paged_verify(
+            self.params, tokens, start, length, block_table,
+            self.pool.k_pages, self.pool.v_pages, **self._kw)[0]
+
+    def _verify_batch(self, tokens, starts, lengths, block_tables):
+        return paged_verify_batch(
+            self.params, tokens, starts, lengths, block_tables,
+            self.pool.k_pages, self.pool.v_pages, **self._kw)[0]
+
     # ------------------------------------------------------------ protocol
     def prefill(self, tokens, length, block_table):
-        pool = self.pool
-        self._signatures.add(("prefill", tokens.shape[1]))
         # device-call child of the engine's decode.prefill span (no-op
         # without an ambient span)
-        with _tr.span("paged_lm.prefill", bucket=int(tokens.shape[1])), \
-                torch.no_grad():
-            logits, _, _ = paged_prefill(
-                self.params, self._dev(tokens), int(length),
-                self._dev(block_table), pool.k_pages, pool.v_pages,
-                **self._kw)
-            return logits.cpu().numpy()
+        with _tr.span("paged_lm.prefill", bucket=int(tokens.shape[1])):
+            return self._call(("prefill", tokens.shape[1]), self._prefill,
+                              tokens, length, block_table)
 
     def decode_step(self, tokens, positions, block_tables):
-        pool = self.pool
-        self._signatures.add(("decode", tokens.shape[0]))
         # no adapter-level span here: ONE device call serves many traces,
         # and the step loop records the timed interval per sequence
-        with torch.no_grad():
-            logits, _, _ = paged_decode_step(
-                self.params, self._dev(tokens), self._dev(positions),
-                self._dev(block_tables), pool.k_pages, pool.v_pages,
-                **self._kw)
-            return logits.cpu().numpy()
+        return self._call(("decode", tokens.shape[0]), self._decode,
+                          tokens, positions, block_tables)
 
     def verify(self, tokens, start, length, block_table):
         """Multi-token window forward (speculation verify / prefix-hit
         tail): writes the window's K/V through the block table and
         returns per-row logits (rows past ``length`` are garbage the
         engine never reads)."""
-        pool = self.pool
-        self._signatures.add(("verify", tokens.shape[1]))
-        with _tr.span("paged_lm.verify", bucket=int(tokens.shape[1])), \
-                torch.no_grad():
-            logits, _, _ = paged_verify(
-                self.params, self._dev(tokens), int(start), int(length),
-                self._dev(block_table), pool.k_pages, pool.v_pages,
-                **self._kw)
-            return logits.cpu().numpy()
+        with _tr.span("paged_lm.verify", bucket=int(tokens.shape[1])):
+            return self._call(("verify", tokens.shape[1]), self._verify,
+                              tokens, start, length, block_table)
 
     def verify_batch(self, tokens, starts, lengths, block_tables):
         """Batched verify: every running sequence's speculation window
         judged in ONE call (B and W are both fixed per engine)."""
-        pool = self.pool
-        self._signatures.add(("verify_batch",) + tuple(tokens.shape))
-        with torch.no_grad():
-            logits, _, _ = paged_verify_batch(
-                self.params, self._dev(tokens), self._dev(starts),
-                self._dev(lengths), self._dev(block_tables), pool.k_pages,
-                pool.v_pages, **self._kw)
-            return logits.cpu().numpy()
+        return self._call(("verify_batch",) + tuple(tokens.shape),
+                          self._verify_batch, tokens, starts, lengths,
+                          block_tables)
 
     def copy_page(self, src, dst):
         """Copy-on-write page duplication across all layers of both
-        pools, in place."""
+        pools, in place (eager, on the adapter's stream)."""
         self._signatures.add(("cow",))
-        self.pool.copy_page(src, dst)
+        with self._lock, self._on_stream():
+            self.pool.copy_page(src, dst)
 
 
 def as_decode_model(obj, eos_id=None, device="cuda"):
