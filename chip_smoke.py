@@ -50,7 +50,9 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
 6. ``serve``   — 8 threads calling ``DecodeEngine.generate`` at once,
    then 4 requests sharing a 256-token prefix (prefix-cache hits run
    the verify kernel), through the adapter's CUDA graphs, all captured
-   when the engine binds the adapter; the B4/B5 counters are zeroed
+   when the engine binds the adapter (``torch.cuda.memory_allocated``
+   before and after the adapter's ``warm()``, and the graph pool's
+   live bytes); the B4/B5 counters are zeroed
    just before the engine is built and read just after the waves (they
    count the captures' eager warm-up launches); then the same prompts
    through an eager (``graphs=False``) engine, its tokens compared
@@ -58,20 +60,36 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
 7. ``train_parity`` — BERT-large fp32: the flash path's loss and every
    parameter gradient against the dense additive-mask path on the same
    weights and batch (B = 8, L = 512);
-8. ``train``   — 2 warm-up + 10 timed adamw ``ShardedTrainer`` steps,
-   fp32 then bf16; the B1-B3 counters are zeroed just before and read
-   just after, and rise by 24 (one per layer) each step;
+8. ``train``   — adamw ``ShardedTrainer`` steps, fp32 then bf16, eager
+   (``graphs=False``) and as one CUDA graph per batch signature (the
+   default) from the same weights: 2 warm-up + 10 timed steps each, in
+   turns; ms/step, samples/s, memory, the step's FLOPs counted from
+   the step (``ShardedTrainer.step_flops``) beside the old 6NBL rule,
+   TFLOP/s and MFU; the B1-B3 counters are zeroed just before each step
+   and read just after it, and rise by 24 (one per layer) on each eager
+   step and on a graph's first (eager, captured) step, by 0 on a
+   replay; their sums are reported by dtype and mode;
 
-The phases from here on run ``torch.profiler``, whose device tracing
-slows every later launch:
+The phases from here on run ``torch.profiler`` (``_profiled``: each
+trace window padded by ``TRACE_PAD_S`` of idle time at both ends), whose
+device tracing slows every later launch:
 
 9. ``profile`` / ``profile_train`` — one decode step, replaying its
-   CUDA graph and launching from Python side by side, and one bf16
-   training step traced with ``torch.profiler`` (device time by kernel
-   family, kernels and host calls per step, the device idle share
-   against the untraced step time, taken before the trace); the bf16
-   step's forward, dQ and dK/dV families must come from the tensor-core
-   (``wgmma``) kernels alone;
+   CUDA graph and launching from Python side by side, and the bf16
+   training step, eager and replayed, traced with ``torch.profiler``
+   (device time by kernel family, kernels and host calls per step, the
+   device idle share against the untraced step time, taken before the
+   trace); the bf16 training step must run 24 kernel records each of
+   B1-B3 per step in both modes, and its forward, dQ and dK/dV families
+   must come from the tensor-core (``wgmma``) kernels alone;
+   ``train_graphs`` — the training step's graph against the eager step
+   over 3 steps from the same weights (fp32 losses within 1e-6
+   relative and parameters within 1e-5 of max|w|, bf16 losses within
+   1e-3; bitwise equality reported), three traced replays holding 24
+   kernel records each of B1-B3 per replay with no wrapper count, and
+   dropout 0.1
+   drawing other masks on two replays from one restored state (0.0:
+   the same loss);
 10. ``graphs`` — ``PagedLMAdapter``'s CUDA graphs (one per (family,
    shape) signature) against ``graphs=False`` on the same inputs at
    GPT-2-small widths: prefill at bucket 512, the decode step at the
@@ -89,14 +107,20 @@ slows every later launch:
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
-main path; B4 and B5 also give ``traced_serve_kernel_records`` from
-``serve_trace``, and list every ``kernels`` row with its split), the ``nvidia-smi`` name/power-limit line,
+main path: for B4 and B5 the ``serve`` engine's, for B1-B3 the graphs
+trainers' of ``train`` over both dtypes.  B4 and B5 also give
+``traced_serve_kernel_records`` from ``serve_trace``, and list every
+``kernels`` row with its split; B1-B3 give, per dtype,
+``launches_graphs`` and ``launches_eager`` (``train``'s two trainers
+apart) and ``traced_train_kernel_records`` over
+``traced_train_replays`` from ``train_graphs``), the ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero without that line; it never
 runs on the CPU.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 """
+import contextlib
 import functools
 import json
 import os
@@ -1081,22 +1105,53 @@ def _kernel_us(evt, torch):
 
 KERNEL_NAMES = {"ragged_paged_attention": "ragged_paged_attention_kernel",
                 "ragged_paged_verify": "ragged_paged_verify_kernel"}
+# B1-B3: each tag matches both kernels of its wrapper (fp32:
+# flash_bwd_dq_tf32_kernel; bf16: flash_bwd_dq_wgmma_kernel)
+FLASH_NAMES = {"flash_attention_fwd": "flash_fwd_",
+               "flash_attention_bwd_dq": "flash_bwd_dq_",
+               "flash_attention_bwd_dkv": "flash_bwd_dkv_"}
 
 
-def _kernel_records(torch, run):
-    """``run()`` traced with ``torch.profiler``: how many times B4's and
-    B5's kernels ran on the card, from the trace's kernel records
-    (launched by a wrapper or replayed by a CUDA graph alike)."""
+# The tracer keeps a device record only if its start and end, converted
+# to the host's clock, fall inside the window between the host's start
+# and stop calls.  On the H100 the converted device times can stand past
+# the host's own after a synchronize, and a trace stopped right after one
+# has lost the last kernels of its final decode replay (``serve_trace``
+# once found 8 of its 12 B4 records missing;
+# ``mxnet_tpu_torch/tools/trace_window_probe.py`` repeats that trace with
+# and without the padding).  So every trace starts and stops on an idle
+# device.
+TRACE_PAD_S = 0.2
+
+
+@contextlib.contextmanager
+def _profiled(torch):
+    """``torch.profiler`` over the block (CPU and CUDA activities), with
+    the device synchronised and then left idle for ``TRACE_PAD_S`` after
+    the trace starts and before it stops, so that no kernel of the block
+    falls outside the tracer's window."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run()
         torch.cuda.synchronize()
-    counts = dict.fromkeys(KERNEL_NAMES, 0)
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
+def _kernel_records(torch, run, names=KERNEL_NAMES):
+    """``run()`` traced with ``torch.profiler``: how many times each
+    kernel of ``names`` (wrapper -> kernel name tag; B4's and B5's by
+    default) ran on the card, from the trace's kernel records (launched
+    by a wrapper or replayed by a CUDA graph alike)."""
+    with _profiled(torch) as prof:
+        run()
+    counts = dict.fromkeys(names, 0)
     for evt in prof.key_averages():
         if _kernel_us(evt, torch) is None:
             continue
-        for name, kernel in KERNEL_NAMES.items():
+        for name, kernel in names.items():
             if kernel in evt.key:
                 counts[name] += evt.count
     return counts
@@ -1128,9 +1183,7 @@ def _trace_steps(torch, step, n, step_ms):
     given alone), kernels and copies per step, host calls (launches,
     graph launches and copies) per step, and the device idle share
     against the untraced ``step_ms``."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
@@ -1257,6 +1310,39 @@ def _serve_traffic(lm):
     return cfg, warm, (wave1, [seed_req], wave3)
 
 
+def _pool_bytes(torch, pool):
+    """Bytes allocated (live blocks) in the segments of CUDA-graph memory
+    pool ``pool``, from ``torch.cuda.memory_snapshot()``."""
+    if pool is None:
+        return 0
+    return sum(seg["allocated_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def _measure_warm(torch, adapter):
+    """Wrap ``adapter.warm`` (which the engine calls when it binds the
+    adapter, after ``setup``) so that it records
+    ``torch.cuda.memory_allocated`` before and after it, and how much of
+    the rise is live in the adapter's graph pool.  Returns the dict it
+    fills."""
+    out, warm = {}, adapter.warm
+
+    def measured(signatures):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        warm(signatures)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        out.update(allocated_before_gb=before / 1e9,
+                   allocated_after_gb=after / 1e9,
+                   rise_gb=(after - before) / 1e9,
+                   graph_pool_gb=_pool_bytes(torch, adapter._graph_pool)
+                   / 1e9, signatures=len(signatures))
+
+    adapter.warm = measured
+    return out
+
+
 def phase_serve(torch, dev, lm):
     """Threaded ``DecodeEngine.generate`` through the adapter's CUDA
     graphs (the default), every one captured when the engine binds the
@@ -1272,10 +1358,12 @@ def phase_serve(torch, dev, lm):
     pa.ragged_paged_attention.launches = 0
     pa.ragged_paged_verify.launches = 0
     adapter = PagedLMAdapter(lm, device="cuda")
+    warm_memory = _measure_warm(torch, adapter)
     t0 = time.perf_counter()
     eng = DecodeEngine(adapter, cfg, model_name="gpt2-small",
                        autostart=True)
     bind_s = time.perf_counter() - t0
+    check(warm_memory, "serve: the engine did not warm the adapter")
     check(adapter.compiled == len(eng.signatures()),
           f"serve: {adapter.compiled} graphs captured at bind, not "
           f"{len(eng.signatures())}")
@@ -1341,6 +1429,7 @@ def phase_serve(torch, dev, lm):
          programs=st["programs"], program_bound=st["program_bound"],
          compiled=adapter.compiled, disk_hits=adapter.disk_hits,
          bind_s=bind_s, capture_s=adapter.capture_seconds,
+         warm_memory=warm_memory,
          used_pages_after_drain=eng.allocator.used_pages,
          kernel_launches=launches,
          tokens_equal_to_eager_engine=same / total,
@@ -1435,115 +1524,371 @@ def phase_train_parity(torch, dev):
     return flash, feats, labels
 
 
-def phase_train(torch, dev, head, feats, labels):
-    """``ShardedTrainer.step`` on BERT-large with ``use_flash=True``:
-    2 warm-up + 10 timed adamw steps on the fixed batch, fp32 then bf16.
-    The flash kernels' counters are zeroed just before and read just
-    after; each step must launch each of B1-B3 once per layer."""
-    from mxnet_tpu_torch import models, parallel, perf_account
+TRAIN_MODES = ("eager", "graphs")
+# graph replays of the training step that train_graphs traces per dtype
+TRACED_REPLAYS = 3
+
+
+def _flops_6nbl(trainer, B, L):
+    """The rule the port's ``step_flops`` replaced, printed beside its
+    count: 6 * trainable parameters * B * L plus 12 * B * L^2 * units per
+    attention layer.  It counts the word embedding and the MLM decoder as
+    dense work at every position (the decoder runs at the masked ones)."""
+    n = sum(p.numel() for k, p in trainer.params.items()
+            if k in trainer.trainable)
+    return 6.0 * n * B * L + 12.0 * B * L * L * BERT_LARGE["units"] \
+        * BERT_LARGE["num_layers"]
+
+
+def _flash_counters():
     from mxnet_tpu_torch.ops import flash_attention as fa
-    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-               fa.flash_attention_bwd_dkv)
+    return (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+            fa.flash_attention_bwd_dkv)
+
+
+def _trainer(torch, head, feats, dtype, mode):
+    from mxnet_tpu_torch import models, parallel
+    return parallel.ShardedTrainer(
+        head, models.pretrain_loss, parallel.make_mesh(dp=1),
+        optimizer="adamw", optimizer_params={"learning_rate": 1e-4},
+        example_inputs=feats, n_labels=2,
+        dtype=None if dtype == "float32" else torch.bfloat16,
+        graphs=mode == "graphs")
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, dev, head, feats, labels):
+    """``ShardedTrainer.step`` on BERT-large with ``use_flash=True``, fp32
+    then bf16, eager (``graphs=False``) and graphs (the default: one CUDA
+    graph per batch signature) from the same weights: 2 warm-up steps
+    each (graphs: the first is eager and captured, the second the first
+    replay), then 10 timed adamw steps each, in turns of 5 (eager,
+    graphs, graphs, eager).  The flash kernels' counters are zeroed just
+    before each step and read just after it: an eager step launches
+    each of B1-B3 once per layer; in graph mode the first step does so
+    and a replay calls no wrapper.  Returns those launches summed by
+    dtype and mode (the graphs trainers' are the main path's).  Memory: ``max_memory_allocated`` from just before
+    each trainer is built through its warm-up steps, and that peak less
+    what was allocated before the trainer (the other mode's trainer,
+    the model); what the trainer holds allocated and reserved after
+    them, and the graph pool's live bytes.  FLOPs: ``ShardedTrainer.step_flops`` (counted from the
+    step), with the old 6NBL rule beside it."""
+    from mxnet_tpu_torch import perf_account
+    kernels = _flash_counters()
     layers = BERT_LARGE["num_layers"]
     batch = feats + labels
     B, L = feats[0].shape
     peak = perf_account.detect_peak_tflops()
-    for kern in kernels:
-        kern.launches = 0
     results, keep = {}, None
+    # wrapper launches by dtype and mode, each step's counted alone
+    tally = {dtype: {mode: dict.fromkeys(FLASH_NAMES, 0)
+                     for mode in TRAIN_MODES}
+             for dtype in ("float32", "bfloat16")}
+
+    def counted_step(tr, mode, losses, dtype):
+        i = len(losses)
+        for kern in kernels:
+            kern.launches = 0
+        losses.append(tr.step(*batch))
+        rose = [kern.launches for kern in kernels]
+        for kern in kernels:
+            tally[dtype][mode][kern.__name__] += kern.launches
+        want = layers if mode == "eager" or i == 0 else 0
+        check(rose == [want] * 3,
+              f"train {dtype} {mode} step {i}: flash launches rose by "
+              f"{rose}, want {want} each")
+
     for dtype in ("float32", "bfloat16"):
-        torch.cuda.reset_peak_memory_stats()
-        trainer = parallel.ShardedTrainer(
-            head, models.pretrain_loss, parallel.make_mesh(dp=1),
-            optimizer="adamw",
-            optimizer_params={"learning_rate": 1e-4}, example_inputs=feats,
-            n_labels=2, dtype=None if dtype == "float32" else torch.bfloat16)
-        losses = []
-        for i in range(12):
-            before = [kern.launches for kern in kernels]
-            if i == 2:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            losses.append(trainer.step(*batch))
-            rose = [kern.launches - b for kern, b in zip(kernels, before)]
-            check(rose == [layers] * 3,
-                  f"train {dtype} step {i}: flash launches rose by {rose}, "
-                  f"want {layers} each")
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / 10
-        losses = [float(x) for x in losses]
-        timed = losses[2:]
-        check(all(np.isfinite(losses)), f"train {dtype}: loss {losses}")
-        check(timed[-1] < timed[0], f"train {dtype}: loss did not fall over "
-                                    f"the timed steps: {timed}")
-        flops = perf_account.step_flops(trainer, batch)
+        trainers, losses, rows = {}, {m: [] for m in TRAIN_MODES}, {}
+        for mode in TRAIN_MODES:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            held = torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+            trainers[mode] = tr = _trainer(torch, head, feats, dtype, mode)
+            for _ in range(2):
+                counted_step(tr, mode, losses[mode], dtype)
+            torch.cuda.synchronize()
+            top = torch.cuda.max_memory_allocated()
+            rows[mode] = dict(
+                max_memory_allocated_gb=top / 1e9,
+                trainer_peak_gb=(top - base) / 1e9,
+                trainer_allocated_gb=(torch.cuda.memory_allocated() - base)
+                / 1e9,
+                trainer_reserved_gb=(torch.cuda.memory_reserved() - held)
+                / 1e9,
+                graph_pool_gb=_pool_bytes(torch, tr._graph_pool) / 1e9)
+        turns = {m: [] for m in TRAIN_MODES}
+        for mode in TRAIN_MODES + TRAIN_MODES[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                counted_step(trainers[mode], mode, losses[mode], dtype)
+            torch.cuda.synchronize()
+            turns[mode].append((time.perf_counter() - t0) / 5)
+        flops = trainers["graphs"].step_flops(*batch)
+        old = _flops_6nbl(trainers["graphs"], B, L)
+        check(flops == trainers["eager"].step_flops(*batch),
+              "train: the two modes' step FLOPs differ")
+        for mode in TRAIN_MODES:
+            tr = trainers[mode]
+            dt = float(np.mean(turns[mode]))
+            ls = [float(x) for x in losses[mode]]
+            timed = ls[2:]
+            check(all(np.isfinite(ls)), f"train {dtype} {mode}: loss {ls}")
+            check(timed[-1] < timed[0], f"train {dtype} {mode}: loss did "
+                                        f"not fall over the timed steps: "
+                                        f"{timed}")
+            rows[mode].update(
+                ms_per_step=dt * 1e3,
+                ms_per_step_turns=[t * 1e3 for t in turns[mode]],
+                samples_per_s=B / dt, tflops_per_s=flops / dt / 1e12,
+                mfu_vs_bf16_peak=flops / dt / (peak * 1e12) if peak
+                else None,
+                loss_step1=timed[0], loss_step10=timed[-1], losses=ls)
+            if mode == "graphs":
+                rows[mode].update(compiled=tr.compiled,
+                                  capture_s=tr.capture_seconds)
+        # free-running, reported: the eager step itself is not bitwise
+        # repeatable (train_graphs), so the two runs may part slowly
         results[dtype] = dict(
-            ms_per_step=dt * 1e3, samples_per_s=B / dt,
-            tflops_per_s=flops / dt / 1e12,
-            mfu_vs_bf16_peak=flops / dt / (peak * 1e12) if peak else None,
-            step_flops=flops,
-            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-            loss_step1=timed[0], loss_step10=timed[-1], losses=losses)
+            step_flops=flops, step_flops_6nbl_rule=old,
+            rule_over_count=old / flops,
+            kernel_launches=tally[dtype],
+            losses_max_rel_diff_graphs_vs_eager=max(
+                abs(g - e) / abs(e) for g, e in zip(rows["graphs"]["losses"],
+                                                    rows["eager"]["losses"])),
+            **rows)
         if dtype == "bfloat16":
-            keep = (trainer, dt * 1e3)
-        del trainer
-    launches = {kern.__name__: kern.launches for kern in kernels}
+            keep = (trainers, {m: rows[m]["ms_per_step"]
+                               for m in TRAIN_MODES})
+        del trainers
+        _free(torch)
     emit("train", model="bert_24_1024_16", use_flash=True, batch=int(B),
          seq_len=int(L), optimizer="adamw", learning_rate=1e-4,
-         peak_tflops=peak, kernel_launches=launches,
-         launches_per_step_each=layers, **results)
-    return launches, keep, batch
+         peak_tflops=peak, launches_per_eager_step_each=layers, **results)
+    return tally, keep, batch
 
 
-def phase_profile_train(torch, trainer, batch, step_ms):
-    """Where one bf16 ``ShardedTrainer.step`` of BERT-large goes: device
-    time by family (B1, B2, B3, GEMMs, other) from ``torch.profiler``,
-    and the device idle share against the untraced step time."""
-    from torch.profiler import ProfilerActivity, profile
-    # each tag matches both kernels of its family (fp32:
-    # flash_bwd_dq_tf32_kernel; bf16: flash_bwd_dq_wgmma_kernel)
-    families = (("flash_fwd", "flash_fwd_"),
-                ("flash_bwd_dq", "flash_bwd_dq_"),
-                ("flash_bwd_dkv", "flash_bwd_dkv_"))
-    trainer.step(*batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+def _snapshot(trainer):
+    """Every tensor a step writes: parameters, buffers and the
+    optimizer state (the step count included), by name."""
+    st = trainer.opt_state
+    return {**{("p", n): t for n, t in trainer.params.items()},
+            **{("b", n): t for n, t in trainer.buffers.items()},
+            **{("m", n): t for n, t in st["mean"].items()},
+            **{("v", n): t for n, t in st["var"].items()},
+            ("step",): st["step"]}
+
+
+def _dropout_replays(torch, dev, feats, labels, dropout):
+    """Two replays of one captured step from the same state: a
+    two-layer BERT at BERT-large widths with ``dropout``, a graphs
+    trainer's first step (eager, captured), a snapshot of its state,
+    a replay, the snapshot copied back in place, a replay.  Returns the
+    two replays' losses and the graph's replay count."""
+    from mxnet_tpu_torch import models
+    head = models.BERTForPretrain(models.bert_24_1024_16(
+        dropout=dropout, num_layers=2, use_flash=True, device=dev,
+        generator=torch.Generator().manual_seed(1)))
+    tr = _trainer(torch, head, feats, "float32", "graphs")
+    batch = feats + labels
+    tr.step(*batch)
+    state = _snapshot(tr)
+    saved = {k: t.detach().clone() for k, t in state.items()}
+    first = float(tr.step(*batch))
+    with torch.no_grad():
+        for k, t in state.items():
+            t.copy_(saved[k])
+    second = float(tr.step(*batch))
+    replays = sum(p.replays for p in tr._programs.values())
+    return first, second, replays
+
+
+def _param_err(a, b):
+    """(worst error over the parameters of trainer ``a`` against ``b``
+    as a share of each tensor's max|w|, its name, all bitwise equal)."""
+    worst, same = (-1.0, ""), True
+    for n, p in b.params.items():
+        g, p = a.params[n].detach(), p.detach()
+        same = same and bool((g == p).all())
+        err = float((g.float() - p.float()).abs().max()) / max(
+            float(p.float().abs().max()), 1e-30)
+        worst = max(worst, (err, n))
+    return worst[0], worst[1], same
+
+
+def phase_train_graphs(torch, dev, head, feats, labels):
+    """The training step's CUDA graph against the eager step on the
+    card, from the same BERT-large weights, 3 steps in fp32 and bf16.
+    Before each step the eager trainer's whole state (parameters,
+    buffers, moments, step count) is copied in place into the graphs
+    trainer, so every step of the two starts from the same state (the
+    restore that the graphs' fixed addresses call for); each step's
+    loss is held to 1e-6 relative in fp32 and 1e-3 in bf16, and in fp32
+    every parameter after it to 1e-5 of its tensor's max|w|; bitwise
+    equality is reported.  A second eager trainer stepping alongside
+    from the same weights, never synchronised, gives the eager path's
+    own repeatability (reported): PyTorch's embedding backward of the
+    two-row token-type table is not bitwise repeatable, and AdamW turns
+    a rounding difference in a zero gradient (the key bias's, exactly
+    zero in exact arithmetic) into a step of ``lr``, so free-running
+    runs part by more than 1e-5 of max|w| after two steps in either
+    mode.  ``TRACED_REPLAYS`` traced replays hold ``num_layers`` kernel
+    records each of B1, B2 and B3 per replay (B2/B3 launched by autograd
+    on the capturing stream) and the wrappers count nothing; returns
+    those records and replays by dtype.  Dropout: with p = 0.1 two replays
+    from one state (restored in place) draw other masks and give other
+    losses; with p = 0 the same two replays give the same loss.  Runs
+    after the timed and traced phases it would otherwise disturb (it
+    traces replays)."""
+    kernels = _flash_counters()
+    layers = BERT_LARGE["num_layers"]
+    batch = feats + labels
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        te, te2, tg = (_trainer(torch, head, feats, dtype, mode)
+                       for mode in ("eager", "eager", "graphs"))
+        rows = []
+        for i in range(3):
+            src, dst = _snapshot(te), _snapshot(tg)
+            with torch.no_grad():
+                for k, t in dst.items():
+                    t.copy_(src[k])
+            lg, le, le2 = (float(t.step(*batch)) for t in (tg, te, te2))
+            rel = abs(lg - le) / abs(le)
+            err, name, same = _param_err(tg, te)
+            err2, name2, _ = _param_err(te2, te)
+            rows.append(dict(loss_graphs=lg, loss_eager=le,
+                             loss_rel_err=rel, loss_bitwise_equal=lg == le,
+                             worst_param_rel_err=err, worst_param=name,
+                             params_bitwise_equal=same,
+                             free_eager_loss=le2,
+                             free_eager_worst_param_rel_err=err2,
+                             free_eager_worst_param=name2))
+            if dtype == "float32":
+                check(rel <= 1e-6 and err <= 1e-5,
+                      f"train_graphs fp32 step {i}: loss {lg} vs eager "
+                      f"{le}, parameter {name} off by {err} of its max")
+            else:
+                check(rel <= 1e-3, f"train_graphs bf16 step {i}: loss {lg} "
+                                   f"vs eager {le}")
+        counted = [k.launches for k in kernels]
+        replays = sum(p.replays for p in tg._programs.values())
+        records = _kernel_records(
+            torch, lambda: [tg.step(*batch) for _ in range(TRACED_REPLAYS)],
+            FLASH_NAMES)
+        ran = sum(p.replays for p in tg._programs.values()) - replays
+        check(ran == TRACED_REPLAYS
+              and records == dict.fromkeys(FLASH_NAMES, layers * ran),
+              f"train_graphs {dtype}: {ran} traced replays ran {records} "
+              f"flash kernels, want {layers} each per replay")
+        check(counted == [k.launches for k in kernels],
+              f"train_graphs {dtype}: a wrapper counted a replayed kernel")
+        out[dtype] = dict(steps=rows, traced_replays=ran,
+                          traced_replay_kernel_records=records,
+                          compiled=tg.compiled,
+                          capture_s=tg.capture_seconds)
+        del te, te2, tg
+        _free(torch)
+    # p = 0 is the control: the restore is exact and a replay repeats
+    # (within 1e-6, bitwise reported), so a difference at p = 0.1 ten
+    # times larger comes from the masks
+    a0, b0, n0 = _dropout_replays(torch, dev, feats, labels, 0.0)
+    check(n0 == 2 and abs(a0 - b0) <= 1e-6 * abs(b0),
+          f"train_graphs: two replays with dropout 0 from one state gave "
+          f"{a0} and {b0}")
+    a, b, n = _dropout_replays(torch, dev, feats, labels, 0.1)
+    check(n == 2 and a != b and abs(a - b) > 10 * abs(a0 - b0),
+          f"train_graphs: two replays with dropout 0.1 from one state "
+          f"gave {a} and {b}: the mask is frozen")
+    _free(torch)
+    emit("train_graphs", model="bert_24_1024_16", **out,
+         dropout_replay_losses={"0.1": [a, b], "0.0": [a0, b0]},
+         dropout_0_bitwise_equal=a0 == b0)
+    return {dtype: dict(records=o["traced_replay_kernel_records"],
+                        replays=o["traced_replays"])
+            for dtype, o in out.items()}
+
+
+def phase_profile_train(torch, trainers, batch, step_ms):
+    """Where one bf16 ``ShardedTrainer.step`` of BERT-large goes, eager
+    and as a graph replay: 3 steps of each traced with
+    ``torch.profiler``: device time by family (B1, B2, B3, GEMMs,
+    other), kernels and host calls (kernel and graph launches, copies)
+    per step, and the device idle share against the untraced step time
+    (``train``'s, taken before any trace).  Each traced step must hold
+    ``num_layers`` kernel records each of B1-B3 in both modes, and the
+    forward, dQ and dK/dV families must come from the tensor-core
+    (``wgmma``) kernels alone."""
+    families = tuple(("flash_" + name[len("flash_attention_"):], tag)
+                     for name, tag in FLASH_NAMES.items())
+    n = 3
+    rows = {}
+    for mode in TRAIN_MODES:
+        trainer = trainers[mode]
         trainer.step(*batch)
         torch.cuda.synchronize()
-    split = {name: 0.0 for name, _ in families}
-    split.update(gemm=0.0, other=0.0)
-    names = {name: [] for name, _ in families}
-    kernels, top = 0, []
-    for evt in prof.key_averages():
-        us = _kernel_us(evt, torch)
-        if not us:
-            continue
-        key = evt.key.lower()
-        kernels += evt.count
-        top.append((us, evt.count, evt.key[:90]))
-        fam = next((name for name, tag in families if tag in key), None)
-        if fam is None:
-            fam = "gemm" if any(t in key for t in GEMM_TAGS) else "other"
-        else:
-            names[fam].append(evt.key[:90])
-        split[fam] += us
-    busy_ms = sum(split.values()) / 1e3
-    # the bf16 step ran the tensor-core kernels, and only them
-    for fam, _ in families:
-        check(split[fam] > 0 and names[fam] and all(
-            "wgmma" in n for n in names[fam]),
-            f"profile_train: bf16 {fam} ran {names[fam]} "
-            f"({split[fam]} us), not the wgmma kernel")
-    emit("profile_train", dtype="bfloat16", step_ms_host=step_ms,
-         device_ms_per_step=busy_ms if busy_ms else None,
-         device_ms_per_step_by_family={k: v / 1e3 for k, v in split.items()}
-         if busy_ms else None,
-         device_idle_share=(1.0 - busy_ms / step_ms) if busy_ms else None,
-         kernel_launches_per_step=kernels if busy_ms else None,
-         family_kernels=names,
-         top_kernels=[dict(kernel=k, ms_per_step=us / 1e3, launches=c)
-                      for us, c, k in sorted(top, reverse=True)[:8]])
+        with _profiled(torch) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                trainer.step(*batch)
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) / n * 1e3
+        split = {name: 0.0 for name, _ in families}
+        split.update(gemm=0.0, other=0.0)
+        names = {name: [] for name, _ in families}
+        records = {name: 0 for name, _ in families}
+        kernels, host_calls, top = 0, 0, []
+        for evt in prof.key_averages():
+            us = _kernel_us(evt, torch)
+            if not us:
+                if _is_host_call(evt.key):
+                    host_calls += evt.count
+                continue
+            key = evt.key.lower()
+            kernels += evt.count
+            top.append((us, evt.count, evt.key[:90]))
+            fam = next((name for name, tag in families if tag in key), None)
+            if fam is None:
+                fam = "gemm" if any(t in key for t in GEMM_TAGS) else "other"
+            else:
+                names[fam].append(evt.key[:90])
+                records[fam] += evt.count
+            split[fam] += us
+        busy_ms = sum(split.values()) / 1e3 / n
+        layers = BERT_LARGE["num_layers"]
+        check(records == {name: layers * n for name, _ in families},
+              f"profile_train {mode}: {n} traced steps ran {records} flash "
+              f"kernels, want {layers} each per step")
+        # the bf16 step ran the tensor-core kernels, and only them
+        for fam, _ in families:
+            check(split[fam] > 0 and names[fam] and all(
+                "wgmma" in k for k in names[fam]),
+                f"profile_train {mode}: bf16 {fam} ran {names[fam]} "
+                f"({split[fam]} us), not the wgmma kernel")
+        rows[mode] = dict(
+            step_ms_host=step_ms[mode], step_ms_host_profiled=profiled_ms,
+            device_ms_per_step=busy_ms if busy_ms else None,
+            device_ms_per_step_by_family={k: v / n / 1e3
+                                          for k, v in split.items()}
+            if busy_ms else None,
+            device_idle_share=(1.0 - busy_ms / step_ms[mode])
+            if busy_ms else None,
+            kernel_launches_per_step=kernels / n if busy_ms else None,
+            host_calls_per_step=host_calls / n,
+            flash_kernel_records=records,
+            family_kernels=names,
+            top_kernels=[dict(kernel=k, ms_per_step=us / n / 1e3,
+                              launches_per_step=c / n)
+                         for us, c, k in sorted(top, reverse=True)[:8]])
+    emit("profile_train", dtype="bfloat16", steps_traced=n, **rows)
 
 
 def main():
@@ -1596,13 +1941,15 @@ def main():
     phase_parity(torch, dev, lm)
     launches = phase_serve(torch, dev, lm)
     head, feats, labels = phase_train_parity(torch, dev)
-    train_launches, (trainer, step_ms), batch = phase_train(
+    train_launches, (trainers, step_ms), batch = phase_train(
         torch, dev, head, feats, labels)
-    launches.update(train_launches)
     # last: the profiler's device tracing slows every later launch (the
     # profiles take their untraced times before they trace)
     phase_profile(torch, dev, lm)
-    phase_profile_train(torch, trainer, batch, step_ms)
+    phase_profile_train(torch, trainers, batch, step_ms)
+    del trainers
+    _free(torch)
+    train_traced = phase_train_graphs(torch, dev, head, feats, labels)
     phase_graphs(torch, dev, lm)
     replayed = phase_serve_trace(torch, lm)
 
@@ -1649,17 +1996,26 @@ def main():
             rows = [r for r in flash_rows if r["dtype"] == dtype]
             main_row = next(r for r in rows if r["shape"] == "train_batch")
             t = main_row[key]
+            traced = train_traced[dtype]
             by_dtype[dtype] = dict(
                 max_abs_err=max(r["max_abs_err"][err] for r in rows),
                 ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                 bound_by=t["bound_by"],
                 library_ms=t["library_ms"] if key == "fwd"
-                else main_row["library_bwd_ms"])
+                else main_row["library_bwd_ms"],
+                launches_graphs=train_launches[dtype]["graphs"][name],
+                launches_eager=train_launches[dtype]["eager"][name],
+                traced_train_kernel_records=traced["records"][name],
+                traced_train_replays=traced["replays"])
+        # the main path is the graphs trainer (both dtypes): its wrapper
+        # count is each signature's first, eager step; its replays are
+        # counted from trace records (traced_train_kernel_records)
         kernels.append(dict(
             name=name, route="cuda",
             source=f"mxnet_tpu_torch/csrc/{name}.cu", replaces=replaces,
-            launches=launches[name], **by_dtype["float32"],
-            bfloat16=by_dtype["bfloat16"]))
+            launches=sum(train_launches[d]["graphs"][name]
+                         for d in train_launches),
+            **by_dtype["float32"], bfloat16=by_dtype["bfloat16"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,13 +29,14 @@ import logging
 import os
 import tempfile
 import time
+from collections.abc import Mapping
 
 from . import engine, faults as _faults, runtime_metrics as _rm
 from .base import MXNetError, get_env
 
 __all__ = ["CompileCache", "atomic_write", "cache_key",
-           "topology_fingerprint", "get_default", "load_payload_file",
-           "write_payload_file"]
+           "topology_fingerprint", "get_default", "enable_persistent_cache",
+           "load_payload_file", "write_payload_file"]
 
 _LOG = logging.getLogger("mxnet_tpu_torch")
 
@@ -339,3 +340,43 @@ def get_default():
                 or _DEFAULT.max_bytes != (max_bytes or 0):
             _DEFAULT = CompileCache(cache_dir, max_bytes)
         return _DEFAULT
+
+
+class _DefaultCounts(Mapping):
+    """``{"hits": n, "misses": n}`` of the default store, read from
+    :func:`get_default` on every access (so it follows a rebuilt store)."""
+
+    _KEYS = ("hits", "misses")
+
+    def __getitem__(self, key):
+        if key not in self._KEYS:
+            raise KeyError(key)
+        return getattr(get_default(), key)
+
+    def __iter__(self):
+        return iter(self._KEYS)
+
+    def __len__(self):
+        return len(self._KEYS)
+
+    def __repr__(self):
+        return repr(dict(self))
+
+
+def enable_persistent_cache(cache_dir):
+    """Point the process's default store (:func:`get_default`, the one
+    :func:`mxnet_tpu_torch.ops.build.build` uses) at ``cache_dir`` by
+    setting ``MXNET_COMPILE_CACHE_DIR``, and return a live read-only
+    ``{"hits": n, "misses": n}`` mapping of the default store's lookups.
+
+    The counterpart of the JAX package's ``enable_jax_persistent_cache``.
+    There the training step is a ``jax.jit`` program that persists; the
+    port's step is a CUDA graph, which dies with its process.  What
+    persists is the kernel libraries: a restarted trainer captures its
+    graph again on its first step but rebuilds no kernel (``build()``
+    copies each library from the cache, a hit, instead of running
+    ``nvcc``)."""
+    os.makedirs(cache_dir, exist_ok=True)
+    os.environ["MXNET_COMPILE_CACHE_DIR"] = str(cache_dir)
+    get_default()
+    return _DefaultCounts()

@@ -22,9 +22,17 @@ The PyTorch port of the flash half of ``mxnet_tpu/ops/pallas_kernels.py``:
 Dispatch is by the tensors' device.  A CUDA tensor launches the kernel or
 raises :class:`~mxnet_tpu_torch.base.KernelError` — there is no
 fallback.  A CPU tensor takes the plain version, which is also what the
-kernels are checked against.  Inside B1, B2 and B3 the C entry point
-picks the kernel by dtype: bf16 runs the tensor-core (``wgmma``)
-kernels; fp32 B1, B2 and B3 run their products on the tensor cores as
+kernels are checked against; any other device raises.  On meta tensors
+(shapes only, as :meth:`ShardedTrainer.step_flops` runs a
+step) :class:`_Flash` makes its outputs by the call's model products as
+dense ``bmm`` on meta (:func:`_meta_products`), so that
+``torch.utils.flop_counter.FlopCounterMode`` counts the model FLOPs of
+kernels it cannot see inside.  A wrapper counts in ``.launches`` the
+launches it makes; under CUDA-graph capture it records the kernel into
+the graph and counts nothing, and a replay does not call it.  Inside
+B1, B2 and B3 the C entry point picks the kernel by dtype: bf16 runs
+the tensor-core (``wgmma``) kernels; fp32 B1, B2 and B3 run their
+products on the tensor cores as
 error-compensated 3xTF32 (each operand split into two TF32 halves,
 three ``mma.sync`` products, fp32-accurate; :func:`_fwd_tf32_mirror`
 and :func:`_bwd_tf32_mirror` repeat that arithmetic on the CPU).
@@ -158,6 +166,25 @@ def _launch(name, *args):
                           f"{rc}")
 
 
+def _meta_products(kind, q, k, v, dout=None):
+    """The outputs of B1 (``kind="fwd"``), B2 (``"dq"``) or B3
+    (``"dkv"``) on meta tensors, made by the model's dense products of
+    the call: B1 S = Q K^T and O = P V; B2 dP = dO V^T and dQ = dS K;
+    B3 dK = dS^T Q and dV = P^T dO.  Each is 4 * BH * Lq * Lk * D FLOPs,
+    12 for a forward and backward, with neither the kernels'
+    recomputation of S and dP nor the tiles they skip under a mask.
+    Meta tensors hold no data, so nothing is computed."""
+    BH, Lq, _ = q.shape
+    if kind == "fwd":
+        p = torch.bmm(q, k.transpose(1, 2))
+        return (torch.bmm(p, v),
+                q.new_empty((BH, Lq, 1), dtype=torch.float32))
+    if kind == "dq":
+        return torch.bmm(torch.bmm(dout, v.transpose(1, 2)), k)
+    pt = q.new_empty((BH, k.shape[1], Lq))       # P^T and dS^T
+    return torch.bmm(pt, q), torch.bmm(pt, dout)
+
+
 # ---------------------------------------------------------------------------
 # B1: forward
 # ---------------------------------------------------------------------------
@@ -182,12 +209,14 @@ def flash_attention_fwd(q, k, v, lens, causal, sm_scale, window):
     out = torch.empty_like(q)
     lse = torch.empty((BH, Lq, 1), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
+        capturing = torch.cuda.is_current_stream_capturing()
         _launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), lens.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), BH, Lq, k.shape[1], DK, float(sm_scale),
                 int(bool(causal)), int(window), _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream().cuda_stream)
-    flash_attention_fwd.launches += 1
+    if not capturing:
+        flash_attention_fwd.launches += 1
     return (out if padded is None else out[..., :D].contiguous()), lse
 
 
@@ -239,13 +268,15 @@ def flash_attention_bwd_dq(q, k, v, dout, lens, lse, delta, causal,
     BH, Lq, DK = q.shape
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
+        capturing = torch.cuda.is_current_stream_capturing()
         _launch("flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), dout.data_ptr(), lens.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Lq,
                 k.shape[1], DK, float(sm_scale), int(bool(causal)),
                 int(window), _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream().cuda_stream)
-    flash_attention_bwd_dq.launches += 1
+    if not capturing:
+        flash_attention_bwd_dq.launches += 1
     return dq if padded is None else dq[..., :D].contiguous()
 
 
@@ -299,13 +330,15 @@ def flash_attention_bwd_dkv(q, k, v, dout, lens, lse, delta, causal,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
+        capturing = torch.cuda.is_current_stream_capturing()
         _launch("flash_attention_bwd_dkv", q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), dout.data_ptr(), lens.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), BH, Lq, k.shape[1], DK, float(sm_scale),
                 int(bool(causal)), int(window), _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream().cuda_stream)
-    flash_attention_bwd_dkv.launches += 1
+    if not capturing:
+        flash_attention_bwd_dkv.launches += 1
     if padded is not None:
         dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
@@ -387,12 +420,16 @@ def _bwd_tf32_mirror(q, k, v, dout, lens, lse, delta, causal, sm_scale,
 # ---------------------------------------------------------------------------
 class _Flash(torch.autograd.Function):
     """Flash attention with B1 forward and B2 + B3 backward (the
-    counterpart of the JAX ``_flash`` custom VJP)."""
+    counterpart of the JAX ``_flash`` custom VJP); on meta tensors, the
+    shapes and model products of :func:`_meta_products`."""
 
     @staticmethod
     def forward(ctx, q, k, v, lens, causal, sm_scale, window):
-        out, lse = flash_attention_fwd(q, k, v, lens, causal, sm_scale,
-                                       window)
+        if q.device.type == "meta":
+            out, lse = _meta_products("fwd", q, k, v)
+        else:
+            out, lse = flash_attention_fwd(q, k, v, lens, causal, sm_scale,
+                                           window)
         ctx.save_for_backward(q, k, v, lens, out, lse)
         ctx.args = (causal, sm_scale, window)
         return out
@@ -402,6 +439,10 @@ class _Flash(torch.autograd.Function):
         q, k, v, lens, out, lse = ctx.saved_tensors
         causal, sm_scale, window = ctx.args
         dout = dout.contiguous()
+        if q.device.type == "meta":
+            return (_meta_products("dq", q, k, v, dout),
+                    *_meta_products("dkv", q, k, v, dout),
+                    None, None, None, None)
         delta = (dout.float() * out.float()).sum(-1, keepdim=True)
         dq = flash_attention_bwd_dq(q, k, v, dout, lens, lse, delta, causal,
                                     sm_scale, window)

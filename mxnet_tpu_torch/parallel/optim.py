@@ -5,11 +5,16 @@ AdamW, LAMB), over ``{name: tensor}`` dicts.  The JAX versions are pure
 and return new trees; these update ``params`` and ``state`` IN PLACE
 under ``torch.no_grad()`` (no second copy of the weights) and return
 them, so callers keep the JAX calling convention.  State tensors take
-the parameter's dtype, as ``zeros_like`` gives; the AdamW/LAMB step
-count is a Python int and the bias corrections are computed from it.
-Each elementwise step runs over all tensors at once (``torch._foreach_*``,
-a few launches per step rather than a few per tensor), with the JAX
-expressions' order of operations.
+the parameter's dtype, as ``zeros_like`` gives.  The AdamW/LAMB step
+count is a 0-d int32 tensor on the parameters' device, as the JAX
+state's ``jnp.int32`` array is, advanced in place; the bias corrections
+are 0-d fp32 tensors computed from it on the device, as JAX computes
+them (a bf16 update divides by them rounded to bf16).  No value of the update is a host number that changes from step
+to step (``lr``, the betas, ``eps`` and ``wd`` are constants), so the
+update can be captured into a CUDA graph and replayed.  Each elementwise
+step runs over all tensors at once (``torch._foreach_*``, a few launches
+per step rather than a few per tensor), with the JAX expressions' order
+of operations.
 """
 from __future__ import annotations
 
@@ -44,9 +49,16 @@ def sgd_update(params, grads, state, lr=0.01, momentum=0.9, wd=0.0):
 
 # ----------------------------------------------------------------- AdamW
 def adamw_init(params):
+    device = next(iter(params.values())).device if params else None
     return {"mean": {n: torch.zeros_like(p) for n, p in params.items()},
             "var": {n: torch.zeros_like(p) for n, p in params.items()},
-            "step": 0}
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _bias_correction(beta, step):
+    """1 - beta ** step as a 0-d fp32 tensor on the step's device, as
+    JAX computes it (``1.0 - beta ** step.astype(jnp.float32)``)."""
+    return 1.0 - torch.pow(beta, step.float())
 
 
 def _adam_direction(params, grads, state, beta1, beta2, eps, wd):
@@ -54,19 +66,26 @@ def _adam_direction(params, grads, state, beta1, beta2, eps, wd):
     weights and the direction u = (m / c1) / (sqrt(v / c2) + eps) + wd * w
     per tensor, with c1, c2 the bias corrections."""
     ws, gs, ms, vs = _lists(params, grads, state["mean"], state["var"])
-    step = state["step"] + 1
-    state["step"] = step
-    c1, c2 = 1.0 - beta1 ** step, 1.0 - beta2 ** step
+    step = state["step"]
+    step.add_(1)
+    c1, c2 = _bias_correction(beta1, step), _bias_correction(beta2, step)
     torch._foreach_mul_(ms, beta1)
     torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - beta1))
     torch._foreach_mul_(vs, beta2)
     sq = torch._foreach_mul(gs, gs)
     torch._foreach_mul_(sq, 1 - beta2)
     torch._foreach_add_(vs, sq)
-    den = torch._foreach_div(vs, c2)
+    # a list divided by a 0-d tensor is one launch only where the two
+    # share a dtype (else one launch a tensor), so a bf16 list divides by
+    # c1 and c2 rounded to bf16: a relative error of at most 2^-9, the
+    # size of the rounding of every bf16 result of the division.  JAX
+    # promotes the direction to fp32 here; the port's bf16 step stays
+    # within 2^-6 of JAX's (tests/test_torch_train_graphs.py)
+    dt = ms[0].dtype if ms else c1.dtype
+    den = torch._foreach_div(vs, c2.to(dt))
     torch._foreach_sqrt_(den)
     torch._foreach_add_(den, eps)
-    u = torch._foreach_div(ms, c1)
+    u = torch._foreach_div(ms, c1.to(dt))
     torch._foreach_div_(u, den)
     torch._foreach_add_(u, torch._foreach_mul(ws, wd))
     return ws, u

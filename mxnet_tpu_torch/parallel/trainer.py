@@ -9,6 +9,21 @@ through ``torch.func.functional_call`` — the counterpart of
 in place with the optimizers of :mod:`.optim`.  ``write_back()`` copies
 the trained values, buffers included, into the block.
 
+With ``graphs=True`` (the default) each batch signature (the shapes and
+dtypes of the step's arrays) is one :class:`_StepProgram`, the
+counterpart of the JAX trainer's one jitted step: on CUDA, forward,
+backward and the optimizer update are captured as one CUDA graph that
+every later step of the signature replays over static batch buffers.
+``graphs=False`` launches every kernel from Python on each step; only a
+caller that asks for it gets it, and nothing switches to it on a
+failure.
+
+In-place rule: ``params``, ``buffers`` and ``opt_state`` (the AdamW
+step tensor included) keep their tensors, at their addresses, for the
+trainer's life, because the graphs replay those addresses.  Whatever
+sets new values into a trainer (a checkpoint restore) must ``copy_``
+into them, never rebind them.
+
 Not in this slice: ``compression``, ``rules``, ``step_timeout_ms`` and
 ``slow_step_factor`` (and the ``StepWatchdog`` behind the last two) come
 with the multi-GPU and supervisor items of ROADMAP.md; passing them is a
@@ -16,6 +31,8 @@ with the multi-GPU and supervisor items of ROADMAP.md; passing them is a
 """
 from __future__ import annotations
 
+import contextlib
+import logging
 import time
 
 import numpy as np
@@ -25,16 +42,176 @@ from torch.func import functional_call
 from .. import faults as _faults
 from .. import perf_account as _pa
 from .. import runtime_metrics as _rm
-from ..base import MXNetError
+from ..base import KernelError, MXNetError
 from . import optim as _optim
 
 __all__ = ["ShardedTrainer"]
+
+_LOG = logging.getLogger("mxnet_tpu_torch")
 
 _OPTIMS = {
     "sgd": (_optim.sgd_init, _optim.sgd_update),
     "adamw": (_optim.adamw_init, _optim.adamw_update),
     "lamb": (_optim.lamb_init, _optim.lamb_update),
 }
+
+
+def _tensors(batch):
+    """The step's arrays as tensors (a numpy array without a copy)."""
+    out = []
+    for b in batch:
+        if isinstance(b, np.ndarray):
+            b = torch.from_numpy(b)
+        elif not isinstance(b, torch.Tensor):
+            b = torch.as_tensor(b)
+        out.append(b)
+    return tuple(out)
+
+
+def _signature(batch):
+    """A batch's signature: each array's shape and dtype."""
+    return tuple((tuple(b.shape), b.dtype) for b in batch)
+
+
+class _StepProgram:
+    """One batch signature of a graphs-mode :class:`ShardedTrainer`: the
+    counterpart of the JAX trainer's jitted step for one input shape.
+
+    The batch lives in ONE static device buffer (a view per array, each
+    on a 16-byte boundary), staged from one packed host buffer (pinned)
+    by one non-blocking copy; an array already on the card is copied
+    into its view on the card.  Before the host buffer is written again
+    the previous copy out of it must have finished (an event), so a
+    step never waits for more than the copy of the step before.
+
+    On CUDA the first step of the signature builds the program: the step
+    runs eagerly on the trainer's stream (a real step, which also loads
+    the kernel libraries and makes cuBLAS's workspaces on that stream),
+    then the same step — forward, backward (B1-B3 included, B2 and B3
+    launched by autograd on the capturing stream) and the optimizer's
+    in-place update — is captured over the static buffers as one CUDA
+    graph in the trainer's memory pool.  Capturing runs no kernel, so it
+    changes no state.  Every later step stages its batch, calls
+    ``faults.inject("train.step")`` on the host and replays the graph.
+    The loss returned is a copy of the graph's static loss, so a later
+    replay does not overwrite it.  The trainer's stream waits for the
+    caller's stream before a step and the caller's stream for the
+    trainer's after it, so work the caller queues before or after a
+    step (a ``copy_`` into the parameters, reading the loss) is ordered
+    with it without a host synchronisation.
+
+    On the CPU every step stages into the static buffers and runs the
+    step on them: the same data path without a graph.  A capture or
+    replay that fails raises :class:`~mxnet_tpu_torch.base.KernelError`,
+    and so does every later step of a signature whose capture failed;
+    nothing runs the step another way.  A capture error comes after the
+    signature's first step has run: that step's update (parameters,
+    moments, step count) is applied and only its loss is lost, so a
+    caller must not take the error for a step that did not happen and
+    run the same batch again.
+    """
+
+    def __init__(self, trainer, signature):
+        self.trainer = trainer
+        self.device = trainer.device
+        self.stream = trainer._stream
+        cuda = self.device.type == "cuda"
+        sizes = [int(np.prod(shape, dtype=np.int64))
+                 * torch.empty((), dtype=dt).element_size()
+                 for shape, dt in signature]
+        offs = np.cumsum([0] + [-(-n // 16) * 16 for n in sizes]).tolist()
+
+        def views(buf):
+            return [buf[o:o + n].view(dt).view(shape)
+                    for o, n, (shape, dt) in zip(offs, sizes, signature)]
+
+        # every step overwrites the whole buffer before it is read; made
+        # on the trainer's stream, which is the only one that uses it
+        with self._on_stream():
+            self._dev = torch.empty(offs[-1], dtype=torch.uint8,
+                                    device=self.device)
+        self.args = tuple(views(self._dev))
+        self._host = self._host_args = self._copied = None
+        if cuda:
+            self._host = torch.empty(offs[-1], dtype=torch.uint8,
+                                     pin_memory=True)
+            self._host_args = views(self._host)
+            self._copied = torch.cuda.Event()
+        self.built = False              # captured (CUDA) / first run (CPU)
+        self.capture_s = 0.0            # host seconds of the capture
+        self.graph = None
+        self.loss = None                # the graph's static loss
+        self.replays = 0                # graph launches
+        self.failed = None              # the capture's error, once raised
+
+    def _on_stream(self):
+        return torch.cuda.stream(self.stream) \
+            if self.stream is not None else contextlib.nullcontext()
+
+    def _stage(self, batch):
+        if self._host is None:
+            for view, b in zip(self.args, batch):
+                view.copy_(b)
+            return
+        on_host = [i for i, b in enumerate(batch) if b.device.type == "cpu"]
+        if on_host:
+            self._copied.synchronize()
+            for i in on_host:
+                self._host_args[i].copy_(batch[i])
+            self._dev.copy_(self._host, non_blocking=True)
+            self._copied.record(self.stream)
+        for view, b in zip(self.args, batch):
+            if b.device.type != "cpu":
+                view.copy_(b, non_blocking=True)
+                b.record_stream(self.stream)
+
+    def __call__(self, batch):
+        trainer = self.trainer
+        if self.stream is None:
+            self._stage(batch)
+            _faults.inject("train.step")
+            self.built = True
+            return trainer._train_step(self.args).clone()
+        if self.failed is not None:
+            raise KernelError(
+                f"ShardedTrainer: the training step's CUDA graph for this "
+                f"batch signature failed to capture: {self.failed}")
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            self._stage(batch)
+            _faults.inject("train.step")
+            if self.graph is None:
+                loss = trainer._train_step(self.args).clone()
+                self._capture()
+            else:
+                try:
+                    self.graph.replay()
+                except Exception as e:
+                    raise KernelError(
+                        f"ShardedTrainer: replay of the training step's "
+                        f"CUDA graph failed: {e}") from e
+                self.replays += 1
+                loss = self.loss.clone()
+        loss.record_stream(caller)
+        caller.wait_stream(self.stream)
+        return loss
+
+    def _capture(self):
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self.trainer._graph_pool,
+                                  stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                loss = self.trainer._train_step(self.args)
+        except Exception as e:
+            self.failed = e
+            raise KernelError(
+                f"ShardedTrainer: capture of the training step as a CUDA "
+                f"graph failed: {e}") from e
+        self.graph, self.loss, self.built = graph, loss, True
+        self.capture_s = time.perf_counter() - t0
 
 
 class ShardedTrainer:
@@ -46,11 +223,21 @@ class ShardedTrainer:
     arrays or tensors), moves them to the mesh's device, and returns the
     loss tensor of that step (before the update).  ``example_inputs``
     only sets how many inputs the block takes: the port traces nothing.
+
+    ``graphs=True`` (the default) runs each batch signature as a
+    :class:`_StepProgram` (one CUDA graph on the card); at most
+    ``program_bound`` signatures, beyond which a new one raises
+    :class:`MXNetError` (bucket the batch shapes).  ``compiled`` counts
+    the programs built and ``capture_seconds`` the host time of their
+    captures.  All graphs of one trainer share one memory pool and the
+    trainer's own stream: a step's graph leaves only its loss for the
+    host, and that loss is copied out before any other replay.
+    ``graphs=False`` runs each step eagerly on the caller's stream.
     """
 
     def __init__(self, block, loss_fn, mesh, optimizer="adamw",
                  optimizer_params=None, example_inputs=(), n_labels=1,
-                 dtype=None):
+                 dtype=None, graphs=True, program_bound=8):
         if optimizer not in _OPTIMS:
             raise MXNetError(f"unknown optimizer {optimizer!r}; "
                              f"known: {sorted(_OPTIMS)}")
@@ -62,7 +249,6 @@ class ShardedTrainer:
         # attribute load + branch in step()) until MXNET_TRACE or
         # MXNET_RUNTIME_METRICS turns it on
         self.perf = _pa.StepAttribution()
-        self._flops_noted = False
         opt_init, self._opt_update = _OPTIMS[optimizer]
         opt_kw = dict(optimizer_params or {})
         if "learning_rate" in opt_kw:
@@ -87,64 +273,105 @@ class ShardedTrainer:
         self.opt_state = opt_init(self._train_params)
         self._n_inputs = len(example_inputs)
         self._n_labels = int(n_labels)
+        self.graphs = bool(graphs)
+        self.program_bound = int(program_bound)
+        self.compiled = 0               # programs built in this process
+        self.capture_seconds = 0.0      # host time those captures took
+        self._programs = {}             # batch signature -> _StepProgram
+        self._flops = {}                # batch signature -> step FLOPs
+        cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) \
+            if self.graphs and cuda else None
+        self._graph_pool = torch.cuda.graph_pool_handle() \
+            if self._stream is not None else None
 
     # ------------------------------------------------------------ steps
     def _to_device(self, batch):
-        out = []
-        for b in batch:
-            if isinstance(b, np.ndarray):
-                b = torch.from_numpy(b)
-            elif not isinstance(b, torch.Tensor):
-                b = torch.as_tensor(b)
-            out.append(b.to(self.device, non_blocking=True))
-        return tuple(out)
+        return tuple(b.to(self.device, non_blocking=True) for b in batch)
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _forward_backward(self, batch):
-        """Loss and gradients of the trainable parameters; the block
-        runs in train mode (dropout on) and is left as it was."""
-        _faults.inject("train.step")
-        if len(batch) != self._n_inputs + self._n_labels:
-            raise MXNetError(
-                f"ShardedTrainer.step: expected {self._n_inputs} inputs + "
-                f"{self._n_labels} labels, got {len(batch)} arrays")
+    def _loss_and_grads(self, params, buffers, batch):
+        """Loss and gradients of the trainable entries of ``params``
+        (with ``buffers``) on ``batch``; the block runs in train mode
+        (dropout on) and is left as it was."""
         inputs = batch[:self._n_inputs]
         labels = batch[self._n_inputs:]
         was_training = self.block.training
         self.block.train(True)
         try:
-            out = functional_call(self.block, (self.params, self.buffers),
-                                  inputs)
+            out = functional_call(self.block, (params, buffers), inputs)
             loss = self.loss_fn(out, *labels)
         finally:
             self.block.train(was_training)
-        names = list(self._train_params)
+        names = [n for n in params if n in self.trainable]
         grads = torch.autograd.grad(
-            loss, [self._train_params[n] for n in names], allow_unused=True)
+            loss, [params[n] for n in names], allow_unused=True)
         # a parameter the loss does not reach gets a zero gradient, as
         # jax.grad gives it
         return loss.detach(), {
-            n: torch.zeros_like(self._train_params[n]) if g is None else g
+            n: torch.zeros_like(params[n]) if g is None else g
             for n, g in zip(names, grads)}
+
+    def _forward_backward(self, batch):
+        return self._loss_and_grads(self.params, self.buffers, batch)
 
     def _update(self, grads):
         self._opt_update(self._train_params, grads, self.opt_state,
                          **self._opt_kw)
+
+    def _train_step(self, batch):
+        """Forward, backward and the in-place update on device arrays:
+        the work one CUDA graph captures.  Returns the loss."""
+        loss, grads = self._forward_backward(batch)
+        self._update(grads)
+        return loss
+
+    def _program(self, batch):
+        sig = _signature(batch)
+        prog = self._programs.get(sig)
+        if prog is None:
+            if len(self._programs) >= self.program_bound:
+                raise MXNetError(
+                    f"ShardedTrainer: batch signature {sig} would be "
+                    f"program {len(self._programs) + 1}, over "
+                    f"program_bound={self.program_bound}; bucket the "
+                    f"batch shapes or raise the bound")
+            prog = self._programs[sig] = _StepProgram(self, sig)
+        return prog
 
     def step(self, *batch):
         """One training step; returns the loss tensor of this step.
 
         ``faults.inject("train.step")`` is the chaos hook of the whole
         step.  With tracing or runtime metrics on, the step runs
-        attributed (:meth:`_step_attributed`): each phase is timed into
-        a ``train.*`` span and closed by a device synchronisation."""
+        attributed (:meth:`_step_attributed`, eager): each phase is
+        timed into a ``train.*`` span and closed by a device
+        synchronisation.  Otherwise, with ``graphs=True`` the step runs
+        its signature's :class:`_StepProgram` (a replayed CUDA graph on
+        the card), and with ``graphs=False`` eagerly.  A
+        :class:`KernelError` raised by a signature's first step on the
+        card comes from its capture, after the step's update was
+        applied: do not run that batch again as a retry."""
+        if len(batch) != self._n_inputs + self._n_labels:
+            raise MXNetError(
+                f"ShardedTrainer.step: expected {self._n_inputs} inputs + "
+                f"{self._n_labels} labels, got {len(batch)} arrays")
+        batch = _tensors(batch)
         if self.perf.active:
             return self._step_attributed(batch)
-        loss, grads = self._forward_backward(self._to_device(batch))
-        self._update(grads)
+        if not self.graphs:
+            batch = self._to_device(batch)
+            _faults.inject("train.step")
+            return self._train_step(batch)
+        prog = self._program(batch)
+        was_built = prog.built
+        loss = prog(batch)
+        if not was_built:
+            self.compiled += 1
+            self.capture_seconds += prog.capture_s
         return loss
 
     def _step_attributed(self, batch):
@@ -152,10 +379,11 @@ class ShardedTrainer:
         ``train.compute`` (forward + backward) and ``train.optimizer``
         tile the ``train.step`` span, each ending in a device
         synchronisation; ``train.collective`` is a zero-length marker
-        (one card)."""
-        if not self._flops_noted and _rm._ENABLED:
-            self._flops_noted = True
-            self.perf.note_flops(_pa.step_flops(self, batch))
+        (one card).  It runs eagerly in both modes: a graph replays the
+        three phases as one launch, which cannot be split by
+        synchronisations."""
+        if _rm._ENABLED:
+            self.perf.note_flops(self.step_flops(*batch))
         h = self.perf.step_start()
         with h:
             t0 = time.perf_counter()
@@ -163,6 +391,7 @@ class ShardedTrainer:
             self._sync()
             t1 = time.perf_counter()
             h.record("h2d", t0, t1)
+            _faults.inject("train.step")
             loss, grads = self._forward_backward(dev_batch)
             self._sync()
             t2 = time.perf_counter()
@@ -172,6 +401,50 @@ class ShardedTrainer:
             self._sync()
             h.record("optimizer", t2, time.perf_counter())
         return loss
+
+    def step_flops(self, *batch):
+        """Model FLOPs of one training step on ``batch``, counted from the
+        step this trainer runs, as the JAX package counts its compiled
+        step with XLA's cost analysis.
+
+        The step's forward, loss and backward run once on the meta
+        device (shapes only: the weights are not copied and nothing is
+        computed) under ``torch.utils.flop_counter.FlopCounterMode``,
+        which counts every matrix product (linear, matmul, bmm,
+        convolution) at the shapes the step gives it: the MLM decoder at
+        the masked positions only, the embeddings as the lookups they
+        are.  Flash attention's kernels are opaque to the counter, so on
+        meta its autograd Function runs the model's dense products of
+        each call (``ops.flash_attention._meta_products``): 4 * BH * L^2
+        * D FLOPs for each of B1, B2 and B3, the dense attention path's
+        count, with neither the kernels' recomputation of S and dP nor
+        the tiles a mask lets them skip.  Elementwise work and the
+        optimizer update are not counted.  Counted once per batch
+        signature; None where the block cannot run on the meta device."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        sig = _signature(_tensors(batch))
+        if sig not in self._flops:
+            def meta(t):
+                return torch.empty_like(t, device="meta").requires_grad_(
+                    t.requires_grad)
+
+            params = {n: meta(p) for n, p in self.params.items()}
+            buffers = {n: meta(b) for n, b in self.buffers.items()}
+            args = tuple(torch.empty(shape, dtype=dt, device="meta")
+                         for shape, dt in sig)
+            counter = FlopCounterMode(display=False)
+            try:
+                with counter:
+                    self._loss_and_grads(params, buffers, args)
+            except (NotImplementedError, RuntimeError) as e:
+                _LOG.warning("ShardedTrainer.step_flops: the step does "
+                             "not run on the meta device (%s); no FLOP "
+                             "count", e)
+                self._flops[sig] = None
+            else:
+                self._flops[sig] = float(counter.get_total_flops())
+        return self._flops[sig]
 
     def write_back(self):
         """Copy the trained parameters, and the buffers the steps

@@ -10,9 +10,9 @@ The PyTorch port's copy of ``mxnet_tpu.perf_account``:
   ``train.compute`` and ``train.optimizer`` (each closed by a device
   synchronisation, so the interval is device time) and a zero-length
   ``train.collective`` marker (one card, no collective).
-- **Runtime MFU** (:func:`step_flops` / :func:`mfu`): analytic FLOPs per
-  step — 6 * params * tokens plus the attention term 12 * layers * B *
-  L^2 * units — over the measured step time and the card's peak
+- **Runtime MFU** (:func:`step_flops` / :func:`mfu`): the matrix-product
+  FLOPs of the step the trainer runs (the trainer counts them, once per
+  batch signature), over the measured step time and the card's peak
   (``MXNET_PEAK_TFLOPS`` or :func:`detect_peak_tflops`), published as
   the ``train.mfu`` gauge.
 - **Bottleneck verdict**: over a rolling window of steps, the largest
@@ -35,7 +35,6 @@ from collections import deque
 from . import runtime_metrics as _rm
 from . import tracing as _tr
 from .base import get_env
-from .models.transformer_blocks import MultiHeadSelfAttention
 
 __all__ = [
     "PHASES", "VERDICTS", "StepAttribution",
@@ -79,22 +78,13 @@ def mfu(n_params, B, L, dt, peak_tflops):
 
 
 def step_flops(trainer, batch):
-    """Analytic model FLOPs of one training step of ``trainer`` on
-    ``batch``: 6 * trainable params * B * L (forward + backward of every
-    weight), plus 12 * B * L^2 * units for each self-attention layer of
-    the block (forward 4 B L^2 d, backward 8 B L^2 d), with (B, L) the
-    shape of the first input.  Returns None when the first input is not
-    a (B, L, ...) batch."""
-    shape = tuple(getattr(batch[0], "shape", ())) if batch else ()
-    if len(shape) < 2:
-        return None
-    B, L = int(shape[0]), int(shape[1])
-    n_params = sum(p.numel() for n, p in trainer.params.items()
-                   if n in trainer.trainable)
-    attn = sum(12.0 * B * L * L * m._units
-               for m in trainer.block.modules()
-               if isinstance(m, MultiHeadSelfAttention))
-    return 6.0 * n_params * B * L + attn
+    """Model FLOPs of one training step of ``trainer`` on ``batch``: the
+    trainer's own count (``trainer.step_flops(*batch)``; the port's
+    :meth:`~mxnet_tpu_torch.parallel.ShardedTrainer.step_flops` counts
+    the step it runs, as the JAX package counts its compiled step), or
+    None for a trainer that cannot count its step."""
+    count = getattr(trainer, "step_flops", None)
+    return count(*batch) if count is not None else None
 
 
 def detect_peak_tflops(device_name=None):

@@ -1,6 +1,7 @@
 """PyTorch port, training performance accounting: the card-name peak
 table (no TPU entries) and its ``MXNET_PEAK_TFLOPS`` override, the 6NBL
-MFU rule against the JAX package's, the analytic step FLOPs, and an
+MFU rule against the JAX package's, the step FLOPs counted from the
+step (against an independent per-layer sum), and an
 observed ``ShardedTrainer.step`` on the CPU leaving a ``train.step`` span
 tree and the training metric series.
 """
@@ -63,10 +64,28 @@ def _trainer():
 
 
 def test_step_flops_is_analytic():
+    """The step's counted FLOPs equal an independent per-layer sum of its
+    matrix products, three times each (forward, and the backward's two
+    products): per layer the QKV, output and two FFN projections over
+    the B * L tokens plus 4 B L^2 d of attention (flash, counted as the
+    dense products); the pooler and NSP head over B rows; the MLM dense
+    and decoder over the B * M masked positions only."""
     trainer, batch = _trainer()
-    n = sum(p.numel() for p in trainer.params.values())
-    want = 6.0 * n * 2 * 16 + 2 * 12.0 * 2 * 16 * 16 * 32
-    assert pa.step_flops(trainer, batch) == pytest.approx(want)
+    d, h, V, layers = 32, 64, 64, 2
+    B, L = batch[0].shape
+    M = batch[3].shape[1]
+    T = B * L
+    layer = (2 * T * d * 3 * d + 2 * T * d * d + 2 * 2 * T * d * h
+             + 4 * B * L * L * d)
+    heads = 2 * B * d * d + 2 * B * d * 2 + 2 * B * M * d * (d + V)
+    want = 3.0 * (layers * layer + heads)
+    assert pa.step_flops(trainer, batch) == want
+    # counted once per signature, and a new shape counts anew
+    assert list(trainer._flops.values()) == [want]
+    short = tuple(a[:, :8] if a.ndim == 2 and a.shape[1] == L else a
+                  for a in batch)
+    assert pa.step_flops(trainer, short) < want
+    assert len(trainer._flops) == 2
 
 
 @pytest.fixture
