@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA H100.
 
-Drives ``mxnet_tpu_torch``'s two paths on the card, through the entry
+Drives ``mxnet_tpu_torch``'s paths on the card, through the entry
 points a user calls: paged decode serving of a GPT-2-small-width
-``TransformerDecoderLM`` (random fp32 weights from seed 0), and
-``ShardedTrainer.step`` on ``BERTForPretrain`` over ``bert_24_1024_16``
-with ``use_flash=True``.  Phases, each printed as one JSON line:
+``TransformerDecoderLM`` (random fp32 weights from seed 0);
+``ModelServer.predict`` on a ``BERTClassifier`` over ``bert_24_1024_16``
+and ``ModelServer.generate`` on that LM; and ``ShardedTrainer.step`` on
+``BERTForPretrain`` over ``bert_24_1024_16`` with ``use_flash=True``.
+Phases, each printed as one JSON line:
 
 1. ``device``  — card name, device count, power limit;
 2. ``build``   — compile the five CUDA kernels (``nvcc``, ``sm_90a``,
@@ -35,7 +37,9 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
 4. ``flash_kernels`` — B1/B2/B3 (flash-attention forward, dQ, dK/dV)
    against their plain versions at BERT-large's shapes (the training
    batch, lengths 0/1/37/512, causal, causal + window 128, Lq != Lk,
-   head dims 16, 32 and 128 beside 64, L = 2048), fp32 and bf16, with
+   head dims 16, 32 and 128 beside 64, L = 2048, and the ``predict``
+   phase's bucket-16 batch: BH = 256, L = 128, two padding rows of
+   length 0), fp32 and bf16, with
    times, bounds and the ``scaled_dot_product_attention`` yardstick
    (forward; backward); fp32 O is also held to 1e-5 of its max, LSE to
    1e-5 and the gradients to 1e-5 of their max (3xTF32 is
@@ -57,6 +61,25 @@ with ``use_flash=True``.  Phases, each printed as one JSON line:
    count the captures' eager warm-up launches); then the same prompts
    through an eager (``graphs=False``) engine, its tokens compared
    (reported);
+6b. ``predict`` — ``ModelServer`` (4 workers, ``max_batch_size`` 16)
+   over ``ModelRepository.add_block`` of a ``BERTClassifier`` on
+   ``bert_24_1024_16`` (fp32, ``use_flash=True``, seed 0, depth not
+   cut) at L = 128: one CUDA graph per bucket {1, 2, 4, 8, 16}, each
+   capturing 24 B1 launches, built by ``prewarm`` (capture seconds,
+   memory, the pools' bytes); 8 clients x 12 requests of 1-5 rows and
+   valid lengths 16-128 (``RandomState(0)``), every response within
+   1e-4 of the traffic's max|logit| of the eager forward on the request
+   alone and of the dense (``use_flash=False``) path; fewer batches than
+   requests, at most 5 programs, no bucket built after prewarm;
+   requests/s, rows/s, latency p50/p99, mean bucket occupancy.  Then
+   the traffic again with version 2 (seed 1) registered, prewarmed and
+   swapped in under load: each response matches the version that
+   admitted it; ``unload`` of version 1 must free at least its
+   snapshot's bytes.  Then ``ModelServer.generate`` (``add_decoder`` on
+   the LM) on ``serve``'s waves from as many threads: its tokens must
+   equal ``serve``'s.  The B1/B4/B5 counters are zeroed before the
+   server is built and read after ``generate`` (the captures' eager
+   warm-ups);
 7. ``train_parity`` — BERT-large fp32: the flash path's loss and every
    parameter gradient against the dense additive-mask path on the same
    weights and batch (B = 8, L = 512);
@@ -103,13 +126,22 @@ device tracing slows every later launch:
    logits;
 11. ``serve_trace`` — ``serve``'s traffic on a new graphs engine under
    ``torch.profiler``: B4/B5 kernel records must equal ``num_layers``
-   per decode / verify replay, and the wrappers count nothing.
+   per decode / verify replay, and the wrappers count nothing;
+12. ``predict_trace`` — ``predict``'s traffic again on version 2 under
+   ``torch.profiler``: exactly 24 B1 kernel records per replayed batch,
+   no wrapper count, the device idle share against the untraced
+   window's wall time; and 10 calls of the bucket-16 program traced for
+   its device time.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
 main path: for B4 and B5 the ``serve`` engine's, for B1-B3 the graphs
 trainers' of ``train`` over both dtypes.  B4 and B5 also give
-``traced_serve_kernel_records`` from ``serve_trace``, and list every
+``launches_generate`` (``predict``'s ``ModelServer.generate``) and
+``traced_serve_kernel_records`` from ``serve_trace``; B1 gives
+``launches_predict`` and ``traced_predict_kernel_records`` over
+``traced_predict_batches`` from ``predict_trace``, and its fp32 times at
+the bucket-16 shape (``predict_bucket16``); B4 and B5 list every
 ``kernels`` row with its split; B1-B3 give, per dtype,
 ``launches_graphs`` and ``launches_eager`` (``train``'s two trainers
 apart) and ``traced_train_kernel_records`` over
@@ -122,6 +154,7 @@ Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 """
 import contextlib
 import functools
+import gc
 import json
 import os
 import shutil
@@ -187,6 +220,17 @@ PAGE_SIZE, POOL_PAGES, MAX_BATCH = 16, 513, 8
 # bit (reported); held to 1e-5 of max|logit| in case the library picks
 # another GEMM algorithm for the capture stream's workspace
 GRAPH_TOL = 1e-5
+# the predict phase: ModelServer over a BERTClassifier on bert_24_1024_16,
+# L = 128, buckets {1, 2, 4, 8, 16}, 4 dispatch workers; 8 clients of 12
+# requests of 1, 2, 3 or 5 rows
+PREDICT_L, PREDICT_MAX_BATCH, PREDICT_WORKERS = 128, 16, 4
+PREDICT_CLIENTS, PREDICT_REQUESTS, PREDICT_ROWS = 8, 12, (1, 2, 3, 5)
+# served logits against the eager forward of the same weights on the
+# request alone, and against the dense (use_flash=False) path: fp32 with
+# TF32 off through 24 layers, where the bucket's GEMMs run at another M
+# than the request's and so sum in another order; held to 1e-4 of the
+# traffic's max |logit|
+PREDICT_TOL = 1e-4
 # the decode batch's positions in the profile phase (B4's "decode_step"
 # row in the kernels phase runs the same contexts)
 PROFILE_POSITIONS = (377, 280, 179, 450, 112, 92, 230, 64)
@@ -659,6 +703,13 @@ def _flash_cases():
     (_, _, valid, _), _ = _train_batch(BERT_LARGE["vocab_size"])
     train_lens = np.repeat(valid.astype(np.int32), H).tolist()
     mixed = np.repeat([0, 1, 37, 512, 128, 300, 411, 512], H).tolist()
+    # the predict path's bucket-16 batch: the traffic's first six
+    # requests' valid lengths, then padding rows of length 0
+    first = [r for c in _predict_traffic(BERT_LARGE["vocab_size"])
+             for r in c][:6]
+    pred = np.concatenate([r[2] for r in first])
+    pred = np.repeat(np.pad(pred, (0, PREDICT_MAX_BATCH - len(pred))),
+                     H).tolist()
     return [
         ("train_batch", 8 * H, 512, 512, 64, False, -1, train_lens),
         ("lengths_0_1_37_512", 8 * H, 512, 512, 64, False, -1, mixed),
@@ -675,6 +726,8 @@ def _flash_cases():
         ("head_dim_32", 8 * 8, 512, 512, 32, False, -1,
          np.repeat([512, 300, 1, 0, 77, 512, 256, 129], 8).tolist()),
         ("flash2048", 2 * H, 2048, 2048, 64, False, -1, None),
+        ("predict_bucket16", PREDICT_MAX_BATCH * H, PREDICT_L, PREDICT_L,
+         64, False, -1, pred),
     ]
 
 
@@ -1263,15 +1316,17 @@ def phase_profile(torch, dev, lm):
 
 
 # ----------------------------------------------------------------- serve
-def _run_wave(eng, prompts):
-    """Every prompt of ``prompts`` generated at once, one thread each:
-    [(prompt, tokens, ttft seconds)] and the wave's wall seconds."""
+def _run_wave(generate, prompts):
+    """Every prompt of ``prompts`` generated at once through
+    ``generate`` (a ``DecodeEngine.generate``, or ``ModelServer.generate``
+    bound to a model), one thread each: [(prompt, tokens, ttft
+    seconds)] and the wave's wall seconds."""
     out = [None] * len(prompts)
 
     def one(i):
         t0 = time.perf_counter()
         first = []
-        toks = eng.generate(
+        toks = generate(
             prompts[i], max_new_tokens=32, timeout=600,
             on_token=lambda _t: first or first.append(time.perf_counter()))
         out[i] = (prompts[i], toks, first[0] - t0)
@@ -1372,7 +1427,7 @@ def phase_serve(torch, dev, lm):
     try:
         # warm-up: a sub-page prompt (nothing enters the prefix cache)
         eng.generate(warm, max_new_tokens=4, timeout=600)
-        (out1, s1), (out2, s2), (out3, s3) = [_run_wave(eng, w)
+        (out1, s1), (out2, s2), (out3, s3) = [_run_wave(eng.generate, w)
                                               for w in waves]
         launches = {"ragged_paged_attention":
                     pa.ragged_paged_attention.launches,
@@ -1400,7 +1455,8 @@ def phase_serve(torch, dev, lm):
                          cfg, model_name="gpt2-small-eager", autostart=True)
     try:
         eager.generate(warm, max_new_tokens=4, timeout=600)
-        eager_out = [o for w in waves for o in _run_wave(eager, w)[0]]
+        eager_out = [o for w in waves
+                     for o in _run_wave(eager.generate, w)[0]]
     finally:
         check(eager.stop(timeout=120), "eager engine did not stop")
     same = sum(int((a[1] == b[1]).sum()) for a, b in zip(results,
@@ -1434,7 +1490,7 @@ def phase_serve(torch, dev, lm):
          kernel_launches=launches,
          tokens_equal_to_eager_engine=same / total,
          greedy_vs_full_forward_argmax=agree / total)
-    return launches
+    return launches, dict(warm=warm, waves=waves, results=results)
 
 
 def phase_serve_trace(torch, lm):
@@ -1455,7 +1511,7 @@ def phase_serve_trace(torch, lm):
         eng.generate(warm, max_new_tokens=4, timeout=600)
         counted = [w.launches for w in kernels]
         replays = {k: p.replays for k, p in adapter._programs.items()}
-        records = _kernel_records(torch, lambda: [_run_wave(eng, w)
+        records = _kernel_records(torch, lambda: [_run_wave(eng.generate, w)
                                                   for w in waves])
         ran = {k: p.replays - replays[k]
                for k, p in adapter._programs.items()}
@@ -1475,6 +1531,412 @@ def phase_serve_trace(torch, lm):
     emit("serve_trace", kernel_records=records,
          replays={"/".join(map(str, k)): n for k, n in ran.items() if n})
     return records
+
+
+# --------------------------------------------------------------- predict
+def _predict_traffic(vocab):
+    """Sentence-pair classification traffic (``RandomState(0)``): 8
+    clients of 12 requests each, rows per request from {1, 2, 3, 5},
+    valid lengths 16-128, the second segment from half the valid length
+    on.  Tokens, segments and lengths are int32, as served."""
+    rs = np.random.RandomState(0)
+    L = PREDICT_L
+    clients = []
+    for _ in range(PREDICT_CLIENTS):
+        reqs = []
+        for _ in range(PREDICT_REQUESTS):
+            n = int(rs.choice(PREDICT_ROWS))
+            valid = rs.randint(16, L + 1, n).astype(np.int32)
+            tokens = rs.randint(0, vocab, (n, L)).astype(np.int32)
+            types = (np.arange(L)[None] >= valid[:, None] // 2).astype(
+                np.int32)
+            reqs.append((tokens, types, valid))
+        clients.append(reqs)
+    return clients
+
+
+def _bert_classifier(torch, dev, seed, use_flash=True):
+    from mxnet_tpu_torch import models
+    bert = models.bert_24_1024_16(
+        use_flash=use_flash, dropout=0.0, device=dev,
+        generator=torch.Generator().manual_seed(seed))
+    return models.BERTClassifier(bert, num_classes=2).eval()
+
+
+def _eager_logits(torch, dev, model, clients):
+    """``model``'s eager forward on each request alone."""
+    with torch.no_grad():
+        out = [[model(*(torch.from_numpy(a).to(dev) for a in req))
+                .cpu().numpy() for req in reqs] for reqs in clients]
+    torch.cuda.synchronize()
+    return out
+
+
+def _run_clients(srv, clients, gate=None, on_done=None):
+    """Every client's requests in order through ``srv.predict``, one
+    thread per client, all at once.  With ``gate`` (an Event) each
+    client sends the first half of its requests, waits for the gate,
+    then the rest.  Returns [[(logits, t_start, t_end)] per client] and
+    the wall seconds."""
+    out = [[None] * len(c) for c in clients]
+    errors = []
+
+    def client(ci):
+        try:
+            for k, req in enumerate(clients[ci]):
+                if gate is not None and k == len(clients[ci]) // 2:
+                    check(gate.wait(600), "predict: the swap never came")
+                t0 = time.perf_counter()
+                y = srv.predict("bert", *req, timeout=600)
+                out[ci][k] = (y, t0, time.perf_counter())
+                if on_done is not None:
+                    on_done()
+        except Exception as e:          # noqa: BLE001 — reported below
+            errors.append(e)
+
+    ts = [threading.Thread(target=client, args=(i,), daemon=True)
+          for i in range(len(clients))]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(900)
+    check(not any(t.is_alive() for t in ts), "predict: a client hung")
+    check(not errors, f"predict: a request failed: {errors[:1]}")
+    return out, time.perf_counter() - t0
+
+
+def _predict_err(got, want):
+    """Largest |served - reference| over the traffic, and the traffic's
+    max |logit| (the scale the tolerance is taken against)."""
+    err = scale = 0.0
+    for g_c, w_c in zip(got, want):
+        for (g, *_), w in zip(g_c, w_c):
+            check(g.shape == w.shape and np.isfinite(g).all(),
+                  f"predict: response of shape {g.shape}, want {w.shape}")
+            err = max(err, float(np.abs(g - w).max()))
+            scale = max(scale, float(np.abs(w).max()))
+    return err, scale
+
+
+def _pool_reserved(torch, pool):
+    """Bytes reserved (segment sizes) by CUDA-graph memory pool
+    ``pool``."""
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def _entry_programs(srv, entry):
+    """{bucket: program} of ``entry`` in the server's batcher cache."""
+    with srv.batcher._lock:
+        return {b: p for (uid, b), p in srv.batcher._progs.items()
+                if uid == entry.uid}
+
+
+def phase_predict(torch, dev, lm, served):
+    """``ModelServer.predict`` on BERT-large: a ``BERTClassifier`` over
+    ``bert_24_1024_16`` (fp32, random weights from seed 0, depth not
+    cut) registered with ``ModelRepository.add_block`` at L = 128, one
+    CUDA graph per batch bucket {1, 2, 4, 8, 16} (each holding 24 B1
+    launches), captured by ``srv.prewarm`` before the traffic.  Then the
+    same traffic with a hot swap to version 2 (seed 1) prewarmed under
+    load, the unload of version 1, and ``ModelServer.generate`` on the
+    GPT-2-small LM against the ``serve`` phase's tokens.  The B1/B4/B5
+    counters are zeroed just before the server is built and read after
+    ``generate``: they count the captures' eager warm-ups.  Returns
+    what ``phase_predict_trace`` needs (the server stays up)."""
+    from mxnet_tpu_torch import runtime_metrics as rm
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving import (ModelRepository, ModelServer,
+                                         ServingConfig, bucket_set,
+                                         pad_batch)
+    t_phase = time.perf_counter()
+    clients = _predict_traffic(BERT_LARGE["vocab_size"])
+    rows = sum(r[0].shape[0] for c in clients for r in c)
+    n_req = sum(len(c) for c in clients)
+    clf = _bert_classifier(torch, dev, 0)
+    dense = _bert_classifier(torch, dev, 0, use_flash=False)
+    dense.load_state_dict(clf.state_dict())
+    want1 = _eager_logits(torch, dev, clf, clients)
+    want_dense = _eager_logits(torch, dev, dense, clients)
+    del dense
+    clf2 = _bert_classifier(torch, dev, 1)
+    want2 = _eager_logits(torch, dev, clf2, clients)
+    snap_bytes = sum(t.numel() * t.element_size() for t in
+                     list(clf.parameters()) + list(clf.buffers()))
+
+    L = PREDICT_L
+    example = (np.zeros((1, L), np.int32), np.zeros((1, L), np.int32),
+               np.full((1,), L, np.int32))
+    cfg = ServingConfig(max_batch_size=PREDICT_MAX_BATCH,
+                        num_workers=PREDICT_WORKERS, max_latency_us=2000,
+                        decode_page_size=PAGE_SIZE,
+                        decode_pool_pages=POOL_PAGES,
+                        decode_max_batch=MAX_BATCH, prefix_cache=True,
+                        decode_max_new_tokens=32)
+    counters = (fa.flash_attention_fwd, pa.ragged_paged_attention,
+                pa.ragged_paged_verify)
+    for k in counters:
+        k.launches = 0
+    repo = ModelRepository()
+    e1 = repo.add_block("bert", clf, *example)
+    del clf                     # the served version lives in the snapshot
+    _free(torch)
+    srv = ModelServer(repo, cfg)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    warm = srv.prewarm("bert")
+    prewarm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    progs = _entry_programs(srv, e1)
+    check(sorted(progs) == bucket_set(PREDICT_MAX_BATCH)
+          and warm["compiled"] == len(progs),
+          f"predict: prewarm built {warm}")
+    capture_s = {b: p.capture_s for b, p in sorted(progs.items())}
+    pools = {"allocated_gb": sum(_pool_bytes(torch, p.pool)
+                                 for p in progs.values()) / 1e9,
+             "reserved_gb": sum(_pool_reserved(torch, p.pool)
+                                for p in progs.values()) / 1e9}
+    b1_built = fa.flash_attention_fwd.launches
+    check(b1_built == 24 * len(progs),
+          f"predict: {b1_built} B1 launches for {len(progs)} captures "
+          f"(24 each: the eager warm-up before each capture)")
+    del progs
+
+    # window 1: the traffic on version 1, untraced, metrics on
+    st0 = srv.stats()
+    rm.reset()
+    rm.enable()
+    try:
+        got, wall = _run_clients(srv, clients)
+    finally:
+        rm.disable()
+    st1 = srv.stats()
+    occupancy = rm.SERVING_BATCH_OCCUPANCY.sum() \
+        / max(1, rm.SERVING_BATCH_OCCUPANCY.count())
+    rm.reset()
+    err_eager, scale = _predict_err(got, want1)
+    err_dense, _ = _predict_err(got, want_dense)
+    tol = PREDICT_TOL * scale
+    check(err_eager <= tol and err_dense <= tol,
+          f"predict: served logits differ from the eager forward by "
+          f"{err_eager}, from the dense path by {err_dense} "
+          f"(tolerance {tol})")
+    batches = st1["batches"] - st0["batches"]
+    check(batches < n_req, f"predict: {batches} batches for {n_req} "
+                           f"requests: nothing coalesced")
+    check(st1["programs"] <= len(bucket_set(PREDICT_MAX_BATCH)),
+          f"predict: {st1['programs']} programs")
+    check(st1["bucket_misses"] == st0["bucket_misses"],
+          "predict: a bucket was built during the window after prewarm")
+    lat = sorted(tb - ta for c in got for _y, ta, tb in c)
+
+    # window 2: the same traffic, version 2 registered, prewarmed and
+    # swapped in while version 1 serves the first half of every client
+    done, first_half = [0], threading.Event()
+    lock = threading.Lock()
+
+    def on_done():
+        with lock:
+            done[0] += 1
+            if done[0] >= n_req // 6:
+                first_half.set()
+
+    swapped = threading.Event()
+    result = {}
+
+    def traffic():
+        result["out"] = _run_clients(srv, clients, gate=swapped,
+                                     on_done=on_done)
+
+    runner = threading.Thread(target=traffic, daemon=True)
+    runner.start()
+    try:
+        check(first_half.wait(600), "predict: the traffic never started")
+        t_reg = time.perf_counter()
+        e2 = repo.add_block("bert", clf2, *example, activate=False)
+        del clf2
+        srv.prewarm("bert", version=2)
+        misses_v2 = srv.stats()["bucket_misses"]
+        t_swap0 = time.perf_counter()
+        repo.swap("bert", 2)
+        t_swap1 = time.perf_counter()
+    finally:
+        swapped.set()
+        runner.join(900)
+    check(not runner.is_alive() and "out" in result,
+          "predict: the hot-swap traffic hung")
+    got2 = result["out"][0]
+    versions, during_prewarm = {1: 0, 2: 0}, 0
+    for g_c, w1_c, w2_c in zip(got2, want1, want2):
+        for (y, ta, tb), w1, w2 in zip(g_c, w1_c, w2_c):
+            ok1 = np.abs(y - w1).max() <= tol
+            ok2 = np.abs(y - w2).max() <= tol
+            check(ok1 or ok2, "predict: a response matches neither version")
+            check(not (tb < t_swap0 and not ok1) and
+                  not (ta > t_swap1 and not ok2),
+                  "predict: a response does not match the version that "
+                  "admitted it")
+            versions[1 if ok1 else 2] += 1
+            during_prewarm += bool(ok1 and tb > t_reg)
+    check(versions[1] and versions[2],
+          f"predict: the swap did not land mid-traffic: {versions}")
+    check(srv.stats()["bucket_misses"] == misses_v2,
+          "predict: a bucket was built after the swap")
+
+    # unload version 1: its programs, pools and snapshot go
+    gc.collect()
+    torch.cuda.synchronize()
+    before_unload = torch.cuda.memory_allocated()
+    repo.unload("bert", 1)
+    del e1
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = before_unload - torch.cuda.memory_allocated()
+    check(freed >= snap_bytes,
+          f"predict: unload freed {freed} bytes, less than the "
+          f"snapshot's {snap_bytes}")
+
+    # generate: the serve phase's waves through ModelServer.generate
+    repo.add_decoder("lm", lm)
+    gen = functools.partial(srv.generate, "lm")
+    gen(served["warm"], max_new_tokens=4, timeout=600)
+    t0 = time.perf_counter()
+    gen_out = [o for w in served["waves"] for o in _run_wave(gen, w)[0]]
+    gen_s = time.perf_counter() - t0
+    check(len(gen_out) == len(served["results"]) and all(
+        np.array_equal(a[1], b[1])
+        for a, b in zip(gen_out, served["results"])),
+        "predict: ModelServer.generate's tokens differ from the serve "
+        "phase's DecodeEngine tokens")
+    launches = {k.__name__: k.launches for k in counters}
+    check(all(launches.values()),
+          f"predict: a kernel of the path never launched: {launches}")
+    dstats = srv.decode_stats("lm")
+
+    # one bucket-16 batch, untraced (the trace phase takes its device
+    # time): host ms per call of the program
+    prog16 = srv.batcher.program_for(e2, PREDICT_MAX_BATCH)
+    padded16, _ = pad_batch([r for c in clients for r in c][:6],
+                            PREDICT_MAX_BATCH)
+    for _ in range(3):
+        prog16(*padded16)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        prog16(*padded16)
+    host16_ms = (time.perf_counter() - t0) / 10 * 1e3
+    emit("predict", requests=n_req, rows=rows, wall_s=wall,
+         requests_per_s=n_req / wall, rows_per_s=rows / wall,
+         latency_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+         latency_p99_ms=float(np.percentile(lat, 99)) * 1e3,
+         batches=batches, mean_bucket_occupancy=occupancy,
+         programs=st1["programs"], prewarm=warm, prewarm_s=prewarm_s,
+         capture_s=capture_s,
+         prewarm_memory={"allocated_gb": (mem1[0] - mem0[0]) / 1e9,
+                         "reserved_gb": (mem1[1] - mem0[1]) / 1e9},
+         graph_pools=pools, max_abs_err_vs_eager=err_eager,
+         max_abs_err_vs_dense=err_dense, max_abs_logit=scale,
+         tolerance=tol,
+         hot_swap={"responses_v1": versions[1],
+                   "responses_v2": versions[2],
+                   "v1_responses_after_register": during_prewarm,
+                   "register_to_swap_s": t_swap0 - t_reg},
+         unload_freed_gb=freed / 1e9, snapshot_gb=snap_bytes / 1e9,
+         generate={"requests": len(gen_out), "wall_s": gen_s,
+                   "tokens_equal_to_serve": True,
+                   "programs": dstats["programs"],
+                   "program_bound": dstats["program_bound"]},
+         bucket16_host_ms=host16_ms, kernel_launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return dict(srv=srv, clients=clients, want=want2, tol=tol,
+                wall_s=wall, prog16=prog16, padded16=padded16,
+                host16_ms=host16_ms, launches=launches)
+
+
+def _busy_union_us(torch, prof):
+    """Microseconds during which at least one device record of ``prof``
+    ran: the union of their intervals (kernels of concurrent streams
+    overlap, so their durations' sum overstates the busy time)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA)
+    busy, cur = 0.0, None
+    for s, e in spans:
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    return busy + (cur[1] - cur[0] if cur is not None else 0.0)
+
+
+def phase_predict_trace(torch, ctx):
+    """The ``predict`` phase's traffic again, on version 2 (every bucket
+    prewarmed), traced with ``torch.profiler``: every batch replays a
+    graph, so the B1 wrapper counts nothing and the trace holds exactly
+    24 B1 kernel records per executed batch.  Also traces 10 calls of
+    the bucket-16 program alone for its device time.  The window's idle
+    share is taken against its own (traced) wall time, from the union of
+    its device records' intervals: the workers' batches run on their
+    programs' streams side by side.  Then stops the server.  Returns the
+    B1 records and the batches they ran in."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    srv = ctx["srv"]
+    entry = srv.repository.get("bert")
+    try:
+        progs = _entry_programs(srv, entry)
+        replays = {b: p.replays for b, p in progs.items()}
+        counted = fa.flash_attention_fwd.launches
+        b1 = FLASH_NAMES["flash_attention_fwd"]
+        holder = {}
+        with _profiled(torch) as prof:
+            holder["out"] = _run_clients(srv, ctx["clients"])
+        ran = sum(p.replays - replays[b] for b, p in progs.items())
+        records = 0
+        busy_us = 0.0
+        for evt in prof.key_averages():
+            us = _kernel_us(evt, torch)
+            if us is None:
+                continue
+            busy_us += us
+            if b1 in evt.key:
+                records += evt.count
+        check(records == 24 * ran and ran,
+              f"predict_trace: {records} B1 records for {ran} replayed "
+              f"batches (24 each)")
+        check(fa.flash_attention_fwd.launches == counted,
+              "predict_trace: B1 launched outside a graph")
+        busy_ms = _busy_union_us(torch, prof) / 1e3
+        check(busy_ms > 0, "predict_trace: no device record in the "
+                           "traced window")
+        err, _ = _predict_err(holder["out"][0], ctx["want"])
+        check(err <= ctx["tol"],
+              f"predict_trace: traced responses off by {err}")
+        prog16 = ctx["prog16"]
+        step = functools.partial(prog16, *ctx["padded16"])
+        b16 = _trace_steps(torch, step, 10, ctx["host16_ms"])
+    finally:
+        check(srv.stop(timeout=120), "predict: the server did not stop")
+    traced_ms = holder["out"][1] * 1e3
+    emit("predict_trace", batches=ran, b1_kernel_records=records,
+         device_busy_ms=busy_ms, device_record_ms_sum=busy_us / 1e3,
+         traced_wall_ms=traced_ms,
+         device_idle_share=1.0 - busy_ms / traced_ms,
+         untraced_wall_ms=ctx["wall_s"] * 1e3,
+         bucket16=dict(device_ms=b16["device_ms_per_step"],
+                       host_ms=b16["step_ms_host"],
+                       device_idle_share=b16["device_idle_share"],
+                       kernels=b16["kernel_launches_per_step"],
+                       host_calls=b16["host_calls_per_step"],
+                       by_family=b16["device_ms_per_step_by_family"]))
+    return {"records": records, "batches": ran}
 
 
 # ----------------------------------------------------------------- train
@@ -1939,7 +2401,8 @@ def main():
                               generator=torch.Generator().manual_seed(0))
     lm.eval()
     phase_parity(torch, dev, lm)
-    launches = phase_serve(torch, dev, lm)
+    launches, served = phase_serve(torch, dev, lm)
+    predict = phase_predict(torch, dev, lm, served)
     head, feats, labels = phase_train_parity(torch, dev)
     train_launches, (trainers, step_ms), batch = phase_train(
         torch, dev, head, feats, labels)
@@ -1952,6 +2415,7 @@ def main():
     train_traced = phase_train_graphs(torch, dev, head, feats, labels)
     phase_graphs(torch, dev, lm)
     replayed = phase_serve_trace(torch, lm)
+    predict_traced = phase_predict_trace(torch, predict)
 
     pk = "mxnet_tpu/ops/pallas_kernels.py"
     kernels = []
@@ -1976,6 +2440,7 @@ def main():
             source=f"mxnet_tpu_torch/csrc/{name}.cu", replaces=replaces,
             launches=launches[name],
             traced_serve_kernel_records=replayed[name],
+            launches_generate=predict["launches"][name],
             **by_dtype["float32"], bfloat16=by_dtype["bfloat16"])
         # every row of the kernels phase, with the plan's split
         keys = ("dtype", "shape", "W", "B", "n_split", "ms", "bound_ms",
@@ -2010,12 +2475,26 @@ def main():
         # the main path is the graphs trainer (both dtypes): its wrapper
         # count is each signature's first, eager step; its replays are
         # counted from trace records (traced_train_kernel_records)
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda",
             source=f"mxnet_tpu_torch/csrc/{name}.cu", replaces=replaces,
             launches=sum(train_launches[d]["graphs"][name]
                          for d in train_launches),
-            **by_dtype["float32"], bfloat16=by_dtype["bfloat16"]))
+            **by_dtype["float32"], bfloat16=by_dtype["bfloat16"])
+        if key == "fwd":
+            # the predict path (fp32): the bucket graphs' captures launch
+            # B1 from the wrapper; their replays are counted from trace
+            # records over the traced rerun's batches; its times at the
+            # bucket-16 batch's shape
+            p16 = next(r for r in flash_rows if r["dtype"] == "float32"
+                       and r["shape"] == "predict_bucket16")
+            entry.update(
+                predict_bucket16=dict(max_abs_err=p16["max_abs_err"]["out"],
+                                      **p16["fwd"]),
+                launches_predict=predict["launches"][name],
+                traced_predict_kernel_records=predict_traced["records"],
+                traced_predict_batches=predict_traced["batches"])
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

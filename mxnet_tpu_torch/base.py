@@ -109,10 +109,32 @@ declare_env("MXNET_TRACE_RING", 64,
             "Completed traces retained by the flight-recorder ring "
             "(mxnet_tpu_torch.tracing) — always the most recent N; older "
             "traces are evicted in completion order.")
+declare_env("MXNET_SERVING_MAX_BATCH", 8,
+            "Serving: max rows coalesced into one dispatched batch "
+            "(mxnet_tpu_torch.serving.DynamicBatcher); shape buckets "
+            "are powers of two up to this cap, so at most "
+            "ceil(log2(max_batch))+1 programs (CUDA graphs) are built "
+            "per model signature.")
+declare_env("MXNET_SERVING_MAX_LATENCY_US", 2000,
+            "Serving: how long the batcher holds the FIRST request of a "
+            "forming batch waiting for more work before dispatching a "
+            "partial batch (microseconds; the latency half of the "
+            "batching policy).")
 declare_env("MXNET_SERVING_QUEUE_DEPTH", 128,
-            "Serving: bound on waiting requests per decode engine; "
-            "submission past it sheds with "
-            "ServerOverloadedError(retry_after_ms).")
+            "Serving: bound on total outstanding work per ModelServer "
+            "(queued + dispatched-but-unfinished requests) and on "
+            "waiting requests per decode engine; admission sheds at it "
+            "with ServerOverloadedError(retry_after_ms), even below the "
+            "queue-only shed watermark.")
+declare_env("MXNET_SERVING_SHED_WATERMARK", None,
+            "Serving: queue depth at/above which new requests are shed "
+            "with ServerOverloadedError(retry_after_ms) instead of "
+            "queued (load-shedding watermark; default: the full queue "
+            "capacity MXNET_SERVING_QUEUE_DEPTH).")
+declare_env("MXNET_SERVING_WORKERS", 1,
+            "Serving: dispatch worker threads per ModelServer (each "
+            "forms and executes whole batches; >1 overlaps host "
+            "pre/post-processing with device execution).")
 declare_env("MXNET_SERVING_RETRY_AFTER_MS", 50,
             "Serving: retry-after hint (milliseconds) attached to "
             "ServerOverloadedError when a request is shed.")
@@ -156,15 +178,42 @@ declare_env("MXNET_SERVING_SPEC_K", 0,
             "model call (greedy acceptance is exact, so outputs are "
             "byte-identical with speculation on or off).  0 (default) "
             "disables; requires a draft model (DecodeEngine(draft=...)).")
+declare_env("MXNET_SERVING_SPEC_DRAFT", None,
+            "Decode engine: repository model name whose decode model "
+            "serves as the DEFAULT speculative-decoding draft for "
+            "decoder entries registered without an explicit "
+            "add_decoder(draft=...).  The named entry must be "
+            "registered before the first generate() call resolves it.")
+declare_env("MXNET_SERVING_DEADLINE_DEFAULT", None,
+            "Serving: default end-to-end deadline (seconds, float) for "
+            "predict()/generate() calls that pass no timeout.  The "
+            "timeout is an absolute deadline carried through admission "
+            "-> queue -> batch assembly -> execute: expired requests "
+            "are cancelled BEFORE consuming a batch slot and fail with "
+            "DeadlineExceededError.  Unset (default) = no deadline.")
 declare_env("MXNET_SERVING_RETRY_MAX", 2,
             "Serving: max re-executions of a TRANSIENT failure "
             "(exc.transient truthy, e.g. an injected execute fault) "
-            "per decode model call, with jittered "
+            "per coalesced batch / decode model call, with jittered "
             "exponential backoff.  0 disables retries.")
 declare_env("MXNET_SERVING_RETRY_BACKOFF_MS", 10,
             "Serving: base of the jittered exponential retry backoff "
             "(sleep ~ backoff * 2^attempt * U[0.5,1.0) milliseconds "
             "between transient-failure retries).")
+declare_env("MXNET_SERVING_CIRCUIT_WINDOW", 20,
+            "Serving circuit breaker: sliding window of the last N "
+            "execute outcomes per model version; the breaker can only "
+            "trip once the window is full (doubling as the min-samples "
+            "guard).  0 disables the breaker.")
+declare_env("MXNET_SERVING_CIRCUIT_THRESHOLD", 0.5,
+            "Serving circuit breaker: error rate over the full sliding "
+            "window at/above which the circuit OPENs (admissions shed "
+            "instantly with CircuitOpenError + retry-after until the "
+            "cooldown's half-open probe).")
+declare_env("MXNET_SERVING_CIRCUIT_COOLDOWN_MS", 1000,
+            "Serving circuit breaker: how long an OPEN circuit sheds "
+            "before admitting ONE half-open probe request (probe "
+            "success re-closes, failure re-opens).")
 declare_env("MXNET_COMPILE_CACHE_DIR", None,
             "Persistent compile-cache directory "
             "(mxnet_tpu_torch.compile_cache): the port keeps its nvcc-"

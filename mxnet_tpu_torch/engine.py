@@ -12,17 +12,20 @@ its owner's stop, and :func:`watch_races` arms Eraser-style lockset
 tracking on an object's fields.
 
 PyTorch orders device work on streams, so the JAX package's array
-version counters and sync helpers have no counterpart here.
+version counters have no counterpart here.  Its one sync helper,
+:func:`sync_outputs`, waits on a dispatched batch's stream and rethrows
+the batch's asynchronous device errors at that point.
 """
 from __future__ import annotations
 
 import threading
 import time
 
-from .base import MXNetError, env_truthy
+from . import runtime_metrics as _rm
+from .base import KernelError, MXNetError, env_truthy
 
 __all__ = ["make_lock", "make_condition", "make_thread",
-           "check_thread_leaks", "watch_races"]
+           "check_thread_leaks", "watch_races", "sync_outputs"]
 
 # ---------------------------------------------------------------------------
 # Concurrency sanitizer (MXNET_ENGINE_SANITIZE=1)
@@ -415,3 +418,43 @@ def watch_races(obj, exempt=()):
     obj.__dict__["_mx_race_exempt_"] = frozenset(exempt)
     obj.__dict__["_mx_race_fields_"] = {}
     return obj
+
+
+# ---------------------------------------------------------------------------
+# Bounded sync point
+# ---------------------------------------------------------------------------
+def _cuda_streams(arrays, stream):
+    """The streams ``sync_outputs`` waits on: ``stream`` when given,
+    else the current stream of every CUDA device the torch tensors in
+    ``arrays`` live on (host arrays are complete already)."""
+    if stream is not None:
+        return [stream]
+    import torch
+    devices = {a.device for a in arrays
+               if isinstance(a, torch.Tensor) and a.device.type == "cuda"}
+    return [torch.cuda.current_stream(d) for d in devices]
+
+
+def sync_outputs(arrays, site="serving", stream=None):
+    """Bounded sync point: block until one dispatched batch's device work
+    is done — ``stream`` (the stream the batch ran on) when given, else
+    the current stream of each CUDA tensor's device in ``arrays`` — and
+    rethrow an asynchronous device error here as
+    :class:`~mxnet_tpu_torch.base.KernelError` (the engine
+    rethrow-at-sync-point contract applied to ONE batch instead of the
+    whole device).  Host (numpy) outputs have nothing to wait for.
+    Returns ``arrays``; with metrics on, the blocked time lands in
+    ``engine.sync.seconds{site}``."""
+    t0 = time.perf_counter()
+    try:
+        for s in _cuda_streams(arrays, stream):
+            s.synchronize()
+    except RuntimeError as e:
+        raise KernelError(
+            f"{site}: the batch's device work failed (reported at its "
+            f"sync point): {e}") from e
+    finally:
+        if _rm._ENABLED:
+            _rm.ENGINE_SYNC_SECONDS.observe(time.perf_counter() - t0,
+                                            site=site)
+    return arrays

@@ -15,7 +15,9 @@ the JAX package's ``initialize()`` rule: embeddings and positions
 N(0, 0.01), dense weights U(-0.07, 0.07), zero biases, unit LayerNorm
 gains.  ``load_numpy_params`` takes ``{name: np.ndarray}`` from the JAX
 block's ``collect_params()`` with the top block's prefix removed.
-``BERTClassifier`` and ``BERTForQA`` are not ported yet (ROADMAP).
+``BERTClassifier`` is the sentence-pair classification head that
+``serving.ModelRepository.add_block`` serves; ``BERTForQA`` is not
+ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -30,9 +32,9 @@ from .transformer_blocks import (_META, TransformerEncoderCell, _LayerNorm,
                                  _dense_names, _materialize, _scoped,
                                  load_gluon_params)
 
-__all__ = ["BERTEncoder", "BERTModel", "BERTForPretrain", "BERTPretrainLoss",
-           "pretrain_loss", "bert_12_768_12", "bert_24_1024_16",
-           "get_bert_model"]
+__all__ = ["BERTEncoder", "BERTModel", "BERTClassifier", "BERTForPretrain",
+           "BERTPretrainLoss", "pretrain_loss", "bert_12_768_12",
+           "bert_24_1024_16", "get_bert_model"]
 
 NEG_INF = -1e9
 # the parameters the JAX BERT declares init="normal"
@@ -203,6 +205,49 @@ class BERTForPretrain(nn.Module):
         np_params = {re.sub(r"^bertmodel\d+_", "bertmodel0_", k): v
                      for k, v in np_params.items()}
         load_gluon_params(self.gluon_names(), np_params, "BERTForPretrain")
+        return self
+
+
+class BERTClassifier(nn.Module):
+    """Sentence-pair classification head over a :class:`BERTModel`
+    (GluonNLP ``BERTClassifier``): dropout, then a dense layer on the
+    pooled output.  Call: ``clf(inputs, token_types, valid_length)`` ->
+    (B, num_classes) logits.  The dense layer is drawn from
+    ``generator`` on the BERT model's device unless ``device`` says
+    otherwise."""
+
+    def __init__(self, bert: BERTModel, num_classes=2, dropout=0.1,
+                 device=None, generator=None):
+        super().__init__()
+        if not bert._use_pooler:
+            raise MXNetError("BERTClassifier: the BERT model needs its "
+                             "pooler (use_pooler=True)")
+        self.bert = bert
+        self.dropout = nn.Dropout(dropout)
+        self.classifier = nn.Linear(bert._units, num_classes, device=_META)
+        if device is None:
+            device = bert.word_embed.weight.device
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        _materialize(self.classifier, device, generator)
+
+    def forward(self, inputs, token_types, valid_length=None):
+        _, pooled = self.bert(inputs, token_types, valid_length)
+        return self.classifier(self.dropout(pooled))
+
+    def gluon_names(self):
+        # the JAX head's Dense sits in a HybridSequential after a Dropout
+        return {**_scoped("bertmodel0_", self.bert.gluon_names()),
+                **_dense_names("dense0_", self.classifier)}
+
+    def load_numpy_params(self, np_params):
+        """Load the JAX ``BERTClassifier``'s parameters: ``{name:
+        array}`` from its ``collect_params()`` with the
+        ``bertclassifier<N>_`` prefix removed; the BERT model's own
+        parameters keep their ``bertmodel<N>_`` prefix (any N)."""
+        np_params = {re.sub(r"^bertmodel\d+_", "bertmodel0_", k): v
+                     for k, v in np_params.items()}
+        load_gluon_params(self.gluon_names(), np_params, "BERTClassifier")
         return self
 
 

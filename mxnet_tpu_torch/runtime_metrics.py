@@ -1,9 +1,14 @@
 """Process-wide runtime metrics registry: Counter / Gauge / Histogram.
 
 The PyTorch port's copy of ``mxnet_tpu.runtime_metrics``: the same
-registry, exporters and metric names for the serving slice
-(``serving.decode.*``, ``serving.decode.prefix.*``,
-``serving.decode.spec.*``, ``kv.shared_pages``, ...) and the training
+registry, exporters and metric names for the serving slices
+(the predict path's ``serving.requests``, ``serving.batches``,
+``serving.queue.depth``, ``serving.batch.occupancy``,
+``serving.request.seconds`` with trace exemplars,
+``serving.bucket.cache``, ``serving.circuit.state`` and
+``engine.sync.seconds``; the decode path's ``serving.decode.*``,
+``serving.decode.prefix.*``, ``serving.decode.spec.*``,
+``kv.shared_pages``, ...) and the training
 slice (``trainer.step.seconds``, ``train.step.breakdown.seconds``,
 ``train.mfu``, ``train.bottleneck``) and the persistent
 compile cache (``compile.cache``), so dashboards
@@ -625,11 +630,49 @@ MEMORY_LIVE_BYTES = gauge(
     "memory.live_bytes",
     "Live accelerator bytes per device (host RSS fallback when the "
     "backend reports no memory_stats).", labelnames=("device",))
+ENGINE_SYNC_SECONDS = histogram(
+    "engine.sync.seconds",
+    "Time blocked in bounded sync points (engine.sync_outputs: one "
+    "dispatched batch, not the whole pipeline), labeled by call site.",
+    labelnames=("site",))
+SERVING_REQUESTS = counter(
+    "serving.requests", "Requests admitted by ModelServer.predict.",
+    labelnames=("model",))
+SERVING_BATCHES = counter(
+    "serving.batches", "Coalesced batches dispatched by the serving "
+    "worker pool.", labelnames=("model",))
 SERVING_SHED = counter(
     "serving.shed",
     "Requests rejected with ServerOverloadedError because the bounded "
     "queue sat at/above the load-shedding watermark.",
     labelnames=("model",))
+SERVING_QUEUE_DEPTH = gauge(
+    "serving.queue.depth",
+    "Requests currently waiting in the ModelServer bounded queue "
+    "(all models), per server instance.", labelnames=("server",))
+SERVING_QUEUE_PEAK = gauge(
+    "serving.queue.depth.peak",
+    "High watermark of the serving queue depth, per server instance.",
+    labelnames=("server",))
+# occupancy = real rows / padded bucket rows — 1.0 means no padding waste
+SERVING_BATCH_OCCUPANCY = histogram(
+    "serving.batch.occupancy",
+    "Real rows divided by padded bucket rows per dispatched batch "
+    "(1.0 = no padding waste).",
+    buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+SERVING_REQUEST_SECONDS = histogram(
+    "serving.request.seconds",
+    "End-to-end request latency inside ModelServer (enqueue to result "
+    "ready), per model.", labelnames=("model",))
+SERVING_BUCKET_CACHE = counter(
+    "serving.bucket.cache",
+    "Shape-bucket program-cache lookups by the serving batcher "
+    "(event=mem_hit|disk_hit|miss; misses equal freshly built "
+    "programs — in the port a bucket program's CUDA-graph capture — "
+    "disk hits are programs a make_program marks as loaded from a "
+    "persistent cache, and mem_hit+disk_hit+miss equals lookups — so "
+    "in-memory programs == misses + disk hits).",
+    labelnames=("event",))
 SERVING_DECODE_STEPS = counter(
     "serving.decode.steps",
     "Scheduler iterations of the continuous-batching decode engine "
@@ -702,6 +745,11 @@ SERVING_DEADLINE_EXCEEDED = counter(
     "Requests failed by end-to-end deadline expiry (in the queue, at "
     "batch assembly, or mid-generation), per model.",
     labelnames=("model",))
+SERVING_CIRCUIT_STATE = gauge(
+    "serving.circuit.state",
+    "Per-model-version circuit-breaker state: 0 closed, 1 half-open, "
+    "2 open (serving.resilience.CircuitBreaker).",
+    labelnames=("model", "version"))
 SERVING_DECODE_QUARANTINED = counter(
     "serving.decode.quarantined",
     "Sequences evicted alone after a decode/prefill step failure was "

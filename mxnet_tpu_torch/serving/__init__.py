@@ -1,12 +1,53 @@
-"""Decode serving of the PyTorch port (docs/serving.md §6, §8, §9)."""
+"""Inference serving of the PyTorch port (docs/serving.md).
+
+The port of ``mxnet_tpu.serving`` minus its replica, admission,
+autoscaler and traffic modules (ROADMAP item 3c) and the artifact path
+(``ModelRepository.load_artifact``, item 3a′):
+
+- :class:`ModelRepository` — versioned ``nn.Module`` blocks (weights
+  snapshotted at registration), decoders and functions, atomic
+  hot-swap;
+- :class:`DynamicBatcher` — shape-bucketed batch coalescing with a
+  per-bucket program cache: an ``add_block`` bucket is one CUDA graph
+  on the card (O(log N) programs for N request shapes);
+- :class:`ModelServer` — bounded queues, worker pool, load shedding
+  (:class:`ServerOverloadedError` + retry-after), graceful drain,
+  ``prewarm()`` (build every bucket BEFORE a hot-swap admits traffic),
+  and ``generate()`` routed to the model's :class:`DecodeEngine`;
+- :class:`DecodeEngine` — autoregressive generation with token-level
+  continuous batching over a paged KV cache
+  (:mod:`~mxnet_tpu_torch.serving.kv_cache`), prefix caching and
+  speculative decoding; :class:`PagedLMAdapter` runs the LM's paged
+  forwards as CUDA graphs over the hand-written decode and verify
+  attention kernels;
+- the resilience layer (docs/serving.md §8): end-to-end deadlines,
+  bounded jittered retries, failed-batch bisection, decode quarantine,
+  and per-model-version circuit breakers (:class:`CircuitBreaker`,
+  :class:`CircuitOpenError`, client-side :func:`honor_retry_after`).
+
+>>> from mxnet_tpu_torch import serving
+>>> repo = serving.ModelRepository()
+>>> repo.add_block("bert", clf, tokens, types, valid_length)
+>>> with serving.ModelServer(repo) as srv:
+...     logits = srv.predict("bert", tokens, types, valid_length)
+"""
+from .batcher import DynamicBatcher, bucket_set, next_bucket, pad_batch, \
+    unpad_outputs
 from .config import ServingConfig
 from .decode import DecodeEngine, GenerateRequest, PagedLMAdapter, \
     as_decode_model
 from .kv_cache import DeviceKVPool, PageAllocator, PageGeometry, PrefixCache
-from .resilience import Deadline, DeadlineExceededError, \
-    ServerOverloadedError
+from .repository import ModelEntry, ModelRepository
+from .resilience import (CircuitBreaker, CircuitOpenError, Deadline,
+                         DeadlineExceededError, ServerOverloadedError,
+                         honor_retry_after)
+from .server import ModelServer
 
-__all__ = ["ServingConfig", "DecodeEngine", "GenerateRequest",
-           "PagedLMAdapter", "as_decode_model", "DeviceKVPool",
-           "PageAllocator", "PageGeometry", "PrefixCache", "Deadline",
-           "DeadlineExceededError", "ServerOverloadedError"]
+__all__ = ["ModelRepository", "ModelEntry", "ModelServer",
+           "DynamicBatcher", "ServingConfig", "ServerOverloadedError",
+           "next_bucket", "bucket_set", "pad_batch", "unpad_outputs",
+           "DecodeEngine", "GenerateRequest", "PagedLMAdapter",
+           "as_decode_model", "PageGeometry", "PageAllocator",
+           "PrefixCache", "DeviceKVPool",
+           "Deadline", "DeadlineExceededError", "CircuitBreaker",
+           "CircuitOpenError", "honor_retry_after"]

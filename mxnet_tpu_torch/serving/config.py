@@ -1,14 +1,16 @@
-"""Serving policy knobs of the decode engine (docs/serving.md).
+"""Serving policy knobs (docs/serving.md).
 
-The PyTorch port's copy of the decode half of
-``mxnet_tpu.serving.config``: ``ServingConfig`` with the fields
-:class:`~mxnet_tpu_torch.serving.DecodeEngine` reads, under the same
-``MXNET_SERVING_*`` names.  The predict-path, replica, admission and
-circuit-breaker knobs come with the ``ModelServer`` slice.
+The PyTorch port's copy of ``mxnet_tpu.serving.config``: the predict
+path's batching, backpressure, deadline and circuit-breaker knobs and
+the decode engine's, under the same ``MXNET_SERVING_*`` names and with
+the same defaults and validation.  The replica (``replicas*``) and
+tiered-admission (``tenant_tiers``, ``admission_shed_start``) knobs
+come with the replica slice; without them a server behaves as the
+reference does with them unset (one replica, no admission gate).
 
 Defaults come from the ``MXNET_SERVING_*`` environment variables
 (declared in ``base.py``, documented in ``docs/env_vars.md``);
-constructor arguments override per engine.
+constructor arguments override per server.
 """
 from __future__ import annotations
 
@@ -18,10 +20,23 @@ __all__ = ["ServingConfig"]
 
 
 class ServingConfig:
-    """Decode-engine policy.
+    """Batching + backpressure policy for one :class:`ModelServer` (and
+    its decode engines).
 
-    - ``queue_depth``: bound on WAITING requests — submission past it
-      sheds with ``ServerOverloadedError(retry_after_ms)``.
+    - ``max_batch_size``: row cap per coalesced batch; shape buckets are
+      powers of two up to it, so at most ``ceil(log2(max_batch))+1``
+      programs are built per model signature.
+    - ``max_latency_us``: how long the batcher holds the first request
+      of a forming batch waiting for more work (the latency half of the
+      batching policy).
+    - two-level backpressure: ``shed_watermark`` (<= queue_depth,
+      default equal to it) bounds the WAITING queue — at/above it
+      admission sheds with ``ServerOverloadedError(retry_after_ms)``;
+      ``queue_depth`` additionally bounds total outstanding work
+      (queued + dispatched-but-unfinished), so a slow model cannot
+      pile up unbounded in-flight batches.  A decode engine bounds its
+      waiting requests by ``queue_depth``.
+    - ``num_workers``: dispatch threads forming and executing batches.
 
     Decode-engine knobs (autoregressive ``generate()``, docs/serving.md
     §6): ``decode_page_size`` tokens per KV page,
@@ -34,24 +49,44 @@ class ServingConfig:
     cached skips that prefill) with ``prefix_cache_pages`` capping
     cache-held pages (0 = bounded by the pool alone); ``spec_k`` > 0
     enables speculative decoding — a draft model proposes up to k
-    tokens per sequence, the target verifies them in one call.
+    tokens per sequence, the target verifies them in one call —
+    with ``spec_draft`` naming the repository entry whose decode
+    model serves as the default draft.
 
-    Resilience knobs (docs/serving.md §8): ``retry_max``
-    transient-failure re-executions with ``retry_backoff_ms`` jittered
-    exponential backoff.
+    Resilience knobs (docs/serving.md §8): ``deadline_default``
+    seconds applied when a call passes no timeout (None = unbounded),
+    ``retry_max`` transient-failure re-executions with
+    ``retry_backoff_ms`` jittered exponential backoff, and the
+    per-model-version circuit breaker (``circuit_window`` sliding
+    outcomes, trip at ``circuit_threshold`` error rate, shed for
+    ``circuit_cooldown_ms`` before the half-open probe;
+    ``circuit_window=0`` disables).
     """
 
-    def __init__(self, queue_depth=None, retry_after_ms=None,
-                 decode_page_size=None, decode_pool_pages=None,
-                 decode_max_batch=None, decode_max_new_tokens=None,
-                 retry_max=None, retry_backoff_ms=None, prefix_cache=None,
-                 prefix_cache_pages=None, spec_k=None):
+    def __init__(self, max_batch_size=None, max_latency_us=None,
+                 queue_depth=None, shed_watermark=None, num_workers=None,
+                 retry_after_ms=None, decode_page_size=None,
+                 decode_pool_pages=None, decode_max_batch=None,
+                 decode_max_new_tokens=None, deadline_default=None,
+                 retry_max=None, retry_backoff_ms=None,
+                 circuit_window=None, circuit_threshold=None,
+                 circuit_cooldown_ms=None, prefix_cache=None,
+                 prefix_cache_pages=None, spec_k=None, spec_draft=None):
         def pick(value, env, typ=int):
             if value is None:
                 value = get_env(env, typ=typ)
             return None if value is None else typ(value)
 
+        self.max_batch_size = pick(max_batch_size,
+                                   "MXNET_SERVING_MAX_BATCH")
+        self.max_latency_us = pick(max_latency_us,
+                                   "MXNET_SERVING_MAX_LATENCY_US")
         self.queue_depth = pick(queue_depth, "MXNET_SERVING_QUEUE_DEPTH")
+        self.shed_watermark = pick(shed_watermark,
+                                   "MXNET_SERVING_SHED_WATERMARK")
+        if self.shed_watermark is None:
+            self.shed_watermark = self.queue_depth
+        self.num_workers = pick(num_workers, "MXNET_SERVING_WORKERS")
         self.retry_after_ms = pick(retry_after_ms,
                                    "MXNET_SERVING_RETRY_AFTER_MS")
         self.decode_page_size = pick(decode_page_size,
@@ -68,14 +103,39 @@ class ServingConfig:
         self.prefix_cache_pages = pick(prefix_cache_pages,
                                        "MXNET_SERVING_PREFIX_CACHE_PAGES")
         self.spec_k = pick(spec_k, "MXNET_SERVING_SPEC_K")
+        self.spec_draft = spec_draft if spec_draft is not None \
+            else get_env("MXNET_SERVING_SPEC_DRAFT", typ=str)
         # resilience policy (docs/serving.md §8)
+        self.deadline_default = pick(deadline_default,
+                                     "MXNET_SERVING_DEADLINE_DEFAULT",
+                                     typ=float)
         self.retry_max = pick(retry_max, "MXNET_SERVING_RETRY_MAX")
         self.retry_backoff_ms = pick(retry_backoff_ms,
                                      "MXNET_SERVING_RETRY_BACKOFF_MS",
                                      typ=float)
+        self.circuit_window = pick(circuit_window,
+                                   "MXNET_SERVING_CIRCUIT_WINDOW")
+        self.circuit_threshold = pick(circuit_threshold,
+                                      "MXNET_SERVING_CIRCUIT_THRESHOLD",
+                                      typ=float)
+        self.circuit_cooldown_ms = pick(
+            circuit_cooldown_ms, "MXNET_SERVING_CIRCUIT_COOLDOWN_MS",
+            typ=float)
 
+        if self.max_batch_size < 1:
+            raise MXNetError("ServingConfig: max_batch_size must be >= 1")
         if self.queue_depth < 1:
             raise MXNetError("ServingConfig: queue_depth must be >= 1")
+        if not 1 <= self.shed_watermark <= self.queue_depth:
+            raise MXNetError(
+                f"ServingConfig: shed_watermark must be in "
+                f"[1, queue_depth={self.queue_depth}], "
+                f"got {self.shed_watermark}")
+        if self.num_workers < 1:
+            raise MXNetError("ServingConfig: num_workers must be >= 1")
+        if self.max_latency_us < 0:
+            raise MXNetError(
+                "ServingConfig: max_latency_us must be >= 0")
         if self.retry_after_ms < 0:
             raise MXNetError(
                 "ServingConfig: retry_after_ms must be >= 0")
@@ -100,14 +160,33 @@ class ServingConfig:
             raise MXNetError(
                 "ServingConfig: spec_k must be >= 0 (0 disables "
                 "speculative decoding)")
+        if self.deadline_default is not None \
+                and self.deadline_default <= 0:
+            raise MXNetError(
+                "ServingConfig: deadline_default must be > 0 seconds "
+                "(or None for no deadline)")
         if self.retry_max < 0:
             raise MXNetError("ServingConfig: retry_max must be >= 0")
         if self.retry_backoff_ms < 0:
             raise MXNetError(
                 "ServingConfig: retry_backoff_ms must be >= 0")
+        if self.circuit_window < 0:
+            raise MXNetError(
+                "ServingConfig: circuit_window must be >= 0 "
+                "(0 disables the breaker)")
+        if not 0.0 < self.circuit_threshold <= 1.0:
+            raise MXNetError(
+                "ServingConfig: circuit_threshold must be in (0, 1]")
+        if self.circuit_cooldown_ms < 0:
+            raise MXNetError(
+                "ServingConfig: circuit_cooldown_ms must be >= 0")
 
     def __repr__(self):
-        return (f"ServingConfig(queue_depth={self.queue_depth}, "
+        return (f"ServingConfig(max_batch_size={self.max_batch_size}, "
+                f"max_latency_us={self.max_latency_us}, "
+                f"queue_depth={self.queue_depth}, "
+                f"shed_watermark={self.shed_watermark}, "
+                f"num_workers={self.num_workers}, "
                 f"retry_after_ms={self.retry_after_ms}, "
                 f"decode_page_size={self.decode_page_size}, "
                 f"decode_pool_pages={self.decode_pool_pages}, "
@@ -116,5 +195,10 @@ class ServingConfig:
                 f"prefix_cache={self.prefix_cache}, "
                 f"prefix_cache_pages={self.prefix_cache_pages}, "
                 f"spec_k={self.spec_k}, "
+                f"spec_draft={self.spec_draft!r}, "
+                f"deadline_default={self.deadline_default}, "
                 f"retry_max={self.retry_max}, "
-                f"retry_backoff_ms={self.retry_backoff_ms})")
+                f"retry_backoff_ms={self.retry_backoff_ms}, "
+                f"circuit_window={self.circuit_window}, "
+                f"circuit_threshold={self.circuit_threshold}, "
+                f"circuit_cooldown_ms={self.circuit_cooldown_ms})")
