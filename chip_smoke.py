@@ -4,7 +4,8 @@
 Drives ``mxnet_tpu_torch``'s paths on the card, through the entry
 points a user calls: paged decode serving of a GPT-2-small-width
 ``TransformerDecoderLM`` (random fp32 weights from seed 0);
-``ModelServer.predict`` on a ``BERTClassifier`` over ``bert_24_1024_16``
+``ModelServer.predict`` on a ``BERTClassifier`` over ``bert_24_1024_16``,
+from the module and from its exported artifact (``load_artifact``),
 and ``ModelServer.generate`` on that LM; and ``ShardedTrainer.step`` on
 ``BERTForPretrain`` over ``bert_24_1024_16`` with ``use_flash=True``.
 Phases, each printed as one JSON line:
@@ -80,6 +81,24 @@ Phases, each printed as one JSON line:
    equal ``serve``'s.  The B1/B4/B5 counters are zeroed before the
    server is built and read after ``generate`` (the captures' eager
    warm-ups);
+6c. ``artifact`` — the same seed-0 classifier exported on the card by
+   ``deploy.export_stablehlo(dynamic_batch=True)`` (a ``torch.export``
+   program, B1 as the operator ``mxnet_tpu_torch::flash_attention_fwd``),
+   loaded by ``ModelRepository.load_artifact`` into a fresh repository
+   and served by a fresh ``ModelServer`` with ``predict``'s config:
+   ``prewarm`` captures the five buckets (one loaded module shared by
+   all), then ``predict``'s traffic; the served graph holds 24 B1 nodes,
+   every response is within 1e-4 of max|logit| of the exporting
+   module's eager forward (bitwise equality reported), 5 programs, none
+   built after prewarm, fewer batches than requests, and the B1 counter
+   (zeroed just before the load, read after the traffic) is 24 per
+   capture; export, load and capture seconds, artifact bytes,
+   requests/s, rows/s, latency p50/p99.  Then a small classifier (2
+   layers, head dim 64) exported on the CPU and loaded on the card must
+   name no other device and match its CUDA twin within 1e-5 of
+   max|logit|; and the host time of one eager B1 call through the
+   wrapper and through its operator.  The server and the files are
+   freed before training;
 7. ``train_parity`` — BERT-large fp32: the flash path's loss and every
    parameter gradient against the dense additive-mask path on the same
    weights and batch (B = 8, L = 512);
@@ -131,7 +150,11 @@ device tracing slows every later launch:
    ``torch.profiler``: exactly 24 B1 kernel records per replayed batch,
    no wrapper count, the device idle share against the untraced
    window's wall time; and 10 calls of the bucket-16 program traced for
-   its device time.
+   its device time;
+13. ``artifact_trace`` — the artifact exported and loaded again, its
+   bucket-16 program built and 10 replays traced: exactly 24 B1 kernel
+   records per replay and no wrapper count, the logits within 1e-4 of
+   max|logit| of the exporting module's eager forward.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
@@ -140,8 +163,10 @@ trainers' of ``train`` over both dtypes.  B4 and B5 also give
 ``launches_generate`` (``predict``'s ``ModelServer.generate``) and
 ``traced_serve_kernel_records`` from ``serve_trace``; B1 gives
 ``launches_predict`` and ``traced_predict_kernel_records`` over
-``traced_predict_batches`` from ``predict_trace``, and its fp32 times at
-the bucket-16 shape (``predict_bucket16``); B4 and B5 list every
+``traced_predict_batches`` from ``predict_trace``, its fp32 times at
+the bucket-16 shape (``predict_bucket16``), ``launches_artifact``
+(``artifact``'s captures) and ``traced_artifact_kernel_records`` over
+``traced_artifact_replays`` from ``artifact_trace``; B4 and B5 list every
 ``kernels`` row with its split; B1-B3 give, per dtype,
 ``launches_graphs`` and ``launches_eager`` (``train``'s two trainers
 apart) and ``traced_train_kernel_records`` over
@@ -1939,6 +1964,282 @@ def phase_predict_trace(torch, ctx):
     return {"records": records, "batches": ran}
 
 
+# ------------------------------------------------------------- artifact
+# the artifact phase's small classifier, exported on the CPU and loaded on
+# the card: 2 layers, head dim 64 (4 heads of 256 units), L = 128
+ARTIFACT_SMALL = dict(vocab_size=30522, units=256, hidden_size=1024,
+                      num_layers=2, num_heads=4, max_length=512)
+# logits of an artifact against its exporting module's forward on the
+# card: the same kernels at the same shapes, so bit for bit is expected
+# (reported); held to 1e-5 of max|logit| for the loaded program's other
+# op order around them
+ARTIFACT_MOVE_TOL = 1e-5
+ARTIFACT_TRACE_REPLAYS = 10
+
+
+def _flash_nodes(module):
+    """B1 operator nodes in a loaded program's graph."""
+    return sum(1 for n in module.graph.nodes if n.op == "call_function"
+               and "mxnet_tpu_torch.flash_attention_fwd" in str(n.target))
+
+
+def _export_bert(torch, dev, tmp):
+    """``predict``'s seed-0 ``BERTClassifier`` exported with
+    ``dynamic_batch=True`` from batch-1 examples into ``tmp``: (module,
+    artifact path, export seconds)."""
+    from mxnet_tpu_torch import deploy
+    clf = _bert_classifier(torch, dev, 0)
+    L = PREDICT_L
+    example = (np.zeros((1, L), np.int32), np.zeros((1, L), np.int32),
+               np.full((1,), L, np.int32))
+    t0 = time.perf_counter()
+    path = deploy.export_stablehlo(clf, *example,
+                                   path=os.path.join(tmp, "bert"),
+                                   dynamic_batch=True)
+    return clf, path, time.perf_counter() - t0
+
+
+def _artifact_moved(torch, dev, clients):
+    """A small classifier (``ARTIFACT_SMALL``) exported on the CPU and
+    loaded with ``device="cuda"``: its lengths' ``aten.to`` and weights
+    move to the card, and its logits on the first 8 requests match its
+    CUDA twin's eager forward."""
+    import copy
+
+    from mxnet_tpu_torch import deploy, models
+    bert = models.BERTModel(**ARTIFACT_SMALL, dropout=0.0, use_flash=True,
+                            device="cpu",
+                            generator=torch.Generator().manual_seed(2))
+    small = models.BERTClassifier(bert, num_classes=2, dropout=0.0).eval()
+    twin = copy.deepcopy(small).to(dev)
+    reqs = [r for c in clients for r in c][:8]
+    tmp = tempfile.mkdtemp(prefix="artifact_small_")
+    try:
+        path = deploy.export_stablehlo(small, *reqs[0],
+                                       path=os.path.join(tmp, "small"),
+                                       dynamic_batch=True)
+        model = deploy.load_stablehlo(path, device=dev)
+        devices = deploy._artifact_devices(model.exported)
+        check(devices == {dev}, f"artifact: the CPU export still names "
+                                f"{devices} after the move")
+        err = scale = 0.0
+        bitwise = True
+        with torch.no_grad():
+            for req in reqs:
+                got = model.call(*req).cpu().numpy()
+                want = twin(*(torch.from_numpy(a).to(dev) for a in req)) \
+                    .cpu().numpy()
+                err = max(err, float(np.abs(got - want).max()))
+                scale = max(scale, float(np.abs(want).max()))
+                bitwise &= bool(np.array_equal(got, want))
+        check(err <= ARTIFACT_MOVE_TOL * scale,
+              f"artifact: the CPU export loaded on the card is off its "
+              f"CUDA twin by {err} (max|logit| {scale})")
+        nodes = _flash_nodes(model.module)
+        check(nodes == ARTIFACT_SMALL["num_layers"],
+              f"artifact: {nodes} B1 nodes in the small export")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(max_abs_err=err, max_abs_logit=scale, bitwise_equal=bitwise,
+                requests=len(reqs), b1_nodes=nodes)
+
+
+def _b1_dispatch_us(torch, dev, calls=200):
+    """Host microseconds per eager B1 call at ``predict``'s bucket-16
+    shape (fp32, BH 256, L 128, D 64): the wrapper called directly and
+    through its registered operator (what ``_Flash`` calls since the
+    artifact path), ``calls`` calls each after 20 warm-up calls, in
+    turns (wrapper, operator, operator, wrapper), the device synchronised
+    before and after each run.  The launches here compare two routes and
+    are not the path's."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(256, PREDICT_L, 64, device=dev, generator=g)
+               for _ in range(3))
+    lens = torch.full((256,), PREDICT_L, dtype=torch.int32, device=dev)
+    routes = {"wrapper": fa.flash_attention_fwd,
+              "operator": fa.flash_attention_fwd_op}
+    times = {name: [] for name in routes}
+    for name in ("wrapper", "operator", "operator", "wrapper"):
+        fn = routes[name]
+        for _ in range(20):
+            fn(q, k, v, lens, False, 0.125, -1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(q, k, v, lens, False, 0.125, -1)
+        times[name].append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return {name: float(np.mean(t)) for name, t in times.items()}
+
+
+def phase_artifact(torch, dev):
+    """The artifact path: ``predict``'s seed-0 ``BERTClassifier`` (fp32,
+    ``use_flash=True``, depth not cut) exported on the card with
+    ``deploy.export_stablehlo(dynamic_batch=True)`` (a ``torch.export``
+    program, B1 one operator node per layer), loaded into a fresh
+    ``ModelRepository`` with ``load_artifact`` and served by a fresh
+    ``ModelServer`` with ``predict``'s config: ``prewarm`` captures the
+    five buckets, then ``predict``'s traffic.  Every response within
+    ``PREDICT_TOL`` of the exporting module's eager forward; 24 B1 nodes
+    in the served graph; 5 programs, none built after prewarm; fewer
+    batches than requests; the B1 wrapper counts 24 per capture (zeroed
+    just before the load, read after the traffic).  Then a small
+    classifier exported on the CPU, loaded on the card.  The server and
+    the artifact's files are freed before the phase returns."""
+    from mxnet_tpu_torch import runtime_metrics as rm
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.serving import (ModelRepository, ModelServer,
+                                         ServingConfig, bucket_set)
+    t_phase = time.perf_counter()
+    clients = _predict_traffic(BERT_LARGE["vocab_size"])
+    rows = sum(r[0].shape[0] for c in clients for r in c)
+    n_req = sum(len(c) for c in clients)
+    tmp = tempfile.mkdtemp(prefix="artifact_")
+    srv = None
+    try:
+        clf, path, export_s = _export_bert(torch, dev, tmp)
+        art_bytes = os.path.getsize(path)
+        want = _eager_logits(torch, dev, clf, clients)
+        del clf
+        _free(torch)
+        cfg = ServingConfig(max_batch_size=PREDICT_MAX_BATCH,
+                            num_workers=PREDICT_WORKERS,
+                            max_latency_us=2000)
+        fa.flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        repo = ModelRepository()
+        entry = repo.load_artifact("bert", path, device=dev)
+        load_s = time.perf_counter() - t0
+        srv = ModelServer(repo, cfg)
+        t0 = time.perf_counter()
+        warm = srv.prewarm("bert")
+        prewarm_s = time.perf_counter() - t0
+        progs = _entry_programs(srv, entry)
+        check(sorted(progs) == bucket_set(PREDICT_MAX_BATCH)
+              and warm["compiled"] == len(progs) == 5,
+              f"artifact: prewarm built {warm}")
+        capture_s = {b: p.capture_s for b, p in sorted(progs.items())}
+        nodes = _flash_nodes(progs[1].module)
+        check(nodes == BERT_LARGE["num_layers"],
+              f"artifact: {nodes} B1 operator nodes in the served graph, "
+              f"want {BERT_LARGE['num_layers']}")
+        check(len({id(p.module) for p in progs.values()}) == 1,
+              "artifact: the buckets do not share one loaded module")
+        del progs
+        st0 = srv.stats()
+        rm.reset()
+        rm.enable()
+        try:
+            got, wall = _run_clients(srv, clients)
+        finally:
+            rm.disable()
+        st1 = srv.stats()
+        occupancy = rm.SERVING_BATCH_OCCUPANCY.sum() \
+            / max(1, rm.SERVING_BATCH_OCCUPANCY.count())
+        rm.reset()
+        launches = fa.flash_attention_fwd.launches
+        check(launches == 24 * 5,
+              f"artifact: {launches} B1 launches for 5 captures (24 each: "
+              f"the eager warm-up before each capture)")
+        err, scale = _predict_err(got, want)
+        tol = PREDICT_TOL * scale
+        check(err <= tol, f"artifact: served logits differ from the "
+                          f"exporting module's eager forward by {err} "
+                          f"(tolerance {tol})")
+        bitwise = all(np.array_equal(g, w) for g_c, w_c in zip(got, want)
+                      for (g, *_), w in zip(g_c, w_c))
+        batches = st1["batches"] - st0["batches"]
+        check(batches < n_req, f"artifact: {batches} batches for {n_req} "
+                               f"requests: nothing coalesced")
+        check(st1["programs"] == 5 and
+              st1["bucket_misses"] == st0["bucket_misses"],
+              f"artifact: {st1['programs']} programs, a bucket built "
+              f"after prewarm: {st1['bucket_misses'] - st0['bucket_misses']}")
+        lat = sorted(tb - ta for c in got for _y, ta, tb in c)
+    finally:
+        if srv is not None:
+            check(srv.stop(timeout=120), "artifact: the server did not stop")
+        shutil.rmtree(tmp, ignore_errors=True)
+    del srv, repo, entry
+    _free(torch)
+    moved = _artifact_moved(torch, dev, clients)
+    dispatch_us = _b1_dispatch_us(torch, dev)
+    emit("artifact", requests=n_req, rows=rows, export_s=export_s,
+         artifact_bytes=art_bytes, load_s=load_s, prewarm_s=prewarm_s,
+         capture_s=capture_s, wall_s=wall, requests_per_s=n_req / wall,
+         rows_per_s=rows / wall,
+         latency_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+         latency_p99_ms=float(np.percentile(lat, 99)) * 1e3,
+         batches=batches, mean_bucket_occupancy=occupancy,
+         programs=st1["programs"], b1_nodes=nodes,
+         max_abs_err_vs_eager=err, max_abs_logit=scale, tolerance=tol,
+         bitwise_equal=bitwise, b1_launches=launches, cpu_export=moved,
+         b1_host_us_per_call=dispatch_us,
+         seconds=time.perf_counter() - t_phase)
+    return {"launches": launches}
+
+
+def phase_artifact_trace(torch, dev):
+    """A traced rerun of the artifact path's bucket-16 replays: the
+    seed-0 classifier exported and loaded again (the ``artifact`` phase
+    freed its own before training), bucket 16 built, then
+    ``ARTIFACT_TRACE_REPLAYS`` replays of ``predict``'s first six
+    requests padded to 16 rows traced with ``torch.profiler``: exactly 24
+    B1 kernel records per replay and no wrapper count (the graph
+    launches the kernel, not the plain version); the replayed logits
+    against the exporting module's eager forward on the same batch."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.serving import ModelRepository, pad_batch
+    clients = _predict_traffic(BERT_LARGE["vocab_size"])
+    padded, _ = pad_batch([r for c in clients for r in c][:6],
+                          PREDICT_MAX_BATCH)
+    tmp = tempfile.mkdtemp(prefix="artifact_trace_")
+    try:
+        clf, path, _ = _export_bert(torch, dev, tmp)
+        with torch.no_grad():
+            want = clf(*(torch.from_numpy(a).to(dev) for a in padded)) \
+                .cpu().numpy()
+        del clf
+        _free(torch)
+        entry = ModelRepository().load_artifact("bert", path, device=dev)
+        prog = entry.make_program(PREDICT_MAX_BATCH)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for _ in range(3):
+        (got,) = prog(*padded)
+    counted = fa.flash_attention_fwd.launches
+    b1 = FLASH_NAMES["flash_attention_fwd"]
+    with _profiled(torch) as prof:
+        for _ in range(ARTIFACT_TRACE_REPLAYS):
+            prog(*padded)
+    records = busy_us = 0
+    for evt in prof.key_averages():
+        us = _kernel_us(evt, torch)
+        if us is None:
+            continue
+        busy_us += us
+        if b1 in evt.key:
+            records += evt.count
+    check(records == 24 * ARTIFACT_TRACE_REPLAYS,
+          f"artifact_trace: {records} B1 records over "
+          f"{ARTIFACT_TRACE_REPLAYS} replays (24 each)")
+    check(fa.flash_attention_fwd.launches == counted,
+          "artifact_trace: B1 launched outside the graph")
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    check(err <= PREDICT_TOL * scale,
+          f"artifact_trace: bucket-16 logits off the eager forward by {err}")
+    emit("artifact_trace", replays=ARTIFACT_TRACE_REPLAYS,
+         b1_kernel_records=records,
+         b1_records_per_replay=records / ARTIFACT_TRACE_REPLAYS,
+         device_ms_per_replay=busy_us / ARTIFACT_TRACE_REPLAYS / 1e3,
+         bucket16_max_abs_err=err)
+    del prog, entry
+    _free(torch)
+    return {"records": records, "replays": ARTIFACT_TRACE_REPLAYS}
+
+
 # ----------------------------------------------------------------- train
 def phase_train_parity(torch, dev):
     """BERT-large ``BERTForPretrain``, fp32, dropout 0: the flash path
@@ -2403,6 +2704,7 @@ def main():
     phase_parity(torch, dev, lm)
     launches, served = phase_serve(torch, dev, lm)
     predict = phase_predict(torch, dev, lm, served)
+    artifact = phase_artifact(torch, dev)
     head, feats, labels = phase_train_parity(torch, dev)
     train_launches, (trainers, step_ms), batch = phase_train(
         torch, dev, head, feats, labels)
@@ -2416,6 +2718,7 @@ def main():
     phase_graphs(torch, dev, lm)
     replayed = phase_serve_trace(torch, lm)
     predict_traced = phase_predict_trace(torch, predict)
+    artifact_traced = phase_artifact_trace(torch, dev)
 
     pk = "mxnet_tpu/ops/pallas_kernels.py"
     kernels = []
@@ -2493,7 +2796,10 @@ def main():
                                       **p16["fwd"]),
                 launches_predict=predict["launches"][name],
                 traced_predict_kernel_records=predict_traced["records"],
-                traced_predict_batches=predict_traced["batches"])
+                traced_predict_batches=predict_traced["batches"],
+                launches_artifact=artifact["launches"],
+                traced_artifact_kernel_records=artifact_traced["records"],
+                traced_artifact_replays=artifact_traced["replays"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

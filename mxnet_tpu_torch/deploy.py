@@ -1,15 +1,26 @@
-"""Serving signatures: the manifest validators of the deployment boundary
-(docs/frontends.md §2).
+"""Deployment artifacts and serving signatures (docs/frontends.md §2).
 
-The PyTorch port's copy of the framework-free half of
-``mxnet_tpu.deploy``: the manifest loader and its structural checks
-(``load_manifest``, ``validate_manifest``, ``validate_signature``) and
-the request-time guard ``validate_inputs``.  ``serving`` validates every
-``predict()`` against an entry's signature with it, and
-``ModelRepository.add_function`` checks a hand-written signature with
-it at registration.  The artifact half (``export_stablehlo``,
-``load_stablehlo``, ``StableHLOModel``) is not ported yet (ROADMAP
-item 3a′).
+The PyTorch port of ``mxnet_tpu.deploy``:
+
+- the artifact half: :func:`export_stablehlo` writes a module's
+  inference forward as a ``torch.export`` program (``path.shlo``, the
+  ``torch.export.save`` archive with the weights inside; the file name
+  is the JAX package's, the content is not StableHLO) beside its
+  signature manifest (``path.json``); :func:`load_stablehlo` loads it
+  onto a device as a :class:`StableHLOModel`, which validates every
+  call against the manifest.  The flash-attention forward (B1) is the
+  registered operator ``mxnet_tpu_torch::flash_attention_fwd``, so an
+  exported BERT holds one node per layer, and a process that imports
+  ``mxnet_tpu_torch.ops`` (and nothing else of the port) can load and
+  run it; on the card the node launches ``csrc/flash_attention_fwd.cu``.
+  ``serving.ModelRepository.load_artifact`` serves such an artifact.
+- the framework-free validators: the manifest loader and its structural
+  checks (``load_manifest``, ``validate_manifest``,
+  ``validate_signature``) and the request-time guard
+  ``validate_inputs``.  ``serving`` validates every ``predict()``
+  against an entry's signature with it, and
+  ``ModelRepository.add_function`` checks a hand-written signature with
+  it at registration.
 
 A signature is a list of ``{"shape": [int|null, ...], "dtype": name}``
 entries; ``null`` marks a free dimension.  Dtype names are numpy's;
@@ -18,15 +29,25 @@ entries; ``null`` marks a free dimension.  Dtype names are numpy's;
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 
 import numpy as np
+import torch
 
+from . import faults as _faults
+from . import ops as _ops  # noqa: F401  (registers B1's operator)
+from . import tracing as _tr
 from .base import MXNetError
 
-__all__ = ["load_manifest", "validate_manifest", "validate_signature",
-           "validate_inputs", "QUANT_DTYPES"]
+__all__ = ["export_stablehlo", "load_stablehlo", "StableHLOModel",
+           "load_manifest", "validate_manifest", "validate_signature",
+           "validate_inputs", "QUANT_DTYPES", "ARTIFACT_FORMAT"]
+
+# the manifest's "format" of this package's artifacts (the JAX package
+# writes "jax.export/stablehlo", which this loader refuses)
+ARTIFACT_FORMAT = "torch.export"
 
 # weight dtypes a quantized (manifest v4) artifact may bake in
 QUANT_DTYPES = frozenset({"int8", "float8_e4m3fn", "float8_e5m2"})
@@ -52,6 +73,131 @@ def _quantization_digest(qblock) -> str:
     body = {k: v for k, v in qblock.items() if k != "digest"}
     payload = json.dumps(body, sort_keys=True, separators=(",", ":"))
     return hashlib.sha256(payload.encode("utf-8")).hexdigest()
+
+
+def _dtype_name(dtype):
+    """``torch.int32`` / ``np.dtype('int32')`` -> ``"int32"``."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def _module_device(module):
+    """The device of a module's first parameter or buffer (the CPU for a
+    module that has none)."""
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        return t.device
+    return torch.device("cpu")
+
+
+def _as_tensor(x, device):
+    t = x if isinstance(x, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(x))
+    return t.to(device)
+
+
+def export_stablehlo(module, *example_inputs, path, emit_text=False,
+                     dynamic_batch=False, version=None, decode=None,
+                     precompile=(), quantize=None):
+    """Export ``module``'s inference forward as a deployable artifact.
+
+    The module is exported in eval mode under ``torch.no_grad()`` with
+    ``torch.export.export`` on its own device (numpy example inputs go
+    there); its mode is restored afterwards.  Writes ``path.shlo`` (the
+    ``torch.export.save`` archive: the program with its weights — a
+    ``torch.export`` program, not StableHLO; the name is the JAX
+    package's, so paths and ``ModelRepository.load_artifact`` carry over)
+    and ``path.json``, the manifest: v3 with ``"format": "torch.export"``,
+    the ``inputs`` / ``outputs`` signature (symbolic dimensions ``null``),
+    ``dynamic_batch``, ``version`` (null unless given: the serving
+    repository then numbers versions itself), ``block`` (the module's
+    class name) and, with ``decode``, the decode metadata dict (checked
+    as the JAX package checks it).  With ``emit_text=True`` also writes
+    ``path.export.txt``, the program's text.  The manifest is validated
+    before anything is written, so a rejected export leaves no file.
+
+    ``dynamic_batch=True`` exports axis 0 of every input as ONE shared
+    symbolic size (``torch.export.Dim("b")``), so one artifact serves
+    every batch bucket.  ``torch.export`` specialises a dimension whose
+    example size is 1, so an example batch of 1 is traced as its rows
+    repeated to 2; the manifest records the axis as ``null`` all the
+    same.
+
+    Kernels: B1 is the operator ``mxnet_tpu_torch::flash_attention_fwd``
+    in the exported graph; a process that loads the archive needs
+    ``torch`` and ``import mxnet_tpu_torch.ops`` (which registers it),
+    nothing else of the port.
+
+    ``precompile`` (executables shipped per bucket) and ``quantize``
+    (manifest v4) have no counterpart yet: both raise
+    :class:`MXNetError` (ROADMAP Queue A items 2 and 3b).
+    """
+    if precompile:
+        raise MXNetError(
+            "export_stablehlo(precompile=...): not ported — a bucket "
+            "program of this package is a CUDA graph, which cannot "
+            "outlive its process (ROADMAP Queue A item 2)")
+    if quantize is not None:
+        raise MXNetError(
+            f"export_stablehlo(quantize={quantize!r}): quantized "
+            f"artifacts (manifest v4) are not ported yet (ROADMAP Queue "
+            f"A item 3b)")
+    if not isinstance(module, torch.nn.Module):
+        raise MXNetError(
+            f"export_stablehlo: expected a torch.nn.Module, got "
+            f"{type(module).__name__}")
+    if not example_inputs:
+        raise MXNetError("export_stablehlo: pass example inputs to fix "
+                         "the signature")
+    device = _module_device(module)
+    xs = tuple(_as_tensor(x, device) for x in example_inputs)
+    dynamic_shapes = None
+    if dynamic_batch:
+        if any(x.dim() < 1 for x in xs):
+            raise MXNetError(
+                "export_stablehlo(dynamic_batch=True): every input needs "
+                "a leading batch dimension")
+        xs = tuple(torch.cat([x, x]) if x.shape[0] == 1 else x
+                   for x in xs)
+        batch = torch.export.Dim("b")
+        dynamic_shapes = tuple({0: batch} for _ in xs)
+    was_training = module.training
+    module.eval()
+    try:
+        with torch.no_grad():
+            exported = torch.export.export(module, xs,
+                                           dynamic_shapes=dynamic_shapes)
+    except Exception as e:
+        raise MXNetError(f"export_stablehlo: torch.export failed: {e}") \
+            from e
+    finally:
+        module.train(was_training)
+    user = set(exported.graph_signature.user_outputs)
+    out_node = next(n for n in exported.graph.nodes if n.op == "output")
+    outs = [n.meta["val"] for n in out_node.args[0]
+            if getattr(n, "name", None) in user]
+    manifest = {
+        "format": ARTIFACT_FORMAT,
+        "manifest_version": 3,
+        "version": version,
+        "dynamic_batch": bool(dynamic_batch),
+        "inputs": [_sig_entry([None, *x.shape[1:]] if dynamic_batch
+                              else x.shape, _dtype_name(x.dtype))
+                   for x in xs],
+        "outputs": [_sig_entry(o.shape, _dtype_name(o.dtype)) for o in outs],
+        "block": type(module).__name__,
+    }
+    if decode is not None:
+        manifest["decode"] = dict(decode)
+    # validate BEFORE anything touches disk: an orphan .shlo without its
+    # manifest would later load unchecked
+    validate_manifest(manifest, where=f"export_stablehlo({path!r})")
+    with open(path + ".shlo", "wb") as f:
+        torch.export.save(exported, f)
+    with open(path + ".json", "w") as f:
+        json.dump(manifest, f, indent=1)
+    if emit_text:
+        with open(path + ".export.txt", "w") as f:
+            f.write(str(exported))
+    return path + ".shlo"
 
 
 def load_manifest(path):
@@ -381,3 +527,104 @@ def validate_inputs(manifest, arrays, where="validate_inputs"):
                     f"{where}: dynamic-batch inputs disagree on the "
                     f"batch dimension ({lead} vs {shape[0]} at input "
                     f"{i}) — it was exported as one shared size")
+
+
+class StableHLOModel:
+    """A loaded artifact plus its serving signature.
+
+    ``module`` is the program as a callable module on ``device`` (made
+    once).  ``call(*arrays)`` validates the arrays against the manifest
+    (when the artifact shipped one), moves numpy arrays and tensors to
+    the device and runs the module under ``torch.no_grad()`` inside the
+    ``stablehlo.execute`` span and the ``deploy.execute`` fault site;
+    it returns what the module returns (tensors on the device).
+    ``exported`` is the loaded ``ExportedProgram``."""
+
+    def __init__(self, exported, manifest, path, content_hash=None,
+                 device="cpu"):
+        self.exported = exported
+        self.manifest = manifest
+        self.path = path
+        # sha256 of the archive: the artifact's identity
+        self.content_hash = content_hash
+        self.device = torch.device(device)
+        self.module = exported.module()
+
+    @property
+    def dynamic_batch(self):
+        return bool(self.manifest and self.manifest.get("dynamic_batch"))
+
+    @property
+    def quantization(self):
+        """The manifest v4 ``quantization`` block, or None (this
+        package exports none yet)."""
+        return (self.manifest or {}).get("quantization")
+
+    def validate(self, arrays):
+        if self.manifest is not None:
+            validate_inputs(self.manifest, arrays,
+                            where=os.path.basename(
+                                _manifest_path(self.path)))
+
+    def call(self, *arrays):
+        self.validate(arrays)
+        xs = [_as_tensor(a, self.device) for a in arrays]
+        with _tr.span("stablehlo.execute", path=self.path):
+            _faults.inject("deploy.execute")
+            with torch.no_grad():
+                return self.module(*xs)
+
+    __call__ = call
+
+
+def _artifact_devices(exported):
+    """Every device the program's weights, constants and traced values
+    name (a device baked into an op, as ``aten.to`` of the lengths,
+    shows in its value)."""
+    devices = {t.device for t in exported.state_dict.values()}
+    devices |= {t.device for t in exported.constants.values()
+                if isinstance(t, torch.Tensor)}
+    for node in exported.graph.nodes:
+        val = node.meta.get("val")
+        for v in val if isinstance(val, (tuple, list)) else (val,):
+            if isinstance(v, torch.Tensor):
+                devices.add(v.device)
+    return devices
+
+
+def load_stablehlo(path, device="cuda"):
+    """Load an artifact of :func:`export_stablehlo` onto ``device``.
+
+    Returns a :class:`StableHLOModel`: ``.call`` validates inputs against
+    the ``.json`` manifest (a shape or dtype mistake raises a clear
+    :class:`MXNetError` naming the manifest) and the manifest is the
+    serving signature for ``serving.ModelRepository.load_artifact``.  A
+    program exported on another device is moved with
+    ``torch.export.passes.move_to_device_pass`` (weights, constants and
+    devices baked into its ops).  A manifest of another format (the JAX
+    package's StableHLO artifacts) is refused; an artifact without a
+    manifest loads unchecked.  The process must have imported
+    ``mxnet_tpu_torch.ops`` (this module does) for B1's operator."""
+    if not os.path.exists(path):
+        raise MXNetError(f"no artifact at {path}")
+    manifest = load_manifest(path)
+    if manifest is not None and manifest.get("format") != ARTIFACT_FORMAT:
+        raise MXNetError(
+            f"load_stablehlo({path!r}): the manifest's format is "
+            f"{manifest.get('format')!r}, not {ARTIFACT_FORMAT!r} — this "
+            f"package loads only its own artifacts; re-export the model "
+            f"with mxnet_tpu_torch.deploy.export_stablehlo")
+    from torch.export.passes import move_to_device_pass
+    digest = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            digest.update(chunk)
+        f.seek(0)
+        exported = torch.export.load(f)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if _artifact_devices(exported) - {device}:
+        exported = move_to_device_pass(exported, device)
+    return StableHLOModel(exported, manifest, path,
+                          content_hash=digest.hexdigest(), device=device)

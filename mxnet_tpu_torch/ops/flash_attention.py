@@ -18,6 +18,12 @@ The PyTorch port of the flash half of ``mxnet_tpu/ops/pallas_kernels.py``:
   ``csrc/flash_attention_bwd_dq.cu``) and :func:`flash_attention_bwd_dkv`
   (B3, ``csrc/flash_attention_bwd_dkv.cu``), each with a launch count in
   ``.launches``, and their plain PyTorch versions (``*_reference``).
+  B1 is also the registered operator
+  ``torch.ops.mxnet_tpu_torch.flash_attention_fwd``
+  (:data:`flash_attention_fwd_op`, registered by importing this module;
+  its impl is the wrapper), which :class:`_Flash` calls, so that
+  ``torch.export`` keeps one node per call and a loaded artifact
+  launches the kernel.
 
 Dispatch is by the tensors' device.  A CUDA tensor launches the kernel or
 raises :class:`~mxnet_tpu_torch.base.KernelError` — there is no
@@ -64,7 +70,8 @@ from ..base import KernelError, MXNetError
 
 __all__ = ["flash_attention", "flash_selfatt", "flash_selfatt_nomask",
            "flash_attention_fwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv", "flash_attention_fwd_reference",
+           "flash_attention_bwd_dkv", "flash_attention_fwd_op",
+           "flash_attention_fwd_reference",
            "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv_reference"]
 
@@ -221,6 +228,27 @@ def flash_attention_fwd(q, k, v, lens, causal, sm_scale, window):
 
 
 flash_attention_fwd.launches = 0
+
+
+# B1 as a registered operator, so that ``torch.export`` records one node
+# per call instead of tracing through the wrapper's ctypes launch (or the
+# plain version): a loaded artifact then reaches the kernel wherever
+# ``mxnet_tpu_torch.ops`` is imported.  The impl is the wrapper itself,
+# so device dispatch and ``flash_attention_fwd.launches`` are unchanged;
+# the fake gives the output shapes to tracing (meta tensors never get
+# here: ``_Flash`` makes their outputs first).  Outputs never alias the
+# inputs.
+flash_attention_fwd_op = torch.library.custom_op(
+    "mxnet_tpu_torch::flash_attention_fwd", flash_attention_fwd,
+    mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor lens, bool causal, "
+           "float sm_scale, int window) -> (Tensor, Tensor)")
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, lens, causal, sm_scale, window):
+    return (q.new_empty(q.shape),
+            q.new_empty((q.shape[0], q.shape[1], 1), dtype=torch.float32))
 
 
 def flash_attention_fwd_reference(q, k, v, lens, causal, sm_scale, window):
@@ -428,8 +456,8 @@ class _Flash(torch.autograd.Function):
         if q.device.type == "meta":
             out, lse = _meta_products("fwd", q, k, v)
         else:
-            out, lse = flash_attention_fwd(q, k, v, lens, causal, sm_scale,
-                                           window)
+            out, lse = flash_attention_fwd_op(q, k, v, lens, causal,
+                                              sm_scale, window)
         ctx.save_for_backward(q, k, v, lens, out, lse)
         ctx.args = (causal, sm_scale, window)
         return out

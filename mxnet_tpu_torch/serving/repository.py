@@ -2,7 +2,7 @@
 
 The PyTorch port of ``mxnet_tpu.serving.repository``: named models,
 integer versions, atomic ``swap`` between them while traffic is in
-flight.  Three sources register:
+flight.  Four sources register:
 
 - ``add_block``: an ``nn.Module`` served in-process.  Its parameters and
   buffers are snapshotted at registration (a copy on the module's
@@ -13,10 +13,12 @@ flight.  Three sources register:
   per bucket;
 - ``add_decoder``: an autoregressive LM served by ``generate()``
   through the port's ``DecodeEngine``;
-- ``add_function``: a raw python callable (testing / custom runners).
-
-``load_artifact`` (an exported artifact) is not ported yet (ROADMAP
-item 3a′).
+- ``add_function``: a raw python callable (testing / custom runners);
+- ``load_artifact``: an artifact of ``deploy.export_stablehlo`` (a
+  ``torch.export`` program and its manifest), loaded onto a device.  Its
+  buckets are :class:`_BlockProgram` objects over the loaded program's
+  module, one module shared by every bucket: on the card one CUDA graph
+  per bucket, as ``add_block``'s, whose B1 nodes launch the kernel.
 
 Hot-swap contract: ``swap(name, version)`` atomically repoints the
 *current* entry.  Requests resolve their entry once at admission, so an
@@ -35,8 +37,10 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .. import engine
+from .. import deploy, engine, faults
 from ..base import KernelError, MXNetError
+from ..deploy import (_dtype_name, _module_device, _resolve_dtype,
+                      _sig_entry)
 
 __all__ = ["ModelEntry", "ModelRepository", "prewarm_buckets",
            "synth_inputs"]
@@ -56,10 +60,10 @@ class ModelEntry:
 
     def __init__(self, name, version, kind, signature, dynamic_batch,
                  make_program, fixed_batch=None, decode_model=None,
-                 draft_model=None):
+                 draft_model=None, decode_meta=None):
         self.name = name
         self.version = version
-        # "block" | "function" | "decoder"
+        # "block" | "function" | "decoder" | "stablehlo" (an artifact)
         self.kind = kind
         self.signature = signature
         self.dynamic_batch = bool(dynamic_batch)
@@ -69,6 +73,9 @@ class ModelEntry:
         # (serving/decode.py protocol) and its speculative draft
         self.decode_model = decode_model
         self.draft_model = draft_model
+        # an artifact's manifest "decode" metadata (export_stablehlo's
+        # decode=): the contract for an external decode runtime
+        self.decode_meta = decode_meta
         self.uid = next(_UID)               # distinct across re-registrations
 
     @property
@@ -114,7 +121,6 @@ def synth_inputs(entry, rows):
     """Zero-filled inputs matching ``entry``'s signature at ``rows``
     batch rows — the prewarm payload that forces a build and one
     execution without real data."""
-    from ..deploy import _resolve_dtype
     inputs = []
     for spec in entry.signature:
         shape = [1 if d is None else d for d in spec["shape"]]
@@ -125,13 +131,7 @@ def synth_inputs(entry, rows):
     return inputs
 
 
-def _dtype_name(dtype):
-    """``torch.int32`` / ``np.dtype('int32')`` -> ``"int32"``."""
-    return str(dtype).rsplit(".", 1)[-1]
-
-
 def _block_signature(example_inputs, dynamic_batch):
-    from ..deploy import _sig_entry
     sig = []
     for x in example_inputs:
         shape = list(x.shape)
@@ -159,12 +159,6 @@ def _snapshot(module):
     return snap
 
 
-def _module_device(module):
-    for t in itertools.chain(module.parameters(), module.buffers()):
-        return t.device
-    return torch.device("cpu")
-
-
 # every capture in the process runs under this lock: a capture is rare
 # (one per bucket and version) and takes a device-wide synchronise on
 # entry, so serialising them costs nothing on the serving path and rules
@@ -173,8 +167,9 @@ _CAPTURE_LOCK = threading.Lock()
 
 
 class _BlockProgram:
-    """One shape bucket of an ``add_block`` entry: the forward of the
-    weight snapshot over ``bucket_rows`` rows.
+    """One shape bucket of an ``add_block`` or ``load_artifact`` entry:
+    the forward of the weight snapshot (or of the loaded program's
+    module) over ``bucket_rows`` rows.
 
     Every input lives in ONE static device buffer (a view per input, in
     its signature dtype, each on a 16-byte boundary), staged from one
@@ -214,7 +209,7 @@ class _BlockProgram:
                 shape[0] = bucket_rows
             if any(d is None for d in shape):
                 raise MXNetError(
-                    f"add_block({name!r}): input shape {spec['shape']} "
+                    f"serving {name!r}: input shape {spec['shape']} "
                     f"has a free dimension besides the batch")
             shapes.append(tuple(shape))
             dtypes.append(np.dtype(spec["dtype"]))
@@ -363,6 +358,54 @@ class ModelRepository:
                 slot["current"] = entry.version
         return entry
 
+    def load_artifact(self, name, path, version=None, activate=True,
+                      device="cuda"):
+        """Register an artifact of ``deploy.export_stablehlo``.  ``path``
+        is the ``.shlo`` file or the bare prefix; the ``.json`` manifest
+        beside it becomes the serving signature (an artifact without one
+        is refused), and its ``version`` the version unless one is given
+        (null: the next free integer).  The program is loaded onto
+        ``device`` (moved there if it was exported elsewhere); each
+        bucket is a :class:`_BlockProgram` over its module — on the
+        card one CUDA graph per bucket, whose capture or replay raises
+        :class:`~mxnet_tpu_torch.base.KernelError` on failure, with no
+        other path.  A static artifact pads every batch to its exported
+        batch.  A quantized (v4) manifest is refused (ROADMAP Queue A
+        item 3b)."""
+        if not path.endswith(".shlo"):
+            path = path + ".shlo"
+        # chaos site: artifact pull/parse failure during a deploy — a
+        # typed error on the operator path while traffic keeps serving
+        # the current version
+        faults.inject("repository.load_artifact")
+        model = deploy.load_stablehlo(path, device=device)
+        manifest = model.manifest
+        if manifest is None:
+            raise MXNetError(
+                f"load_artifact({name!r}): no manifest next to {path} — "
+                f"serving needs the .json signature (re-export with "
+                f"deploy.export_stablehlo)")
+        if manifest.get("quantization") is not None:
+            raise MXNetError(
+                f"load_artifact({name!r}): {path} is a quantized "
+                f"(manifest v4) artifact; quantized serving is not ported "
+                f"yet (ROADMAP Queue A item 3b)")
+        dynamic = bool(manifest.get("dynamic_batch"))
+        sig = manifest["inputs"]
+        fixed = None if dynamic else (sig[0]["shape"][0] if sig else None)
+        if version is None:
+            version = manifest.get("version")
+        module, dev = model.module, model.device
+
+        def make_program(bucket_rows):
+            return _BlockProgram(name, module, sig, dynamic, bucket_rows,
+                                 dev)
+
+        entry = ModelEntry(name, version, "stablehlo", sig, dynamic,
+                           make_program, fixed_batch=fixed,
+                           decode_meta=manifest.get("decode"))
+        return self._register(entry, activate)
+
     def add_block(self, name, module, *example_inputs, version=None,
                   activate=True, dynamic_batch=True):
         """Register an ``nn.Module`` for in-process serving.
@@ -443,7 +486,6 @@ class ModelRepository:
                      activate=True, dynamic_batch=True):
         """Register a raw callable ``fn(*arrays) -> array|tuple``
         (custom runners, tests).  ``signature`` is manifest-style."""
-        from .. import deploy
         # a hand-written signature gets the same validation a manifest
         # does — a malformed entry (or a concrete leading dim under
         # dynamic_batch, which would mis-split rows at un-pad) would
