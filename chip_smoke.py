@@ -6,8 +6,10 @@ points a user calls: paged decode serving of a GPT-2-small-width
 ``TransformerDecoderLM`` (random fp32 weights from seed 0);
 ``ModelServer.predict`` on a ``BERTClassifier`` over ``bert_24_1024_16``,
 from the module and from its exported artifact (``load_artifact``),
-and ``ModelServer.generate`` on that LM; and ``ShardedTrainer.step`` on
-``BERTForPretrain`` over ``bert_24_1024_16`` with ``use_flash=True``.
+and ``ModelServer.generate`` on that LM; ``ShardedTrainer.step`` on
+``BERTForPretrain`` over ``bert_24_1024_16`` with ``use_flash=True``;
+and ``TrainingSupervisor.run`` over that step with ``CheckpointManager``
+checkpoints, through injected faults and a SIGTERM.
 Phases, each printed as one JSON line:
 
 1. ``device``  — card name, device count, power limit;
@@ -111,6 +113,39 @@ Phases, each printed as one JSON line:
    and read just after it, and rise by 24 (one per layer) on each eager
    step and on a graph's first (eager, captured) step, by 0 on a
    replay; their sums are reported by dtype and mode;
+8b. ``durability`` — ``TrainingSupervisor.run`` over the captured bf16
+   BERT-large step (depth not cut, dropout 0, adamw lr 1e-4), batches
+   from an ``io.NDArrayIter`` over 48 rows made like the training batch,
+   12 steps, a verified ``CheckpointManager`` checkpoint every 4
+   (``max_to_keep`` 2, async writes, in a ``tempfile.mkdtemp()``
+   directory whose filesystem and free bytes are printed); once
+   uninterrupted, once from the same seed and warm-up step with a step
+   deadline (20 graph steps of ``train``'s, at least 1 s) under a fault
+   plan: a killed step, a corrupted checkpoint met by the restore that
+   follows (fallback to the previous verified step) and a step stalled
+   past the deadline.  Gates: 2 restarts, 1 timeout, 1 fallback, the
+   uninterrupted run's 12 losses within 1e-3 relative (bitwise equality
+   reported), a save / step / restore round trip giving back every
+   tensor the save read bit for bit, and the stalled step, released
+   after the run, neither replaying nor changing the state.  Readings:
+   save seconds (snapshot, write, hash, barrier), restore seconds
+   (verify, read, copy in), restore seconds of each restart, bytes of a
+   step directory and of the pinned staging buffers, and the graph
+   step's ms with and without the watchdog, in turns.  The B1-B3
+   counters are zeroed before the two trainers are built and read after
+   the faulted run (each trainer's capture: 24 each);
+   ``durability_rng`` — a two-layer fp32 BERT at BERT-large widths with
+   dropout 0.1, graphs: step 2 restored in place with the RNG state of
+   its checkpoint's extra payload must repeat step 3's loss bit for bit,
+   and without that state must not;
+   ``durability_signal`` — three child processes (``--durability-child``;
+   two layers, bf16, a checkpoint every step; kernels from the
+   persistent compile cache of ``build_cache``, no ``nvcc``): one
+   uninterrupted, one sent SIGTERM between steps once it reports step
+   5 (its ``save_on_signal`` handler prints the step it saves; it must
+   exit by the signal with ``LATEST`` at that step and the step's
+   manifest verifying), one that auto-resumes from that directory: its
+   10 losses within 1e-3 relative of the uninterrupted child's;
 
 The phases from here on run ``torch.profiler`` (``_profiled``: each
 trace window padded by ``TRACE_PAD_S`` of idle time at both ends), whose
@@ -132,6 +167,9 @@ device tracing slows every later launch:
    dropout 0.1
    drawing other masks on two replays from one restored state (0.0:
    the same loss);
+   ``durability_trace`` — three more supervised steps of
+   ``durability``'s faulted run (and its closing checkpoint) traced:
+   24 kernel records each of B1-B3 per replay, no wrapper count;
 10. ``graphs`` — ``PagedLMAdapter``'s CUDA graphs (one per (family,
    shape) signature) against ``graphs=False`` on the same inputs at
    GPT-2-small widths: prefill at bucket 512, the decode step at the
@@ -170,17 +208,23 @@ the bucket-16 shape (``predict_bucket16``), ``launches_artifact``
 ``kernels`` row with its split; B1-B3 give, per dtype,
 ``launches_graphs`` and ``launches_eager`` (``train``'s two trainers
 apart) and ``traced_train_kernel_records`` over
-``traced_train_replays`` from ``train_graphs``), the ``nvidia-smi`` name/power-limit line,
+``traced_train_replays`` from ``train_graphs``, and
+``launches_durability`` (``durability``'s two captures) and
+``traced_durability_kernel_records`` from ``durability_trace``), the
+``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero without that line; it never
 runs on the CPU.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
+``--durability-child`` is the entry of ``durability_signal``'s child
+processes, which the script starts itself.
 """
 import contextlib
 import functools
 import gc
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -345,7 +389,8 @@ def phase_build_cache(build, compile_cache):
     and stores it in the cache; a build into a second empty directory
     must take every one from the cache, byte for byte, without ``nvcc``.
     Both directories live under ``build/`` and are removed; the
-    environment and ``BUILD_DIR`` are restored."""
+    environment and ``BUILD_DIR`` are restored.  The cache stays for
+    ``durability_signal``'s children; returns its directory."""
     root = tempfile.mkdtemp(dir=os.path.dirname(build.BUILD_DIR))
     saved_dir = build.BUILD_DIR
     saved_env = os.environ.get("MXNET_COMPILE_CACHE_DIR")
@@ -375,7 +420,9 @@ def phase_build_cache(build, compile_cache):
             os.environ.pop("MXNET_COMPILE_CACHE_DIR", None)
         else:
             os.environ["MXNET_COMPILE_CACHE_DIR"] = saved_env
-        shutil.rmtree(root, ignore_errors=True)
+        for run in ("first", "second"):
+            shutil.rmtree(os.path.join(root, run), ignore_errors=True)
+    return os.path.join(root, "cache")
 
 
 # ---------------------------------------------------------------- timing
@@ -2309,10 +2356,10 @@ def _flash_counters():
             fa.flash_attention_bwd_dkv)
 
 
-def _trainer(torch, head, feats, dtype, mode):
+def _trainer(torch, head, feats, dtype, mode, dev="cuda"):
     from mxnet_tpu_torch import models, parallel
     return parallel.ShardedTrainer(
-        head, models.pretrain_loss, parallel.make_mesh(dp=1),
+        head, models.pretrain_loss, parallel.make_mesh(dp=1, device=dev),
         optimizer="adamw", optimizer_params={"learning_rate": 1e-4},
         example_inputs=feats, n_labels=2,
         dtype=None if dtype == "float32" else torch.bfloat16,
@@ -2654,7 +2701,597 @@ def phase_profile_train(torch, trainers, batch, step_ms):
     emit("profile_train", dtype="bfloat16", steps_traced=n, **rows)
 
 
+# ------------------------------------------------------------ durability
+# The supervised BERT-large runs: an NDArrayIter over 48 rows made like
+# the training batch, 12 steps, a verified checkpoint every 4 (max_to_keep
+# 2).  The faulted run's 7th step call fails, and the restore that follows
+# finds step 4 corrupted and falls back to the step-0 anchor; its 17th
+# call (step 10 of the replay) stalls past the deadline and restores step 8.
+DURABILITY_ROWS, DURABILITY_STEPS, DURABILITY_SAVE_EVERY = 48, 12, 4
+DURABILITY_B, DURABILITY_ITER_SEED = 8, 11
+DURABILITY_SPEC = ("train.step=fail,after=6,times=1;"
+                   "checkpoint.restore=corrupt,times=1;"
+                   "train.step=stall,after=16,times=1,ms={stall_ms:.0f}")
+DURABILITY_FIRED = {"train.step:fail": 1, "checkpoint.restore:corrupt": 1,
+                    "train.step:stall": 1}
+# the step deadline: 20 graph steps, and at least 1 s
+DEADLINE_STEPS, DEADLINE_MIN_MS = 20, 1000.0
+# the stalled step sleeps through the rest of the faulted run (a restore,
+# 4 steps and a save: less than the uninterrupted run's 4 saves) and the
+# readings taken after it: the uninterrupted run's seconds plus this
+STALL_MARGIN_S = 5.0
+# faulted losses against the uninterrupted run's (train_graphs' bf16 rule)
+DURABILITY_LOSS_RTOL = 1e-3
+# the watchdog's cost: graph steps a turn, in turns off, on, on, off
+WATCHDOG_TURN_STEPS = 10
+# the SIGTERM children: 2 layers at BERT-large widths, bf16, a verified
+# checkpoint every step; the signalled child waits for the signal between
+# two steps once it has completed SIGNAL_AT
+SIGNAL_STEPS, SIGNAL_AT, SIGNAL_LAYERS = 10, 5, 2
+CHILD_TIMEOUT_S = 300
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _bits(t):
+    """``t`` viewed as integers of its width, for bitwise comparison."""
+    import torch
+    return t.detach().contiguous().view(
+        {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+         8: torch.int64}[t.element_size()])
+
+
+def _state_diff(trainer, clone):
+    """The tensors of ``_snapshot(trainer)`` that are not bitwise equal to
+    ``clone``'s (a clone of an earlier snapshot)."""
+    return [str(k) for k, t in _snapshot(trainer).items()
+            if not bool((_bits(t) == _bits(clone[k])).all())]
+
+
+def _durability_data(model_kw):
+    """``DURABILITY_ROWS`` rows made as ``_train_batch`` makes the
+    training batch (``RandomState(0)``), as lists of numpy arrays."""
+    vocab = model_kw.get("vocab_size", BERT_LARGE["vocab_size"])
+    L = model_kw.get("max_length", BERT_LARGE["max_length"])
+    feats, labels = _train_batch(vocab, B=DURABILITY_ROWS, L=L, seed=0)
+    return list(feats), list(labels)
+
+
+def _durability_iter(model_kw, batch_size):
+    from mxnet_tpu_torch import io
+    feats, labels = _durability_data(model_kw)
+    return io.NDArrayIter(feats, labels, batch_size=batch_size,
+                          shuffle=True, seed=DURABILITY_ITER_SEED)
+
+
+def _durability_trainer(torch, dev, example, model_kw, dtype="bfloat16",
+                        dropout=0.0, num_layers=None, seed=0):
+    """A graphs ``ShardedTrainer`` (adamw, lr 1e-4) over a new
+    ``BERTForPretrain`` on ``bert_24_1024_16`` (``model_kw`` overrides its
+    widths; the card runs BERT-large's) from ``seed``."""
+    from mxnet_tpu_torch import models
+    kw = dict(model_kw)
+    if num_layers is not None:
+        kw["num_layers"] = num_layers
+    head = models.BERTForPretrain(models.bert_24_1024_16(
+        dropout=dropout, use_flash=True, device=dev,
+        generator=torch.Generator().manual_seed(seed), **kw))
+    return _trainer(torch, head, example, dtype, "graphs", dev)
+
+
+class _LogCount(logging.Handler):
+    """The port's warnings that contain ``needle``."""
+
+    def __init__(self, needle):
+        super().__init__(logging.WARNING)
+        self.needle, self.hits = needle, []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if self.needle in msg:
+            self.hits.append(msg)
+
+
+def _timed(fn, seconds):
+    """``fn`` that appends the seconds of each call to ``seconds``."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+    return call
+
+
+def _filesystem(path):
+    """The type and free bytes of the filesystem that holds ``path``."""
+    st = os.statvfs(path)
+    kind = subprocess.run(["stat", "-f", "-c", "%T", path],
+                          capture_output=True, text=True).stdout.strip()
+    return dict(dir=path, fs_type=kind, free_bytes=st.f_bavail * st.f_frsize)
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _watchdog_threads():
+    return {t for t in threading.enumerate()
+            if t.name.startswith("mxnet-watchdog")}
+
+
+def _replays(trainer):
+    return sum(p.replays for p in trainer._programs.values())
+
+
+def _supervised(torch, dev, trainer, root, name, model_kw, spec=None):
+    """One supervised run of ``DURABILITY_STEPS`` steps from the warmed
+    ``trainer``, checkpointing into ``root/name``, under the fault
+    ``spec``; every restore is timed."""
+    from mxnet_tpu_torch import faults, parallel
+    it = _durability_iter(model_kw, DURABILITY_B)
+    mngr = parallel.CheckpointManager(os.path.join(root, name),
+                                      max_to_keep=2, async_write=True)
+    restores = []
+    mngr.restore = _timed(mngr.restore, restores)
+    sup = parallel.TrainingSupervisor(
+        trainer, mngr, it, save_every=DURABILITY_SAVE_EVERY, backoff_ms=1,
+        backoff_max_ms=2)
+    plan = faults.install(spec) if spec else None
+    t0 = time.perf_counter()
+    try:
+        losses = [float(v) for v in sup.run(DURABILITY_STEPS)]
+    finally:
+        faults.clear()
+    _sync(torch, dev)
+    return dict(sup=sup, mngr=mngr, losses=losses, restores=restores,
+                seconds=time.perf_counter() - t0,
+                fired=plan.counters() if plan else {})
+
+
+def _watchdog_turns(torch, dev, trainer, batch, deadline_ms):
+    """Host ms per graph step with the watchdog off and on, in turns
+    (off, on, on, off) of ``WATCHDOG_TURN_STEPS`` steps each."""
+    from mxnet_tpu_torch.parallel import StepWatchdog
+    dogs = {"off": StepWatchdog(timeout_ms=0, slow_factor=0),
+            "on": StepWatchdog(timeout_ms=deadline_ms, slow_factor=0)}
+    turns = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        trainer.watchdog = dogs[mode]
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(WATCHDOG_TURN_STEPS):
+            trainer.step(*batch)
+        _sync(torch, dev)
+        turns[mode].append((time.perf_counter() - t0)
+                           / WATCHDOG_TURN_STEPS * 1e3)
+    return {m: dict(ms_per_step=float(np.mean(v)), turns_ms=v)
+            for m, v in turns.items()}
+
+
+def _round_trip(torch, dev, trainer, batch, root):
+    """The checkpoint's own contract on the card: a save, a step that
+    changes the state, a restore of that save; every restored tensor must
+    be bitwise equal to what the save read.  Returns the phases'
+    seconds, the bytes of the step directory and of the pinned staging
+    buffers."""
+    from mxnet_tpu_torch import parallel
+    mngr = parallel.CheckpointManager(os.path.join(root, "round_trip"),
+                                      max_to_keep=1, async_write=True)
+    saved = {k: t.detach().clone() for k, t in _snapshot(trainer).items()}
+    t0 = time.perf_counter()
+    mngr.save(1, trainer)
+    save_return_s = time.perf_counter() - t0
+    mngr.wait()
+    save_s = time.perf_counter() - t0
+    staging = list(mngr._staging.values())
+    saves = dict(mngr.timings)
+    trainer.step(*batch)
+    check(_state_diff(trainer, saved), "durability: a step changed no state")
+    t0 = time.perf_counter()
+    mngr.restore(trainer, step=1)
+    _sync(torch, dev)
+    restore_s = time.perf_counter() - t0
+    diff = _state_diff(trainer, saved)
+    check(not diff, f"durability: {len(diff)} restored tensors differ from "
+                    f"what the save read, first {diff[:3]}")
+    out = dict(save_s=save_s, save_return_s=save_return_s,
+               save_phases_s={k: saves[k] for k in
+                              ("snapshot_s", "write_s", "hash_s",
+                               "barrier_s")},
+               restore_s=restore_s,
+               restore_phases_s={k: mngr.timings[k] for k in
+                                 ("verify_s", "read_s", "copy_s")},
+               step_dir_bytes=_dir_bytes(mngr._step_dir(1)),
+               state_bytes=sum(t.numel() * t.element_size()
+                               for t in saved.values()),
+               state_tensors=len(saved),
+               staging_bytes=sum(b.numel() * b.element_size()
+                                 for b in staging),
+               staging_pinned=all(b.is_pinned() for b in staging))
+    mngr.close()
+    return out
+
+
+def phase_durability(torch, dev, feats, labels, step_ms, model_kw=None):
+    """``TrainingSupervisor.run`` over the captured bf16 BERT-large step
+    (B1-B3 replayed in its graph), twice from the same seed and the same
+    warm-up step (the signature's capture, taken before any deadline is
+    armed): uninterrupted, then under ``DURABILITY_SPEC`` with the step
+    deadline armed (``DEADLINE_STEPS`` graph steps of ``train``'s, at
+    least ``DEADLINE_MIN_MS``).  The faulted run must restart twice (the
+    kill, the stall's ``TrainStepTimeoutError``), time out once, fall back
+    once from the corrupted step 4, and end with the uninterrupted run's
+    12 losses within ``DURABILITY_LOSS_RTOL``.  While the stalled step
+    still sleeps: the watchdog's cost per graph step, in turns, and a
+    save / step / restore round trip that must give back every tensor the
+    save read, bit for bit, both on the uninterrupted trainer.  Then the
+    stalled step is released: it must not replay, and the faulted
+    trainer's state must not change.  The flash wrappers' counters are
+    zeroed before the trainers are built and read after the faulted run
+    (each capture's eager step).  Returns what ``durability_trace``
+    needs."""
+    from mxnet_tpu_torch.parallel import StepWatchdog
+    model_kw = model_kw or {}
+    kernels = _flash_counters()
+    warm = tuple(feats) + tuple(labels)
+    root = tempfile.mkdtemp(prefix="mxnet-durability-")
+    fs = _filesystem(root)
+    deadline_ms = max(DEADLINE_MIN_MS, DEADLINE_STEPS * step_ms)
+    fallbacks = _LogCount("falling back")
+    logging.getLogger("mxnet_tpu_torch").addHandler(fallbacks)
+    try:
+        for kern in kernels:
+            kern.launches = 0
+        trainers = {}
+        for run in ("reference", "faulted"):
+            trainers[run] = tr = _durability_trainer(torch, dev, feats,
+                                                     model_kw)
+            tr.step(*warm)
+        ref = _supervised(torch, dev, trainers["reference"], root,
+                          "reference", model_kw)
+        ref["mngr"].close()
+        shutil.rmtree(os.path.join(root, "reference"))
+        stall_ms = (ref["seconds"] + STALL_MARGIN_S) * 1e3
+        tr = trainers["faulted"]
+        tr.watchdog = StepWatchdog(timeout_ms=deadline_ms, slow_factor=0)
+        before = _watchdog_threads()
+        got = _supervised(torch, dev, tr, root, "faulted", model_kw,
+                          DURABILITY_SPEC.format(stall_ms=stall_ms))
+        launches = {k.__name__: k.launches for k in kernels}
+        stalled = [t for t in _watchdog_threads() - before if t.is_alive()]
+        replays = _replays(tr)
+        frozen = {k: t.detach().clone() for k, t in _snapshot(tr).items()}
+        sup = got["sup"]
+        check(got["fired"] == DURABILITY_FIRED,
+              f"durability: faults fired {got['fired']}, want "
+              f"{DURABILITY_FIRED}")
+        check(sup.restarts == 2 and tr.watchdog.timeouts == 1
+              and len(got["restores"]) == 2,
+              f"durability: {sup.restarts} restarts, "
+              f"{tr.watchdog.timeouts} timeouts, {len(got['restores'])} "
+              f"restores; want 2, 1, 2")
+        check(len(fallbacks.hits) == 1,
+              f"durability: {len(fallbacks.hits)} fallbacks from a corrupt "
+              f"step, want 1: {fallbacks.hits}")
+        check(len(stalled) == 1, f"durability: {len(stalled)} stalled "
+                                 f"steps alive after the run, want 1")
+        want, have = ref["losses"], got["losses"]
+        check(len(want) == len(have) == DURABILITY_STEPS,
+              f"durability: {len(want)} and {len(have)} losses")
+        rel = [abs(a - b) / abs(b) for a, b in zip(have, want)]
+        check(max(rel) <= DURABILITY_LOSS_RTOL,
+              f"durability: faulted losses {have} vs uninterrupted {want}")
+        # readings on the uninterrupted trainer while the step sleeps
+        rt = trainers.pop("reference")
+        watchdog = _watchdog_turns(torch, dev, rt, warm, deadline_ms)
+        contract = _round_trip(torch, dev, rt, warm, root)
+        del rt, ref["sup"]
+        t0 = time.perf_counter()
+        stalled[0].join(stall_ms / 1e3 + 60)
+        waited_s = time.perf_counter() - t0
+        check(not stalled[0].is_alive(), "durability: the stalled step "
+                                         "never woke")
+        diff = _state_diff(tr, frozen)
+        check(_replays(tr) == replays and not diff,
+              f"durability: the released step replayed "
+              f"{_replays(tr) - replays} times and changed {diff[:3]}")
+        del frozen
+        _free(torch)
+        layers = model_kw.get("num_layers", BERT_LARGE["num_layers"])
+        check(all(n == 2 * layers for n in launches.values()),
+              f"durability: flash wrappers launched {launches}, want "
+              f"{2 * layers} each (two captures)")
+        state = sup.debug_state()
+        emit("durability", model="bert_24_1024_16", dtype="bfloat16",
+             graphs=True, batch=DURABILITY_B, rows=DURABILITY_ROWS,
+             steps=DURABILITY_STEPS, save_every=DURABILITY_SAVE_EVERY,
+             max_to_keep=2, filesystem=fs, spec=DURABILITY_SPEC.format(
+                 stall_ms=stall_ms), fired=got["fired"],
+             deadline_ms=deadline_ms, graph_step_ms=step_ms,
+             restarts=sup.restarts, timeouts=tr.watchdog.timeouts,
+             fallbacks=fallbacks.hits, losses_uninterrupted=want,
+             losses_faulted=have, losses_max_rel_err=max(rel),
+             losses_bitwise_equal=have == want,
+             run_seconds={"uninterrupted": ref["seconds"],
+                          "faulted": got["seconds"]},
+             restore_seconds_per_restart=got["restores"],
+             faulted_manager_last_timings_s=dict(got["mngr"].timings),
+             recovery_seconds_total=state["recovery_seconds_total"],
+             stalled_step_waited_s=waited_s,
+             released_step_replays=_replays(tr) - replays,
+             watchdog=watchdog, round_trip=contract,
+             launches=launches)
+        return dict(trainer=tr, sup=sup, mngr=got["mngr"], root=root,
+                    launches=launches)
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    finally:
+        logging.getLogger("mxnet_tpu_torch").removeHandler(fallbacks)
+
+
+def phase_durability_trace(torch, ctx):
+    """``TRACED_REPLAYS`` more steps of the faulted run's supervisor (its
+    watchdog still armed, and its durable finish save at the end) under
+    ``torch.profiler``: ``num_layers`` kernel records each of B1, B2 and
+    B3 per replay, and no wrapper count.  Frees the trainer and the
+    checkpoints."""
+    kernels = _flash_counters()
+    tr, sup = ctx["trainer"], ctx["sup"]
+    layers = BERT_LARGE["num_layers"]
+    try:
+        counted = [k.launches for k in kernels]
+        replays = _replays(tr)
+        records = _kernel_records(
+            torch, lambda: sup.run(DURABILITY_STEPS + TRACED_REPLAYS),
+            FLASH_NAMES)
+        ran = _replays(tr) - replays
+        check(ran == TRACED_REPLAYS
+              and records == dict.fromkeys(FLASH_NAMES, layers * ran),
+              f"durability_trace: {ran} supervised replays ran {records} "
+              f"flash kernels, want {layers} each per replay")
+        check(counted == [k.launches for k in kernels],
+              "durability_trace: a wrapper counted a replayed kernel")
+        ctx["mngr"].close()
+        emit("durability_trace", replays=ran, kernel_records=records,
+             latest_verified_step=ctx["mngr"].latest_verified_step())
+        return records
+    finally:
+        shutil.rmtree(ctx["root"], ignore_errors=True)
+
+
+def phase_durability_rng(torch, dev, feats, model_kw=None):
+    """The RNG half of a bit-exact resume on the card: a two-layer BERT at
+    BERT-large widths with dropout 0.1, fp32, graphs, supervised for 4
+    steps (verified checkpoints at 0, 2 and 4, each with the supervisor's
+    extra payload: RNG state, cursor, losses).  Step 2 is restored in
+    place, its RNG state and cursor set back, and step 3 taken again: its
+    loss must be bitwise equal to the first step 3's, since the replay
+    reads the restored CUDA generator's seed and offset.  Step 2 restored
+    again without its RNG state: step 3 must differ (other masks)."""
+    from mxnet_tpu_torch import parallel, random
+    model_kw = model_kw or {}
+    tr = _durability_trainer(torch, dev, feats, model_kw, dtype="float32",
+                             dropout=0.1, num_layers=2, seed=1)
+    it = _durability_iter(model_kw, DURABILITY_B)
+    root = tempfile.mkdtemp(prefix="mxnet-durability-rng-")
+    try:
+        mngr = parallel.CheckpointManager(root, max_to_keep=3)
+        random.seed(5)
+        sup = parallel.TrainingSupervisor(tr, mngr, it, save_every=2,
+                                          backoff_ms=1)
+        losses = [float(v) for v in sup.run(4)]
+        extra = mngr.load_extra(2)
+
+        def step3(rng):
+            mngr.restore(tr, step=2)
+            if rng:
+                random.set_state(extra["rng"])
+            it.set_cursor(extra["cursor"])
+            b = it.next()
+            return float(tr.step(*b.data, *b.label))
+
+        again, control = step3(True), step3(False)
+        check(again == losses[2],
+              f"durability_rng: step 3 after the restore gave {again}, "
+              f"the first step 3 {losses[2]}")
+        check(control != losses[2],
+              f"durability_rng: step 3 without the RNG state gave the "
+              f"first step 3's loss {control}: the masks did not move")
+        mngr.close()
+        emit("durability_rng", model="bert_24_1024_16", num_layers=2,
+             dtype="float32", dropout=0.1, losses=losses,
+             step3_restored=again, step3_without_rng=control,
+             cuda_rng_in_extra="cuda" in extra["rng"],
+             replays=_replays(tr))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        del tr
+        _free(torch)
+
+
+class _AwaitSignal:
+    """The supervisor's iterator in a ``durability_signal`` child: before
+    each batch it prints the steps completed so far, and in the signalled
+    child, once they reach ``SIGNAL_AT``, it waits there for the parent's
+    SIGTERM — so the signal lands between two steps, where the step the
+    handler stamps is the state it saves."""
+
+    def __init__(self, it, completed, wait):
+        self._it, self._completed, self._wait = it, completed, wait
+
+    def next(self):
+        k = self._completed()
+        print(json.dumps({"step": k}), flush=True)
+        if self._wait and k >= SIGNAL_AT:
+            time.sleep(CHILD_TIMEOUT_S)
+        return self._it.next()
+
+    def reset(self):
+        self._it.reset()
+
+    def get_cursor(self):
+        return self._it.get_cursor()
+
+    def set_cursor(self, cursor):
+        self._it.set_cursor(cursor)
+
+
+def durability_child(ckdir, mode, build_dir, model_kw_json):
+    """One ``durability_signal`` child (``mode`` plain, signal or resume):
+    every kernel library from the persistent compile cache
+    (``MXNET_COMPILE_CACHE_DIR``) into the empty ``build_dir``, no
+    ``nvcc``; a two-layer bf16 BERT at BERT-large widths supervised to
+    ``SIGNAL_STEPS`` steps into ``ckdir`` with a checkpoint every step
+    (the resume child picks up what ``ckdir`` holds); the signal child
+    installs ``save_on_signal`` with a step function that prints the step
+    it stamps.  Prints JSON lines; the last one holds the losses."""
+    import torch
+    if not torch.cuda.is_available():
+        return 1
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.ops import build
+    t0 = time.perf_counter()
+    build.BUILD_DIR = build_dir
+    built = build.build()
+    check(sorted(built) == sorted(build.SOURCES)
+          and all(b["cached"] for b in built.values()),
+          f"durability child: the kernels did not all come from the "
+          f"compile cache: {({n: b['cached'] for n, b in built.items()})}")
+    build_s = time.perf_counter() - t0
+    model_kw = json.loads(model_kw_json)
+    feats, _ = _durability_data(model_kw)
+    tr = _durability_trainer(torch, torch.device("cuda:0"),
+                             [a[:DURABILITY_B] for a in feats], model_kw,
+                             num_layers=SIGNAL_LAYERS)
+    mngr = parallel.CheckpointManager(ckdir, max_to_keep=2)
+    sup = parallel.TrainingSupervisor(
+        tr, mngr, _AwaitSignal(_durability_iter(model_kw, DURABILITY_B),
+                               lambda: sup._step, mode == "signal"),
+        save_every=1, backoff_ms=1)
+    if mode == "signal":
+        def stamp():
+            print(json.dumps({"signal_step": sup._step}), flush=True)
+            return sup._step
+        mngr.save_on_signal(tr, stamp)
+    losses = [float(v) for v in sup.run(SIGNAL_STEPS)]
+    mngr.close()
+    print(json.dumps({"losses": losses, "build_s": build_s,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def _run_child(root, mode, ckdir, cache_dir, model_kw):
+    """Run one child to its end (at most ``CHILD_TIMEOUT_S``); the signal
+    child gets SIGTERM once it reports ``SIGNAL_AT`` completed steps."""
+    import signal
+    env = dict(os.environ, MXNET_COMPILE_CACHE_DIR=cache_dir)
+    cmd = [sys.executable, os.path.abspath(__file__), "--durability-child",
+           ckdir, mode, os.path.join(root, f"build-{mode}"),
+           json.dumps(model_kw)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env)
+    killer = threading.Timer(CHILD_TIMEOUT_S, proc.kill)
+    killer.start()
+    lines, signalled_at = [], None
+    try:
+        for line in proc.stdout:
+            try:
+                msg = json.loads(line)
+            except ValueError:
+                continue
+            lines.append(msg)
+            if mode == "signal" and signalled_at is None \
+                    and msg.get("step", -1) >= SIGNAL_AT:
+                signalled_at = msg["step"]
+                proc.send_signal(signal.SIGTERM)
+        rc = proc.wait()
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    last = next((m for m in reversed(lines) if "losses" in m), {})
+    return dict(rc=rc, seconds=time.perf_counter() - t0,
+                signalled_at=signalled_at, losses=last.get("losses"),
+                child_seconds=last.get("seconds"),
+                build_s=last.get("build_s"),
+                stamped=[m["signal_step"] for m in lines
+                         if "signal_step" in m])
+
+
+def phase_durability_signal(torch, cache_dir, model_kw=None):
+    """Preemption on the card, in child processes (``durability_child``):
+    an uninterrupted child; a child killed by SIGTERM once it reports
+    step ``SIGNAL_AT``, whose ``save_on_signal`` handler saves the step
+    it prints; a third child that auto-resumes from that directory to
+    ``SIGNAL_STEPS``.  Gates: the signalled child's exit status is
+    -SIGTERM, ``LATEST`` names the step its handler stamped (at least
+    ``SIGNAL_AT``) and that step's manifest verifies; the resumed child's
+    losses equal the uninterrupted child's within
+    ``DURABILITY_LOSS_RTOL``.  Every child takes its kernels from the
+    compile cache at ``cache_dir``."""
+    import signal
+    from mxnet_tpu_torch import parallel
+    model_kw = model_kw or {}
+    root = tempfile.mkdtemp(prefix="mxnet-durability-signal-")
+    try:
+        ck = os.path.join(root, "signalled")
+        plain = _run_child(root, "plain", os.path.join(root, "plain"),
+                           cache_dir, model_kw)
+        check(plain["rc"] == 0 and plain["losses"]
+              and len(plain["losses"]) == SIGNAL_STEPS,
+              f"durability_signal: the uninterrupted child: {plain}")
+        killed = _run_child(root, "signal", ck, cache_dir, model_kw)
+        check(killed["rc"] == -signal.SIGTERM,
+              f"durability_signal: the signalled child exited "
+              f"{killed['rc']}, want {-signal.SIGTERM}")
+        check(len(killed["stamped"]) == 1
+              and killed["stamped"][0] >= SIGNAL_AT,
+              f"durability_signal: the handler stamped {killed['stamped']}")
+        step = killed["stamped"][0]
+        mngr = parallel.CheckpointManager(ck)
+        verdict = mngr._verify_step(step)
+        check(mngr.latest_verified_step() == step
+              and verdict == (True, "verified"),
+              f"durability_signal: LATEST {mngr.latest_verified_step()}, "
+              f"step {step}'s manifest {verdict}")
+        step_bytes = _dir_bytes(mngr._step_dir(step))
+        resumed = _run_child(root, "resume", ck, cache_dir, model_kw)
+        check(resumed["rc"] == 0 and resumed["losses"]
+              and len(resumed["losses"]) == SIGNAL_STEPS,
+              f"durability_signal: the resumed child: {resumed}")
+        rel = [abs(a - b) / abs(b)
+               for a, b in zip(resumed["losses"], plain["losses"])]
+        check(max(rel) <= DURABILITY_LOSS_RTOL,
+              f"durability_signal: resumed losses {resumed['losses']} vs "
+              f"uninterrupted {plain['losses']}")
+        emit("durability_signal", model="bert_24_1024_16",
+             num_layers=SIGNAL_LAYERS, dtype="bfloat16",
+             steps=SIGNAL_STEPS, signalled_at=killed["signalled_at"],
+             handler_step=step, latest_after_signal=step,
+             latest_after_resume=mngr.latest_verified_step(),
+             exit_status=killed["rc"], losses_uninterrupted=plain["losses"],
+             losses_resumed=resumed["losses"], losses_max_rel_err=max(rel),
+             losses_bitwise_equal=resumed["losses"] == plain["losses"],
+             child_seconds={m: dict(wall=c["seconds"], run=c["child_seconds"],
+                                    build_from_cache=c["build_s"])
+                            for m, c in (("plain", plain),
+                                         ("signalled", killed),
+                                         ("resumed", resumed))},
+             step_dir_bytes=step_bytes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
+    if sys.argv[1:2] == ["--durability-child"]:
+        return durability_child(*sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs "
@@ -2692,7 +3329,7 @@ def main():
               f"build: the bf16 forward kernel spills or serialises its "
               f"wgmma: {ptxas_summary(log)}")
     check_tf32_build(build, compiled)
-    phase_build_cache(build, compile_cache)
+    cache_dir = phase_build_cache(build, compile_cache)
 
     timer = Timer(torch, dev)
     report = phase_kernels(torch, dev, timer)
@@ -2708,11 +3345,19 @@ def main():
     head, feats, labels = phase_train_parity(torch, dev)
     train_launches, (trainers, step_ms), batch = phase_train(
         torch, dev, head, feats, labels)
+    durability = phase_durability(torch, dev, feats, labels,
+                                  step_ms["graphs"])
+    phase_durability_rng(torch, dev, feats)
+    phase_durability_signal(torch, cache_dir)
+    shutil.rmtree(os.path.dirname(cache_dir), ignore_errors=True)
     # last: the profiler's device tracing slows every later launch (the
     # profiles take their untraced times before they trace)
     phase_profile(torch, dev, lm)
     phase_profile_train(torch, trainers, batch, step_ms)
     del trainers
+    durability_launches = durability["launches"]
+    durability_traced = phase_durability_trace(torch, durability)
+    del durability
     _free(torch)
     train_traced = phase_train_graphs(torch, dev, head, feats, labels)
     phase_graphs(torch, dev, lm)
@@ -2783,7 +3428,9 @@ def main():
             source=f"mxnet_tpu_torch/csrc/{name}.cu", replaces=replaces,
             launches=sum(train_launches[d]["graphs"][name]
                          for d in train_launches),
-            **by_dtype["float32"], bfloat16=by_dtype["bfloat16"])
+            **by_dtype["float32"], bfloat16=by_dtype["bfloat16"],
+            launches_durability=durability_launches[name],
+            traced_durability_kernel_records=durability_traced[name])
         if key == "fwd":
             # the predict path (fp32): the bucket graphs' captures launch
             # B1 from the wrapper; their replays are counted from trace

@@ -240,3 +240,25 @@ declare_env("MXNET_FAULTS", None,
             "checkpoint.save (corrupt = bit-flip a saved payload), "
             "checkpoint.restore.  Unset (default) = "
             "injection off at zero cost.")
+declare_env("MXNET_TRAIN_STEP_TIMEOUT_MS", 0,
+            "Deadline on one ShardedTrainer.step(): the step (staging, "
+            "replay or eager launches, and device completion) runs on a "
+            "watchdog thread and a wedged step raises "
+            "TrainStepTimeoutError instead of hanging the train loop. "
+            "0 (default) = no deadline, direct in-thread dispatch.")
+declare_env("MXNET_TRAIN_SLOW_STEP_FACTOR", 0.0,
+            "Straggler detection: a step slower than this multiple of "
+            "the rolling median step time increments "
+            "train.slow_steps and dumps a flight-recorder incident. "
+            "0 (default) = off.")
+declare_env("MXNET_TRAIN_MAX_RESTARTS", 5,
+            "TrainingSupervisor crash-loop breaker: more than this "
+            "many CONSECUTIVE restore+restart cycles without a "
+            "completed step raises CrashLoopError instead of "
+            "retrying forever (progress resets the run).")
+declare_env("MXNET_TRAIN_RESTART_BACKOFF_MS", 100,
+            "Base of the TrainingSupervisor's jittered exponential "
+            "restart backoff (doubles per consecutive failure, "
+            "jitter U[0.5, 1.0)).")
+declare_env("MXNET_TRAIN_RESTART_BACKOFF_MAX_MS", 5000,
+            "Cap on one TrainingSupervisor restart backoff sleep.")

@@ -24,7 +24,7 @@ import time
 from . import runtime_metrics as _rm
 from .base import KernelError, MXNetError, env_truthy
 
-__all__ = ["make_lock", "make_condition", "make_thread",
+__all__ = ["make_lock", "make_condition", "make_thread", "forget_thread",
            "check_thread_leaks", "watch_races", "sync_outputs"]
 
 # ---------------------------------------------------------------------------
@@ -210,12 +210,12 @@ def make_condition(name: str):
 class _ThreadRegistry:
     """Process-wide table of framework threads created via
     :func:`make_thread` while ``MXNET_ENGINE_SANITIZE=1``: who owns
-    each thread and where it was created.  ``check_leaks`` is the
-    teardown assertion."""
+    each thread, where it was created, whether it was deliberately
+    abandoned.  ``check_leaks`` is the teardown assertion."""
 
     def __init__(self):
         self._mu = threading.Lock()
-        # Thread -> {owner, site, daemon, created}
+        # Thread -> {owner, site, daemon, created, abandoned}
         self._threads = {}
 
     def register(self, t, owner, site):
@@ -225,7 +225,14 @@ class _ThreadRegistry:
                 "site": site,
                 "daemon": bool(t.daemon),
                 "created": time.monotonic(),
+                "abandoned": None,
             }
+
+    def forget(self, t, reason):
+        with self._mu:
+            info = self._threads.get(t)
+            if info is not None:
+                info["abandoned"] = reason or "abandoned"
 
     def _prune(self):
         # contract: the caller already holds self._mu
@@ -234,12 +241,14 @@ class _ThreadRegistry:
             del self._threads[t]
 
     def check_leaks(self, grace_s=1.0):
-        """Raise ``MXNetError`` if any registered thread is still alive after ``grace_s`` (split across the survivors —
+        """Raise ``MXNetError`` if any registered, non-abandoned thread
+        is still alive after ``grace_s`` (split across the survivors —
         a stopping thread gets a moment to observe its stop signal, a
         genuinely leaked one cannot hide behind the grace)."""
         with self._mu:
             self._prune()
-            live = list(self._threads.items())
+            live = [(t, info) for t, info in self._threads.items()
+                    if info["abandoned"] is None]
         if not live:
             return
         deadline = time.monotonic() + max(0.0, grace_s)
@@ -261,8 +270,9 @@ class _ThreadRegistry:
             f"{len(leaked)} framework thread(s) survived their owner's "
             "stop:\n" + "\n".join(lines) + "\n"
             "Every make_thread thread must exit on its owner's "
-            "stop()/close() path.  Static twin: mxlint "
-            "thread-lifecycle (docs/static_analysis.md)")
+            "stop()/close() path (or be explicitly forgotten via "
+            "forget_thread with a documented reason).  Static twin: "
+            "mxlint thread-lifecycle (docs/static_analysis.md)")
 
 
 _THREADS = _ThreadRegistry()
@@ -297,6 +307,15 @@ def make_thread(target, *, name, owner=None, args=(), kwargs=None,
     if _SANITIZE:
         _THREADS.register(t, owner, _caller_site())
     return t
+
+
+def forget_thread(t, reason):
+    """Exempt ``t`` from :func:`check_thread_leaks`: the caller is
+    deliberately abandoning it (``run_with_deadline``'s watchdog worker
+    wedged past its deadline — a daemon by construction, and joining it
+    would just move the hang).  ``reason`` is recorded beside it."""
+    if _SANITIZE:
+        _THREADS.forget(t, reason)
 
 
 def check_thread_leaks(grace_s=1.0):

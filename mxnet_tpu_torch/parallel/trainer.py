@@ -21,13 +21,20 @@ failure.
 In-place rule: ``params``, ``buffers`` and ``opt_state`` (the AdamW
 step tensor included) keep their tensors, at their addresses, for the
 trainer's life, because the graphs replay those addresses.  Whatever
-sets new values into a trainer (a checkpoint restore) must ``copy_``
-into them, never rebind them.
+sets new values into a trainer must ``copy_`` into them, never rebind
+them: :meth:`.checkpoint.CheckpointManager.restore` does so.
 
-Not in this slice: ``compression``, ``rules``, ``step_timeout_ms`` and
-``slow_step_factor`` (and the ``StepWatchdog`` behind the last two) come
-with the multi-GPU and supervisor items of ROADMAP.md; passing them is a
-``TypeError``.
+Durability (the counterpart of the JAX trainer's watchdog): with
+``step_timeout_ms`` or ``slow_step_factor`` (or their ``MXNET_TRAIN_*``
+knobs) the step runs under ``self.watchdog``, a
+:class:`~.supervisor.StepWatchdog`, on a deadline thread, and the
+deadline covers the device's completion of the step, not only its
+launch.  A restore bumps the trainer's generation; a step checks the
+generation it started under right before it stages and replays (or
+runs its eager update), under the trainer's lock, so a step abandoned
+by the watchdog that wakes after a restore returns without touching the
+restored state.  ``compression`` and ``rules`` come with the multi-GPU
+item of ROADMAP.md; passing them is a ``TypeError``.
 """
 from __future__ import annotations
 
@@ -39,11 +46,13 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from .. import engine as _engine
 from .. import faults as _faults
 from .. import perf_account as _pa
 from .. import runtime_metrics as _rm
 from ..base import KernelError, MXNetError
 from . import optim as _optim
+from .supervisor import StepWatchdog
 
 __all__ = ["ShardedTrainer"]
 
@@ -91,8 +100,11 @@ class _StepProgram:
     launched by autograd on the capturing stream) and the optimizer's
     in-place update — is captured over the static buffers as one CUDA
     graph in the trainer's memory pool.  Capturing runs no kernel, so it
-    changes no state.  Every later step stages its batch, calls
-    ``faults.inject("train.step")`` on the host and replays the graph.
+    changes no state.  Every later step stages its batch and replays the
+    graph.  Both happen under the trainer's lock, and only if the
+    trainer's generation is still the one the step began under (else the
+    call returns None and touches nothing): a restore since then means
+    the step was abandoned.
     The loss returned is a copy of the graph's static loss, so a later
     replay does not overwrite it.  The trainer's stream waits for the
     caller's stream before a step and the caller's stream for the
@@ -165,36 +177,40 @@ class _StepProgram:
                 view.copy_(b, non_blocking=True)
                 b.record_stream(self.stream)
 
-    def __call__(self, batch):
+    def __call__(self, batch, generation):
         trainer = self.trainer
         if self.stream is None:
-            self._stage(batch)
-            _faults.inject("train.step")
-            self.built = True
-            return trainer._train_step(self.args).clone()
+            with trainer._lock:
+                if trainer._generation != generation:
+                    return None
+                self._stage(batch)
+                self.built = True
+                return trainer._train_step(self.args).clone()
         if self.failed is not None:
             raise KernelError(
                 f"ShardedTrainer: the training step's CUDA graph for this "
                 f"batch signature failed to capture: {self.failed}")
         caller = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(caller)
-        with torch.cuda.stream(self.stream):
-            self._stage(batch)
-            _faults.inject("train.step")
-            if self.graph is None:
-                loss = trainer._train_step(self.args).clone()
-                self._capture()
-            else:
-                try:
-                    self.graph.replay()
-                except Exception as e:
-                    raise KernelError(
-                        f"ShardedTrainer: replay of the training step's "
-                        f"CUDA graph failed: {e}") from e
-                self.replays += 1
-                loss = self.loss.clone()
-        loss.record_stream(caller)
-        caller.wait_stream(self.stream)
+        with trainer._lock:
+            if trainer._generation != generation:
+                return None
+            self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream):
+                self._stage(batch)
+                if self.graph is None:
+                    loss = trainer._train_step(self.args).clone()
+                    self._capture()
+                else:
+                    try:
+                        self.graph.replay()
+                    except Exception as e:
+                        raise KernelError(
+                            f"ShardedTrainer: replay of the training "
+                            f"step's CUDA graph failed: {e}") from e
+                    self.replays += 1
+                    loss = self.loss.clone()
+            loss.record_stream(caller)
+            caller.wait_stream(self.stream)
         return loss
 
     def _capture(self):
@@ -233,11 +249,19 @@ class ShardedTrainer:
     trainer's own stream: a step's graph leaves only its loss for the
     host, and that loss is copied out before any other replay.
     ``graphs=False`` runs each step eagerly on the caller's stream.
+
+    ``step_timeout_ms`` / ``slow_step_factor`` (defaults from
+    ``MXNET_TRAIN_STEP_TIMEOUT_MS`` / ``MXNET_TRAIN_SLOW_STEP_FACTOR``;
+    both off = the step runs on the calling thread, no wrapper) set
+    ``self.watchdog``.  A signature's first step runs under the same
+    deadline and includes its capture, so a deadline must cover a
+    capture.
     """
 
     def __init__(self, block, loss_fn, mesh, optimizer="adamw",
                  optimizer_params=None, example_inputs=(), n_labels=1,
-                 dtype=None, graphs=True, program_bound=8):
+                 dtype=None, graphs=True, program_bound=8,
+                 step_timeout_ms=None, slow_step_factor=None):
         if optimizer not in _OPTIMS:
             raise MXNetError(f"unknown optimizer {optimizer!r}; "
                              f"known: {sorted(_OPTIMS)}")
@@ -245,6 +269,12 @@ class ShardedTrainer:
         self.device = mesh.device
         self.block = block
         self.loss_fn = loss_fn
+        self.watchdog = StepWatchdog(timeout_ms=step_timeout_ms,
+                                     slow_factor=slow_step_factor)
+        # a restore bumps the generation under the lock; a step checks
+        # it under the lock right before it touches state
+        self._lock = _engine.make_lock("ShardedTrainer._lock")
+        self._generation = 0
         # step-time attribution / MFU / bottleneck verdict — inert (one
         # attribute load + branch in step()) until MXNET_TRACE or
         # MXNET_RUNTIME_METRICS turns it on
@@ -346,35 +376,98 @@ class ShardedTrainer:
         """One training step; returns the loss tensor of this step.
 
         ``faults.inject("train.step")`` is the chaos hook of the whole
-        step.  With tracing or runtime metrics on, the step runs
-        attributed (:meth:`_step_attributed`, eager): each phase is
-        timed into a ``train.*`` span and closed by a device
+        step, fired at its entry.  With tracing or runtime metrics on,
+        the step runs attributed (:meth:`_step_attributed`, eager): each
+        phase is timed into a ``train.*`` span and closed by a device
         synchronisation.  Otherwise, with ``graphs=True`` the step runs
         its signature's :class:`_StepProgram` (a replayed CUDA graph on
         the card), and with ``graphs=False`` eagerly.  A
         :class:`KernelError` raised by a signature's first step on the
         card comes from its capture, after the step's update was
-        applied: do not run that batch again as a retry."""
+        applied: do not run that batch again as a retry.
+
+        Under an active watchdog the step runs on the deadline thread,
+        inside the caller's current stream (a thread's current stream
+        is its own, so the caller's is entered there), and the deadline
+        covers the device: the thread waits on an event recorded after
+        the step's work (the replay on the trainer's stream, which the
+        caller's stream waits for, or the eager launches).  A wedged
+        step raises :class:`~.supervisor.TrainStepTimeoutError`.  The
+        step records the trainer's generation when it is called; if a
+        restore has bumped it by the time the step reaches its state
+        (under the trainer's lock, right before staging and the replay
+        or the eager update), the step returns None and changes
+        nothing."""
         if len(batch) != self._n_inputs + self._n_labels:
             raise MXNetError(
                 f"ShardedTrainer.step: expected {self._n_inputs} inputs + "
                 f"{self._n_labels} labels, got {len(batch)} arrays")
         batch = _tensors(batch)
+        generation = self._generation
+        if not self.watchdog.active:
+            return self._run_step(batch, generation)
+        caller = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
+        return self.watchdog.watch(
+            lambda: self._watched_step(batch, generation, caller))
+
+    def _watched_step(self, batch, generation, caller):
+        """The step on the watchdog's thread, to the device's
+        completion."""
+        if caller is None:
+            return self._run_step(batch, generation)
+        with torch.cuda.stream(caller):
+            loss = self._run_step(batch, generation)
+            done = torch.cuda.Event()
+            done.record(caller)
+        done.synchronize()
+        return loss
+
+    def _run_step(self, batch, generation):
+        # the fault hook stays outside the lock: a stalled step must
+        # not block the restore that abandons it
+        _faults.inject("train.step")
         if self.perf.active:
-            return self._step_attributed(batch)
+            return self._step_attributed(batch, generation)
         if not self.graphs:
-            batch = self._to_device(batch)
-            _faults.inject("train.step")
-            return self._train_step(batch)
+            with self._lock:
+                if self._generation != generation:
+                    return None
+                return self._train_step(self._to_device(batch))
         prog = self._program(batch)
         was_built = prog.built
-        loss = prog(batch)
-        if not was_built:
+        loss = prog(batch, generation)
+        if not was_built and prog.built:
             self.compiled += 1
             self.capture_seconds += prog.capture_s
         return loss
 
-    def _step_attributed(self, batch):
+    def bump_generation(self):
+        """Invalidate every step begun before this call (a restore calls
+        it before it copies state in): such a step returns None at its
+        generation check without touching state.  A step already past
+        the check has queued its work on the trainer's stream; the
+        caller's current stream waits for that stream here, so what the
+        caller queues next (the restore's copies) lands after it.
+        Returns the new generation."""
+        with self._lock:
+            self._generation += 1
+            if self._stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(
+                    self._stream)
+            return self._generation
+
+    def extra_state(self):
+        """Step state that is not a tensor, for a checkpoint's extra
+        payload: none at dp = 1 (the JAX trainer's is the step counter of
+        its quantized collective)."""
+        return {}
+
+    def set_extra_state(self, state):
+        """Take :meth:`extra_state`'s payload back: nothing to restore at
+        dp = 1."""
+
+    def _step_attributed(self, batch, generation):
         """The observed variant of :meth:`step`: ``train.h2d``,
         ``train.compute`` (forward + backward) and ``train.optimizer``
         tile the ``train.step`` span, each ending in a device
@@ -384,22 +477,24 @@ class ShardedTrainer:
         synchronisations."""
         if _rm._ENABLED:
             self.perf.note_flops(self.step_flops(*batch))
-        h = self.perf.step_start()
-        with h:
-            t0 = time.perf_counter()
-            dev_batch = self._to_device(batch)
-            self._sync()
-            t1 = time.perf_counter()
-            h.record("h2d", t0, t1)
-            _faults.inject("train.step")
-            loss, grads = self._forward_backward(dev_batch)
-            self._sync()
-            t2 = time.perf_counter()
-            h.record("compute", t1, t2)
-            h.mark("collective", devices=1)
-            self._update(grads)
-            self._sync()
-            h.record("optimizer", t2, time.perf_counter())
+        with self._lock:
+            if self._generation != generation:
+                return None
+            h = self.perf.step_start()
+            with h:
+                t0 = time.perf_counter()
+                dev_batch = self._to_device(batch)
+                self._sync()
+                t1 = time.perf_counter()
+                h.record("h2d", t0, t1)
+                loss, grads = self._forward_backward(dev_batch)
+                self._sync()
+                t2 = time.perf_counter()
+                h.record("compute", t1, t2)
+                h.mark("collective", devices=1)
+                self._update(grads)
+                self._sync()
+                h.record("optimizer", t2, time.perf_counter())
         return loss
 
     def step_flops(self, *batch):

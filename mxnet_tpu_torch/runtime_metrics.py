@@ -10,7 +10,9 @@ registry, exporters and metric names for the serving slices
 ``serving.decode.prefix.*``, ``serving.decode.spec.*``,
 ``kv.shared_pages``, ...) and the training
 slice (``trainer.step.seconds``, ``train.step.breakdown.seconds``,
-``train.mfu``, ``train.bottleneck``) and the persistent
+``train.mfu``, ``train.bottleneck``; the supervisor's
+``train.restarts``, ``train.recovery.seconds``,
+``train.step.timeouts`` and ``train.slow_steps``) and the persistent
 compile cache (``compile.cache``), so dashboards
 read either package unchanged.  Exporters: ``dump_prometheus()`` (text
 exposition) and ``chrome_counter_events()`` (chrome-trace counters).
@@ -767,6 +769,26 @@ TRAINER_STEP_SECONDS = histogram(
     "trainer.step.seconds",
     "Wall-clock time of one optimizer step (an attributed "
     "ShardedTrainer.step, device-synchronised).")
+TRAIN_RESTARTS = counter(
+    "train.restarts",
+    "TrainingSupervisor restore+restart cycles after a transient "
+    "train-loop failure (injected kill, step timeout, device blip).  "
+    "Under a chaos plan this must equal the injected kill count.")
+TRAIN_RECOVERY_SECONDS = histogram(
+    "train.recovery.seconds",
+    "Wall-clock cost of one supervised recovery: checkpoint restore + "
+    "RNG/data-cursor rewind, from failure acceptance to the loop "
+    "being ready to re-step (backoff sleep excluded).")
+TRAIN_STEP_TIMEOUTS = counter(
+    "train.step.timeouts",
+    "ShardedTrainer steps killed by the MXNET_TRAIN_STEP_TIMEOUT_MS "
+    "watchdog deadline (wedged step / stuck device) — each one raised "
+    "a TrainStepTimeoutError instead of hanging the loop.")
+TRAIN_SLOW_STEPS = counter(
+    "train.slow_steps",
+    "Straggler steps: watched step time exceeded "
+    "MXNET_TRAIN_SLOW_STEP_FACTOR x the rolling median (flight-"
+    "recorder incident dumped per detection).")
 TRAIN_STEP_BREAKDOWN_SECONDS = histogram(
     "train.step.breakdown.seconds",
     "Per-phase decomposition of one attributed ShardedTrainer step "
