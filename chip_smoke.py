@@ -5,7 +5,8 @@ Drives ``mxnet_tpu_torch``'s paths on the card, through the entry
 points a user calls: paged decode serving of a GPT-2-small-width
 ``TransformerDecoderLM`` (random fp32 weights from seed 0);
 ``ModelServer.predict`` on a ``BERTClassifier`` over ``bert_24_1024_16``,
-from the module and from its exported artifact (``load_artifact``),
+from the module and from its exported artifacts, float and quantized
+(``load_artifact``),
 and ``ModelServer.generate`` on that LM; ``ShardedTrainer.step`` on
 ``BERTForPretrain`` over ``bert_24_1024_16`` with ``use_flash=True``;
 and ``TrainingSupervisor.run`` over that step with ``CheckpointManager``
@@ -101,6 +102,28 @@ Phases, each printed as one JSON line:
    max|logit|; and the host time of one eager B1 call through the
    wrapper and through its operator.  The server and the files are
    freed before training;
+6d. ``artifact_quant`` — the same seed-0 classifier exported on the
+   card as float32 and with ``quantize="int8"`` and ``"fp8"`` (manifest
+   v4: 101 weights of the mode's dtype, a 64-hex digest, calibrated on
+   the first 8 rows of ``predict``'s traffic), each quantized artifact
+   below a third of the float one's bytes; each artifact loaded by
+   ``load_artifact`` into a fresh repository and served by a fresh
+   ``ModelServer`` with ``predict``'s config and traffic: 24 B1 nodes
+   in the served graph, 120 B1 wrapper launches (5 captures), 5
+   programs, none built after prewarm, fewer batches than requests,
+   every response within 1e-4 of max|logit| of the loaded program's
+   eager call on the request alone, and each quantized response within
+   10 x the manifest's ``max_abs_err`` + 1e-3 of the float module's
+   eager logits; memory around prewarm and each graph pool's bytes,
+   bucket-1 and bucket-16 replay device ms (CUDA events).  Then the
+   int8 artifact hot-swapped in as version 2 over the float one under
+   traffic (each response matches the version that admitted it), and a
+   small classifier exported int8 and fp8 on the CPU and loaded on the
+   card against its twin exported on the card (payloads and scales
+   equal, logits within 1e-5 of max|logit|), and ``quantize``'s
+   per-tensor and blockwise payloads and scales on the card bit for bit
+   against its CPU run.  The files stay on disk for
+   ``artifact_quant_trace``;
 7. ``train_parity`` — BERT-large fp32: the flash path's loss and every
    parameter gradient against the dense additive-mask path on the same
    weights and batch (B = 8, L = 512);
@@ -192,7 +215,12 @@ device tracing slows every later launch:
 13. ``artifact_trace`` — the artifact exported and loaded again, its
    bucket-16 program built and 10 replays traced: exactly 24 B1 kernel
    records per replay and no wrapper count, the logits within 1e-4 of
-   max|logit| of the exporting module's eager forward.
+   max|logit| of the exporting module's eager forward;
+14. ``artifact_quant_trace`` — ``artifact_quant``'s float, int8 and fp8
+   artifacts loaded again, bucket 16 built for each and 10 replays
+   traced: exactly 24 B1 kernel records per replay and no wrapper
+   count, device ms per replay by kernel family, and the
+   dequantization's ms per replay against the float program.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
@@ -204,7 +232,11 @@ trainers' of ``train`` over both dtypes.  B4 and B5 also give
 ``traced_predict_batches`` from ``predict_trace``, its fp32 times at
 the bucket-16 shape (``predict_bucket16``), ``launches_artifact``
 (``artifact``'s captures) and ``traced_artifact_kernel_records`` over
-``traced_artifact_replays`` from ``artifact_trace``; B4 and B5 list every
+``traced_artifact_replays`` from ``artifact_trace``,
+``launches_artifact_quant`` (``artifact_quant``'s captures per
+artifact) and ``traced_artifact_quant_kernel_records`` over
+``traced_artifact_quant_replays`` from ``artifact_quant_trace``; B4 and
+B5 list every
 ``kernels`` row with its split; B1-B3 give, per dtype,
 ``launches_graphs`` and ``launches_eager`` (``train``'s two trainers
 apart) and ``traced_train_kernel_records`` over
@@ -1707,6 +1739,68 @@ def _entry_programs(srv, entry):
                 if uid == entry.uid}
 
 
+def _hot_swap(srv, repo, clients, register_v2, want1, want2, tol, where):
+    """``clients`` through ``srv`` on version 1 of "bert" while
+    ``register_v2()`` registers version 2 (not active), ``srv.prewarm``
+    builds it and ``repo.swap`` makes it current, once a sixth of the
+    requests are done; each client sends its second half after the swap.
+    Every response must match the version that admitted it (``want1`` /
+    ``want2``, within ``tol``), both versions must have answered, and no
+    bucket may be built after the swap.  Returns the counts."""
+    n_req = sum(len(c) for c in clients)
+    done, first_half = [0], threading.Event()
+    lock = threading.Lock()
+
+    def on_done():
+        with lock:
+            done[0] += 1
+            if done[0] >= n_req // 6:
+                first_half.set()
+
+    swapped = threading.Event()
+    result = {}
+
+    def traffic():
+        result["out"] = _run_clients(srv, clients, gate=swapped,
+                                     on_done=on_done)
+
+    runner = threading.Thread(target=traffic, daemon=True)
+    runner.start()
+    try:
+        check(first_half.wait(600), f"{where}: the traffic never started")
+        t_reg = time.perf_counter()
+        register_v2()
+        srv.prewarm("bert", version=2)
+        misses_v2 = srv.stats()["bucket_misses"]
+        t_swap0 = time.perf_counter()
+        repo.swap("bert", 2)
+        t_swap1 = time.perf_counter()
+    finally:
+        swapped.set()
+        runner.join(900)
+    check(not runner.is_alive() and "out" in result,
+          f"{where}: the hot-swap traffic hung")
+    versions, during_prewarm = {1: 0, 2: 0}, 0
+    for g_c, w1_c, w2_c in zip(result["out"][0], want1, want2):
+        for (y, ta, tb), w1, w2 in zip(g_c, w1_c, w2_c):
+            ok1 = np.abs(y - w1).max() <= tol
+            ok2 = np.abs(y - w2).max() <= tol
+            check(ok1 or ok2, f"{where}: a response matches neither version")
+            check(not (tb < t_swap0 and not ok1) and
+                  not (ta > t_swap1 and not ok2),
+                  f"{where}: a response does not match the version that "
+                  f"admitted it")
+            versions[1 if ok1 else 2] += 1
+            during_prewarm += bool(ok1 and tb > t_reg)
+    check(versions[1] and versions[2],
+          f"{where}: the swap did not land mid-traffic: {versions}")
+    check(srv.stats()["bucket_misses"] == misses_v2,
+          f"{where}: a bucket was built after the swap")
+    return {"responses_v1": versions[1], "responses_v2": versions[2],
+            "v1_responses_after_register": during_prewarm,
+            "register_to_swap_s": t_swap0 - t_reg}
+
+
 def phase_predict(torch, dev, lm, served):
     """``ModelServer.predict`` on BERT-large: a ``BERTClassifier`` over
     ``bert_24_1024_16`` (fp32, random weights from seed 0, depth not
@@ -1810,56 +1904,16 @@ def phase_predict(torch, dev, lm, served):
 
     # window 2: the same traffic, version 2 registered, prewarmed and
     # swapped in while version 1 serves the first half of every client
-    done, first_half = [0], threading.Event()
-    lock = threading.Lock()
+    holder = {}
 
-    def on_done():
-        with lock:
-            done[0] += 1
-            if done[0] >= n_req // 6:
-                first_half.set()
+    def register_v2():
+        holder["e2"] = repo.add_block("bert", clf2, *example,
+                                      activate=False)
 
-    swapped = threading.Event()
-    result = {}
-
-    def traffic():
-        result["out"] = _run_clients(srv, clients, gate=swapped,
-                                     on_done=on_done)
-
-    runner = threading.Thread(target=traffic, daemon=True)
-    runner.start()
-    try:
-        check(first_half.wait(600), "predict: the traffic never started")
-        t_reg = time.perf_counter()
-        e2 = repo.add_block("bert", clf2, *example, activate=False)
-        del clf2
-        srv.prewarm("bert", version=2)
-        misses_v2 = srv.stats()["bucket_misses"]
-        t_swap0 = time.perf_counter()
-        repo.swap("bert", 2)
-        t_swap1 = time.perf_counter()
-    finally:
-        swapped.set()
-        runner.join(900)
-    check(not runner.is_alive() and "out" in result,
-          "predict: the hot-swap traffic hung")
-    got2 = result["out"][0]
-    versions, during_prewarm = {1: 0, 2: 0}, 0
-    for g_c, w1_c, w2_c in zip(got2, want1, want2):
-        for (y, ta, tb), w1, w2 in zip(g_c, w1_c, w2_c):
-            ok1 = np.abs(y - w1).max() <= tol
-            ok2 = np.abs(y - w2).max() <= tol
-            check(ok1 or ok2, "predict: a response matches neither version")
-            check(not (tb < t_swap0 and not ok1) and
-                  not (ta > t_swap1 and not ok2),
-                  "predict: a response does not match the version that "
-                  "admitted it")
-            versions[1 if ok1 else 2] += 1
-            during_prewarm += bool(ok1 and tb > t_reg)
-    check(versions[1] and versions[2],
-          f"predict: the swap did not land mid-traffic: {versions}")
-    check(srv.stats()["bucket_misses"] == misses_v2,
-          "predict: a bucket was built after the swap")
+    hot_swap = _hot_swap(srv, repo, clients, register_v2, want1, want2,
+                         tol, "predict")
+    e2 = holder.pop("e2")
+    del clf2
 
     # unload version 1: its programs, pools and snapshot go
     gc.collect()
@@ -1914,10 +1968,7 @@ def phase_predict(torch, dev, lm, served):
          graph_pools=pools, max_abs_err_vs_eager=err_eager,
          max_abs_err_vs_dense=err_dense, max_abs_logit=scale,
          tolerance=tol,
-         hot_swap={"responses_v1": versions[1],
-                   "responses_v2": versions[2],
-                   "v1_responses_after_register": during_prewarm,
-                   "register_to_swap_s": t_swap0 - t_reg},
+         hot_swap=hot_swap,
          unload_freed_gb=freed / 1e9, snapshot_gb=snap_bytes / 1e9,
          generate={"requests": len(gen_out), "wall_s": gen_s,
                    "tokens_equal_to_serve": True,
@@ -2046,6 +2097,15 @@ def _export_bert(torch, dev, tmp):
     return clf, path, time.perf_counter() - t0
 
 
+def _small_classifier(torch):
+    """The ``ARTIFACT_SMALL`` classifier on the CPU, seed 2, eval."""
+    from mxnet_tpu_torch import models
+    bert = models.BERTModel(**ARTIFACT_SMALL, dropout=0.0, use_flash=True,
+                            device="cpu",
+                            generator=torch.Generator().manual_seed(2))
+    return models.BERTClassifier(bert, num_classes=2, dropout=0.0).eval()
+
+
 def _artifact_moved(torch, dev, clients):
     """A small classifier (``ARTIFACT_SMALL``) exported on the CPU and
     loaded with ``device="cuda"``: its lengths' ``aten.to`` and weights
@@ -2053,11 +2113,8 @@ def _artifact_moved(torch, dev, clients):
     CUDA twin's eager forward."""
     import copy
 
-    from mxnet_tpu_torch import deploy, models
-    bert = models.BERTModel(**ARTIFACT_SMALL, dropout=0.0, use_flash=True,
-                            device="cpu",
-                            generator=torch.Generator().manual_seed(2))
-    small = models.BERTClassifier(bert, num_classes=2, dropout=0.0).eval()
+    from mxnet_tpu_torch import deploy
+    small = _small_classifier(torch)
     twin = copy.deepcopy(small).to(dev)
     reqs = [r for c in clients for r in c][:8]
     tmp = tempfile.mkdtemp(prefix="artifact_small_")
@@ -2227,6 +2284,47 @@ def phase_artifact(torch, dev):
     return {"launches": launches}
 
 
+def _traced_replays(torch, prog, padded, where, tags=()):
+    """``ARTIFACT_TRACE_REPLAYS`` calls of bucket program ``prog`` on
+    ``padded`` traced with ``torch.profiler``, after 3 untraced ones:
+    exactly 24 B1 kernel records per replay and no B1 wrapper count (the
+    graph launches the kernel).  Returns the last untraced output, the B1
+    records, the device kernels per replay and the device ms per replay
+    by family: ``b1``, ``gemm``, each tag of ``tags`` (kernel-name
+    substrings) and ``other``."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    for _ in range(3):
+        (out,) = prog(*padded)
+    counted = fa.flash_attention_fwd.launches
+    b1 = FLASH_NAMES["flash_attention_fwd"]
+    with _profiled(torch) as prof:
+        for _ in range(ARTIFACT_TRACE_REPLAYS):
+            prog(*padded)
+    fam = dict.fromkeys(("b1", "gemm", *tags, "other"), 0.0)
+    records = kernels = 0
+    for evt in prof.key_averages():
+        us = _kernel_us(evt, torch)
+        if us is None:
+            continue
+        key = evt.key.lower()
+        kernels += evt.count
+        if b1 in evt.key:
+            records += evt.count
+            fam["b1"] += us
+        elif any(t in key for t in GEMM_TAGS):
+            fam["gemm"] += us
+        else:
+            fam[next((t for t in tags if t in key), "other")] += us
+    check(records == 24 * ARTIFACT_TRACE_REPLAYS,
+          f"{where}: {records} B1 records over {ARTIFACT_TRACE_REPLAYS} "
+          f"replays (24 each)")
+    check(fa.flash_attention_fwd.launches == counted,
+          f"{where}: B1 launched outside the graph")
+    n = ARTIFACT_TRACE_REPLAYS
+    return out, records, kernels / n, {k: v / n / 1e3
+                                       for k, v in fam.items()}
+
+
 def phase_artifact_trace(torch, dev):
     """A traced rerun of the artifact path's bucket-16 replays: the
     seed-0 classifier exported and loaded again (the ``artifact`` phase
@@ -2236,7 +2334,6 @@ def phase_artifact_trace(torch, dev):
     B1 kernel records per replay and no wrapper count (the graph
     launches the kernel, not the plain version); the replayed logits
     against the exporting module's eager forward on the same batch."""
-    from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.serving import ModelRepository, pad_batch
     clients = _predict_traffic(BERT_LARGE["vocab_size"])
     padded, _ = pad_batch([r for c in clients for r in c][:6],
@@ -2253,26 +2350,8 @@ def phase_artifact_trace(torch, dev):
         prog = entry.make_program(PREDICT_MAX_BATCH)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for _ in range(3):
-        (got,) = prog(*padded)
-    counted = fa.flash_attention_fwd.launches
-    b1 = FLASH_NAMES["flash_attention_fwd"]
-    with _profiled(torch) as prof:
-        for _ in range(ARTIFACT_TRACE_REPLAYS):
-            prog(*padded)
-    records = busy_us = 0
-    for evt in prof.key_averages():
-        us = _kernel_us(evt, torch)
-        if us is None:
-            continue
-        busy_us += us
-        if b1 in evt.key:
-            records += evt.count
-    check(records == 24 * ARTIFACT_TRACE_REPLAYS,
-          f"artifact_trace: {records} B1 records over "
-          f"{ARTIFACT_TRACE_REPLAYS} replays (24 each)")
-    check(fa.flash_attention_fwd.launches == counted,
-          "artifact_trace: B1 launched outside the graph")
+    got, records, _kernels, fam = _traced_replays(torch, prog, padded,
+                                                  "artifact_trace")
     err = float(np.abs(got - want).max())
     scale = float(np.abs(want).max())
     check(err <= PREDICT_TOL * scale,
@@ -2280,11 +2359,366 @@ def phase_artifact_trace(torch, dev):
     emit("artifact_trace", replays=ARTIFACT_TRACE_REPLAYS,
          b1_kernel_records=records,
          b1_records_per_replay=records / ARTIFACT_TRACE_REPLAYS,
-         device_ms_per_replay=busy_us / ARTIFACT_TRACE_REPLAYS / 1e3,
+         device_ms_per_replay=sum(fam.values()),
          bucket16_max_abs_err=err)
     del prog, entry
     _free(torch)
     return {"records": records, "replays": ARTIFACT_TRACE_REPLAYS}
+
+
+# ------------------------------------------------------- artifact_quant
+QUANT_MODES = ("int8", "fp8")
+# the calibration batch: the first rows of predict's traffic
+QUANT_CALIB_ROWS = 8
+# device ms of a bucket replay: median of this many, CUDA events
+QUANT_REPLAYS = 20
+# the reference's unseen-batch bound on a quantized artifact's error
+# against its float module (tests/test_export_stablehlo.py:340-344):
+# within QUANT_ERR_FACTOR x the manifest's max_abs_err + QUANT_ERR_SLACK
+QUANT_ERR_FACTOR = 10.0
+QUANT_ERR_SLACK = 1e-3
+# kernel-name tags of the dequantization's elementwise passes: the
+# multiply by the scale (int8 widened inside it) and fp8's widening copy
+DEQUANT_TAGS = ("mulfunctor", "direct_copy")
+
+
+def _calib_batch(clients, rows=QUANT_CALIB_ROWS):
+    """The first ``rows`` rows of ``predict``'s traffic as one batch."""
+    reqs = [r for c in clients for r in c]
+    return tuple(np.concatenate([r[i] for r in reqs])[:rows]
+                 for i in range(3))
+
+
+def _replay_ms(timer, torch, prog, iters=QUANT_REPLAYS):
+    """Device ms of one replay of bucket program ``prog``'s graph on its
+    own stream (``Timer``: median over ``iters``, CUDA events)."""
+    with prog._lock, torch.cuda.stream(prog.stream):
+        return timer(prog.graph.replay, iters=iters, warmup=2)
+
+
+def _serve_artifact(torch, dev, timer, path, clients, cfg, want_f32, tag):
+    """``path`` loaded by ``load_artifact`` into a fresh repository and
+    served by a fresh ``ModelServer`` (``cfg``): prewarm (5 captures,
+    memory around it, each pool's bytes), ``predict``'s traffic, the B1
+    wrapper count (zeroed just before the load: 24 per capture), bucket-1
+    and bucket-16 replay device ms; every response within
+    ``PREDICT_TOL``·max|logit| of the loaded program's eager call on the
+    request alone, and its error against the float module's eager logits
+    ``want_f32``.  Returns (readings, server, repository, entry, the
+    loaded program's eager logits); the server keeps running."""
+    from mxnet_tpu_torch import runtime_metrics as rm
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.serving import (ModelRepository, ModelServer,
+                                         bucket_set)
+    n_req = sum(len(c) for c in clients)
+    rows = sum(r[0].shape[0] for c in clients for r in c)
+    fa.flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    repo = ModelRepository()
+    entry = repo.load_artifact("bert", path, device=dev, version=1)
+    load_s = time.perf_counter() - t0
+    srv = ModelServer(repo, cfg)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    warm = srv.prewarm("bert")
+    prewarm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    progs = _entry_programs(srv, entry)
+    check(sorted(progs) == bucket_set(PREDICT_MAX_BATCH)
+          and warm["compiled"] == len(progs) == 5,
+          f"{tag}: prewarm built {warm}")
+    nodes = _flash_nodes(progs[1].module)
+    check(nodes == BERT_LARGE["num_layers"],
+          f"{tag}: {nodes} B1 operator nodes in the served graph")
+    pools = {b: {"allocated_bytes": _pool_bytes(torch, p.pool),
+                 "reserved_bytes": _pool_reserved(torch, p.pool)}
+             for b, p in sorted(progs.items())}
+    st0 = srv.stats()
+    rm.reset()
+    rm.enable()
+    try:
+        got, wall = _run_clients(srv, clients)
+    finally:
+        rm.disable()
+    st1 = srv.stats()
+    rm.reset()
+    launches = fa.flash_attention_fwd.launches
+    check(launches == 24 * 5,
+          f"{tag}: {launches} B1 launches for 5 captures (24 each)")
+    batches = st1["batches"] - st0["batches"]
+    check(batches < n_req,
+          f"{tag}: {batches} batches for {n_req} requests")
+    check(st1["programs"] == 5
+          and st1["bucket_misses"] == st0["bucket_misses"],
+          f"{tag}: {st1['programs']} programs, a bucket built after "
+          f"prewarm")
+    replay_ms = {b: _replay_ms(timer, torch, progs[b])
+                 for b in (1, PREDICT_MAX_BATCH)}
+    want = _eager_logits(torch, dev, progs[1].module, clients)
+    del progs
+    err, scale = _predict_err(got, want)
+    tol = PREDICT_TOL * scale
+    check(err <= tol, f"{tag}: served logits off the loaded program's "
+                      f"eager call by {err} (tolerance {tol})")
+    err_f32, scale_f32 = _predict_err(got, want_f32)
+    lat = sorted(tb - ta for c in got for _y, ta, tb in c)
+    readings = dict(
+        load_s=load_s, prewarm_s=prewarm_s,
+        capture_s={b: p.capture_s for b, p in
+                   sorted(_entry_programs(srv, entry).items())},
+        requests_per_s=n_req / wall, rows_per_s=rows / wall,
+        latency_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+        latency_p99_ms=float(np.percentile(lat, 99)) * 1e3,
+        batches=batches, programs=st1["programs"], b1_nodes=nodes,
+        b1_launches=launches,
+        prewarm_memory={"allocated_bytes": mem1[0] - mem0[0],
+                        "reserved_bytes": mem1[1] - mem0[1]},
+        graph_pools=pools,
+        pools_reserved_bytes=sum(p["reserved_bytes"]
+                                 for p in pools.values()),
+        replay_device_ms=replay_ms, max_abs_err_vs_program=err,
+        tolerance=tol, max_abs_err_vs_f32_module=err_f32,
+        max_abs_logit=scale_f32)
+    return readings, srv, repo, entry, want
+
+
+def _quantize_core_on_card(torch, dev):
+    """``mxnet_tpu_torch.quantize`` on the card against its CPU run on
+    the same inputs, for int8 and fp8: per-tensor (a weight-sized
+    tensor, and fp8 at scale 1 over values past +-464) and blockwise
+    payloads and scales bit for bit, dequantized values equal."""
+    from mxnet_tpu_torch import quantize as qz
+    rs = np.random.RandomState(0)
+    w = (rs.randn(1024, 1024) * 0.05).astype(np.float32)
+    wide = np.linspace(-600, 600, 1 << 16, dtype=np.float32)
+    same = {}
+    for mode in QUANT_MODES:
+        spec = qz.CompressionSpec(mode)
+        scale = qz.tensor_scale(w, spec)
+        check(scale == qz.tensor_scale(torch.from_numpy(w).to(dev), spec),
+              f"artifact_quant: the {mode} tensor scale differs on the card")
+        cases = [(w, scale)] + ([(wide, 1.0)] if mode == "fp8" else [])
+        for x, s in cases:
+            cpu = qz.quantize_tensor(x, s, spec, device="cpu")
+            card = qz.quantize_tensor(x, s, spec, device=dev)
+            check(torch.equal(cpu.view(torch.uint8),
+                              card.cpu().view(torch.uint8)),
+                  f"artifact_quant: the {mode} payload differs on the card")
+            check(torch.equal(
+                qz.dequantize_tensor(cpu, s, torch.float32).nan_to_num(),
+                qz.dequantize_tensor(card, s, torch.float32).cpu()
+                .nan_to_num()),
+                f"artifact_quant: {mode} dequantization differs on the card")
+        block = qz.CompressionSpec(mode, block=128)
+        p_cpu, s_cpu = qz.quantize(w, block, device="cpu")
+        p_card, s_card = qz.quantize(w, block, device=dev)
+        check(torch.equal(s_cpu, s_card.cpu()) and torch.equal(
+            p_cpu.view(torch.uint8), p_card.cpu().view(torch.uint8)),
+            f"artifact_quant: blockwise {mode} differs on the card")
+        same[mode] = True
+    return same
+
+
+def _artifact_moved_quant(torch, dev, clients, mode):
+    """A small classifier (``ARTIFACT_SMALL``) exported ``mode`` on the
+    CPU and loaded on the card, against its twin exported on the card
+    from the same weights: the same payloads and scales, and logits on
+    the first 8 requests within ``ARTIFACT_MOVE_TOL``·max|logit|."""
+    import copy
+
+    from mxnet_tpu_torch import deploy
+    small = _small_classifier(torch)
+    twin = copy.deepcopy(small).to(dev)
+    reqs = [r for c in clients for r in c][:8]
+    tmp = tempfile.mkdtemp(prefix="artifact_quant_small_")
+    try:
+        paths = [deploy.export_stablehlo(m, *reqs[0],
+                                         path=os.path.join(tmp, name),
+                                         dynamic_batch=True, quantize=mode)
+                 for m, name in ((small, "cpu"), (twin, "cuda"))]
+        moved, native = (deploy.load_stablehlo(p, device=dev) for p in paths)
+        devices = deploy._artifact_devices(moved.exported)
+        check(devices == {dev}, f"artifact_quant: the CPU {mode} export "
+                                f"still names {devices} after the move")
+        same = moved.quantization["weights"] \
+            == native.quantization["weights"] and all(
+                torch.equal(moved.exported.state_dict[w["name"]].view(
+                    torch.uint8), native.exported.state_dict[w["name"]]
+                    .view(torch.uint8))
+                for w in moved.quantization["weights"])
+        err = scale = 0.0
+        with torch.no_grad():
+            for req in reqs:
+                got = moved.call(*req).cpu().numpy()
+                want = native.call(*req).cpu().numpy()
+                err = max(err, float(np.abs(got - want).max()))
+                scale = max(scale, float(np.abs(want).max()))
+        check(err <= ARTIFACT_MOVE_TOL * scale,
+              f"artifact_quant: the CPU {mode} export loaded on the card "
+              f"is off its CUDA twin by {err} (max|logit| {scale})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(max_abs_err=err, max_abs_logit=scale,
+                payloads_and_scales_equal=bool(same), requests=len(reqs))
+
+
+def phase_artifact_quant(torch, dev, timer):
+    """Quantized artifacts: ``predict``'s seed-0 ``BERTClassifier`` (fp32,
+    ``use_flash=True``, depth not cut, L = 128) exported on the card with
+    ``dynamic_batch=True`` as float32 and with ``quantize="int8"`` and
+    ``"fp8"`` (manifest v4: 101 weights of the mode's dtype, a 64-hex
+    digest), calibrated on the first 8 rows of ``predict``'s traffic;
+    each quantized artifact below a third of the float one's bytes.  Each
+    of the three is loaded by ``load_artifact`` into a fresh repository
+    and served by a fresh ``ModelServer`` with ``predict``'s config and
+    traffic (``_serve_artifact``: 24 B1 nodes, 120 B1 wrapper launches,
+    5 programs, responses against the loaded program's eager calls);
+    each quantized response within ``QUANT_ERR_FACTOR`` x the manifest's
+    ``max_abs_err`` + ``QUANT_ERR_SLACK`` of the float module's eager
+    logits.  On the float artifact's server, the int8 artifact of the
+    same model is registered as version 2, prewarmed and swapped in under
+    traffic: each response matches the version that admitted it.  Then a
+    small classifier exported quantized on the CPU, loaded on the card,
+    and ``quantize``'s core on the card against its CPU run.  Returns the artifact paths (kept for ``artifact_quant_trace``) and
+    the B1 wrapper counts."""
+    from mxnet_tpu_torch import deploy
+    from mxnet_tpu_torch.serving import ServingConfig
+    t_phase = time.perf_counter()
+    clients = _predict_traffic(BERT_LARGE["vocab_size"])
+    calib = _calib_batch(clients)
+    tmp = tempfile.mkdtemp(prefix="artifact_quant_")
+    clf = _bert_classifier(torch, dev, 0)
+    paths, export_s, art_bytes, manifests = {}, {}, {}, {}
+    for mode in ("f32",) + QUANT_MODES:
+        t0 = time.perf_counter()
+        paths[mode] = deploy.export_stablehlo(
+            clf, *calib, path=os.path.join(tmp, mode), dynamic_batch=True,
+            quantize=None if mode == "f32" else mode)
+        torch.cuda.synchronize()
+        export_s[mode] = time.perf_counter() - t0
+        art_bytes[mode] = os.path.getsize(paths[mode])
+        manifests[mode] = deploy.load_manifest(paths[mode])
+    want_f32 = _eager_logits(torch, dev, clf, clients)
+    n_params = sum(p.numel() for p in clf.parameters())
+    n_quant = sum(p.numel() for p in clf.parameters() if p.dim() >= 2)
+    del clf
+    _free(torch)
+    for mode in QUANT_MODES:
+        qb = manifests[mode]["quantization"]
+        wire = "int8" if mode == "int8" else "float8_e4m3fn"
+        check(manifests[mode]["manifest_version"] == 4
+              and qb["mode"] == mode and len(qb["weights"]) == 101
+              and all(w["dtype"] == wire for w in qb["weights"])
+              and sum(w["elems"] for w in qb["weights"]) == n_quant
+              and len(qb["digest"]) == 64
+              and int(qb["digest"], 16) >= 0
+              and qb["calibration"]["examples"] == QUANT_CALIB_ROWS,
+              f"artifact_quant: the {mode} manifest: "
+              f"{ {k: v for k, v in qb.items() if k != 'weights'} }")
+        check(3 * art_bytes[mode] < art_bytes["f32"],
+              f"artifact_quant: the {mode} artifact holds "
+              f"{art_bytes[mode]} bytes, the float one {art_bytes['f32']}")
+    cfg = ServingConfig(max_batch_size=PREDICT_MAX_BATCH,
+                        num_workers=PREDICT_WORKERS, max_latency_us=2000)
+    served, want_q = {}, {}
+    for mode in QUANT_MODES:
+        served[mode], srv, _repo, _entry, want_q[mode] = _serve_artifact(
+            torch, dev, timer, paths[mode], clients, cfg, want_f32,
+            f"artifact_quant[{mode}]")
+        check(srv.stop(timeout=120), "artifact_quant: a server did not stop")
+        calib_err = manifests[mode]["quantization"]["calibration"]
+        bound = QUANT_ERR_FACTOR * calib_err["max_abs_err"] \
+            + QUANT_ERR_SLACK
+        served[mode]["f32_module_err_bound"] = bound
+        check(served[mode]["max_abs_err_vs_f32_module"] <= bound,
+              f"artifact_quant: {mode} responses off the float module by "
+              f"{served[mode]['max_abs_err_vs_f32_module']} (bound {bound})")
+        del srv, _repo, _entry
+        _free(torch)
+    # the float artifact, then the int8 one swapped in over it
+    served["f32"], srv, repo, _entry, want_f32_prog = _serve_artifact(
+        torch, dev, timer, paths["f32"], clients, cfg, want_f32,
+        "artifact_quant[f32]")
+    try:
+        def register_v2():
+            entry2 = repo.load_artifact("bert", paths["int8"], device=dev,
+                                        version=2, activate=False)
+            check(entry2.quantization["mode"] == "int8",
+                  "artifact_quant: version 2 lost its quantization block")
+
+        hot_swap = _hot_swap(srv, repo, clients, register_v2,
+                             want_f32_prog, want_q["int8"],
+                             served["int8"]["tolerance"],
+                             "artifact_quant")
+    finally:
+        check(srv.stop(timeout=120), "artifact_quant: the server did not "
+                                     "stop")
+    del srv, repo, _entry
+    _free(torch)
+    moved = {mode: _artifact_moved_quant(torch, dev, clients, mode)
+             for mode in QUANT_MODES}
+    core = _quantize_core_on_card(torch, dev)
+    launches = {mode: served[mode]["b1_launches"]
+                for mode in ("f32",) + QUANT_MODES}
+    emit("artifact_quant", requests=sum(len(c) for c in clients),
+         rows=sum(r[0].shape[0] for c in clients for r in c),
+         parameters=n_params, quantized_parameters=n_quant,
+         export_s=export_s, artifact_bytes=art_bytes,
+         calibration={m: manifests[m]["quantization"]["calibration"]
+                      for m in QUANT_MODES},
+         served=served, hot_swap_f32_to_int8=hot_swap, cpu_export=moved,
+         core_bitwise_vs_cpu=core,
+         seconds=time.perf_counter() - t_phase)
+    return {"tmp": tmp, "paths": paths, "launches": launches,
+            "replay_ms": {m: served[m]["replay_device_ms"]
+                          for m in served}}
+
+
+def phase_artifact_quant_trace(torch, dev, ctx):
+    """A traced rerun of the quantized artifacts' bucket-16 replays: the
+    float, int8 and fp8 artifacts of ``artifact_quant`` (kept on disk)
+    loaded again, bucket 16 built for each, then
+    ``ARTIFACT_TRACE_REPLAYS`` replays of ``predict``'s first six requests
+    padded to 16 rows traced with ``torch.profiler``: exactly 24 B1
+    kernel records per replay and no wrapper count; the device ms per
+    replay by kernel family (B1, GEMMs, the dequantization's multiply
+    and widening copy, the rest) and the dequantization's ms per replay
+    (the mode's dequantization families less the float program's).
+    Removes the artifacts' files."""
+    from mxnet_tpu_torch.serving import ModelRepository, pad_batch
+    clients = _predict_traffic(BERT_LARGE["vocab_size"])
+    padded, _ = pad_batch([r for c in clients for r in c][:6],
+                          PREDICT_MAX_BATCH)
+    out, records_all = {}, 0
+    try:
+        for mode in ("f32",) + QUANT_MODES:
+            entry = ModelRepository().load_artifact(
+                "bert", ctx["paths"][mode], device=dev)
+            prog = entry.make_program(PREDICT_MAX_BATCH)
+            _out, records, kernels, fam = _traced_replays(
+                torch, prog, padded, f"artifact_quant_trace[{mode}]",
+                tags=DEQUANT_TAGS)
+            out[mode] = dict(
+                b1_kernel_records=records, kernels_per_replay=kernels,
+                device_ms_per_replay=sum(fam.values()), by_family_ms=fam)
+            records_all += records
+            del prog, entry
+            _free(torch)
+    finally:
+        shutil.rmtree(ctx["tmp"], ignore_errors=True)
+
+    def dequant(mode):
+        return sum(out[mode]["by_family_ms"][t] for t in DEQUANT_TAGS)
+    for mode in QUANT_MODES:
+        out[mode]["dequant_ms_per_replay"] = dequant(mode) - dequant("f32")
+        out[mode]["extra_ms_per_replay"] = \
+            out[mode]["device_ms_per_replay"] \
+            - out["f32"]["device_ms_per_replay"]
+    emit("artifact_quant_trace", replays=ARTIFACT_TRACE_REPLAYS, modes=out)
+    return {"records": records_all,
+            "replays": ARTIFACT_TRACE_REPLAYS * len(out)}
 
 
 # ----------------------------------------------------------------- train
@@ -3342,6 +3776,7 @@ def main():
     launches, served = phase_serve(torch, dev, lm)
     predict = phase_predict(torch, dev, lm, served)
     artifact = phase_artifact(torch, dev)
+    artifact_quant = phase_artifact_quant(torch, dev, timer)
     head, feats, labels = phase_train_parity(torch, dev)
     train_launches, (trainers, step_ms), batch = phase_train(
         torch, dev, head, feats, labels)
@@ -3364,6 +3799,7 @@ def main():
     replayed = phase_serve_trace(torch, lm)
     predict_traced = phase_predict_trace(torch, predict)
     artifact_traced = phase_artifact_trace(torch, dev)
+    quant_traced = phase_artifact_quant_trace(torch, dev, artifact_quant)
 
     pk = "mxnet_tpu/ops/pallas_kernels.py"
     kernels = []
@@ -3446,7 +3882,10 @@ def main():
                 traced_predict_batches=predict_traced["batches"],
                 launches_artifact=artifact["launches"],
                 traced_artifact_kernel_records=artifact_traced["records"],
-                traced_artifact_replays=artifact_traced["replays"])
+                traced_artifact_replays=artifact_traced["replays"],
+                launches_artifact_quant=artifact_quant["launches"],
+                traced_artifact_quant_kernel_records=quant_traced["records"],
+                traced_artifact_quant_replays=quant_traced["replays"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -262,3 +262,24 @@ declare_env("MXNET_TRAIN_RESTART_BACKOFF_MS", 100,
             "jitter U[0.5, 1.0)).")
 declare_env("MXNET_TRAIN_RESTART_BACKOFF_MAX_MS", 5000,
             "Cap on one TrainingSupervisor restart backoff sleep.")
+declare_env("MXNET_KVSTORE_GRAD_COMPRESSION", None,
+            "Process-wide default gradient compression: a "
+            "CompressionSpec string — 'int8' or 'fp8', optionally with "
+            "options ('int8:block=64,stochastic=1,error_feedback=0'); "
+            "read by quantize.CompressionSpec.from_env().  Unset "
+            "(default) = uncompressed.")
+declare_env("MXNET_SERVING_QUANT_REQUIRE_DIGEST", "1",
+            "Serving admission of quantized artifacts "
+            "(ModelRepository.load_artifact): 1 (default) rejects a "
+            "manifest v4 quantization block that ships without its "
+            "scale digest — undetectable scale tampering/corruption — "
+            "with a clear MXNetError; 0 admits unprotected scales "
+            "(dev/test only).  A PRESENT digest is always verified "
+            "regardless of this knob.")
+declare_env("MXNET_SERVING_QUANT_MAX_REL_ERR", None,
+            "Serving admission bound on a quantized artifact's "
+            "recorded calibration error: reject at "
+            "ModelRepository.load_artifact when the manifest's "
+            "quantization.calibration.max_rel_err exceeds this float "
+            "(quality gate on what a replica will serve).  Unset "
+            "(default) = no bound.")

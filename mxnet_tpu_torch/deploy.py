@@ -14,6 +14,9 @@ The PyTorch port of ``mxnet_tpu.deploy``:
   ``mxnet_tpu_torch.ops`` (and nothing else of the port) can load and
   run it; on the card the node launches ``csrc/flash_attention_fwd.cu``.
   ``serving.ModelRepository.load_artifact`` serves such an artifact.
+  ``export_stablehlo(quantize='int8'|'fp8')`` writes the quantized
+  serving shape (manifest v4): int8 / float8_e4m3fn weights with
+  per-tensor scales, dequantized inside the program where each is read.
 - the framework-free validators: the manifest loader and its structural
   checks (``load_manifest``, ``validate_manifest``,
   ``validate_signature``) and the request-time guard
@@ -28,6 +31,7 @@ entries; ``null`` marks a free dimension.  Dtype names are numpy's;
 """
 from __future__ import annotations
 
+import copy
 import hashlib
 import itertools
 import json
@@ -38,6 +42,7 @@ import torch
 
 from . import faults as _faults
 from . import ops as _ops  # noqa: F401  (registers B1's operator)
+from . import quantize as _qz
 from . import tracing as _tr
 from .base import MXNetError
 
@@ -94,6 +99,106 @@ def _as_tensor(x, device):
     return t.to(device)
 
 
+# manifest v4: the quantize= modes and the payload dtype each writes
+_QUANT_WIRE = {"int8": "int8", "fp8": "float8_e4m3fn"}
+# a quantized weight's scale is the buffer of this suffix beside it
+_SCALE_SUFFIX = "_qscale"
+
+
+def _dequantizing(cls, dtypes):
+    """A subclass of module class ``cls`` whose attribute ``name`` (each
+    of ``dtypes``) is the weight dequantized from the module's buffers
+    ``name`` (the int8/fp8 payload) and ``name + _SCALE_SUFFIX`` (its
+    float32 scale), cast back to ``dtypes[name]``: every read
+    dequantizes where the forward reads the weight."""
+    def prop(name, dtype):
+        return property(lambda self: _qz.dequantize_tensor(
+            self._buffers[name], self._buffers[name + _SCALE_SUFFIX],
+            dtype))
+    attrs = {name: prop(name, dtype) for name, dtype in dtypes.items()}
+    return type(f"Quantized{cls.__name__}", (cls,), attrs)
+
+
+def _quantized_copy(module, quantize):
+    """Weight-only post-training quantization of ``module`` for export:
+    every floating parameter of dim >= 2 becomes a ``quantize`` payload
+    (per-tensor symmetric scale, ``quantize.tensor_scale``) held as a
+    buffer under the parameter's own name, with its scale beside it, and
+    the module reads it back dequantized at each use.  The copy shares
+    the other parameters and buffers' values but not the originals of
+    the quantized weights (no float copy of them is made or kept).
+
+    Returns ``(copy, quant_block)``: the manifest v4 ``quantization``
+    entry (mode and one ``{name, scale, dtype, elems}`` a weight, named
+    by the state-dict name)."""
+    if quantize not in _QUANT_WIRE:
+        raise MXNetError(
+            f"export_stablehlo: quantize must be 'int8' or 'fp8', "
+            f"got {quantize!r}")
+    spec = _qz.CompressionSpec(kind=quantize)
+    packed, weights_meta = {}, []
+    for name, p in module.named_parameters():
+        if p.dim() < 2 or not p.is_floating_point():
+            continue
+        scale = _qz.tensor_scale(p, spec)
+        with torch.no_grad():
+            q = _qz.quantize_tensor(p.detach(), scale, spec)
+        # the scale has the weight's rank, so the multiply broadcasts it
+        # without a reshape
+        packed[id(p)] = (q, torch.full((1,) * p.dim(), scale,
+                                       dtype=torch.float32,
+                                       device=p.device), p.dtype)
+        weights_meta.append({"name": name, "scale": float(scale),
+                             "dtype": _QUANT_WIRE[quantize],
+                             "elems": int(p.numel())})
+    if not weights_meta:
+        raise MXNetError(
+            f"export_stablehlo(quantize={quantize!r}): "
+            f"{type(module).__name__} has no >=2d float weight tensors "
+            f"to quantize")
+    memo = {id(t): None for t in itertools.chain(
+        (p for p in module.parameters() if id(p) in packed),
+        (p.grad for p in module.parameters() if p.grad is not None))}
+    qmod = copy.deepcopy(module, memo)
+    for orig, sub in zip(module.modules(), qmod.modules()):
+        dtypes = {}
+        for name, p in orig._parameters.items():
+            if p is None or id(p) not in packed:
+                continue
+            q, scale, dtype = packed[id(p)]
+            del sub._parameters[name]
+            sub.register_buffer(name, q)
+            sub.register_buffer(name + _SCALE_SUFFIX, scale)
+            dtypes[name] = dtype
+        if dtypes:
+            sub.__class__ = _dequantizing(type(sub), dtypes)
+    return qmod, {"mode": quantize, "weights": weights_meta}
+
+
+def _calibration(module, program, example_inputs):
+    """The manifest's ``calibration`` entry: ``module`` (unquantized) and
+    ``program`` (the exported quantized program, what ships) run on the
+    example inputs; the largest absolute output error, and that error
+    over the reference output's max |value|, as the JAX package records
+    them."""
+    def outs(fn):
+        with torch.no_grad():
+            out = fn(*example_inputs)
+        out = out if isinstance(out, (tuple, list)) else (out,)
+        return [o.detach().float().cpu().numpy() for o in out]
+
+    max_abs = max_rel = 0.0
+    for r, q in zip(outs(module), outs(program)):
+        abs_err = float(np.max(np.abs(q - r))) if r.size else 0.0
+        ref_mag = float(np.max(np.abs(r))) if r.size else 0.0
+        max_abs = max(max_abs, abs_err)
+        max_rel = max(max_rel, abs_err / (ref_mag + 1e-12))
+    first = example_inputs[0] if example_inputs else None
+    return {"examples": int(first.shape[0])
+            if first is not None and first.dim() else 0,
+            "max_abs_err": max_abs, "max_rel_err": max_rel}
+
+
 def export_stablehlo(module, *example_inputs, path, emit_text=False,
                      dynamic_batch=False, version=None, decode=None,
                      precompile=(), quantize=None):
@@ -105,7 +210,8 @@ def export_stablehlo(module, *example_inputs, path, emit_text=False,
     ``torch.export.save`` archive: the program with its weights — a
     ``torch.export`` program, not StableHLO; the name is the JAX
     package's, so paths and ``ModelRepository.load_artifact`` carry over)
-    and ``path.json``, the manifest: v3 with ``"format": "torch.export"``,
+    and ``path.json``, the manifest: v3 (v4 when quantized) with
+    ``"format": "torch.export"``,
     the ``inputs`` / ``outputs`` signature (symbolic dimensions ``null``),
     ``dynamic_batch``, ``version`` (null unless given: the serving
     repository then numbers versions itself), ``block`` (the module's
@@ -126,20 +232,31 @@ def export_stablehlo(module, *example_inputs, path, emit_text=False,
     ``torch`` and ``import mxnet_tpu_torch.ops`` (which registers it),
     nothing else of the port.
 
-    ``precompile`` (executables shipped per bucket) and ``quantize``
-    (manifest v4) have no counterpart yet: both raise
-    :class:`MXNetError` (ROADMAP Queue A items 2 and 3b).
+    ``quantize='int8'|'fp8'`` exports the quantized serving shape
+    (manifest v4): every floating parameter of dim >= 2 is stored as an
+    int8 / float8_e4m3fn payload with one per-tensor symmetric scale
+    (``quantize.tensor_scale``), both buffers of the program under the
+    parameter's state-dict name (the scale as ``name + "_qscale"``); no
+    float copy of a quantized weight is in the archive.  The program
+    dequantizes each weight where the forward reads it (float32 multiply,
+    one cast back to the weight's dtype), so a graph replaying it holds
+    one dequantized weight at a time, not a float copy of the model.
+    The example inputs are the calibration batch: the unquantized module
+    and the exported quantized program both run on them and the manifest's
+    ``quantization`` block records ``calibration = {examples,
+    max_abs_err, max_rel_err}``, the per-tensor scales (``weights``:
+    ``{name, scale, dtype, elems}``) and their ``digest``, which
+    ``load_manifest`` verifies; ``ModelRepository.load_artifact`` admits
+    the artifact against them (``MXNET_SERVING_QUANT_*``).
+
+    ``precompile`` (executables shipped per bucket) has no counterpart
+    yet and raises :class:`MXNetError` (ROADMAP Queue A item 2).
     """
     if precompile:
         raise MXNetError(
             "export_stablehlo(precompile=...): not ported — a bucket "
             "program of this package is a CUDA graph, which cannot "
             "outlive its process (ROADMAP Queue A item 2)")
-    if quantize is not None:
-        raise MXNetError(
-            f"export_stablehlo(quantize={quantize!r}): quantized "
-            f"artifacts (manifest v4) are not ported yet (ROADMAP Queue "
-            f"A item 3b)")
     if not isinstance(module, torch.nn.Module):
         raise MXNetError(
             f"export_stablehlo: expected a torch.nn.Module, got "
@@ -148,7 +265,11 @@ def export_stablehlo(module, *example_inputs, path, emit_text=False,
         raise MXNetError("export_stablehlo: pass example inputs to fix "
                          "the signature")
     device = _module_device(module)
-    xs = tuple(_as_tensor(x, device) for x in example_inputs)
+    xs = calib_inputs = tuple(_as_tensor(x, device)
+                              for x in example_inputs)
+    target, quant_block = module, None
+    if quantize:
+        target, quant_block = _quantized_copy(module, quantize)
     dynamic_shapes = None
     if dynamic_batch:
         if any(x.dim() < 1 for x in xs):
@@ -161,13 +282,19 @@ def export_stablehlo(module, *example_inputs, path, emit_text=False,
         dynamic_shapes = tuple({0: batch} for _ in xs)
     was_training = module.training
     module.eval()
+    target.eval()
     try:
-        with torch.no_grad():
-            exported = torch.export.export(module, xs,
-                                           dynamic_shapes=dynamic_shapes)
-    except Exception as e:
-        raise MXNetError(f"export_stablehlo: torch.export failed: {e}") \
-            from e
+        try:
+            with torch.no_grad():
+                exported = torch.export.export(
+                    target, xs, dynamic_shapes=dynamic_shapes)
+        except Exception as e:
+            raise MXNetError(
+                f"export_stablehlo: torch.export failed: {e}") from e
+        if quant_block is not None:
+            quant_block["calibration"] = _calibration(
+                module, exported.module(), calib_inputs)
+            quant_block["digest"] = _quantization_digest(quant_block)
     finally:
         module.train(was_training)
     user = set(exported.graph_signature.user_outputs)
@@ -176,7 +303,7 @@ def export_stablehlo(module, *example_inputs, path, emit_text=False,
             if getattr(n, "name", None) in user]
     manifest = {
         "format": ARTIFACT_FORMAT,
-        "manifest_version": 3,
+        "manifest_version": 3 if quant_block is None else 4,
         "version": version,
         "dynamic_batch": bool(dynamic_batch),
         "inputs": [_sig_entry([None, *x.shape[1:]] if dynamic_batch
@@ -187,6 +314,8 @@ def export_stablehlo(module, *example_inputs, path, emit_text=False,
     }
     if decode is not None:
         manifest["decode"] = dict(decode)
+    if quant_block is not None:
+        manifest["quantization"] = quant_block
     # validate BEFORE anything touches disk: an orphan .shlo without its
     # manifest would later load unchecked
     validate_manifest(manifest, where=f"export_stablehlo({path!r})")
@@ -556,8 +685,8 @@ class StableHLOModel:
 
     @property
     def quantization(self):
-        """The manifest v4 ``quantization`` block, or None (this
-        package exports none yet)."""
+        """The manifest v4 ``quantization`` block (mode, per-tensor
+        scales, calibration, digest), or None for a float artifact."""
         return (self.manifest or {}).get("quantization")
 
     def validate(self, arrays):

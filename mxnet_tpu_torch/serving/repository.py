@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import deploy, engine, faults
-from ..base import KernelError, MXNetError
+from ..base import KernelError, MXNetError, env_truthy, get_env
 from ..deploy import (_dtype_name, _module_device, _resolve_dtype,
                       _sig_entry)
 
@@ -60,7 +60,7 @@ class ModelEntry:
 
     def __init__(self, name, version, kind, signature, dynamic_batch,
                  make_program, fixed_batch=None, decode_model=None,
-                 draft_model=None, decode_meta=None):
+                 draft_model=None, decode_meta=None, quantization=None):
         self.name = name
         self.version = version
         # "block" | "function" | "decoder" | "stablehlo" (an artifact)
@@ -76,6 +76,9 @@ class ModelEntry:
         # an artifact's manifest "decode" metadata (export_stablehlo's
         # decode=): the contract for an external decode runtime
         self.decode_meta = decode_meta
+        # a quantized artifact's manifest v4 block (mode, per-tensor
+        # scales, calibration error); None for a float entry
+        self.quantization = quantization
         self.uid = next(_UID)               # distinct across re-registrations
 
     @property
@@ -370,8 +373,16 @@ class ModelRepository:
         card one CUDA graph per bucket, whose capture or replay raises
         :class:`~mxnet_tpu_torch.base.KernelError` on failure, with no
         other path.  A static artifact pads every batch to its exported
-        batch.  A quantized (v4) manifest is refused (ROADMAP Queue A
-        item 3b)."""
+        batch.
+
+        A quantized (manifest v4) artifact is served the same way: its
+        program dequantizes each weight inside the bucket graph where the
+        forward reads it.  On top of ``validate_manifest``'s checks (a
+        present digest must verify) it is admitted only with a scale
+        digest, unless ``MXNET_SERVING_QUANT_REQUIRE_DIGEST=0``, and only
+        if its ``calibration.max_rel_err`` is within
+        ``MXNET_SERVING_QUANT_MAX_REL_ERR`` when that is set; the block
+        lands on the entry as ``entry.quantization``."""
         if not path.endswith(".shlo"):
             path = path + ".shlo"
         # chaos site: artifact pull/parse failure during a deploy — a
@@ -385,11 +396,9 @@ class ModelRepository:
                 f"load_artifact({name!r}): no manifest next to {path} — "
                 f"serving needs the .json signature (re-export with "
                 f"deploy.export_stablehlo)")
-        if manifest.get("quantization") is not None:
-            raise MXNetError(
-                f"load_artifact({name!r}): {path} is a quantized "
-                f"(manifest v4) artifact; quantized serving is not ported "
-                f"yet (ROADMAP Queue A item 3b)")
+        quantization = manifest.get("quantization")
+        if quantization is not None:
+            _admit_quantized(name, quantization)
         dynamic = bool(manifest.get("dynamic_batch"))
         sig = manifest["inputs"]
         fixed = None if dynamic else (sig[0]["shape"][0] if sig else None)
@@ -403,7 +412,8 @@ class ModelRepository:
 
         entry = ModelEntry(name, version, "stablehlo", sig, dynamic,
                            make_program, fixed_batch=fixed,
-                           decode_meta=manifest.get("decode"))
+                           decode_meta=manifest.get("decode"),
+                           quantization=quantization)
         return self._register(entry, activate)
 
     def add_block(self, name, module, *example_inputs, version=None,
@@ -646,6 +656,29 @@ class ModelRepository:
                 if not slot["versions"]:
                     del self._models[name]
         self._notify_unload(removed)
+
+
+def _admit_quantized(name, quantization):
+    """Serving admission of a quantized artifact, on top of the
+    structural and digest checks ``validate_manifest`` ran: its scales
+    must carry their digest, and an operator can bound the calibration
+    error a version may serve (``MXNET_SERVING_QUANT_*``)."""
+    if env_truthy("MXNET_SERVING_QUANT_REQUIRE_DIGEST", True) \
+            and not isinstance(quantization.get("digest"), str):
+        raise MXNetError(
+            f"load_artifact({name!r}): quantized manifest ships no scale "
+            f"digest — re-export with deploy.export_stablehlo("
+            f"quantize=...) (or set MXNET_SERVING_QUANT_REQUIRE_DIGEST=0 "
+            f"to admit unprotected scales)")
+    max_err = get_env("MXNET_SERVING_QUANT_MAX_REL_ERR", typ=float)
+    rel = (quantization.get("calibration") or {}).get("max_rel_err")
+    if max_err is not None and rel is not None \
+            and float(rel) > float(max_err):
+        raise MXNetError(
+            f"load_artifact({name!r}): quantized artifact's calibration "
+            f"error {float(rel):.4g} exceeds the admission bound "
+            f"MXNET_SERVING_QUANT_MAX_REL_ERR={float(max_err):.4g} — "
+            f"recalibrate/re-export, or raise the bound")
 
 
 def _module_device_of(model):

@@ -263,8 +263,11 @@ def test_export_emits_program_text_and_restores_mode(static_art, tmp_path):
 
 
 @pytest.mark.parametrize("kw, item", [({"precompile": (1, 2)}, "item 2"),
-                                      ({"quantize": "int8"}, "item 3b")])
+                                      ({"quantize": "int4"},
+                                       "'int8' or 'fp8'")])
 def test_unported_export_options_refuse(tmp_path, kw, item):
+    """``precompile=`` is not ported; ``quantize=`` takes int8 or fp8
+    alone.  Both refuse before any file is written."""
     with pytest.raises(MXNetError, match=item):
         deploy.export_stablehlo(_carry(_jax_net()), _x(2),
                                 path=str(tmp_path / "m"), **kw)
@@ -434,21 +437,34 @@ class TestLoadArtifact:
                                     dynamic_batch=True, decode=bad)
         assert not os.path.exists(str(tmp_path / "bad.shlo"))
 
-    def test_quantized_manifest_refused(self, tmp_path):
-        """A v4 manifest with a (well-formed) quantization block is not
-        served: quantized serving is not ported."""
+    def test_quantized_manifest_refused(self, tmp_path, monkeypatch):
+        """A v4 manifest's admission: with its scale digest it is served
+        and its block lands on the entry; without the digest, or with a
+        calibration error above ``MXNET_SERVING_QUANT_MAX_REL_ERR``, it
+        is refused."""
         path = _export(_carry(_jax_net(14)), tmp_path)
         mpath = str(tmp_path / "m.json")
         manifest = json.load(open(mpath))
         qb = {"mode": "int8", "weights": [
             {"name": "0.weight", "scale": 0.01, "dtype": "int8",
-             "elems": 128}]}
+             "elems": 128}],
+            "calibration": {"examples": 5, "max_abs_err": 0.01,
+                            "max_rel_err": 0.02}}
         qb["digest"] = deploy._quantization_digest(qb)
         manifest.update(manifest_version=4, quantization=qb)
         json.dump(manifest, open(mpath, "w"))
         assert deploy.load_stablehlo(path, device="cpu").quantization == qb
-        with pytest.raises(MXNetError, match="3b"):
-            ModelRepository().load_artifact("m", path, device="cpu")
+        repo = ModelRepository()
+        assert repo.load_artifact("m", path, device="cpu").quantization == qb
+        monkeypatch.setenv("MXNET_SERVING_QUANT_MAX_REL_ERR", "0.01")
+        with pytest.raises(MXNetError, match="exceeds the admission bound"):
+            repo.load_artifact("m", path, device="cpu")
+        monkeypatch.delenv("MXNET_SERVING_QUANT_MAX_REL_ERR")
+        del manifest["quantization"]["digest"]
+        json.dump(manifest, open(mpath, "w"))
+        with pytest.raises(MXNetError, match="no scale digest"):
+            repo.load_artifact("m", path, device="cpu")
+        assert repo.versions("m") == [1]
 
     def test_hot_swap_between_artifacts(self, tmp_path):
         """export -> load_artifact(activate=False) -> prewarm -> swap:
