@@ -7,7 +7,8 @@ points a user calls: paged decode serving of a GPT-2-small-width
 ``ModelServer.predict`` on a ``BERTClassifier`` over ``bert_24_1024_16``,
 from the module and from its exported artifacts, float and quantized
 (``load_artifact``),
-and ``ModelServer.generate`` on that LM; ``ShardedTrainer.step`` on
+and ``ModelServer.generate`` on that LM, each also through two replicas
+sharing the card (``ServingConfig(replicas=2)``); ``ShardedTrainer.step`` on
 ``BERTForPretrain`` over ``bert_24_1024_16`` with ``use_flash=True``;
 and ``TrainingSupervisor.run`` over that step with ``CheckpointManager``
 checkpoints, through injected faults and a SIGTERM.
@@ -84,6 +85,29 @@ Phases, each printed as one JSON line:
    equal ``serve``'s.  The B1/B4/B5 counters are zeroed before the
    server is built and read after ``generate`` (the captures' eager
    warm-ups);
+6b′. ``replicas`` — ``predict``'s classifier (seed 0) registered once
+   and served by a ``replicas=1`` and a ``replicas=2`` ``ModelServer``
+   (``predict``'s config): each replica captures its own five bucket
+   graphs over the one snapshot at ``prewarm`` (capture seconds and pool
+   bytes per replica); ``predict``'s traffic through both in turns (1,
+   2, 2, 1: requests/s, p50, p99), every response within 1e-4 of
+   max|logit| of the eager forward, both replicas serving, no bucket
+   built after prewarm; a batch failed over between replicas against
+   the ``replicas=1`` program on the same inputs (1e-5 of max|logit|,
+   bitwise equality reported); under traffic, r0's dispatch failing
+   twice (failovers, every response in the gate), r0's heartbeat stalled
+   (UNHEALTHY within the window, r1 alone serving), then cleared (r0
+   captures its graphs again while r1 replays, and serves again), and
+   ``restart("r1")``; a replica placed on another card than the weights'
+   must be refused with ``MXNetError``.  Then ``serve``'s configuration
+   with ``replicas=2`` through ``ModelServer.generate``: each replica an
+   adapter clone sharing the LM's weights (0 bytes copied) with its own
+   KV pool and graphs, ``serve``'s waves giving ``serve``'s tokens, a
+   decode step failing on r0 mid-generation quarantining the sequence
+   and failing it over to r1 with the same tokens, no page leaked.  The
+   B1/B4/B5 counters are zeroed before the servers are built and read
+   after the decode failover (24 B1 per predict capture, ``num_layers``
+   B4 per decode replica); every server stops at the end of the phase;
 6c. ``artifact`` — the same seed-0 classifier exported on the card by
    ``deploy.export_stablehlo(dynamic_batch=True)`` (a ``torch.export``
    program, B1 as the operator ``mxnet_tpu_torch::flash_attention_fwd``),
@@ -220,7 +244,10 @@ device tracing slows every later launch:
    artifacts loaded again, bucket 16 built for each and 10 replays
    traced: exactly 24 B1 kernel records per replay and no wrapper
    count, device ms per replay by kernel family, and the
-   dequantization's ms per replay against the float program.
+   dequantization's ms per replay against the float program;
+15. ``replicas_trace`` — each ``replicas`` replica's bucket-16 graph
+   (kept after its server stopped), 10 replays traced: exactly 24 B1
+   kernel records per replay and no wrapper count.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
@@ -235,8 +262,11 @@ the bucket-16 shape (``predict_bucket16``), ``launches_artifact``
 ``traced_artifact_replays`` from ``artifact_trace``,
 ``launches_artifact_quant`` (``artifact_quant``'s captures per
 artifact) and ``traced_artifact_quant_kernel_records`` over
-``traced_artifact_quant_replays`` from ``artifact_quant_trace``; B4 and
-B5 list every
+``traced_artifact_quant_replays`` from ``artifact_quant_trace``,
+``launches_replicas`` (``replicas``' captures) and
+``traced_replicas_kernel_records`` over ``traced_replicas_replays``
+from ``replicas_trace``; B4 and B5 give ``launches_replicas`` and list
+every
 ``kernels`` row with its split; B1-B3 give, per dtype,
 ``launches_graphs`` and ``launches_eager`` (``train``'s two trainers
 apart) and ``traced_train_kernel_records`` over
@@ -2062,6 +2092,461 @@ def phase_predict_trace(torch, ctx):
     return {"records": records, "batches": ran}
 
 
+# ------------------------------------------------------------- replicas
+# the replicas phase: Predict's configuration and traffic through
+# ServingConfig(replicas=2) (two replicas sharing the card and the weight
+# snapshot), the serve configuration's decode path with replicas=2
+REPLICAS = 2
+# a failed-over batch against the replicas=1 twin's program on the same
+# padded inputs: the same kernels on the same data (bit for bit expected,
+# reported); held to 1e-5 of max|logit| in case the library picks another
+# GEMM algorithm for a capture stream
+REPLICA_TWIN_TOL = 1e-5
+# r0's stalled heartbeat: three heartbeat windows (default 500 ms)
+REPLICA_STALL_MS = 1500
+# the decode failover: decode steps that succeed before r0's step site
+# fails; three firings exhaust its two retries (MXNET_SERVING_RETRY_MAX)
+# and quarantine the sequence
+REPLICA_DECODE_FAIL = "replica.r0.decode.step=fail,after=4,times=3"
+
+
+def _replica_traffic(srv, clients, want, tol, stop, where):
+    """Predict's clients through ``srv`` pass after pass until ``stop``
+    is set (at least one pass), on a thread; returns (thread, record):
+    the record gets the passes, the responses and the first error, and
+    every response is held to ``want`` within ``tol``."""
+    rec = {"passes": 0, "responses": 0, "max_abs_err": 0.0, "error": None}
+
+    def run():
+        try:
+            while True:
+                got, _ = _run_clients(srv, clients)
+                err, _ = _predict_err(got, want)
+                check(err <= tol, f"{where}: a response off by {err} "
+                                  f"(tolerance {tol})")
+                rec["passes"] += 1
+                rec["responses"] += sum(len(c) for c in got)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if stop.is_set():
+                    return
+        except Exception as e:          # noqa: BLE001 — checked by caller
+            rec["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, rec
+
+
+def _join_traffic(t, rec, where):
+    t.join(900)
+    check(not t.is_alive(), f"{where}: the traffic hung")
+    check(rec["error"] is None, f"{where}: {rec['error']}")
+    return {k: rec[k] for k in ("passes", "responses", "max_abs_err")}
+
+
+def _wait_for(cond, timeout, where):
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"{where}: timed out")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def _fill_bucket(clients, rows):
+    """The first requests of the traffic that fit in ``rows`` rows."""
+    out, n = [], 0
+    for req in (r for c in clients for r in c):
+        if n + req[0].shape[0] <= rows:
+            out.append(req)
+            n += req[0].shape[0]
+    return out
+
+
+def _replica_captures(torch, rset, entry):
+    """Capture seconds and graph-pool bytes of each predict replica's
+    programs."""
+    out = {}
+    for rid in rset.replicas():
+        rep = rset.replica(rid)
+        progs = rep.batcher.program_list(entry)
+        out[rid] = dict(
+            programs=len(progs), capture_s=rep.capture_seconds(),
+            bringup_s=rep.bringup_s,
+            pool_allocated_gb=sum(_pool_bytes(torch, p.pool)
+                                  for p in progs) / 1e9,
+            pool_reserved_gb=sum(_pool_reserved(torch, p.pool)
+                                 for p in progs) / 1e9)
+    return out
+
+
+def _twin_failover(rset, one, entry, batch, scale):
+    """``batch`` through the replica set with the first replica's
+    dispatch failing (``replica.*.execute``, once), against the
+    replicas=1 server's program on the same batch."""
+    from mxnet_tpu_torch import faults
+    from mxnet_tpu_torch.serving.resilience import Deadline
+    ref = one.batcher.run_batch(entry, batch)
+    before = rset.stats()["failovers"]
+    with faults.plan("replica.*.execute=fail,times=1"):
+        got = rset.run_batch(batch, deadline=Deadline.start(600))
+    check(rset.stats()["failovers"] == before + 1,
+          "replicas: the twin batch did not fail over")
+    err = max(float(np.abs(g[0] - r[0]).max()) for g, r in zip(got, ref))
+    check(err <= REPLICA_TWIN_TOL * scale,
+          f"replicas: a failed-over batch is {err} off the replicas=1 "
+          f"twin (tolerance {REPLICA_TWIN_TOL * scale})")
+    return dict(rows=sum(r[0].shape[0] for r in batch), max_abs_err=err,
+                bitwise_equal=all(np.array_equal(g[0], r[0])
+                                  for g, r in zip(got, ref)))
+
+
+def _clone_bytes(torch, adapter, lm):
+    """Bytes of ``adapter``'s parameters that do not share storage with
+    the LM's own tensors."""
+    from mxnet_tpu_torch.serving.decode import _param_items
+    own = {t.untyped_storage().data_ptr() for t in
+           list(lm.parameters()) + list(lm.buffers())}
+    return sum(t.numel() * t.element_size()
+               for _, t in _param_items(adapter.params)
+               if t.untyped_storage().data_ptr() not in own)
+
+
+def _replica_decode(torch, dev, lm, served):
+    """The serve configuration's decode path through
+    ``ModelServer(replicas=2).generate``: each replica a
+    ``PagedLMAdapter`` clone over the one LM (its own KV pool, graphs and
+    stream), its graphs captured when its engine binds it.  The serve
+    phase's waves must give the serve phase's tokens; a decode step that
+    fails on r0 mid-generation must quarantine the sequence and fail it
+    over to r1 with the same tokens; no page may leak."""
+    from mxnet_tpu_torch import faults
+    from mxnet_tpu_torch.serving import (ModelRepository, ModelServer,
+                                         ServingConfig)
+    cfg = ServingConfig(decode_page_size=PAGE_SIZE,
+                        decode_pool_pages=POOL_PAGES,
+                        decode_max_batch=MAX_BATCH, prefix_cache=True,
+                        decode_max_new_tokens=32, replicas=REPLICAS)
+    repo = ModelRepository()
+    repo.add_decoder("lm", lm)
+    srv = ModelServer(repo, cfg)
+    t0 = time.perf_counter()
+    srv.prewarm("lm")
+    bind_s = time.perf_counter() - t0
+    rset = srv.replica_set("lm")
+    adapters = {rid: rset.replica(rid).engine.model
+                for rid in rset.replicas()}
+    check(len({id(a) for a in adapters.values()}) == REPLICAS
+          and all(a is not repo.get("lm").decode_model
+                  for a in adapters.values()),
+          "replicas: the decode replicas share an adapter")
+    per = {}
+    for rid, a in adapters.items():
+        eng = rset.replica(rid).engine
+        dec = a._programs.get(("decode", MAX_BATCH))
+        check(a.compiled == len(eng.signatures()) and dec is not None
+              and dec.graph is not None,
+              f"replicas: {rid} captured {a.compiled} graphs, not "
+              f"{len(eng.signatures())} with its decode graph")
+        per[rid] = dict(
+            graphs=a.compiled, capture_s=a.capture_seconds,
+            clone_param_bytes=_clone_bytes(torch, a, lm),
+            kv_pool_gb=(a.pool.k_pages.numel() * a.pool.k_pages.element_size()
+                        + a.pool.v_pages.numel()
+                        * a.pool.v_pages.element_size()) / 1e9,
+            graph_pool_gb=_pool_bytes(torch, a._graph_pool) / 1e9)
+        check(per[rid]["clone_param_bytes"] == 0,
+              f"replicas: {rid}'s adapter copied "
+              f"{per[rid]['clone_param_bytes']} bytes of the LM's weights")
+    gen = functools.partial(srv.generate, "lm")
+    gen(served["warm"], max_new_tokens=4, timeout=600)
+    t0 = time.perf_counter()
+    out = [o for w in served["waves"] for o in _run_wave(gen, w)[0]]
+    wall = time.perf_counter() - t0
+    same = [np.array_equal(a[1], b[1]) for a, b in zip(out,
+                                                       served["results"])]
+    check(len(out) == len(served["results"]) and all(same),
+          f"replicas: generate with {REPLICAS} replicas differs from the "
+          f"serve phase's tokens on {same.count(False)} requests")
+    requests = {rid: v["requests"]
+                for rid, v in rset.stats()["replicas"].items()}
+    check(all(requests.values()), f"replicas: a decode replica served "
+                                  f"nothing: {requests}")
+    # the failover: route the next request to r0 (the router takes the
+    # least recently routed of two idle replicas)
+    if rset.replica("r0").last_routed > rset.replica("r1").last_routed:
+        gen(served["warm"], max_new_tokens=4, timeout=600)
+    prompt, want = served["results"][0][:2]
+    before = rset.stats()["failovers"]
+    with faults.plan(REPLICA_DECODE_FAIL):
+        toks = gen(prompt, max_new_tokens=32, timeout=600)
+    dstats = srv.decode_stats("lm")
+    check(np.array_equal(toks, want)
+          and rset.stats()["failovers"] == before + 1
+          and dstats["r0"]["quarantined"] == 1,
+          f"replicas: the decode failover gave {toks.tolist()} (want "
+          f"{want.tolist()}), failovers {rset.stats()['failovers']}, "
+          f"quarantined {dstats['r0']['quarantined']}")
+    rset.check_leaks()
+    gen_tokens = sum(len(o[1]) for o in out)
+    return srv, rset, dict(
+        bind_s=bind_s, per_replica=per, requests=requests, wall_s=wall,
+        tokens_per_s=gen_tokens / wall, tokens_equal_to_serve=True,
+        prefix_hits={r: s["prefix_hits"] for r, s in dstats.items()},
+        failover=dict(spec=REPLICA_DECODE_FAIL, tokens_equal=True,
+                      quarantined=dstats["r0"]["quarantined"]))
+
+
+def phase_replicas(torch, dev, lm, served):
+    """Multi-replica serving on the one card.  Predict: Predict's
+    classifier (BERT-large fp32, seed 0) registered once and served by a
+    ``replicas=1`` server and a ``replicas=2`` server (each replica its
+    own five bucket graphs over the one snapshot, captured by prewarm);
+    Predict's traffic through both in turns (1, 2, 2, 1), every response
+    within ``PREDICT_TOL`` of the eager forward, both replicas serving,
+    no build after prewarm.  A batch failed over between replicas against
+    the ``replicas=1`` twin's program on the same inputs.  Under traffic:
+    r0's dispatch failing twice (failovers); r0's heartbeat stalled
+    (UNHEALTHY within the window, r1 serving alone), then cleared (r0
+    captures its graphs again while r1 replays, and serves again); and
+    ``restart("r1")``.  A replica on another device than the weights'
+    must be refused.  Decode: ``_replica_decode``.  The B1/B4/B5 counters
+    are zeroed just before the servers are built and read after the
+    decode failover: they count the captures' eager warm-ups
+    (``replicas_trace`` counts the replayed kernels).  Returns what
+    ``phase_replicas_trace`` needs (the servers stay up)."""
+    from mxnet_tpu_torch import faults
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving import (ModelRepository, ModelServer,
+                                         ReplicaSet, ServingConfig,
+                                         bucket_set, pad_batch)
+    from mxnet_tpu_torch.serving.replica import HEALTHY, UNHEALTHY
+    t_phase = time.perf_counter()
+    clients = _predict_traffic(BERT_LARGE["vocab_size"])
+    n_req = sum(len(c) for c in clients)
+    clf = _bert_classifier(torch, dev, 0)
+    want = _eager_logits(torch, dev, clf, clients)
+    L = PREDICT_L
+    example = (np.zeros((1, L), np.int32), np.zeros((1, L), np.int32),
+               np.full((1,), L, np.int32))
+    base = dict(max_batch_size=PREDICT_MAX_BATCH,
+                num_workers=PREDICT_WORKERS, max_latency_us=2000)
+    counters = (fa.flash_attention_fwd, pa.ragged_paged_attention,
+                pa.ragged_paged_verify)
+    for k in counters:
+        k.launches = 0
+    repo = ModelRepository()
+    entry = repo.add_block("bert", clf, *example)
+    del clf
+    _free(torch)
+    one = ModelServer(repo, ServingConfig(**base))
+    two = ModelServer(repo, ServingConfig(replicas=REPLICAS, **base))
+    one.prewarm("bert")
+    t0 = time.perf_counter()
+    two.prewarm("bert")
+    prewarm_s = time.perf_counter() - t0
+    rset = two.replica_set("bert")
+    buckets = len(bucket_set(PREDICT_MAX_BATCH))
+    captures = _replica_captures(torch, rset, entry)
+    progs = [p for rid in rset.replicas()
+             for p in rset.replica(rid).batcher.program_list(entry)]
+    check(set(rset.replicas().values()) == {HEALTHY}
+          and all(c["programs"] == buckets for c in captures.values())
+          and len({id(p) for p in progs}) == REPLICAS * buckets
+          and all(p.module is progs[0].module for p in progs),
+          f"replicas: prewarm left {rset.replicas()}, {captures}")
+    b1_prewarm = fa.flash_attention_fwd.launches
+    check(b1_prewarm == 24 * buckets * (1 + REPLICAS),
+          f"replicas: {b1_prewarm} B1 launches for "
+          f"{buckets * (1 + REPLICAS)} captures (24 each)")
+    # placement: a replica on another card than the weights' is refused
+    try:
+        ReplicaSet(entry, ServingConfig(replicas=REPLICAS, **base),
+                   devices=[(dev,), (torch.device("cuda", 1),)],
+                   autostart=False)
+        refused = None
+    except MXNetError as e:
+        refused = str(e)
+    check(refused and "item 5" in refused,
+          "replicas: a replica on another device than the weights' was "
+          "not refused")
+
+    # replicas=1 and replicas=2 in turns
+    misses = {rid: rset.replica(rid).batcher.bucket_misses
+              for rid in rset.replicas()}
+    misses_one = one.stats()["bucket_misses"]
+    turns = {1: [], REPLICAS: []}
+    scale = 0.0
+    for n in (1, REPLICAS, REPLICAS, 1):
+        got, wall = _run_clients(one if n == 1 else two, clients)
+        err, scale = _predict_err(got, want)
+        tol = PREDICT_TOL * scale
+        check(err <= tol, f"replicas: replicas={n} responses off by {err} "
+                          f"(tolerance {tol})")
+        lat = sorted(tb - ta for c in got for _y, ta, tb in c)
+        turns[n].append(dict(wall_s=wall, requests_per_s=n_req / wall,
+                             p50_ms=float(np.percentile(lat, 50)) * 1e3,
+                             p99_ms=float(np.percentile(lat, 99)) * 1e3,
+                             max_abs_err=err))
+    tol = PREDICT_TOL * scale
+    served_by = {rid: v["requests"]
+                 for rid, v in rset.stats()["replicas"].items()}
+    check(all(served_by.values()), f"replicas: a replica served nothing: "
+                                   f"{served_by}")
+    check(all(rset.replica(rid).batcher.bucket_misses == m
+              for rid, m in misses.items())
+          and one.stats()["bucket_misses"] == misses_one,
+          "replicas: a bucket was built on the request path after prewarm")
+
+    # chaos under traffic 1: r0's dispatch fails twice
+    fo0 = rset.stats()["failovers"]
+    with faults.plan("replica.r0.execute=fail,times=2"):
+        got, _ = _run_clients(two, clients)
+    err, _ = _predict_err(got, want)
+    check(err <= tol and rset.stats()["failovers"] > fo0
+          and rset.replicas()["r0"] == HEALTHY,
+          f"replicas: execute failures gave err {err}, failovers "
+          f"{rset.stats()['failovers'] - fo0}, {rset.replicas()}")
+    execute_chaos = dict(failovers=rset.stats()["failovers"] - fo0,
+                         max_abs_err=err)
+
+    # a failed-over batch against the replicas=1 twin, same inputs (after
+    # r0's last outcomes were successes: two more failures stay under
+    # its consecutive-failure trip of 3)
+    twin = {str(rows): _twin_failover(rset, one, entry,
+                                      _fill_bucket(clients, rows), scale)
+            for rows in (PREDICT_MAX_BATCH, 4)}
+
+    # chaos under traffic 2: r0's heartbeat stalls, then clears
+    cfg2 = two.config
+    stop = threading.Event()
+    runner, rec = _replica_traffic(two, clients, want, tol, stop,
+                                   "replicas stall")
+    r0 = rset.replica("r0")
+    prewarms0 = r0.prewarms
+    rejoins0 = rset.stats()["rejoins"]
+    faults.install(f"replica.r0.heartbeat=stall,ms={REPLICA_STALL_MS},"
+                   f"times=1")
+    t_stall = time.perf_counter()
+    try:
+        detect_s = _wait_for(lambda: rset.replicas()["r0"] == UNHEALTHY,
+                             30, "replicas: r0 never went UNHEALTHY")
+        r0_dark, r1_dark = r0.requests, rset.replica("r1").requests
+        faults.clear()
+        _wait_for(lambda: time.perf_counter() - t_stall
+                  >= 0.8 * REPLICA_STALL_MS / 1e3, 30, "replicas stall")
+        dark = dict(r0=r0.requests - r0_dark,
+                    r1=rset.replica("r1").requests - r1_dark)
+        check(rset.replicas()["r0"] != HEALTHY and dark["r0"] == 0
+              and dark["r1"] > 0,
+              f"replicas: in r0's dark window r0 took {dark['r0']} and r1 "
+              f"{dark['r1']} dispatches, state {rset.replicas()}")
+        rejoin_s = _wait_for(lambda: rset.replicas()["r0"] == HEALTHY,
+                             300, "replicas: r0 never rejoined")
+        r0_back = r0.requests
+        _wait_for(lambda: r0.requests > r0_back, 300,
+                  "replicas: r0 took no traffic after it rejoined")
+    finally:
+        faults.clear()
+        stop.set()
+    stall_traffic = _join_traffic(runner, rec, "replicas stall")
+    window_s = (cfg2.replica_heartbeat_window_ms
+                + 2 * cfg2.replica_heartbeat_ms) / 1e3
+    check(detect_s <= window_s + 0.5,
+          f"replicas: r0 marked UNHEALTHY {detect_s:.3f} s into its "
+          f"stall (window {window_s} s)")
+    check(r0.prewarms == prewarms0 + 1
+          and rset.stats()["rejoins"] == rejoins0 + 1,
+          f"replicas: r0 rejoined without one prewarm: {rset.stats()}")
+    rejoin_capture = _replica_captures(torch, rset, entry)["r0"]
+
+    # chaos under traffic 3: restart r1
+    stop = threading.Event()
+    runner, rec = _replica_traffic(two, clients, want, tol, stop,
+                                   "replicas restart")
+    _wait_for(lambda: rec["passes"] >= 1 or rec["error"], 600,
+              "replicas restart")
+    old_r1 = rset.replica("r1")
+    t0 = time.perf_counter()
+    try:
+        rset.restart("r1", timeout=120)
+    finally:
+        stop.set()
+    restart_s = time.perf_counter() - t0
+    restart_traffic = _join_traffic(runner, rec, "replicas restart")
+    new_r1 = rset.replica("r1")
+    check(new_r1 is not old_r1 and rset.replicas()["r1"] == HEALTHY
+          and new_r1.prewarms == 1,
+          f"replicas: restart left r1 {rset.replicas()['r1']}: "
+          f"{new_r1.unhealthy_reason}")
+    restart_capture = _replica_captures(torch, rset, entry)["r1"]
+    b1_predict = fa.flash_attention_fwd.launches
+    check(b1_predict == 24 * buckets * (1 + REPLICAS + 2),
+          f"replicas: {b1_predict} B1 launches, want 24 for each of "
+          f"{buckets * (1 + REPLICAS + 2)} captures")
+
+    # decode
+    dsrv, drs, decode = _replica_decode(torch, dev, lm, served)
+    launches = {k.__name__: k.launches for k in counters}
+    check(all(launches.values()),
+          f"replicas: a kernel of the path never launched: {launches}")
+    check(launches["ragged_paged_attention"] == REPLICAS * lm.num_layers,
+          f"replicas: {launches['ragged_paged_attention']} B4 launches, "
+          f"want {lm.num_layers} in each decode replica's capture")
+    padded16, _ = pad_batch(_fill_bucket(clients, PREDICT_MAX_BATCH),
+                            PREDICT_MAX_BATCH)
+    # the trace at the end replays each replica's bucket-16 graph; every
+    # server stops now, so no heartbeat thread or replica bring-up runs
+    # beside the later phases
+    progs16 = {rid: rset.replica(rid).batcher.program_list(entry)[-1]
+               for rid in rset.replicas()}
+    stats = rset.stats()
+    for srv in (two, one, dsrv):
+        check(srv.stop(timeout=120), "replicas: a server did not stop")
+    check(set(rset.replicas().values()) == {"stopped"}
+          and set(drs.replicas().values()) == {"stopped"},
+          f"replicas: after stop {rset.replicas()}, {drs.replicas()}")
+    # a stopped engine has released every page, prefix-cache holds too
+    held = {rid: drs.replica(rid).engine.allocator.used_pages
+            for rid in drs.replicas()}
+    check(not any(held.values()), f"replicas: pages held after the "
+                                  f"decode server stopped: {held}")
+    drs.check_leaks()
+    emit("replicas", replicas=REPLICAS, requests=n_req,
+         turns={f"replicas={n}": v for n, v in turns.items()},
+         served_by=served_by, prewarm_s=prewarm_s,
+         captures=captures, rejoin_capture=rejoin_capture,
+         restart_capture=restart_capture, restart_s=restart_s,
+         twin_failover=twin, execute_chaos=execute_chaos,
+         stall=dict(stall_ms=REPLICA_STALL_MS, detect_s=detect_s,
+                    window_s=window_s, dark_window_dispatches=dark,
+                    rejoin_s=rejoin_s, traffic=stall_traffic),
+         restart_traffic=restart_traffic, refused_placement=refused,
+         decode=decode, stats=stats, kernel_launches=launches,
+         max_abs_logit=scale, tolerance=tol,
+         seconds=time.perf_counter() - t_phase)
+    return dict(progs16=progs16, padded16=padded16, launches=launches)
+
+
+def phase_replicas_trace(torch, ctx):
+    """Each predict replica's bucket-16 graph (kept from the ``replicas``
+    phase, whose servers have stopped) replayed ``ARTIFACT_TRACE_REPLAYS``
+    times under ``torch.profiler``: 24 B1 records a replay, no wrapper
+    count.  Returns the records and replays."""
+    out = {"b1_records": 0, "bucket16": {}}
+    for rid, prog in ctx["progs16"].items():
+        check(prog.rows == PREDICT_MAX_BATCH, "replicas_trace: bucket")
+        _y, records, kernels, fam = _traced_replays(
+            torch, prog, ctx["padded16"], f"replicas_trace {rid}")
+        out["b1_records"] += records
+        out["bucket16"][rid] = dict(kernels=kernels,
+                                    device_ms_by_family=fam)
+    out["b1_replays"] = ARTIFACT_TRACE_REPLAYS * len(ctx["progs16"])
+    emit("replicas_trace", **out)
+    return out
+
+
 # ------------------------------------------------------------- artifact
 # the artifact phase's small classifier, exported on the CPU and loaded on
 # the card: 2 layers, head dim 64 (4 heads of 256 units), L = 128
@@ -2899,8 +3384,8 @@ def phase_train(torch, dev, head, feats, labels):
             if mode == "graphs":
                 rows[mode].update(compiled=tr.compiled,
                                   capture_s=tr.capture_seconds)
-        # free-running, reported: the eager step itself is not bitwise
-        # repeatable (train_graphs), so the two runs may part slowly
+        # free-running, reported: the two modes' runs are compared by
+        # train_graphs step by step
         results[dtype] = dict(
             step_flops=flops, step_flops_6nbl_rule=old,
             rule_over_count=old / flops,
@@ -2979,12 +3464,12 @@ def phase_train_graphs(torch, dev, head, feats, labels):
     every parameter after it to 1e-5 of its tensor's max|w|; bitwise
     equality is reported.  A second eager trainer stepping alongside
     from the same weights, never synchronised, gives the eager path's
-    own repeatability (reported): PyTorch's embedding backward of the
-    two-row token-type table is not bitwise repeatable, and AdamW turns
-    a rounding difference in a zero gradient (the key bias's, exactly
-    zero in exact arithmetic) into a step of ``lr``, so free-running
-    runs part by more than 1e-5 of max|w| after two steps in either
-    mode.  ``TRACED_REPLAYS`` traced replays hold ``num_layers`` kernel
+    own repeatability (reported): the embeddings' weight gradient is a
+    sorted segment sum (``models/bert.py``), so it is expected bit for
+    bit; PyTorch's own embedding backward of the two-row token-type
+    table was not, and AdamW turns a rounding difference in a zero
+    gradient (the key bias's, exactly zero in exact arithmetic) into a
+    step of ``lr``.  ``TRACED_REPLAYS`` traced replays hold ``num_layers`` kernel
     records each of B1, B2 and B3 per replay (B2/B3 launched by autograd
     on the capturing stream) and the wrappers count nothing; returns
     those records and replays by dtype.  Dropout: with p = 0.1 two replays
@@ -3775,6 +4260,7 @@ def main():
     phase_parity(torch, dev, lm)
     launches, served = phase_serve(torch, dev, lm)
     predict = phase_predict(torch, dev, lm, served)
+    replicas = phase_replicas(torch, dev, lm, served)
     artifact = phase_artifact(torch, dev)
     artifact_quant = phase_artifact_quant(torch, dev, timer)
     head, feats, labels = phase_train_parity(torch, dev)
@@ -3800,6 +4286,7 @@ def main():
     predict_traced = phase_predict_trace(torch, predict)
     artifact_traced = phase_artifact_trace(torch, dev)
     quant_traced = phase_artifact_quant_trace(torch, dev, artifact_quant)
+    replicas_traced = phase_replicas_trace(torch, replicas)
 
     pk = "mxnet_tpu/ops/pallas_kernels.py"
     kernels = []
@@ -3825,6 +4312,7 @@ def main():
             launches=launches[name],
             traced_serve_kernel_records=replayed[name],
             launches_generate=predict["launches"][name],
+            launches_replicas=replicas["launches"][name],
             **by_dtype["float32"], bfloat16=by_dtype["bfloat16"])
         # every row of the kernels phase, with the plan's split
         keys = ("dtype", "shape", "W", "B", "n_split", "ms", "bound_ms",
@@ -3885,7 +4373,10 @@ def main():
                 traced_artifact_replays=artifact_traced["replays"],
                 launches_artifact_quant=artifact_quant["launches"],
                 traced_artifact_quant_kernel_records=quant_traced["records"],
-                traced_artifact_quant_replays=quant_traced["replays"])
+                traced_artifact_quant_replays=quant_traced["replays"],
+                launches_replicas=replicas["launches"][name],
+                traced_replicas_kernel_records=replicas_traced["b1_records"],
+                traced_replicas_replays=replicas_traced["b1_replays"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -214,6 +214,35 @@ declare_env("MXNET_SERVING_CIRCUIT_COOLDOWN_MS", 1000,
             "Serving circuit breaker: how long an OPEN circuit sheds "
             "before admitting ONE half-open probe request (probe "
             "success re-closes, failure re-opens).")
+declare_env("MXNET_SERVING_REPLICAS", 1,
+            "Serving: number of replicas per model version "
+            "(mxnet_tpu_torch.serving.replica).  With N > 1 the server "
+            "builds a ReplicaSet — N replicas, each with its own bucket "
+            "programs (CUDA graphs, streams and pools) or decode engine "
+            "and KV pool over the version's one set of weights — and "
+            "routes least-loaded among HEALTHY replicas; a failed "
+            "replica's requests fail over to siblings under their "
+            "original deadlines.  On one card every replica shares it.  "
+            "1 (default) = the single-replica path, unchanged.")
+declare_env("MXNET_SERVING_REPLICA_HEARTBEAT_MS", 50,
+            "Serving replicas: heartbeat interval per replica worker "
+            "(milliseconds).  Each replica's heartbeat thread beats, "
+            "then sweeps the whole set for stale siblings, so a "
+            "stalled replica is detected by its peers even with zero "
+            "traffic.")
+declare_env("MXNET_SERVING_REPLICA_HEARTBEAT_WINDOW_MS", 500,
+            "Serving replicas: a replica whose last heartbeat is older "
+            "than this window is marked UNHEALTHY (unroutable) until "
+            "beats resume AND it re-passes prewarm (the rolling-"
+            "recovery gate: a rejoining replica never serves a "
+            "program it has not built and run).")
+declare_env("MXNET_SERVING_REPLICA_FAILURE_THRESHOLD", 3,
+            "Serving replicas: consecutive typed execute failures that "
+            "trip one replica's circuit breaker (UNHEALTHY, sheds to "
+            "siblings) without waiting for the sliding error-rate "
+            "window to fill — the dead-replica fast path.  After "
+            "MXNET_SERVING_CIRCUIT_COOLDOWN_MS one probe request may "
+            "re-close it.  0 = windowed error rate only.")
 declare_env("MXNET_COMPILE_CACHE_DIR", None,
             "Persistent compile-cache directory "
             "(mxnet_tpu_torch.compile_cache): the port keeps its nvcc-"

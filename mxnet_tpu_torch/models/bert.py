@@ -18,6 +18,13 @@ block's ``collect_params()`` with the top block's prefix removed.
 ``BERTClassifier`` is the sentence-pair classification head that
 ``serving.ModelRepository.add_block`` serves; ``BERTForQA`` is not
 ported yet (ROADMAP).
+
+The word and token-type embeddings take their weight gradient as a plain
+sorted segment sum (:class:`_SortedSegmentEmbedding`), the same bits on
+every run: PyTorch's CUDA embedding backward sums a row that many
+positions share in a run-dependent order (on the card the 2-row
+token-type table's gradient differed between two backward passes), which
+kept fp32 training from resuming bit for bit.
 """
 from __future__ import annotations
 
@@ -40,6 +47,39 @@ NEG_INF = -1e9
 # the parameters the JAX BERT declares init="normal"
 _NORMAL_INIT = ("word_embed.weight", "token_type_embed.weight",
                 "position_weight")
+
+
+class _SortedSegmentEmbedding(torch.autograd.Function):
+    """``F.embedding(idx, weight)`` whose weight gradient is a sorted
+    segment sum: the output gradient's rows stably sorted by index, each
+    table row's run summed in order (``torch.segment_reduce``, fp32) — one
+    order on every run, on every device, and no shape that depends on the
+    data, so a captured training step replays it."""
+
+    @staticmethod
+    def forward(ctx, weight, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.dtype = weight.shape[0], weight.dtype
+        return F.embedding(idx, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        counts = torch.zeros(ctx.rows, dtype=torch.long,
+                             device=flat.device).scatter_add_(
+            0, flat, torch.ones_like(flat))
+        rows = grad.reshape(flat.numel(), -1).index_select(0, order)
+        dw = torch.segment_reduce(rows.float(), "sum", lengths=counts,
+                                  unsafe=True)
+        return dw.to(ctx.dtype), None
+
+
+def _embed(table, idx):
+    """``table(idx)`` (an ``nn.Embedding``) with the sorted-segment-sum
+    weight gradient."""
+    return _SortedSegmentEmbedding.apply(table.weight, idx.long())
 
 
 class BERTEncoder(nn.Module):
@@ -125,9 +165,9 @@ class BERTModel(nn.Module):
 
     def forward(self, inputs, token_types=None, valid_length=None):
         L = inputs.shape[1]
-        emb = self.word_embed(inputs.long())
+        emb = _embed(self.word_embed, inputs)
         if token_types is not None:
-            emb = emb + self.token_type_embed(token_types.long())
+            emb = emb + _embed(self.token_type_embed, token_types)
         x = emb.transpose(0, 1)                                 # (L, B, C)
         if self._use_flash:
             # padding rides the flash kernels' lengths vector; no O(L^2)

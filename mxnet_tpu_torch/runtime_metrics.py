@@ -757,6 +757,29 @@ SERVING_DECODE_QUARANTINED = counter(
     "Sequences evicted alone after a decode/prefill step failure was "
     "bisected down to them (pages reclaimed, batchmates keep "
     "decoding), per model.", labelnames=("model",))
+SERVING_REPLICA_STATE = gauge(
+    "serving.replica.state",
+    "Replica lifecycle state per (model, replica): 0 starting, "
+    "1 prewarming, 2 healthy, 3 unhealthy, 4 draining, 5 stopped "
+    "(serving.replica.ReplicaSet).  Only state 2 is routable.",
+    labelnames=("model", "replica"))
+SERVING_REPLICA_REQUESTS = counter(
+    "serving.replica.requests",
+    "Requests dispatched to one replica (predict batches + generate "
+    "submissions), per (model, replica) — compare across replicas for "
+    "the live load balance.", labelnames=("model", "replica"))
+SERVING_REPLICA_FAILOVERS = counter(
+    "serving.replica.failovers",
+    "Requests rerouted to a sibling replica after their first replica "
+    "failed (typed execute failure, quarantine, or engine stop), per "
+    "model.  Every failed-over request keeps its ORIGINAL end-to-end "
+    "deadline.", labelnames=("model",))
+SERVING_REPLICA_HEARTBEAT_AGE = gauge(
+    "serving.replica.heartbeat_age",
+    "Seconds since one replica's last heartbeat, per (model, replica) "
+    "— updated on every health sweep; ages past "
+    "MXNET_SERVING_REPLICA_HEARTBEAT_WINDOW_MS mark the replica "
+    "UNHEALTHY.", labelnames=("model", "replica"))
 
 COMPILE_CACHE = counter(
     "compile.cache",

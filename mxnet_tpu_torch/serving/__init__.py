@@ -1,8 +1,7 @@
 """Inference serving of the PyTorch port (docs/serving.md).
 
-The port of ``mxnet_tpu.serving`` minus its replica, admission,
-autoscaler and traffic modules (ROADMAP item 3c) and the artifact path
-(``ModelRepository.load_artifact``, item 3a′):
+The port of ``mxnet_tpu.serving`` minus its admission, autoscaler and
+traffic modules (ROADMAP item 3c-ii):
 
 - :class:`ModelRepository` — versioned ``nn.Module`` blocks (weights
   snapshotted at registration), decoders and functions, atomic
@@ -20,6 +19,14 @@ autoscaler and traffic modules (ROADMAP item 3c) and the artifact path
   speculative decoding; :class:`PagedLMAdapter` runs the LM's paged
   forwards as CUDA graphs over the hand-written decode and verify
   attention kernels;
+- :class:`ReplicaSet` — multi-replica serving: N replicas of one model
+  version over its one set of weights, each with its own bucket graphs
+  or decode engine and KV pool; heartbeat + consecutive-failure health
+  checks, least-loaded routing among HEALTHY replicas, failover under
+  the request's original deadline, and prewarm-gated rolling
+  add/remove/rejoin — active whenever ``ServingConfig(replicas=N > 1)``
+  (``MXNET_SERVING_REPLICAS``).  On one card every replica shares it,
+  and each captures its own graphs (a CUDA graph does not persist);
 - the resilience layer (docs/serving.md §8): end-to-end deadlines,
   bounded jittered retries, failed-batch bisection, decode quarantine,
   and per-model-version circuit breakers (:class:`CircuitBreaker`,
@@ -37,6 +44,7 @@ from .config import ServingConfig
 from .decode import DecodeEngine, GenerateRequest, PagedLMAdapter, \
     as_decode_model
 from .kv_cache import DeviceKVPool, PageAllocator, PageGeometry, PrefixCache
+from .replica import Replica, ReplicaSet
 from .repository import ModelEntry, ModelRepository
 from .resilience import (CircuitBreaker, CircuitOpenError, Deadline,
                          DeadlineExceededError, ServerOverloadedError,
@@ -50,4 +58,5 @@ __all__ = ["ModelRepository", "ModelEntry", "ModelServer",
            "as_decode_model", "PageGeometry", "PageAllocator",
            "PrefixCache", "DeviceKVPool",
            "Deadline", "DeadlineExceededError", "CircuitBreaker",
-           "CircuitOpenError", "honor_retry_after"]
+           "CircuitOpenError", "honor_retry_after",
+           "Replica", "ReplicaSet"]

@@ -102,6 +102,20 @@ def _host(out):
     return np.asarray(out)
 
 
+def _same_device(a, b):
+    """Whether two device specs (``torch.device``, strings) name one
+    device; a CUDA device without an index is the current one."""
+    import torch
+
+    def norm(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device()
+                                if torch.cuda.is_available() else 0)
+        return d
+    return norm(a) == norm(b)
+
+
 def unpad_outputs(outputs, offsets):
     """Split batch-major outputs back into per-request tuples, dropping
     padding rows (everything past ``offsets[-1]``)."""
@@ -127,10 +141,19 @@ class DynamicBatcher:
 
     Programs of one entry may be built and executed by several worker
     threads at once: each program serialises its own callers, and each
-    build runs outside this batcher's lock."""
+    build runs outside this batcher's lock.
 
-    def __init__(self, config):
+    ``device`` (a replica's lead device; None for the server's own
+    batcher) is where this batcher's programs must run.  A program runs
+    where its entry's weights live (``entry.device``), so a batcher
+    placed elsewhere refuses the entry with :class:`MXNetError` when its
+    replica is built (:meth:`check_device`) instead of copying the
+    weights to another card: placing replica weights across cards is
+    ROADMAP.md Queue A, item 5."""
+
+    def __init__(self, config, device=None):
         self.config = config
+        self.device = device
         self._lock = engine.make_lock("serving.DynamicBatcher._lock")
         self._progs = {}            # (entry.uid, bucket) -> callable
         self._building = {}         # key -> Event (in-flight builds)
@@ -212,6 +235,28 @@ class DynamicBatcher:
             if entry is None:
                 return len(self._progs)
             return sum(1 for uid, _ in self._progs if uid == entry.uid)
+
+    def program_list(self, entry):
+        """The cached programs of ``entry``, by ascending bucket."""
+        with self._lock:
+            return [p for (uid, _b), p in sorted(
+                self._progs.items(), key=lambda kv: kv[0][1])
+                if uid == entry.uid]
+
+    def check_device(self, entry):
+        """Raise :class:`MXNetError` unless this batcher's ``device``
+        (when set) is the device holding ``entry``'s weights (when it
+        has one)."""
+        want = entry.device
+        if self.device is None or want is None \
+                or _same_device(self.device, want):
+            return
+        raise MXNetError(
+            f"serving {entry.name!r}: a replica placed on {self.device} "
+            f"cannot run a version whose weights live on {want} — the "
+            f"port does not copy weights between devices; placing "
+            f"replica weights across cards is ROADMAP.md Queue A, "
+            f"item 5 (multi-GPU)")
 
     def evict(self, entry):
         """Drop cached programs of an unloaded entry (with them its CUDA

@@ -3,10 +3,10 @@
 The PyTorch port's copy of ``mxnet_tpu.serving.config``: the predict
 path's batching, backpressure, deadline and circuit-breaker knobs and
 the decode engine's, under the same ``MXNET_SERVING_*`` names and with
-the same defaults and validation.  The replica (``replicas*``) and
-tiered-admission (``tenant_tiers``, ``admission_shed_start``) knobs
-come with the replica slice; without them a server behaves as the
-reference does with them unset (one replica, no admission gate).
+the same defaults and validation, and the replica layer's
+(``replicas*``).  The tiered-admission knobs (``tenant_tiers``,
+``admission_shed_start``) come with their slice; without them a server
+behaves as the reference does with them unset (no admission gate).
 
 Defaults come from the ``MXNET_SERVING_*`` environment variables
 (declared in ``base.py``, documented in ``docs/env_vars.md``);
@@ -61,6 +61,16 @@ class ServingConfig:
     outcomes, trip at ``circuit_threshold`` error rate, shed for
     ``circuit_cooldown_ms`` before the half-open probe;
     ``circuit_window=0`` disables).
+
+    Replica knobs: ``replicas`` > 1 serves each model version through a
+    :class:`~mxnet_tpu_torch.serving.replica.ReplicaSet` — N replicas,
+    least-loaded routing among HEALTHY replicas, failover under the
+    original deadline, prewarm-gated rolling recovery.  Health policy:
+    ``replica_heartbeat_ms`` beat interval,
+    ``replica_heartbeat_window_ms`` staleness bound past which a
+    replica is unroutable, ``replica_failure_threshold`` consecutive
+    typed failures that trip its breaker without filling the windowed
+    error rate.
     """
 
     def __init__(self, max_batch_size=None, max_latency_us=None,
@@ -71,7 +81,10 @@ class ServingConfig:
                  retry_max=None, retry_backoff_ms=None,
                  circuit_window=None, circuit_threshold=None,
                  circuit_cooldown_ms=None, prefix_cache=None,
-                 prefix_cache_pages=None, spec_k=None, spec_draft=None):
+                 prefix_cache_pages=None, spec_k=None, spec_draft=None,
+                 replicas=None, replica_heartbeat_ms=None,
+                 replica_heartbeat_window_ms=None,
+                 replica_failure_threshold=None):
         def pick(value, env, typ=int):
             if value is None:
                 value = get_env(env, typ=typ)
@@ -121,6 +134,17 @@ class ServingConfig:
         self.circuit_cooldown_ms = pick(
             circuit_cooldown_ms, "MXNET_SERVING_CIRCUIT_COOLDOWN_MS",
             typ=float)
+        # replica layer
+        self.replicas = pick(replicas, "MXNET_SERVING_REPLICAS")
+        self.replica_heartbeat_ms = pick(
+            replica_heartbeat_ms, "MXNET_SERVING_REPLICA_HEARTBEAT_MS",
+            typ=float)
+        self.replica_heartbeat_window_ms = pick(
+            replica_heartbeat_window_ms,
+            "MXNET_SERVING_REPLICA_HEARTBEAT_WINDOW_MS", typ=float)
+        self.replica_failure_threshold = pick(
+            replica_failure_threshold,
+            "MXNET_SERVING_REPLICA_FAILURE_THRESHOLD")
 
         if self.max_batch_size < 1:
             raise MXNetError("ServingConfig: max_batch_size must be >= 1")
@@ -180,6 +204,21 @@ class ServingConfig:
         if self.circuit_cooldown_ms < 0:
             raise MXNetError(
                 "ServingConfig: circuit_cooldown_ms must be >= 0")
+        if self.replicas < 1:
+            raise MXNetError("ServingConfig: replicas must be >= 1")
+        if self.replica_heartbeat_ms <= 0:
+            raise MXNetError(
+                "ServingConfig: replica_heartbeat_ms must be > 0")
+        if self.replica_heartbeat_window_ms <= self.replica_heartbeat_ms:
+            raise MXNetError(
+                f"ServingConfig: replica_heartbeat_window_ms "
+                f"({self.replica_heartbeat_window_ms}) must exceed the "
+                f"beat interval ({self.replica_heartbeat_ms}) — a "
+                f"window under one beat marks every replica dead")
+        if self.replica_failure_threshold < 0:
+            raise MXNetError(
+                "ServingConfig: replica_failure_threshold must be >= 0 "
+                "(0 = windowed error rate only)")
 
     def __repr__(self):
         return (f"ServingConfig(max_batch_size={self.max_batch_size}, "
@@ -201,4 +240,10 @@ class ServingConfig:
                 f"retry_backoff_ms={self.retry_backoff_ms}, "
                 f"circuit_window={self.circuit_window}, "
                 f"circuit_threshold={self.circuit_threshold}, "
-                f"circuit_cooldown_ms={self.circuit_cooldown_ms})")
+                f"circuit_cooldown_ms={self.circuit_cooldown_ms}, "
+                f"replicas={self.replicas}, "
+                f"replica_heartbeat_ms={self.replica_heartbeat_ms}, "
+                f"replica_heartbeat_window_ms="
+                f"{self.replica_heartbeat_window_ms}, "
+                f"replica_failure_threshold="
+                f"{self.replica_failure_threshold})")

@@ -60,7 +60,9 @@ class ModelEntry:
 
     def __init__(self, name, version, kind, signature, dynamic_batch,
                  make_program, fixed_batch=None, decode_model=None,
-                 draft_model=None, decode_meta=None, quantization=None):
+                 draft_model=None, decode_meta=None, quantization=None,
+                 decode_model_factory=None, draft_model_factory=None,
+                 device=None):
         self.name = name
         self.version = version
         # "block" | "function" | "decoder" | "stablehlo" (an artifact)
@@ -73,6 +75,16 @@ class ModelEntry:
         # (serving/decode.py protocol) and its speculative draft
         self.decode_model = decode_model
         self.draft_model = draft_model
+        # replica serving: callables yielding a FRESH decode model /
+        # draft per replica — each replica's engine owns its model's
+        # device state (KV pool, graphs), so N replicas cannot share
+        # one stateful model object.  None: the replica layer clones
+        # PagedLMAdapters itself
+        self.decode_model_factory = decode_model_factory
+        self.draft_model_factory = draft_model_factory
+        # the torch.device holding the version's weights (None for a
+        # function entry): where every replica's programs must run
+        self.device = device
         # an artifact's manifest "decode" metadata (export_stablehlo's
         # decode=): the contract for an external decode runtime
         self.decode_meta = decode_meta
@@ -413,7 +425,7 @@ class ModelRepository:
         entry = ModelEntry(name, version, "stablehlo", sig, dynamic,
                            make_program, fixed_batch=fixed,
                            decode_meta=manifest.get("decode"),
-                           quantization=quantization)
+                           quantization=quantization, device=dev)
         return self._register(entry, activate)
 
     def add_block(self, name, module, *example_inputs, version=None,
@@ -449,11 +461,13 @@ class ModelRepository:
         entry = ModelEntry(name, version, "block", sig, dynamic_batch,
                            make_program,
                            fixed_batch=None if dynamic_batch
-                           else int(example_inputs[0].shape[0]))
+                           else int(example_inputs[0].shape[0]),
+                           device=device)
         return self._register(entry, activate)
 
     def add_decoder(self, name, model, version=None, activate=True,
-                    eos_id=None, draft=None, device=None):
+                    eos_id=None, draft=None, device=None,
+                    model_factory=None, draft_factory=None):
         """Register an autoregressive decode model served through
         ``ModelServer.generate()`` (docs/serving.md §6).
 
@@ -472,7 +486,15 @@ class ModelRepository:
         protocol, typically much smaller) to this entry: with
         ``spec_k`` > 0 the entry's engine has the draft propose k
         tokens per sequence per round and the target verify them in
-        one call (docs/serving.md §9)."""
+        one call (docs/serving.md §9).
+
+        ``model_factory`` / ``draft_factory`` (callables returning a
+        fresh decode-model / draft object) serve multi-replica
+        deployments (``ServingConfig(replicas=N)``): each replica's
+        engine needs its OWN model instance because the model binds
+        replica-local device state (KV pool, graphs).  Unneeded for a
+        ``TransformerDecoderLM`` — the replica layer clones its adapter
+        over the same weights."""
         from .decode import as_decode_model
         adapter = as_decode_model(model, eos_id=eos_id,
                                   device=device or _module_device_of(model))
@@ -480,6 +502,16 @@ class ModelRepository:
         if draft is not None:
             draft_adapter = as_decode_model(
                 draft, device=device or _module_device_of(draft))
+
+        def wrap_factory(factory, **kw):
+            if factory is None:
+                return None
+
+            def make():
+                obj = factory()
+                return as_decode_model(
+                    obj, device=device or _module_device_of(obj), **kw)
+            return make
         sig = [{"shape": [None], "dtype": "int32"}]
 
         def make_program(bucket_rows):
@@ -489,7 +521,12 @@ class ModelRepository:
 
         entry = ModelEntry(name, version, "decoder", sig, False,
                            make_program, decode_model=adapter,
-                           draft_model=draft_adapter)
+                           draft_model=draft_adapter,
+                           decode_model_factory=wrap_factory(
+                               model_factory, eos_id=eos_id),
+                           draft_model_factory=wrap_factory(
+                               draft_factory),
+                           device=getattr(adapter, "device", None))
         return self._register(entry, activate)
 
     def add_function(self, name, fn, signature, version=None,

@@ -4,11 +4,14 @@
 The PyTorch port of ``mxnet_tpu.serving.server``: ``predict`` over the
 port's ``DynamicBatcher`` (an ``add_block`` entry runs one CUDA graph
 per batch bucket on the card) and ``generate`` over the port's
-``DecodeEngine``.  The replica layer and the tiered admission gate come
-with their slice: a port server behaves as the reference does with
-``replicas=1`` and no ``tenant_tiers`` (``tenant=`` is accepted and
-rides the default tier; :meth:`ModelServer.admission_controller` is
-None).
+``DecodeEngine``; with ``ServingConfig(replicas=N > 1)`` each model
+version serves through a :class:`~mxnet_tpu_torch.serving.replica.
+ReplicaSet` instead (N replicas sharing the version's weights, each
+with its own bucket graphs or decode engine; on one card all of them
+share it).  The tiered admission gate comes with its slice: a port
+server behaves as the reference does with no ``tenant_tiers``
+(``tenant=`` is accepted and rides the default tier;
+:meth:`ModelServer.admission_controller` is None).
 
 ``predict()`` is synchronous from the caller's side; underneath,
 admitted requests land in a bounded per-model queue, a worker pool
@@ -103,6 +106,14 @@ class ModelServer:
         # racers must not both run setup() on one shared adapter
         self._decoder_build = engine.make_lock(
             "serving.ModelServer._decoder_build")
+        # replica layer: with config.replicas > 1 each entry serves
+        # through a lazily built ReplicaSet instead of the shared
+        # batcher / single decode engine.  Same build discipline as
+        # decoders: construction (N prewarms) runs under its own lock,
+        # never under _cond
+        self._replica_sets = OrderedDict()  # entry.uid -> ReplicaSet
+        self._replica_build = engine.make_lock(
+            "serving.ModelServer._replica_build")
         self._depth = 0
         self._inflight = 0              # admitted, popped, not finished
         self._started = False
@@ -189,22 +200,31 @@ class ModelServer:
         alive = [t for t in self._workers if t.is_alive()]
         if alive:
             return False
-        # decode engines go down with the worker pool; outstanding
-        # generate() calls fail with finish_reason="stopped"
+        # decode engines and replica sets go down with the worker pool;
+        # outstanding generate() calls fail with finish_reason="stopped"
         with self._cond:
             decoders = dict(self._decoders)
             self._decoders.clear()
+            rsets = dict(self._replica_sets)
+            self._replica_sets.clear()
         stuck = {}
         for uid, eng in decoders.items():
             if not eng.stop(timeout=None if deadline is None
                             else max(0.0, deadline - time.monotonic())):
                 stuck[uid] = eng
-        if stuck:
+        stuck_sets = {}
+        for uid, rset in rsets.items():
+            if not rset.stop(timeout=None if deadline is None
+                             else max(0.0,
+                                      deadline - time.monotonic())):
+                stuck_sets[uid] = rset
+        if stuck or stuck_sets:
             # same contract as a stuck worker: keep the references so a
             # later stop() can finish the job, stay in the stopping
             # state, report failure — never leak a live step loop
             with self._cond:
                 self._decoders.update(stuck)
+                self._replica_sets.update(stuck_sets)
             return False
         with self._cond:
             self._started = False
@@ -219,15 +239,19 @@ class ModelServer:
         (their CUDA graphs and pools, and their hold on the weight
         snapshot), the version's circuit breaker (a retired uid's error
         history must not pin memory across hot-swap churn), AND
-        stop/drop the entry's decode engine (its KV pool and graphs must
-        not pin device memory for a retired version)."""
+        stop/drop the entry's decode engine and replica set (their KV
+        pools and per-replica graphs must not pin device memory for a
+        retired version)."""
         self.batcher.evict(entry)
         with self._cond:
             eng = self._decoders.pop(entry.uid, None)
+            rset = self._replica_sets.pop(entry.uid, None)
             self._breakers.pop(entry.uid, None)
             self._retired_uids.add(entry.uid)
         if eng is not None:
             eng.stop()
+        if rset is not None:
+            rset.stop()
 
     def __enter__(self):
         return self.start()
@@ -432,6 +456,97 @@ class ModelServer:
             raise req.error
         return req.result if len(req.result) > 1 else req.result[0]
 
+    # ------------------------------------------------------------- replicas
+    def _replicated(self, entry):
+        """Whether this entry serves through a ReplicaSet.  The
+        single-replica configuration keeps the pre-replica path as it
+        was (shared batcher / one decode engine), so replicas=1 cannot
+        regress anything."""
+        return self.config.replicas > 1
+
+    def _replica_devices(self, entry):
+        """Device placement for one entry's replicas.  Function entries
+        have no device work to place, and a decoder's replicas run where
+        its LM's weights are; a block or artifact entry's replicas take
+        groups of the visible CUDA devices (``replica_groups``: a
+        one-card pool is shared by every replica), or the entry's own
+        device when its weights are on the CPU.  A group whose lead
+        device does not hold the weights is refused when its replica is
+        built; nothing here falls back."""
+        if entry.kind in ("function", "decoder"):
+            return None
+        from ..parallel.placement import replica_groups
+        dev = entry.device
+        if dev is not None and dev.type != "cuda":
+            return replica_groups(self.config.replicas, devices=[dev])
+        return replica_groups(self.config.replicas)
+
+    def _replica_set(self, entry):
+        """The (lazily built) ReplicaSet of one entry uid.  Build —
+        which prewarms every replica — runs under the dedicated build
+        lock so admissions never stall behind it, with the same
+        start-vs-stop re-check discipline as decode engines."""
+        from .replica import ReplicaSet
+        not_accepting = MXNetError(
+            "ModelServer is not accepting requests "
+            "(not started, or shutting down)")
+        with self._cond:
+            if not self._started or self._stopping:
+                raise not_accepting
+            rset = self._replica_sets.get(entry.uid)
+        if rset is not None:
+            return rset
+        with self._replica_build:
+            with self._cond:
+                if not self._started or self._stopping:
+                    raise not_accepting
+                rset = self._replica_sets.get(entry.uid)
+            if rset is not None:
+                return rset
+            fresh = ReplicaSet(entry, self.config,
+                               devices=self._replica_devices(entry))
+            reject = False
+            with self._cond:
+                if not self._started or self._stopping \
+                        or entry.uid in self._retired_uids:
+                    reject = True
+                else:
+                    self._replica_sets[entry.uid] = fresh
+            if reject:
+                fresh.stop()
+                raise not_accepting
+            # close the build-vs-unload race the decode engines also
+            # guard: an unload that popped the map between our insert
+            # and here has already "stopped" a set it never saw — stop
+            # the orphan and reject rather than leak its threads
+            with self._cond:
+                tracked = self._replica_sets.get(entry.uid) is fresh
+            if not tracked:
+                fresh.stop()
+                raise not_accepting
+            return fresh
+
+    def replica_set(self, model, version=None):
+        """The :class:`~mxnet_tpu_torch.serving.replica.ReplicaSet`
+        serving (model, version) — built (every replica prewarmed) on
+        first use.  Raises unless ``config.replicas`` > 1."""
+        entry = self.repository._resolve(model, version)
+        if not self._replicated(entry):
+            raise MXNetError(
+                f"replica_set({model!r}): config.replicas="
+                f"{self.config.replicas} — the replica layer needs "
+                f"replicas > 1")
+        return self._replica_set(entry)
+
+    def _execute_batch(self, entry, inputs, deadline):
+        """One batch execution: through the entry's ReplicaSet
+        (least-loaded healthy replica, deadline-preserving failover)
+        when replicas are configured, else the shared batcher."""
+        if self._replicated(entry):
+            return self._replica_set(entry).run_batch(
+                inputs, deadline=deadline)
+        return self.batcher.run_batch(entry, inputs, deadline=deadline)
+
     # ------------------------------------------------------------- generate
     def _decoder_engine(self, entry):
         """The (lazily created) decode engine of a decoder entry.  One
@@ -545,6 +660,18 @@ class ModelServer:
             if timeout is None:
                 timeout = self.config.deadline_default
             self._admit_circuit(entry)
+            if self._replicated(entry):
+                # replica path: the set routes to the least-loaded
+                # healthy replica's engine and fails a dead replica's
+                # sequence over to a sibling as a fresh request under
+                # this SAME deadline.  Health lives in the per-replica
+                # breakers — the version-level breaker stays
+                # admission-only here (a fully-dark set sheds as
+                # ServerOverloadedError from the router)
+                return self._replica_set(entry).generate(
+                    prompt, max_new_tokens=max_new_tokens,
+                    eos_id=eos_id, on_token=on_token, timeout=timeout,
+                    _trace_ctx=root.context)
             eng = self._decoder_engine(entry)
             # pass the (already made) sampling decision down: a
             # sampled-out request must NOT re-enter head sampling in
@@ -567,10 +694,14 @@ class ModelServer:
     def decode_stats(self, model):
         """The decode engine's scheduler/pool counters for ``model``
         (steps, generated tokens, admissions/evictions, KV-pool
-        occupancy, programs vs bound)."""
+        occupancy, programs vs bound).  With replicas configured, one
+        entry per replica id."""
         entry = self.repository.get(model)
         with self._cond:
             eng = self._decoders.get(entry.uid)
+            rset = self._replica_sets.get(entry.uid)
+        if rset is not None:
+            return rset.decode_stats()
         if eng is None:
             raise MXNetError(
                 f"decode_stats({model!r}): no decode engine yet "
@@ -591,7 +722,18 @@ class ModelServer:
         After a prewarmed swap no request ever waits on a build (for a
         block entry on the card: a CUDA-graph capture): every bucket's
         program is already in the batcher's memory cache, and each has
-        run once.  Returns the repository's summary dict."""
+        run once.  Returns the repository's summary dict.
+
+        With replicas configured, prewarming builds the whole
+        ReplicaSet instead — EVERY replica's programs are built (on the
+        card: each replica's own graphs captured) and executed before
+        any of them is routable."""
+        entry = self.repository._resolve(model, version)
+        if self._replicated(entry):
+            rset = self._replica_set(entry)
+            return {"model": model, "version": entry.version,
+                    "replicas": rset.replicas(),
+                    "stats": rset.stats()}
         return self.repository.prewarm(
             model, version, batcher=self.batcher,
             max_batch_size=self.config.max_batch_size)
@@ -608,6 +750,20 @@ class ModelServer:
         out["bucket_disk_hits"] = self.batcher.bucket_disk_hits
         out["bucket_misses"] = self.batcher.bucket_misses
         out["programs"] = self.batcher.programs()
+        with self._cond:
+            rsets = dict(self._replica_sets)
+        if rsets:
+            # keyed by model name; when TWO versions of one model are
+            # live (staged prewarm during a hot-swap window) the later
+            # uid disambiguates as "name@vN" instead of silently
+            # shadowing the serving version's counters
+            sets = {}
+            for rset in rsets.values():
+                key = rset.name
+                if key in sets:
+                    key = f"{rset.name}@v{rset.entry.version}"
+                sets[key] = rset.stats()
+            out["replica_sets"] = sets
         return out
 
     def debug_state(self):
@@ -628,6 +784,7 @@ class ModelServer:
                     "head_age_s": None if not q
                     else round(now - q[0].t_enq, 6)})
             decoders = dict(self._decoders)
+            rsets = dict(self._replica_sets)
             state = {
                 "server": self.name,
                 "started": self._started,
@@ -643,6 +800,8 @@ class ModelServer:
         # only after _cond is released (one-way acquisition order)
         state["decoders"] = {str(uid): eng.debug_state()
                              for uid, eng in decoders.items()}
+        state["replica_sets"] = {str(uid): rset.debug_state()
+                                 for uid, rset in rsets.items()}
         state["circuits"] = {str(uid): br.debug_state()
                              for uid, br in breakers.items()}
         state["batcher"] = {
@@ -772,9 +931,9 @@ class ModelServer:
         group_deadline = self._group_deadline(reqs)
         try:
             results = retry_call(
-                lambda: self.batcher.run_batch(
+                lambda: self._execute_batch(
                     entry, [r.inputs for r in reqs],
-                    deadline=group_deadline),
+                    group_deadline),
                 retries=self.config.retry_max,
                 backoff_ms=self.config.retry_backoff_ms,
                 deadline=group_deadline,

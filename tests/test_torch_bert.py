@@ -233,3 +233,43 @@ def test_self_attention_forward_errors():
 def test_unknown_bert_config_raises():
     with pytest.raises(MXNetError, match="unknown bert config"):
         tm.get_bert_model("bert_1_2_3", device="cpu")
+
+
+# ------------------------------------------ the embeddings' weight gradient
+@pytest.mark.parametrize("rows", [2, 64])
+def test_sorted_segment_embedding_gradient(rows):
+    """The word / token-type embeddings' weight gradient (a sorted segment
+    sum) equals ``nn.Embedding``'s on the same indices within fp32
+    rounding — a 2-row table (every position shares a row, as the
+    token-type table) and a 64-row one with rows no index reaches — and
+    is the same bits on a second backward."""
+    from mxnet_tpu_torch.models.bert import _embed
+    torch.manual_seed(0)
+    table = torch.nn.Embedding(rows, 16)
+    idx = torch.randint(0, min(rows, 40), (6, 50))
+    grad = torch.randn(6, 50, 16)
+    got = []
+    for _ in range(2):
+        table.weight.grad = None
+        _embed(table, idx).backward(grad)
+        got.append(table.weight.grad.clone())
+    table.weight.grad = None
+    torch.nn.functional.embedding(idx, table.weight).backward(grad)
+    want = table.weight.grad
+    assert torch.equal(got[0], got[1])
+    np.testing.assert_allclose(got[0].numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+    if rows > 40:
+        assert not got[0][40:].any()
+
+
+def test_sorted_segment_embedding_keeps_the_table_dtype():
+    from mxnet_tpu_torch.models.bert import _embed
+    table = torch.nn.Embedding(4, 8).to(torch.bfloat16)
+    idx = torch.tensor([[0, 3, 3, 1]])
+    out = _embed(table, idx)
+    assert out.dtype == torch.bfloat16
+    out.float().sum().backward()
+    assert table.weight.grad.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        table.weight.grad.float().sum(1).numpy(), [8, 8, 0, 16])

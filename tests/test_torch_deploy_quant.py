@@ -24,6 +24,7 @@ runs BERT-large on the card.
 """
 import json
 import os
+import re
 import shutil
 import threading
 
@@ -416,12 +417,25 @@ BERT_KW = dict(vocab_size=64, units=64, hidden_size=128, num_layers=2,
 L = 32
 
 
-@pytest.fixture(scope="module")
-def bert_quant(tmp_path_factory):
-    """The JAX flash ``BERTClassifier`` (2 layers, 64 units) and its port
-    twin with the same weights, both exported int8 on the same
-    calibration batch (the port's with ``dynamic_batch=True``): (jclf,
-    tclf, port path prefix, JAX path prefix, name map port -> JAX)."""
+def _jax_name_map(jclf):
+    """The JAX classifier's parameters keyed as the port's
+    ``gluon_names()`` keys them -> their real JAX names.  The classifier's
+    own prefix is removed, and the BERT model's ``bertmodel<N>_`` (N
+    counts the BERT models the process built before this one) reads
+    ``bertmodel0_``, as ``load_numpy_params`` and the trainer tests
+    normalise it; the values map back to the real names, under which the
+    JAX artifact stores its tensors."""
+    pre = jclf.prefix
+    return {re.sub(r"^bertmodel\d+_", "bertmodel0_",
+                   k[len(pre):] if k.startswith(pre) else k): k
+            for k in jclf.collect_params()}
+
+
+def _bert_twins():
+    """The JAX flash ``BERTClassifier`` (seed 0), its port twin carried by
+    ``load_numpy_params``, and the name map: a port parameter's
+    state-dict name (each >= 2-d one, the quantized set) -> the real name
+    of the JAX parameter whose values it holds."""
     from mxnet_tpu import models as jm
     from mxnet_tpu.models.bert import BERTClassifier as JaxClassifier
     from mxnet_tpu_torch import models as tm
@@ -431,21 +445,46 @@ def bert_quant(tmp_path_factory):
     jbert.initialize()
     jclf = JaxClassifier(jbert, num_classes=2, dropout=0.0)
     jclf.initialize()
-    pre = jclf.prefix
-    jnames = {(k[len(pre):] if k.startswith(pre) else k): k
-              for k in jclf.collect_params()}
+    jnames = _jax_name_map(jclf)
     np_params = {short: jclf.collect_params()[k].data().asnumpy()
                  for short, k in jnames.items()}
     tbert = tm.get_bert_model("bert_12_768_12", use_flash=True,
                               device="cpu", **BERT_KW)
     tclf = tm.BERTClassifier(tbert, dropout=0.0).load_numpy_params(
         np_params).eval()
-    # the name map: a port parameter's state-dict name -> the JAX
-    # parameter whose values it holds (gluon_names(), with the JAX
-    # classifier's prefix where its own parameters carry it)
     by_id = {id(t): jnames[g] for g, t in tclf.gluon_names().items()}
     names = {n: by_id[id(p)] for n, p in tclf.named_parameters()
              if p.dim() >= 2}
+    return jclf, tclf, names
+
+
+def test_bert_name_map_survives_an_earlier_jax_bert():
+    """The name map does not depend on how many BERT models the process
+    built before: with one extra JAX BERT model built first (its gluon
+    counter moves, so the classifier's parameters are named
+    ``bertmodel<N>_...`` with N >= 1) it still covers all 13 quantized
+    tensors, each mapped to a real JAX parameter holding its values."""
+    from mxnet_tpu import models as jm
+    jm.get_bert_model("bert_12_768_12", use_flash=True, **BERT_KW)
+    jclf, tclf, names = _bert_twins()
+    assert len(names) == 3 + 4 * BERT_KW["num_layers"] + 2
+    jparams = jclf.collect_params()
+    assert any(not k.startswith("bertmodel0_") for k in jparams), \
+        "the gluon counter did not move"
+    tparams = dict(tclf.named_parameters())
+    for tname, jname in names.items():
+        got = tparams[tname].detach().numpy()
+        want = jparams[jname].data().asnumpy()
+        np.testing.assert_array_equal(got, want, err_msg=tname)
+
+
+@pytest.fixture(scope="module")
+def bert_quant(tmp_path_factory):
+    """The JAX flash ``BERTClassifier`` (2 layers, 64 units) and its port
+    twin with the same weights, both exported int8 on the same
+    calibration batch (the port's with ``dynamic_batch=True``): (jclf,
+    tclf, port path prefix, JAX path prefix, name map port -> JAX)."""
+    jclf, tclf, names = _bert_twins()
     calib = _requests(1, seed=7, rows=8)[0]
     root = tmp_path_factory.mktemp("bert_quant")
     tpath, jpath = str(root / "port"), str(root / "jax")
