@@ -8,7 +8,9 @@ points a user calls: paged decode serving of a GPT-2-small-width
 from the module and from its exported artifacts, float and quantized
 (``load_artifact``),
 and ``ModelServer.generate`` on that LM, each also through two replicas
-sharing the card (``ServingConfig(replicas=2)``); ``ShardedTrainer.step`` on
+sharing the card (``ServingConfig(replicas=2)``), and both replaying a
+seeded multi-tenant trace behind tenant tiers and SLO autoscalers;
+``ShardedTrainer.step`` on
 ``BERTForPretrain`` over ``bert_24_1024_16`` with ``use_flash=True``;
 and ``TrainingSupervisor.run`` over that step with ``CheckpointManager``
 checkpoints, through injected faults and a SIGTERM.
@@ -108,6 +110,29 @@ Phases, each printed as one JSON line:
    B1/B4/B5 counters are zeroed before the servers are built and read
    after the decode failover (24 B1 per predict capture, ``num_layers``
    B4 per decode replica); every server stops at the end of the phase;
+6b″. ``traffic`` — a seeded multi-tenant burst trace (8 s, 14
+   requests/s, lognormal arrivals, a 10x burst of 2 s at 0.45 of the
+   trace, 6 tenants over gold / silver / free, 35% generate rows)
+   predict rows of 1-12 rows, recorded to JSONL and replayed from the
+   file by 32 closed-loop clients honouring retry-after, twice, each on a fresh
+   ``ModelServer(replicas=2, tenant_tiers="gold=100,silver=10/8/12,
+   free=1/2/4")`` holding ``predict``'s classifier ("bert") and the
+   serving LM ("gpt2", prefix cache on), with one ``Autoscaler`` a model
+   (SLOs: ``predict``'s p99 latency and a queue of one full bucket,
+   ``serve``'s p99 TTFT): ``frozen`` (ceiling 2 replicas) and ``scaled``
+   (ceiling 4), r0's heartbeat stalled in each set as the burst lands
+   in both.  The replay must
+   return with every non-ok status shed or deadline; the scaled run must
+   add a bert replica, HEALTHY with its five graphs, and remove one in
+   the quiet tail after the trace, after which the reserved memory is
+   within one replica's pools of its value before the run; free's shed
+   rate at least gold's, no pressure shed of gold; 16 ok bert responses
+   of each run within 1e-4 of max|logit| of the eager classifier and 4
+   ok generations (no shared prefix) equal to an eager engine's tokens.
+   Reported: attainment, goodput, TTFT p50/p99, latency p99, shed rates
+   per tier, the autoscalers' decision ledgers and each scale-up's
+   prewarm.  The B1/B4/B5 counters are zeroed before the first server
+   and read after the second run;
 6c. ``artifact`` — the same seed-0 classifier exported on the card by
    ``deploy.export_stablehlo(dynamic_batch=True)`` (a ``torch.export``
    program, B1 as the operator ``mxnet_tpu_torch::flash_attention_fwd``),
@@ -247,7 +272,12 @@ device tracing slows every later launch:
    dequantization's ms per replay against the float program;
 15. ``replicas_trace`` — each ``replicas`` replica's bucket-16 graph
    (kept after its server stopped), 10 replays traced: exactly 24 B1
-   kernel records per replay and no wrapper count.
+   kernel records per replay and no wrapper count;
+16. ``traffic_trace`` — the trace's first 2 s replayed under
+   ``torch.profiler`` on a server with the replica count ``traffic``'s
+   scaled run reached (no autoscaler, a 60 s heartbeat window): exactly
+   24 B1 records a bucket replay, ``num_layers`` B4 a decode replay and
+   ``num_layers`` B5 a verify replay, and no wrapper count.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
@@ -265,9 +295,11 @@ artifact) and ``traced_artifact_quant_kernel_records`` over
 ``traced_artifact_quant_replays`` from ``artifact_quant_trace``,
 ``launches_replicas`` (``replicas``' captures) and
 ``traced_replicas_kernel_records`` over ``traced_replicas_replays``
-from ``replicas_trace``; B4 and B5 give ``launches_replicas`` and list
-every
-``kernels`` row with its split; B1-B3 give, per dtype,
+from ``replicas_trace``; B1, B4 and B5 give ``launches_traffic``
+(``traffic``'s captures, scale-ups' included) and
+``traced_traffic_kernel_records`` from ``traffic_trace``; B4 and B5
+give ``launches_replicas`` and list every ``kernels`` row with its
+split; B1-B3 give, per dtype,
 ``launches_graphs`` and ``launches_eager`` (``train``'s two trainers
 apart) and ``traced_train_kernel_records`` over
 ``traced_train_replays`` from ``train_graphs``, and
@@ -2008,7 +2040,8 @@ def phase_predict(torch, dev, lm, served):
          seconds=time.perf_counter() - t_phase)
     return dict(srv=srv, clients=clients, want=want2, tol=tol,
                 wall_s=wall, prog16=prog16, padded16=padded16,
-                host16_ms=host16_ms, launches=launches)
+                host16_ms=host16_ms, launches=launches,
+                latency_p99_ms=float(np.percentile(lat, 99)) * 1e3)
 
 
 def _busy_union_us(torch, prof):
@@ -2545,6 +2578,628 @@ def phase_replicas_trace(torch, ctx):
     out["b1_replays"] = ARTIFACT_TRACE_REPLAYS * len(ctx["progs16"])
     emit("replicas_trace", **out)
     return out
+
+
+# ------------------------------------------------------------- traffic
+# the traffic phase (docs/serving.md §11): a seeded multi-tenant burst
+# trace recorded to JSONL, loaded back and replayed by closed-loop
+# clients through one ModelServer holding Predict's classifier ("bert",
+# its bucket graphs) and the serving LM ("gpt2", prefix cache on), each
+# behind a ReplicaSet with an SLO autoscaler, tenants behind the
+# reference bench's tiers (benchmark/bench_traffic.py).  A trace row's
+# ``op`` picks its model: predict rows go to "bert", generate rows to
+# "gpt2".  Prompts are long enough (median 32 tokens, clusters sharing
+# their first 32) that a cluster's later prompts hit the prefix cache
+# and run B5 over its pages; predict rows carry 1-12 rows, so the burst
+# asks ~490 rows/s of a card whose two bert replicas serve ~350-380
+# (``replicas``).
+TRAFFIC_TIERS = "gold=100,silver=10/8/12,free=1/2/4"
+TRAFFIC_TRACE = dict(
+    seed=0, duration_s=8.0, base_rate=14.0, process="lognormal",
+    tenants=6, tiers=("gold", "silver", "free"), models=("bert", "gpt2"),
+    generate_fraction=0.35, burst_at=0.45, burst_x=10.0,
+    burst_duration_s=2.0, prompt_max=64, output_max=16,
+    prompt_len_median=32.0, prefix_len=32, rows_max=12)
+TRAFFIC_REPLICAS = 2                     # each model's seed replicas
+TRAFFIC_RUNS = (("frozen", 2), ("scaled", 4))   # the autoscalers' ceiling
+TRAFFIC_AUTOSCALE = dict(interval_s=0.1, breach_ticks=2, idle_ticks=10,
+                         cooldown_up_s=0.8, cooldown_down_s=2.0,
+                         drain_timeout_s=30.0)
+TRAFFIC_CLIENTS = 32
+# dispatch workers: one a replica at the ceiling, so that a burst queues
+# in the server (where the autoscaler's queue sensor reads it) and not
+# behind a replica's program lock
+TRAFFIC_WORKERS = 4
+# bert's queue-depth target beside its latency target: a full bucket
+# waiting in the server's queue
+TRAFFIC_QUEUE_HIGH = PREDICT_MAX_BATCH
+TRAFFIC_TIMEOUT_S = 10.0                 # each request's deadline
+# the quiet tail after the trace: the autoscalers run on until both sets
+# are back at their seed replicas or this bound passes
+TRAFFIC_QUIET_S = 15.0
+# r0's heartbeat stalls as the burst lands, in each set (both runs): the
+# site is named by replica id, so the first two r0 beats after the plan
+# is installed take it — one a model, as a stalled r0 sleeps through
+# its next beat
+TRAFFIC_STALL = "replica.r0.heartbeat=stall,ms=1500,times=2"
+TRAFFIC_EAGER_PREDICT, TRAFFIC_EAGER_GENERATE = 16, 4
+TRAFFIC_TRACE_S = 2.0                    # traffic_trace: the trace's head
+# traffic_trace's heartbeat window: starting the profiler once stalled
+# every thread ~0.64 s, so all replicas went stale at once and rejoined,
+# recapturing inside the trace; that phase counts kernels, not health
+TRAFFIC_TRACE_HEARTBEAT_WINDOW_MS = 60_000
+
+
+def _traffic_trace(tmp):
+    """The phase's trace, generated, saved to JSONL and loaded back (the
+    replay runs from the file): the loaded trace must save back to the
+    same bytes."""
+    from mxnet_tpu_torch.serving import Trace, TraceConfig, generate_trace
+    path = os.path.join(tmp, "traffic.jsonl")
+    generate_trace(TraceConfig(**TRAFFIC_TRACE)).save(path)
+    trace = Trace.load(path)
+    with open(path) as fh:
+        check(fh.read() == trace.to_jsonl(),
+              "traffic: the loaded trace does not save back byte for byte")
+    return trace, path
+
+
+def _traffic_inputs(req, vocab):
+    """A predict row's classifier inputs, from the row's own seed: rows
+    of L = 128 tokens, valid lengths 16-128, the second segment from half
+    the valid length on (Predict's traffic shape)."""
+    rs = np.random.RandomState(req.seed)
+    L = PREDICT_L
+    valid = rs.randint(16, L + 1, req.rows).astype(np.int32)
+    tokens = rs.randint(0, vocab, (req.rows, L)).astype(np.int32)
+    types = (np.arange(L)[None] >= valid[:, None] // 2).astype(np.int32)
+    return tokens, types, valid
+
+
+def _traffic_prompt(req, vocab):
+    from mxnet_tpu_torch.serving import traffic
+    return np.asarray(traffic.prompt_tokens(
+        req, vocab=vocab, prefix_len=TRAFFIC_TRACE["prefix_len"]), np.int32)
+
+
+def _traffic_server(torch, dev, clf, lm, replicas, **config):
+    """The phase's server: ``clf`` as "bert" (Predict's buckets) and the
+    LM as "gpt2" (a fresh adapter over the one LM per replica, from
+    ``model_factory``), ``replicas`` each, both prewarmed (every
+    replica's graphs captured); ``config`` adds ``ServingConfig``
+    fields."""
+    from mxnet_tpu_torch.serving import (ModelRepository, ModelServer,
+                                         PagedLMAdapter, ServingConfig)
+    L = PREDICT_L
+    example = (np.zeros((1, L), np.int32), np.zeros((1, L), np.int32),
+               np.full((1,), L, np.int32))
+    repo = ModelRepository()
+    repo.add_block("bert", clf, *example)
+    repo.add_decoder("gpt2", lm,
+                     model_factory=lambda: PagedLMAdapter(lm, device=dev))
+    cfg = ServingConfig(
+        replicas=replicas, tenant_tiers=TRAFFIC_TIERS,
+        max_batch_size=PREDICT_MAX_BATCH, num_workers=TRAFFIC_WORKERS,
+        max_latency_us=2000,
+        decode_page_size=PAGE_SIZE, decode_pool_pages=POOL_PAGES,
+        decode_max_batch=MAX_BATCH, prefix_cache=True,
+        decode_max_new_tokens=TRAFFIC_TRACE["output_max"], **config)
+    srv = ModelServer(repo, cfg)
+    t0 = time.perf_counter()
+    srv.prewarm("bert")
+    srv.prewarm("gpt2")
+    return srv, repo, time.perf_counter() - t0
+
+
+def _traffic_call(srv, trace, vocab_bert, vocab_lm, out):
+    """``replay_trace``'s round trip: a predict row through
+    ``srv.predict("bert")``, a generate row through
+    ``srv.generate("gpt2")`` (TTFT from its first streamed token), the
+    tenant as "name:tier".  ``out`` gets each ok response by trace index
+    and every shed attempt's tier and kind (quota / pressure / other)."""
+    from mxnet_tpu_torch.serving import ServerOverloadedError
+    index = {id(r): i for i, r in enumerate(trace.requests)}
+    lock = threading.Lock()
+
+    def call(req):
+        tenant = f"{req.tenant}:{req.tier}"
+        try:
+            if req.op == "predict":
+                y = srv.predict("bert", *_traffic_inputs(req, vocab_bert),
+                                tenant=tenant, timeout=TRAFFIC_TIMEOUT_S)
+                with lock:
+                    out["predict"][index[id(req)]] = y
+                return None
+            t0 = time.monotonic()
+            first = []
+            toks = srv.generate(
+                "gpt2", _traffic_prompt(req, vocab_lm),
+                max_new_tokens=req.max_new_tokens, tenant=tenant,
+                timeout=TRAFFIC_TIMEOUT_S,
+                on_token=lambda _t: first or first.append(time.monotonic()))
+            with lock:
+                out["generate"][index[id(req)]] = np.asarray(toks)
+            return {"ttft_s": first[0] - t0 if first else None}
+        except ServerOverloadedError as e:
+            msg = str(e)
+            kind = "quota" if "quota" in msg else \
+                "pressure" if "priority shedding" in msg else "other"
+            with lock:
+                out["sheds"].append((req.tier, kind))
+            raise
+    return call
+
+
+def _watch_ups(torch, rset, log):
+    """Record every ``add_replica`` the autoscaler makes on ``rset``:
+    the new replica's state, its graphs and capture seconds, the call's
+    seconds (the measured prewarm) and the reserved memory after it."""
+    add = rset.add_replica
+
+    def add_replica():
+        t0 = time.perf_counter()
+        rid = add()
+        rep = rset.replica(rid)
+        log.append(dict(
+            model=rset.name, rid=rid, state=rset.replicas()[rid],
+            seconds=time.perf_counter() - t0,
+            capture_s=rep.capture_seconds(),
+            graphs=len(rep.batcher.program_list(rset.entry))
+            if rep.batcher is not None else rep.engine.model.compiled,
+            reserved_gb=torch.cuda.memory_reserved() / 1e9))
+        return rid
+
+    rset.add_replica = add_replica
+
+
+def _watch_decisions(asc, t0, log):
+    """Keep every decision of ``asc`` but its holds and blocks (which
+    the autoscaler's own ring of 32 lets evict the rest), its time
+    relative to ``t0[0]``, and count the blocks."""
+    tick = asc.tick
+    log["blocked"] = 0
+
+    def watched(now=None):
+        d = tick(now)
+        if d is not None and d["action"] == "blocked":
+            log["blocked"] += 1
+        elif d is not None and d["action"] != "hold":
+            log.setdefault("decisions", []).append(dict(
+                {k: d[k] for k in ("action", "reason", "replicas",
+                                   "target", "queue_depth", "ttft_p99_s",
+                                   "latency_p99_s")},
+                t=d["t"] - t0[0]))
+        return d
+
+    asc.tick = watched
+
+
+def _reserved_settled(torch):
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def _memory_by_pool(torch):
+    """Reserved and allocated bytes on the card by pool: the caching
+    allocator's default pool apart from the CUDA-graph pools."""
+    out = {"default_reserved": 0, "default_allocated": 0,
+           "graph_reserved": 0, "graph_allocated": 0, "graph_pools": 0}
+    pools = set()
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg.get("segment_pool_id", ()) or ())
+        kind = "default" if not any(pool) else "graph"
+        if kind == "graph":
+            pools.add(pool)
+        out[f"{kind}_reserved"] += seg["total_size"]
+        out[f"{kind}_allocated"] += seg["allocated_size"]
+    out["graph_pools"] = len(pools)
+    return out
+
+
+def _watch_downs(torch, rset, log):
+    """Record every ``remove_replica`` on ``rset`` with the memory by
+    pool after it returns."""
+    remove = rset.remove_replica
+
+    def remove_replica(rid, timeout=None):
+        t0 = time.perf_counter()
+        out = remove(rid, timeout=timeout)
+        log.append(dict(model=rset.name, rid=rid,
+                        seconds=time.perf_counter() - t0,
+                        memory=_memory_by_pool(torch)))
+        return out
+
+    rset.remove_replica = remove_replica
+
+
+def _replica_bytes(torch, srv):
+    """Device bytes one replica of each model holds of its own: a bert
+    replica's bucket-graph pools, a gpt2 replica's graph pool and KV
+    pool."""
+    bert, gpt2 = srv.replica_set("bert"), srv.replica_set("gpt2")
+    b0 = bert.replica(next(iter(bert.replicas())))
+    a = gpt2.replica(next(iter(gpt2.replicas()))).engine.model
+    return dict(
+        bert=sum(_pool_reserved(torch, p.pool)
+                 for p in b0.batcher.program_list(bert.entry)),
+        gpt2=_pool_reserved(torch, a._graph_pool)
+        + a.pool.k_pages.numel() * a.pool.k_pages.element_size()
+        + a.pool.v_pages.numel() * a.pool.v_pages.element_size())
+
+
+def _traffic_run(torch, dev, clf, lm, trace, label, ceiling, slo):
+    """One replay of ``trace`` on a fresh server (two replicas a model)
+    with an ``Autoscaler`` per model whose ceiling is ``ceiling``
+    replicas, the stall chaos as the burst lands, then the quiet tail.
+    Returns the run's record, its responses, and the larger of one bert
+    and one gpt2 replica's device bytes (the memory check's bound)."""
+    from mxnet_tpu_torch import faults, runtime_metrics as rm
+    from mxnet_tpu_torch.serving import (Autoscaler, AutoscalerConfig,
+                                         SLOTargets, replay_trace,
+                                         summarize)
+    from mxnet_tpu_torch.serving.replica import UNHEALTHY
+    t_run = time.perf_counter()
+    rm.reset()
+    rm.enable()
+    srv, _repo, prewarm_s = _traffic_server(torch, dev, clf, lm,
+                                            TRAFFIC_REPLICAS)
+    sets = {m: srv.replica_set(m) for m in ("bert", "gpt2")}
+    per_replica = _replica_bytes(torch, srv)
+    ups, downs = [], []
+    for rset in sets.values():
+        _watch_ups(torch, rset, ups)
+        _watch_downs(torch, rset, downs)
+    targets = {"bert": SLOTargets(latency_p99_ms=slo["latency_p99_ms"],
+                                  queue_high=TRAFFIC_QUEUE_HIGH),
+               "gpt2": SLOTargets(ttft_p99_ms=slo["ttft_p99_ms"])}
+    scalers = {m: Autoscaler(
+        rset, targets[m], AutoscalerConfig(
+            min_replicas=TRAFFIC_REPLICAS, max_replicas=ceiling,
+            **TRAFFIC_AUTOSCALE), server_name=srv.name)
+        for m, rset in sets.items()}
+    t0 = [time.monotonic()]
+    ledger = {m: {} for m in scalers}
+    for m, a in scalers.items():
+        _watch_decisions(a, t0, ledger[m])
+    reserved0 = _reserved_settled(torch)
+    memory0 = _memory_by_pool(torch)
+    out = {"predict": {}, "generate": {}, "sheds": []}
+    call = _traffic_call(srv, trace, BERT_LARGE["vocab_size"],
+                         lm.vocab_size, out)
+    stall = {}
+    go = threading.Event()
+
+    def chaos():
+        go.wait(60)
+        time.sleep(TRAFFIC_TRACE["burst_at"] * TRAFFIC_TRACE["duration_s"])
+        faults.install(TRAFFIC_STALL)
+        t0 = time.perf_counter()
+        try:
+            while time.perf_counter() - t0 < 5.0 and len(stall) < 2:
+                for m, rset in sets.items():
+                    dark = [r for r, s in rset.replicas().items()
+                            if s == UNHEALTHY]
+                    if dark and m not in stall:
+                        stall[m] = dict(rid=dark[0],
+                                        detect_s=time.perf_counter() - t0)
+                time.sleep(0.005)
+        finally:
+            faults.clear()
+
+    killer = threading.Thread(target=chaos, daemon=True)
+    killer.start()
+    try:
+        t0[0] = time.monotonic()
+        for a in scalers.values():
+            a.start()
+        go.set()
+        records, wall_s = replay_trace(
+            trace, call, clients=TRAFFIC_CLIENTS, speed=1.0,
+            timeout_s=TRAFFIC_TIMEOUT_S)
+        t_quiet = time.perf_counter()
+        _wait_for(lambda: all(
+            len(rs.replicas()) <= TRAFFIC_REPLICAS
+            for rs in sets.values())
+            or time.perf_counter() - t_quiet > TRAFFIC_QUIET_S,
+            TRAFFIC_QUIET_S + 5, f"traffic {label}: quiet tail")
+        quiet_s = time.perf_counter() - t_quiet
+    finally:
+        for a in scalers.values():
+            a.stop()
+        killer.join(10)
+    replicas_end = {m: rs.replicas() for m, rs in sets.items()}
+    stats = {m: a.stats() for m, a in scalers.items()}
+    srv_stats = srv.stats()
+    prefix_hits = sum(rm.SERVING_PREFIX_HITS.value(model=m)
+                      for m in rm.SERVING_PREFIX_HITS.label_values("model"))
+    # after the quiet tail's last scale-down, the server still up
+    reserved1 = _reserved_settled(torch)
+    memory1 = _memory_by_pool(torch)
+    check(srv.stop(timeout=120), f"traffic {label}: the server did not stop")
+    rm.disable()
+    rm.reset()
+
+    by_op = {op: [r for r in records if r["op"] == op]
+             for op in ("predict", "generate")}
+    summary = {
+        "all": summarize(records, wall_s=wall_s,
+                         latency_slo_s=None, ttft_slo_s=None),
+        "bert": summarize(by_op["predict"], wall_s=wall_s,
+                          latency_slo_s=slo["latency_p99_ms"] / 1e3),
+        "gpt2": summarize(by_op["generate"], wall_s=wall_s,
+                          ttft_slo_s=slo["ttft_p99_ms"] / 1e3)}
+    slo_ok = summary["bert"]["slo_ok"] + summary["gpt2"]["slo_ok"]
+    shed_rate = {t: v["shed"] / v["requests"]
+                 for t, v in summary["all"]["by_tier"].items()}
+    kinds = {}
+    for tier, kind in out["sheds"]:
+        kinds.setdefault(tier, {}).setdefault(kind, 0)
+        kinds[tier][kind] += 1
+    run = dict(
+        label=label, ceiling=ceiling, requests=len(records),
+        wall_s=wall_s, prewarm_s=prewarm_s, quiet_s=quiet_s,
+        attainment=slo_ok / len(records),
+        goodput_rps=slo_ok / wall_s,
+        ttft_p50_ms=summary["gpt2"]["ttft_p50_s"] * 1e3,
+        ttft_p99_ms=summary["gpt2"]["ttft_p99_s"] * 1e3,
+        latency_p99_ms={m: summary[m]["latency_p99_s"] * 1e3
+                        for m in ("bert", "gpt2")},
+        statuses={s: summary["all"][s] for s in
+                  ("ok", "shed", "deadline", "error")},
+        shed_rate=shed_rate, shed_attempts=kinds,
+        by_model={m: {k: summary[m][k] for k in
+                      ("requests", "ok", "shed", "deadline", "slo_ok",
+                       "attainment", "goodput_rps")}
+                  for m in ("bert", "gpt2")},
+        autoscale={m: {k: s[k] for k in ("ticks", "up", "down", "hold",
+                                         "blocked", "error",
+                                         "prewarm_estimate_s")}
+                   for m, s in stats.items()},
+        ledger=ledger, ups=ups, downs=downs, stall=stall,
+        replicas_end=replicas_end,
+        reserved_before_gb=reserved0 / 1e9,
+        reserved_after_gb=reserved1 / 1e9,
+        memory_before=memory0, memory_after=memory1,
+        replica_bytes_gb={m: v / 1e9 for m, v in per_replica.items()},
+        admission=srv_stats.get("admission", {}).get("by_tenant"),
+        prefix_hits=prefix_hits,
+        seconds=time.perf_counter() - t_run)
+    # the run's record first: a failed check below still leaves it
+    emit("traffic_run", **run)
+    statuses = {r["status"] for r in records}
+    check(statuses <= {"ok", "shed", "deadline"},
+          f"traffic {label}: statuses {statuses}; errors "
+          f"{sorted({r['error'] for r in records if r['status'] == 'error'})}")
+    check(shed_rate.get("free", 0.0) >= shed_rate.get("gold", 0.0),
+          f"traffic {label}: free's shed rate {shed_rate.get('free')} "
+          f"below gold's {shed_rate.get('gold')}")
+    check(not kinds.get("gold", {}).get("pressure"),
+          f"traffic {label}: gold was pressure-shed: {kinds}")
+    return run, out, max(per_replica.values())
+
+
+def phase_traffic(torch, dev, lm, served, predict):
+    """Tenant tiers, SLO autoscaling and trace replay on the card: the
+    seeded burst trace (``TRAFFIC_TRACE``: 8 s, 14 requests/s with a 10x
+    burst of 2 s at 0.45 of the trace, 6 tenants over gold / silver /
+    free) recorded to JSONL and replayed from the file twice, each time
+    on a fresh ``ModelServer(replicas=2, tenant_tiers=...)`` holding
+    BERT-large fp32 (B1 in every bucket graph) and GPT-2 small (B4 / B5
+    in its decode and verify graphs), with one ``Autoscaler`` a model
+    (bert: this run's ``predict`` p99 latency and a queue of one full
+    bucket; gpt2: this run's ``serve`` TTFT p99): ``frozen`` (ceiling 2
+    replicas) and ``scaled`` (ceiling 4).  Both runs stall r0's
+    heartbeat in each set as the burst lands.  Hard checks: the replay returns (no request hung), every
+    non-ok status is shed or deadline; the scaled run adds a bert
+    replica that is HEALTHY with its five graphs when ``add_replica``
+    returns; its quiet tail removes at least one replica, after which
+    the reserved memory is within one replica's device bytes (the larger
+    of a bert replica's graph pools and a gpt2 replica's graph and KV
+    pools) of its value before the run; free's shed rate is at least gold's, and
+    gold is never pressure-shed; the first 16 ok bert responses of each
+    run within ``PREDICT_TOL`` of the eager classifier, and four ok
+    generations with no shared prefix equal an eager (``graphs=False``)
+    engine's greedy tokens.  The B1/B4/B5 counters are zeroed before the
+    first server is built and read after the second run (the captures'
+    eager warm-ups, scale-ups' included); ``traffic_trace`` counts the
+    replays.  Returns what ``traffic_trace`` needs."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving import (DecodeEngine, PagedLMAdapter,
+                                         ServingConfig, bucket_set)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="traffic-")
+    try:
+        trace, path = _traffic_trace(tmp)
+        trace_bytes = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ttfts = [r[2] for r in served["results"]]
+    slo = dict(latency_p99_ms=predict["latency_p99_ms"],
+               ttft_p99_ms=float(np.percentile(ttfts, 99)) * 1e3)
+    clf = _bert_classifier(torch, dev, 0)
+    counters = (fa.flash_attention_fwd, pa.ragged_paged_attention,
+                pa.ragged_paged_verify)
+    for k in counters:
+        k.launches = 0
+    runs, outs, tol_bytes = {}, {}, {}
+    for label, ceiling in TRAFFIC_RUNS:
+        runs[label], outs[label], tol_bytes[label] = _traffic_run(
+            torch, dev, clf, lm, trace, label, ceiling, slo)
+    launches = {k.__name__: k.launches for k in counters}
+    check(all(launches.values()),
+          f"traffic: a kernel of the path never launched: {launches}")
+
+    scaled = runs["scaled"]
+    buckets = len(bucket_set(PREDICT_MAX_BATCH))
+    bert_ups = [u for u in scaled["ups"] if u["model"] == "bert"]
+    check(scaled["autoscale"]["bert"]["up"] >= 1 and bert_ups,
+          f"traffic: the scaled run added no bert replica: "
+          f"{scaled['ledger']['bert']}")
+    check(all(u["state"] == "healthy" and u["graphs"] == buckets
+              for u in bert_ups),
+          f"traffic: an added bert replica was not routable with its "
+          f"{buckets} graphs: {bert_ups}")
+    downs = sum(s["down"] for s in scaled["autoscale"].values())
+    check(downs >= 1, f"traffic: no replica was removed in the quiet "
+                      f"tail: {scaled['replicas_end']}")
+    grown = scaled["reserved_after_gb"] - scaled["reserved_before_gb"]
+    check(grown * 1e9 <= tol_bytes["scaled"],
+          f"traffic: reserved memory grew {grown:.3f} GB over the run, "
+          f"more than one replica's {tol_bytes['scaled'] / 1e9:.3f} GB")
+    for run in runs.values():
+        check(all(len(v) <= run["ceiling"] for v in
+                  run["replicas_end"].values()),
+              f"traffic {run['label']}: above its ceiling")
+
+    # the served outputs against the eager module and an eager engine
+    # (after the counters were read: these launch B1 / B4 / B5 eagerly)
+    reqs = trace.requests
+    parity = {}
+    eager = DecodeEngine(
+        PagedLMAdapter(lm, device=dev, graphs=False),
+        ServingConfig(decode_page_size=PAGE_SIZE,
+                      decode_pool_pages=POOL_PAGES,
+                      decode_max_batch=MAX_BATCH,
+                      decode_max_new_tokens=TRAFFIC_TRACE["output_max"]),
+        model_name="gpt2-traffic-eager", autostart=True)
+    try:
+        for label, out in outs.items():
+            idx = sorted(out["predict"])[:TRAFFIC_EAGER_PREDICT]
+            check(len(idx) == TRAFFIC_EAGER_PREDICT,
+                  f"traffic {label}: {len(idx)} ok bert responses")
+            err = scale = 0.0
+            with torch.no_grad():
+                for i in idx:
+                    x = _traffic_inputs(reqs[i], BERT_LARGE["vocab_size"])
+                    want = clf(*(torch.from_numpy(a).to(dev)
+                                 for a in x)).cpu().numpy()
+                    got = out["predict"][i]
+                    check(got.shape == want.shape
+                          and np.isfinite(got).all(),
+                          f"traffic {label}: response {i} of shape "
+                          f"{got.shape}")
+                    err = max(err, float(np.abs(got - want).max()))
+                    scale = max(scale, float(np.abs(want).max()))
+            check(err <= PREDICT_TOL * scale,
+                  f"traffic {label}: bert responses off the eager "
+                  f"classifier by {err} (tolerance {PREDICT_TOL * scale})")
+            gidx = [i for i in sorted(out["generate"])
+                    if reqs[i].prefix_group is None][:TRAFFIC_EAGER_GENERATE]
+            check(len(gidx) == TRAFFIC_EAGER_GENERATE,
+                  f"traffic {label}: {len(gidx)} ok generations without "
+                  f"a shared prefix")
+            for i in gidx:
+                want = eager.generate(
+                    _traffic_prompt(reqs[i], lm.vocab_size),
+                    max_new_tokens=reqs[i].max_new_tokens, timeout=600)
+                check(np.array_equal(out["generate"][i], want),
+                      f"traffic {label}: generation {i} gave "
+                      f"{out['generate'][i].tolist()}, the eager engine "
+                      f"{np.asarray(want).tolist()}")
+            parity[label] = dict(predict=len(idx), max_abs_err=err,
+                                 max_abs_logit=scale,
+                                 generate_equal=len(gidx))
+    finally:
+        check(eager.stop(timeout=120), "traffic: eager engine did not stop")
+    del clf
+    _free(torch)
+    frozen = runs["frozen"]
+    emit("traffic", trace=dict(requests=len(reqs), jsonl_bytes=trace_bytes,
+                               **{k: v for k, v in TRAFFIC_TRACE.items()
+                                  if k != "tiers"}),
+         tiers=TRAFFIC_TIERS, slo=slo, clients=TRAFFIC_CLIENTS,
+         runs={k: {f: v[f] for f in (
+             "attainment", "goodput_rps", "ttft_p50_ms", "ttft_p99_ms",
+             "latency_p99_ms", "shed_rate", "autoscale", "ups")}
+             for k, v in runs.items()},
+         parity=parity, kernel_launches=launches,
+         scaled_minus_frozen=dict(
+             attainment=scaled["attainment"] - frozen["attainment"],
+             goodput_rps=scaled["goodput_rps"] - frozen["goodput_rps"]),
+         seconds=time.perf_counter() - t_phase)
+    peak = max([TRAFFIC_REPLICAS] + [
+        d["target"] for led in scaled["ledger"].values()
+        for d in led.get("decisions", ()) if d["action"] == "up"])
+    return dict(trace=trace, replicas=peak, launches=launches)
+
+
+def phase_traffic_trace(torch, dev, lm, ctx):
+    """The trace's first ``TRAFFIC_TRACE_S`` seconds replayed under
+    ``torch.profiler`` on a server with the replica count the scaled run
+    reached (every replica's graphs captured before the trace, no
+    autoscaler, heartbeat window ``TRAFFIC_TRACE_HEARTBEAT_WINDOW_MS``): every batch and decode step replays a
+    graph, so the wrappers count nothing and the records equal exactly
+    24 B1 a bucket replay, ``num_layers`` B4 a decode replay and
+    ``num_layers`` B5 a verify replay.  Returns the records."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving import Trace, replay_trace
+    trace = ctx["trace"]
+    head = Trace(trace.header, [r for r in trace.requests
+                                if r.t < TRAFFIC_TRACE_S])
+    clf = _bert_classifier(torch, dev, 0)
+    srv, _repo, _ = _traffic_server(
+        torch, dev, clf, lm, ctx["replicas"],
+        replica_heartbeat_window_ms=TRAFFIC_TRACE_HEARTBEAT_WINDOW_MS)
+    del clf
+    kernels = (fa.flash_attention_fwd, pa.ragged_paged_attention,
+               pa.ragged_paged_verify)
+    try:
+        bert, gpt2 = srv.replica_set("bert"), srv.replica_set("gpt2")
+
+        def replays():
+            out = {}
+            for rid in bert.replicas():
+                for p in bert.replica(rid).batcher.program_list(bert.entry):
+                    out[("bucket", rid, p.rows)] = p.replays
+            for rid in gpt2.replicas():
+                for k, p in gpt2.replica(rid).engine.model._programs.items():
+                    out[(k[0], rid) + tuple(k[1:])] = p.replays
+            return out
+
+        out = {"predict": {}, "generate": {}, "sheds": []}
+        call = _traffic_call(srv, head, BERT_LARGE["vocab_size"],
+                             lm.vocab_size, out)
+        counted = [k.launches for k in kernels]
+        before = replays()
+        names = dict(KERNEL_NAMES, flash_attention_fwd=FLASH_NAMES[
+            "flash_attention_fwd"])
+        holder = {}
+        records = _kernel_records(torch, lambda: holder.update(
+            r=replay_trace(head, call, clients=TRAFFIC_CLIENTS, speed=1.0,
+                           timeout_s=TRAFFIC_TIMEOUT_S)), names=names)
+        after = replays()
+        check(sorted(before) == sorted(after)
+              and bert.stats()["rejoins"] == gpt2.stats()["rejoins"] == 0,
+              f"traffic_trace: a program was built during the trace "
+              f"(new {sorted(set(after) - set(before))}; rejoins "
+              f"{bert.stats()['rejoins']} / {gpt2.stats()['rejoins']})")
+        ran = {k: after[k] - before.get(k, 0) for k in after}
+        statuses = {r["status"] for r in holder["r"][0]}
+        check(statuses <= {"ok", "shed", "deadline"},
+              f"traffic_trace: statuses {statuses}")
+    finally:
+        check(srv.stop(timeout=120), "traffic_trace: server did not stop")
+    L = lm.num_layers
+    fam = {f: sum(n for k, n in ran.items() if k[0] in fs)
+           for f, fs in (("bucket", ("bucket",)), ("decode", ("decode",)),
+                         ("verify", ("verify", "verify_batch")))}
+    want = {"flash_attention_fwd": 24 * fam["bucket"],
+            "ragged_paged_attention": L * fam["decode"],
+            "ragged_paged_verify": L * fam["verify"]}
+    check(records == want and fam["bucket"] and fam["decode"],
+          f"traffic_trace: the traced replay ran {records} B1/B4/B5 "
+          f"kernels; its graph replays hold {want}")
+    check(counted == [k.launches for k in kernels],
+          "traffic_trace: a wrapper launched outside a graph")
+    emit("traffic_trace", replicas=ctx["replicas"],
+         requests=len(head.requests), kernel_records=records,
+         replays=fam, ok=sum(r["status"] == "ok" for r in holder["r"][0]),
+         wall_s=holder["r"][1])
+    return records
 
 
 # ------------------------------------------------------------- artifact
@@ -4261,6 +4916,7 @@ def main():
     launches, served = phase_serve(torch, dev, lm)
     predict = phase_predict(torch, dev, lm, served)
     replicas = phase_replicas(torch, dev, lm, served)
+    traffic = phase_traffic(torch, dev, lm, served, predict)
     artifact = phase_artifact(torch, dev)
     artifact_quant = phase_artifact_quant(torch, dev, timer)
     head, feats, labels = phase_train_parity(torch, dev)
@@ -4287,6 +4943,7 @@ def main():
     artifact_traced = phase_artifact_trace(torch, dev)
     quant_traced = phase_artifact_quant_trace(torch, dev, artifact_quant)
     replicas_traced = phase_replicas_trace(torch, replicas)
+    traffic_traced = phase_traffic_trace(torch, dev, lm, traffic)
 
     pk = "mxnet_tpu/ops/pallas_kernels.py"
     kernels = []
@@ -4313,6 +4970,8 @@ def main():
             traced_serve_kernel_records=replayed[name],
             launches_generate=predict["launches"][name],
             launches_replicas=replicas["launches"][name],
+            launches_traffic=traffic["launches"][name],
+            traced_traffic_kernel_records=traffic_traced[name],
             **by_dtype["float32"], bfloat16=by_dtype["bfloat16"])
         # every row of the kernels phase, with the plan's split
         keys = ("dtype", "shape", "W", "B", "n_split", "ms", "bound_ms",
@@ -4376,7 +5035,9 @@ def main():
                 traced_artifact_quant_replays=quant_traced["replays"],
                 launches_replicas=replicas["launches"][name],
                 traced_replicas_kernel_records=replicas_traced["b1_records"],
-                traced_replicas_replays=replicas_traced["b1_replays"])
+                traced_replicas_replays=replicas_traced["b1_replays"],
+                launches_traffic=traffic["launches"][name],
+                traced_traffic_kernel_records=traffic_traced[name])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -243,6 +243,82 @@ declare_env("MXNET_SERVING_REPLICA_FAILURE_THRESHOLD", 3,
             "window to fill — the dead-replica fast path.  After "
             "MXNET_SERVING_CIRCUIT_COOLDOWN_MS one probe request may "
             "re-close it.  0 = windowed error rate only.")
+declare_env("MXNET_SERVING_TENANT_TIERS", None,
+            "Tiered admission (mxnet_tpu_torch.serving.admission, "
+            "docs/serving.md §11): 'name=priority[/quota_rps[/burst]]' "
+            "comma-separated, e.g. 'gold=100,silver=10/20,free=1/5'. "
+            "Higher priority survives overload longer (low tiers "
+            "priority-shed first); quota_rps meters each tenant "
+            "through a token bucket of capacity burst.  Unset "
+            "(default) = admission gate off (every request rides the "
+            "watermark shed alone).")
+declare_env("MXNET_SERVING_ADMISSION_SHED_START", 0.5,
+            "Overload pressure (0..1 — the serving queue fraction, "
+            "max'd with the autoscaler's published SLO pressure) at "
+            "which the LOWEST tenant tier starts shedding; tiers "
+            "above it shed at evenly spaced higher thresholds and the "
+            "top tier only at full pressure.")
+declare_env("MXNET_SERVING_AUTOSCALE_MIN", 1,
+            "Autoscaler floor on replicas per model "
+            "(mxnet_tpu_torch.serving.autoscaler, docs/serving.md §11); "
+            "scale-down never drains below it.")
+declare_env("MXNET_SERVING_AUTOSCALE_MAX", 4,
+            "Autoscaler ceiling on replicas per model (the "
+            "max-replica budget) — a sustained breach at the ceiling "
+            "is counted as a 'blocked' decision, not actuated.")
+declare_env("MXNET_SERVING_AUTOSCALE_INTERVAL_MS", 200,
+            "Autoscaler control period: one sense -> decide -> "
+            "actuate tick per interval (milliseconds).")
+declare_env("MXNET_SERVING_AUTOSCALE_BREACH_TICKS", 3,
+            "Scale-up hysteresis: consecutive SLO-breach ticks before "
+            "adding a replica, MINUS the ticks the measured prewarm "
+            "time will consume (prewarm-aware lead — capacity must "
+            "start building before the window ends; floor 1).")
+declare_env("MXNET_SERVING_AUTOSCALE_IDLE_TICKS", 10,
+            "Scale-down hysteresis: consecutive idle ticks (queue "
+            "under the low band AND latencies under the scale-down "
+            "margin of their SLOs) before draining a replica.")
+declare_env("MXNET_SERVING_AUTOSCALE_COOLDOWN_UP_MS", 1000,
+            "Refractory period after a scale-up (or a failed "
+            "actuation) before the next scale-up — one burst must not "
+            "staircase the fleet to the ceiling.")
+declare_env("MXNET_SERVING_AUTOSCALE_COOLDOWN_DOWN_MS", 5000,
+            "Refractory period after ANY replica-count change before "
+            "a scale-down — capacity just added (or a just-survived "
+            "burst) must prove itself idle first.")
+declare_env("MXNET_SERVING_AUTOSCALE_PREWARM_LEAD_MS", 0,
+            "Initial estimate of one add_replica prewarm "
+            "(milliseconds) for the prewarm-aware scale-up lead; "
+            "refined at runtime by an EWMA of measured prewarms.  "
+            "0 (default) = no lead until the first measured add.")
+declare_env("MXNET_SERVING_AUTOSCALE_SLO_TTFT_P99_MS", None,
+            "Declared SLO target: windowed p99 time-to-first-token "
+            "(serving.decode.ttft.seconds) above this breaches and "
+            "counts toward scale-up.  Unset (default) = TTFT not "
+            "targeted.")
+declare_env("MXNET_SERVING_AUTOSCALE_SLO_LATENCY_P99_MS", None,
+            "Declared SLO target: windowed p99 end-to-end predict "
+            "latency (serving.request.seconds) above this breaches "
+            "and counts toward scale-up.  Unset (default) = latency "
+            "not targeted.")
+declare_env("MXNET_SERVING_AUTOSCALE_QUEUE_HIGH", None,
+            "Declared SLO target: serving.queue.depth at/above this "
+            "breaches (saturation shows in the queue before the "
+            "latency histograms move); the scale-down band defaults "
+            "to a quarter of it.  Unset (default) = queue not "
+            "targeted.")
+declare_env("MXNET_SERVING_TRACE_SEED", 0,
+            "Workload-trace generator seed "
+            "(mxnet_tpu_torch.serving.traffic.TraceConfig): one RandomState "
+            "drives every draw, so equal configs yield byte-identical "
+            "JSONL traces.")
+declare_env("MXNET_SERVING_TRACE_RATE", 20.0,
+            "Workload-trace base arrival rate (requests/s) before the "
+            "diurnal ramp and burst multipliers.")
+declare_env("MXNET_SERVING_TRACE_SPEED", 1.0,
+            "Trace-replay time compression "
+            "(serving.traffic.replay_trace): 2.0 plays an 8s trace in "
+            "4s wall time; the recorded timeline itself is unchanged.")
 declare_env("MXNET_COMPILE_CACHE_DIR", None,
             "Persistent compile-cache directory "
             "(mxnet_tpu_torch.compile_cache): the port keeps its nvcc-"

@@ -774,6 +774,33 @@ SERVING_REPLICA_FAILOVERS = counter(
     "failed (typed execute failure, quarantine, or engine stop), per "
     "model.  Every failed-over request keeps its ORIGINAL end-to-end "
     "deadline.", labelnames=("model",))
+SERVING_AUTOSCALE_DECISIONS = counter(
+    "serving.autoscale.decisions",
+    "Autoscaler control-loop decisions per tick "
+    "(serving.autoscaler.Autoscaler, docs/serving.md §11), per "
+    "(model, action): up/down actuated a replica change, hold stayed, "
+    "blocked hit the max-replica budget or a cooldown, error had the "
+    "actuator raise (the loop stays alive and backs off).",
+    labelnames=("model", "action"))
+SERVING_AUTOSCALE_REPLICAS_TARGET = gauge(
+    "serving.autoscale.replicas_target",
+    "Replica count the autoscaler last decided the model should run "
+    "at — compare against serving.replica.state for actual vs target.",
+    labelnames=("model",))
+SERVING_TENANT_REQUESTS = counter(
+    "serving.tenant.requests",
+    "Requests ADMITTED by the tiered admission gate "
+    "(serving.admission.AdmissionController, docs/serving.md §11), "
+    "per (tenant, tier) — under the label-cardinality guard, so an "
+    "unbounded tenant id space clamps into the overflow series "
+    "instead of growing memory.", labelnames=("tenant", "tier"))
+SERVING_TENANT_SHED = counter(
+    "serving.tenant.shed",
+    "Requests shed by the tiered admission gate (tenant over its "
+    "quota token bucket, or its tier priority-shed under overload "
+    "pressure — low tier first), per (tenant, tier).  Every shed is "
+    "a typed ServerOverloadedError with a retry-after hint.",
+    labelnames=("tenant", "tier"))
 SERVING_REPLICA_HEARTBEAT_AGE = gauge(
     "serving.replica.heartbeat_age",
     "Seconds since one replica's last heartbeat, per (model, replica) "

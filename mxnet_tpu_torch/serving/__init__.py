@@ -1,7 +1,6 @@
 """Inference serving of the PyTorch port (docs/serving.md).
 
-The port of ``mxnet_tpu.serving`` minus its admission, autoscaler and
-traffic modules (ROADMAP item 3c-ii):
+The port of ``mxnet_tpu.serving``, module for module:
 
 - :class:`ModelRepository` — versioned ``nn.Module`` blocks (weights
   snapshotted at registration), decoders and functions, atomic
@@ -27,6 +26,19 @@ traffic modules (ROADMAP item 3c-ii):
   add/remove/rejoin — active whenever ``ServingConfig(replicas=N > 1)``
   (``MXNET_SERVING_REPLICAS``).  On one card every replica shares it,
   and each captures its own graphs (a CUDA graph does not persist);
+- the traffic plane (docs/serving.md §11): seed-deterministic
+  multi-tenant workload traces with bit-exact JSONL record/replay,
+  byte-identical to the JAX package's
+  (:mod:`~mxnet_tpu_torch.serving.traffic` — heavy-tailed bursty
+  arrivals, shared-prefix clusters, closed-loop retry-after-honoring
+  clients), SLO-driven autoscaling (:class:`Autoscaler` — a control
+  loop over the runtime-metrics signals driving ``ReplicaSet``
+  add/remove_replica with hysteresis, cooldowns and prewarm-aware
+  lead; on the card a scale-up captures the new replica's graphs), and
+  tiered admission (:class:`AdmissionController` — per-tenant quota
+  token buckets plus priority shedding, lowest tier first, active
+  whenever ``ServingConfig(tenant_tiers=...)`` or
+  ``MXNET_SERVING_TENANT_TIERS`` is set);
 - the resilience layer (docs/serving.md §8): end-to-end deadlines,
   bounded jittered retries, failed-batch bisection, decode quarantine,
   and per-model-version circuit breakers (:class:`CircuitBreaker`,
@@ -38,6 +50,10 @@ traffic modules (ROADMAP item 3c-ii):
 >>> with serving.ModelServer(repo) as srv:
 ...     logits = srv.predict("bert", tokens, types, valid_length)
 """
+from .admission import AdmissionController, TierPolicy, \
+    parse_tier_spec
+from .autoscaler import Autoscaler, AutoscalerConfig, \
+    RuntimeMetricsSource, SLOTargets
 from .batcher import DynamicBatcher, bucket_set, next_bucket, pad_batch, \
     unpad_outputs
 from .config import ServingConfig
@@ -50,6 +66,8 @@ from .resilience import (CircuitBreaker, CircuitOpenError, Deadline,
                          DeadlineExceededError, ServerOverloadedError,
                          honor_retry_after)
 from .server import ModelServer
+from .traffic import Trace, TraceConfig, TraceRequest, \
+    generate_trace, replay_trace, summarize
 
 __all__ = ["ModelRepository", "ModelEntry", "ModelServer",
            "DynamicBatcher", "ServingConfig", "ServerOverloadedError",
@@ -59,4 +77,9 @@ __all__ = ["ModelRepository", "ModelEntry", "ModelServer",
            "PrefixCache", "DeviceKVPool",
            "Deadline", "DeadlineExceededError", "CircuitBreaker",
            "CircuitOpenError", "honor_retry_after",
-           "Replica", "ReplicaSet"]
+           "Replica", "ReplicaSet",
+           "AdmissionController", "TierPolicy", "parse_tier_spec",
+           "Autoscaler", "AutoscalerConfig", "RuntimeMetricsSource",
+           "SLOTargets",
+           "Trace", "TraceConfig", "TraceRequest", "generate_trace",
+           "replay_trace", "summarize"]

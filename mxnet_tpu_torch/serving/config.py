@@ -2,11 +2,10 @@
 
 The PyTorch port's copy of ``mxnet_tpu.serving.config``: the predict
 path's batching, backpressure, deadline and circuit-breaker knobs and
-the decode engine's, under the same ``MXNET_SERVING_*`` names and with
-the same defaults and validation, and the replica layer's
-(``replicas*``).  The tiered-admission knobs (``tenant_tiers``,
-``admission_shed_start``) come with their slice; without them a server
-behaves as the reference does with them unset (no admission gate).
+the decode engine's, the replica layer's (``replicas*``) and the
+tiered-admission gate's (``tenant_tiers``, ``admission_shed_start``),
+under the same ``MXNET_SERVING_*`` names and with the same defaults and
+validation.
 
 Defaults come from the ``MXNET_SERVING_*`` environment variables
 (declared in ``base.py``, documented in ``docs/env_vars.md``);
@@ -71,6 +70,12 @@ class ServingConfig:
     replica is unroutable, ``replica_failure_threshold`` consecutive
     typed failures that trip its breaker without filling the windowed
     error rate.
+
+    Admission knobs (docs/serving.md §11): ``tenant_tiers`` spec
+    string ('name=priority[/quota_rps[/burst]]', comma-separated)
+    enables the per-tenant admission gate — quota token buckets plus
+    priority shedding under overload, lowest tier first starting at
+    pressure ``admission_shed_start``.  None (default) disables it.
     """
 
     def __init__(self, max_batch_size=None, max_latency_us=None,
@@ -84,7 +89,8 @@ class ServingConfig:
                  prefix_cache_pages=None, spec_k=None, spec_draft=None,
                  replicas=None, replica_heartbeat_ms=None,
                  replica_heartbeat_window_ms=None,
-                 replica_failure_threshold=None):
+                 replica_failure_threshold=None, tenant_tiers=None,
+                 admission_shed_start=None):
         def pick(value, env, typ=int):
             if value is None:
                 value = get_env(env, typ=typ)
@@ -145,6 +151,12 @@ class ServingConfig:
         self.replica_failure_threshold = pick(
             replica_failure_threshold,
             "MXNET_SERVING_REPLICA_FAILURE_THRESHOLD")
+        # tiered admission (docs/serving.md §11)
+        self.tenant_tiers = tenant_tiers if tenant_tiers is not None \
+            else get_env("MXNET_SERVING_TENANT_TIERS", typ=str)
+        self.admission_shed_start = pick(
+            admission_shed_start, "MXNET_SERVING_ADMISSION_SHED_START",
+            typ=float)
 
         if self.max_batch_size < 1:
             raise MXNetError("ServingConfig: max_batch_size must be >= 1")
@@ -219,6 +231,9 @@ class ServingConfig:
             raise MXNetError(
                 "ServingConfig: replica_failure_threshold must be >= 0 "
                 "(0 = windowed error rate only)")
+        if not 0.0 <= self.admission_shed_start <= 1.0:
+            raise MXNetError(
+                "ServingConfig: admission_shed_start must be in [0, 1]")
 
     def __repr__(self):
         return (f"ServingConfig(max_batch_size={self.max_batch_size}, "
@@ -246,4 +261,6 @@ class ServingConfig:
                 f"replica_heartbeat_window_ms="
                 f"{self.replica_heartbeat_window_ms}, "
                 f"replica_failure_threshold="
-                f"{self.replica_failure_threshold})")
+                f"{self.replica_failure_threshold}, "
+                f"tenant_tiers={self.tenant_tiers!r}, "
+                f"admission_shed_start={self.admission_shed_start})")

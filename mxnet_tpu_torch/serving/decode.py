@@ -1574,11 +1574,16 @@ class _Program:
         self.stream.synchronize()
 
     def _capture(self):
+        # serialised with every other capture in the process (bucket
+        # programs too): a replica added under load captures while its
+        # siblings, of this model or another, go on replaying
+        from .repository import _CAPTURE_LOCK
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                  capture_error_mode="thread_local"):
+            with _CAPTURE_LOCK, torch.cuda.graph(
+                    graph, pool=self.pool, stream=self.stream,
+                    capture_error_mode="thread_local"):
                 out = self.fn(*self.args)
         except Exception as e:
             raise KernelError(

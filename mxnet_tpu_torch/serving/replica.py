@@ -115,7 +115,8 @@ class Replica:
     __slots__ = ("rid", "entry", "device", "state", "unhealthy_reason",
                  "inflight", "last_beat", "last_routed", "requests",
                  "failures", "prewarms", "breaker", "batcher", "engine",
-                 "beat_thread", "last_bringup", "bringup_s")
+                 "beat_thread", "last_bringup", "bringup_s",
+                 "bringup_error")
 
     def __init__(self, rid, entry, config, device=None,
                  decode_model=None, draft_model=None):
@@ -132,6 +133,7 @@ class Replica:
         self.prewarms = 0               # completed prewarm passes
         self.last_bringup = 0.0         # monotonic of last prewarm try
         self.bringup_s = 0.0            # seconds the last prewarm took
+        self.bringup_error = None       # what the last failed prewarm raised
         # per-REPLICA breaker extending §8's per-version one: same
         # windowed error rate + the consecutive-failures fast trip
         # (a replica failing everything since instant T is dead — do
@@ -315,12 +317,14 @@ class ReplicaSet:
         except Exception as e:      # noqa: BLE001 — stay unroutable
             _LOG.warning("replica %s/%s: prewarm failed: %s",
                          self.name, rep.rid, e)
+            rep.bringup_error = e
             self._mark_unhealthy(
                 rep, f"prewarm failed: {type(e).__name__}: {e}")
             ok = False
         if ok:
             with self._cond:
                 rep.state = HEALTHY
+                rep.bringup_error = None
                 rep.last_beat = time.monotonic()
                 rep.prewarms += 1
                 rep.bringup_s = time.perf_counter() - t0
@@ -754,10 +758,27 @@ class ReplicaSet:
         """Add one replica UNDER LOAD: created, prewarmed (every
         bucket built + executed), and only then routable — traffic
         keeps flowing to the existing replicas meanwhile.  Returns the
-        new replica id."""
+        new replica id.
+
+        A failed prewarm removes the replica again and raises its error
+        (a failed capture on the card as its
+        :class:`~mxnet_tpu_torch.base.KernelError`), where the reference
+        keeps it UNHEALTHY for its heartbeat to retry: a scale-up that
+        cannot capture is the autoscaler's ``error`` decision, and no
+        dead replica stays behind retrying captures."""
         rep = self._create_replica()
-        self._bring_up(rep)
-        return rep.rid
+        if self._bring_up(rep):
+            return rep.rid
+        err = rep.bringup_error
+        try:
+            self.remove_replica(rep.rid, timeout=0)
+        except MXNetError:
+            pass                # already stopped with the set
+        if isinstance(err, MXNetError):
+            raise err
+        raise MXNetError(
+            f"ReplicaSet({self.name!r}): replica {rep.rid} failed its "
+            f"prewarm: {type(err).__name__}: {err}") from err
 
     def _drain(self, rep, timeout, strict):
         """Wait for ``rep``'s in-flight work (it is DRAINING, so nothing
@@ -805,7 +826,38 @@ class ReplicaSet:
             self._replicas.pop(rid, None)
             self._stats["drained"] += 1
         self._publish_state(rep)
+        on_cuda = self._retire(rep)
+        del rep
+        if on_cuda:
+            # the replica's graphs, pools and KV tensors are garbage
+            # now; hand their blocks (a destroyed graph's private pool
+            # included) back to the device, so add/remove cycles under
+            # an autoscaler do not grow the reserved memory
+            import gc
+            import torch
+            from .repository import _CAPTURE_LOCK
+            gc.collect()
+            with _CAPTURE_LOCK:     # never beside another capture
+                torch.cuda.empty_cache()
         return True
+
+    def _retire(self, rep):
+        """Drop a removed replica's device state: join its heartbeat
+        thread (the last holder of the replica besides the caller) and
+        evict its bucket programs (CUDA graphs and their pools); a
+        decode replica's engine goes with the replica object.  Returns
+        whether that state lived on a CUDA device."""
+        with self._cond:
+            self._cond.notify_all()
+        t = rep.beat_thread
+        if t is not None and t is not threading.current_thread():
+            t.join(2.0 * self.config.replica_heartbeat_ms / 1e3 + 1.0)
+        if rep.batcher is not None:
+            rep.batcher.evict(self.entry)
+            dev = rep.batcher.device or self.entry.device
+        else:
+            dev = getattr(rep.engine.model, "device", None)
+        return dev is not None and str(dev).startswith("cuda")
 
     def restart(self, rid, timeout=None):
         """Replace one replica in place: drain + stop the old

@@ -8,10 +8,12 @@ per batch bucket on the card) and ``generate`` over the port's
 version serves through a :class:`~mxnet_tpu_torch.serving.replica.
 ReplicaSet` instead (N replicas sharing the version's weights, each
 with its own bucket graphs or decode engine; on one card all of them
-share it).  The tiered admission gate comes with its slice: a port
-server behaves as the reference does with no ``tenant_tiers``
-(``tenant=`` is accepted and rides the default tier;
-:meth:`ModelServer.admission_controller` is None).
+share it).  With ``ServingConfig(tenant_tiers=...)`` every request
+passes the tiered admission gate
+(:class:`~mxnet_tpu_torch.serving.admission.AdmissionController`:
+per-tenant quotas, low tiers shed first under pressure) after the
+circuit gate and before the watermark; unset, there is no gate and no
+per-request cost.
 
 ``predict()`` is synchronous from the caller's side; underneath,
 admitted requests land in a bounded per-model queue, a worker pool
@@ -37,6 +39,7 @@ import numpy as np
 
 from .. import engine, runtime_metrics as _rm, tracing as _tr
 from ..base import MXNetError, entropy_rng
+from .admission import AdmissionController
 from .batcher import DynamicBatcher, _host
 from .config import ServingConfig
 from .repository import ModelRepository
@@ -132,10 +135,13 @@ class ModelServer:
         # hitting one backend failure do NOT retry in lockstep (the
         # thundering herd jitter exists to break up)
         self._retry_rng = entropy_rng()
+        # tiered admission gate (docs/serving.md §11), built from
+        # config.tenant_tiers; None = gate off, zero per-request cost
+        self._admission = AdmissionController.from_config(self.config)
         self._stats = {"requests": 0, "completed": 0, "shed": 0,
                        "batches": 0, "errors": 0, "retries": 0,
                        "deadline_exceeded": 0, "bisected": 0,
-                       "circuit_open_rejects": 0}
+                       "circuit_open_rejects": 0, "tenant_sheds": 0}
         engine.watch_races(self)
         if autostart:
             self.start()
@@ -305,12 +311,42 @@ class ModelServer:
             _tr.record_incident("serving.shed", self.debug_state)
             raise
 
+    def _admit_tenant(self, entry, tenant):
+        """Tenant-tier gate (docs/serving.md §11): quota token bucket
+        plus priority shedding under overload — low tiers shed first.
+        Runs AFTER the circuit gate and BEFORE the watermark check so
+        a shed tenant never touches the bounded queue.  No-op when
+        ``config.tenant_tiers`` is unset.  Observability mirrors every
+        other shed: stats, serving.shed metric, tagged admit span,
+        debounced incident dump."""
+        if self._admission is None:
+            return
+        # instantaneous queue fraction, read without _cond — a stale
+        # snapshot only skews the pressure one request, and the gate
+        # must not nest the controller's lock inside the server's
+        load = self._depth / float(max(1, self.config.shed_watermark))
+        try:
+            self._admission.check(tenant, model=entry.name, load=load)
+        except ServerOverloadedError as e:
+            with self._cond:
+                self._stats["shed"] += 1
+                self._stats["tenant_sheds"] += 1
+            if _rm._ENABLED:
+                _rm.SERVING_SHED.inc(model=entry.name)
+            sp = _tr.span("serving.admit")
+            sp.set_tag("shed", str(e))
+            sp.set_tag("tenant", "" if tenant is None else str(tenant))
+            sp.end()
+            _tr.record_incident("serving.shed", self.debug_state)
+            raise
+
     def admission_controller(self):
-        """The tiered admission controller: None — the gate comes with
-        the tenant-tier slice, so every request rides the default tier
-        with no quota (the reference's behaviour with ``tenant_tiers``
-        unset)."""
-        return None
+        """The tiered :class:`~mxnet_tpu_torch.serving.admission.
+        AdmissionController` (None when ``config.tenant_tiers`` is
+        unset) — an :class:`~mxnet_tpu_torch.serving.autoscaler.
+        Autoscaler` publishes SLO pressure into it, tests read its
+        stats."""
+        return self._admission
 
     # -------------------------------------------------------------- predict
     def predict(self, model, *inputs, timeout=None, tenant=None):
@@ -328,8 +364,10 @@ class ModelServer:
         within one scheduling quantum of the deadline — never a hang
         (docs/serving.md §8).
 
-        ``tenant`` is accepted for the reference's signature and rides
-        the default tier (the port has no tiered admission gate yet).
+        ``tenant`` ("name" or "name:tier") routes the request through
+        the tiered admission gate when ``config.tenant_tiers`` is set
+        (docs/serving.md §11); None rides the default tier with no
+        quota.
 
         With ``MXNET_TRACE=1`` the request carries one trace identity
         end to end: admission, queue wait, the (shared) batch-assembly
@@ -370,8 +408,10 @@ class ModelServer:
         deadline = Deadline.start(timeout)
         # circuit gate AFTER validation (a malformed request says
         # nothing about version health) and BEFORE queueing (an open
-        # circuit must shed instantly, not after a queue wait)
+        # circuit must shed instantly, not after a queue wait); the
+        # tenant-tier gate follows the same rule
         self._admit_circuit(entry)
+        self._admit_tenant(entry, tenant)
 
         req = _Request(entry, np_inputs, rows, deadline=deadline)
         req.trace = root.context
@@ -643,8 +683,10 @@ class ModelServer:
         reclaimed), so a request can never outlive its timeout inside
         the decode batch (docs/serving.md §8).
 
-        ``tenant`` is accepted and rides the default tier, as in
-        :meth:`predict`.
+        ``tenant`` ("name" or "name:tier") routes the request through
+        the tiered admission gate when ``config.tenant_tiers`` is set
+        (docs/serving.md §11), ahead of the decode engine; None rides
+        the default tier with no quota.
 
         With ``MXNET_TRACE=1`` the request is one trace end to end:
         admission, queue wait, prefill, every Nth decode step, and
@@ -660,6 +702,7 @@ class ModelServer:
             if timeout is None:
                 timeout = self.config.deadline_default
             self._admit_circuit(entry)
+            self._admit_tenant(entry, tenant)
             if self._replicated(entry):
                 # replica path: the set routes to the least-loaded
                 # healthy replica's engine and fails a dead replica's
@@ -764,6 +807,8 @@ class ModelServer:
                     key = f"{rset.name}@v{rset.entry.version}"
                 sets[key] = rset.stats()
             out["replica_sets"] = sets
+        if self._admission is not None:
+            out["admission"] = self._admission.stats()
         return out
 
     def debug_state(self):
@@ -810,6 +855,8 @@ class ModelServer:
             "bucket_disk_hits": self.batcher.bucket_disk_hits,
             "bucket_misses": self.batcher.bucket_misses,
         }
+        if self._admission is not None:
+            state["admission"] = self._admission.debug_state()
         state["repository"] = self.repository.debug_state()
         state["tracer"] = _tr.TRACER.stats()
         return state

@@ -46,7 +46,9 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "serving/batcher.py", "serving/resilience.py",
                    "parallel/checkpoint.py", "parallel/supervisor.py",
                    "io/io.py", "random.py", "quantize.py",
-                   "serving/replica.py", "parallel/placement.py"):
+                   "serving/replica.py", "parallel/placement.py",
+                   "serving/admission.py", "serving/autoscaler.py",
+                   "serving/traffic.py"):
         assert f"mxnet_tpu_torch/{module}" in scanned, module
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
