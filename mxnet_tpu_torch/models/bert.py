@@ -143,6 +143,7 @@ class BERTModel(nn.Module):
         self._vocab_size = vocab_size
         self._use_pooler = use_pooler
         self._use_flash = use_flash
+        self._tp = None                 # set while bound to a tp group
         self.word_embed = nn.Embedding(vocab_size, units, device=_META)
         self.token_type_embed = nn.Embedding(token_type_vocab_size, units,
                                              device=_META)
@@ -163,11 +164,36 @@ class BERTModel(nn.Module):
         return mask.reshape(B, 1, 1, L).expand(
             B, self._num_heads, L, L).reshape(B * self._num_heads, L, L)
 
+    def bind_tensor_parallel(self, tp):
+        """The tensor-parallel layout of the embeddings under ``tp``: a
+        table split on its units (``P(None, "tp")``) looks up its local
+        columns and all-gathers them before the embedding LayerNorm.
+        Returns ``(binding, the tables it runs split)``."""
+        split, names = [], set()
+        for name in ("word_embed", "token_type_embed"):
+            weight = getattr(self, name).weight
+            spec = tuple(tp.spec_of(weight))
+            if spec[:1] not in ((), (None,)):
+                raise MXNetError(f"BERTModel: an embedding table split on "
+                                 f"its rows ({spec}) is not supported")
+            if spec[1:2] == ("tp",):
+                split.append(weight)
+                names.add(name)
+        if not split:
+            return None, []
+        return (tp, names), split
+
+    def _lookup(self, name, idx):
+        emb = _embed(getattr(self, name), idx)
+        if self._tp is not None and name in self._tp[1]:
+            emb = self._tp[0].gather(emb, -1)
+        return emb
+
     def forward(self, inputs, token_types=None, valid_length=None):
         L = inputs.shape[1]
-        emb = _embed(self.word_embed, inputs)
+        emb = self._lookup("word_embed", inputs)
         if token_types is not None:
-            emb = emb + _embed(self.token_type_embed, token_types)
+            emb = emb + self._lookup("token_type_embed", token_types)
         x = emb.transpose(0, 1)                                 # (L, B, C)
         if self._use_flash:
             # padding rides the flash kernels' lengths vector; no O(L^2)
@@ -214,6 +240,7 @@ class BERTForPretrain(nn.Module):
         self.mlm_norm = _LayerNorm(units, 1e-12, _META)
         self.mlm_decoder = nn.Linear(units, self._vocab_size, device=_META)
         self.nsp_classifier = nn.Linear(units, 2, device=_META)
+        self._tp = None                 # set while bound to a tp group
         if device is None:
             device = bert.word_embed.weight.device
         if generator is None:
@@ -222,11 +249,25 @@ class BERTForPretrain(nn.Module):
                      self.nsp_classifier):
             _materialize(head, device, generator)
 
+    def bind_tensor_parallel(self, tp):
+        """The tensor-parallel layout of the MLM decoder under ``tp``: split
+        on the vocabulary (``P("tp", None)``, bias with it), it computes
+        its local logits and all-gathers them before the loss (which sees
+        full logits, as the JAX ``loss_fn`` does).  Returns ``(binding,
+        the parameters it runs split)``."""
+        if not tp.column(self.mlm_decoder.weight, self.mlm_decoder.bias):
+            return None, []
+        return tp, [self.mlm_decoder.weight, self.mlm_decoder.bias]
+
     def forward(self, inputs, token_types, valid_length, masked_positions):
         seq, pooled = self.bert(inputs, token_types, valid_length)
         gathered = _gather_positions(seq, masked_positions)     # (B, M, C)
         h = self.mlm_norm(F.gelu(self.mlm_dense(gathered)))
-        mlm_scores = self.mlm_decoder(h)                        # (B, M, V)
+        tp = self._tp
+        if tp is None:
+            mlm_scores = self.mlm_decoder(h)                    # (B, M, V)
+        else:
+            mlm_scores = tp.gather(self.mlm_decoder(tp.copy(h)), -1)
         nsp_scores = self.nsp_classifier(pooled)                # (B, 2)
         return mlm_scores, nsp_scores
 

@@ -189,17 +189,42 @@ class PositionwiseFFN(nn.Module):
                              f"known: {_ACTIVATIONS}")
         self._pre_norm = pre_norm
         self._activation = activation
+        self._tp = None                 # set while bound to a tp group
         self.ffn_1 = nn.Linear(units, hidden_size, device=_META)
         self.ffn_2 = nn.Linear(hidden_size, units, device=_META)
         self.layer_norm = _LayerNorm(units, layer_norm_eps, _META)
         self.dropout_layer = nn.Dropout(dropout)
         _materialize(self, device, generator)
 
+    def bind_tensor_parallel(self, tp):
+        """The tensor-parallel layout of this block under ``tp`` (a
+        ``parallel.sharding.TensorParallel``): ``(tp, the parameters it
+        runs split)`` when ``ffn_1`` is column- and ``ffn_2``
+        row-parallel, ``(None, [])`` when both are replicated; any other
+        placement raises."""
+        col = tp.column(self.ffn_1.weight, self.ffn_1.bias)
+        row = tp.row(self.ffn_2.weight, self.ffn_2.bias)
+        if col != row:
+            raise MXNetError("PositionwiseFFN: tensor parallelism needs "
+                             "ffn_1 column-parallel and ffn_2 row-parallel "
+                             "together")
+        if not col:
+            return None, []
+        return tp, [self.ffn_1.weight, self.ffn_1.bias, self.ffn_2.weight]
+
     def forward(self, x):
         residual = x
         if self._pre_norm:
             x = self.layer_norm(x)
-        out = self.ffn_2(_f_act(self.ffn_1(x), self._activation))
+        tp = self._tp
+        if tp is None:
+            out = self.ffn_2(_f_act(self.ffn_1(x), self._activation))
+        else:
+            # ffn_1 holds this rank's hidden units, ffn_2 the matching
+            # input columns: the partial products sum over the tp group
+            h = _f_act(self.ffn_1(tp.copy(x)), self._activation)
+            out = tp.reduce(F.linear(h, self.ffn_2.weight)) \
+                + self.ffn_2.bias
         out = self.dropout_layer(out) + residual
         if not self._pre_norm:
             out = self.layer_norm(out)
@@ -245,24 +270,55 @@ class MultiHeadSelfAttention(nn.Module):
         self._use_flash = use_flash
         self._causal = causal
         self._window = -1 if window is None else int(window)
+        self._tp = None                 # set while bound to a tp group
         self.qkv = nn.Linear(units, 3 * units, device=_META)
         self.out_proj = nn.Linear(units, units, device=_META)
         self.dropout_layer = nn.Dropout(dropout)
         _materialize(self, device, generator)
 
+    def bind_tensor_parallel(self, tp):
+        """The tensor-parallel layout of this block under ``tp`` (a
+        ``parallel.sharding.TensorParallel``): ``(tp, the parameters it
+        runs split)`` when ``qkv`` is column- and ``out_proj``
+        row-parallel — the interleaved ``[q|k|v]`` rows give each rank
+        ``heads / tp.size`` whole heads — ``(None, [])`` when both are
+        replicated; any other placement raises."""
+        col = tp.column(self.qkv.weight, self.qkv.bias)
+        row = tp.row(self.out_proj.weight, self.out_proj.bias)
+        if col != row:
+            raise MXNetError("MultiHeadSelfAttention: tensor parallelism "
+                             "needs qkv column-parallel and out_proj "
+                             "row-parallel together")
+        if col and self._heads % tp.size:
+            raise MXNetError(f"MultiHeadSelfAttention: {self._heads} heads "
+                             f"do not split over tp={tp.size}")
+        if not col:
+            return None, []
+        return tp, [self.qkv.weight, self.qkv.bias, self.out_proj.weight]
+
+    def _project_out(self, out):
+        tp = self._tp
+        if tp is None:
+            return self.out_proj(out)
+        return tp.reduce(F.linear(out, self.out_proj.weight)) \
+            + self.out_proj.bias
+
     def forward(self, x, mask=None, valid_length=None):
-        # x: (L, B, C); qkv: (L, B, 3C) interleaved per head [q|k|v]
-        qkv = self.qkv(x)
+        # x: (L, B, C); qkv: (L, B, 3C) interleaved per head [q|k|v]; a
+        # tp rank holds heads / tp of them, whole
+        tp = self._tp
+        heads = self._heads if tp is None else self._heads // tp.size
+        qkv = self.qkv(x if tp is None else tp.copy(x))
         if self._use_flash and mask is None:
             if valid_length is None:
-                out = flash_selfatt_nomask(qkv, heads=self._heads,
+                out = flash_selfatt_nomask(qkv, heads=heads,
                                            causal=self._causal,
                                            window=self._window)
             else:
-                out = flash_selfatt(qkv, valid_length, heads=self._heads,
+                out = flash_selfatt(qkv, valid_length, heads=heads,
                                     causal=self._causal,
                                     window=self._window)
-            return self.out_proj(self.dropout_layer(out))
+            return self._project_out(self.dropout_layer(out))
         if self._window > 0:
             raise MXNetError(
                 "window (sliding-window attention) is only honored on "
@@ -276,14 +332,20 @@ class MultiHeadSelfAttention(nn.Module):
                 "explicit additive mask — it would otherwise be silently "
                 "ignored")
         L, B, _ = qkv.shape
-        q, k, v = _split_qkv(qkv, self._heads)              # (B*H, L, D)
+        q, k, v = _split_qkv(qkv, heads)                    # (B*H, L, D)
         scores = torch.bmm(q * (1.0 / math.sqrt(q.shape[-1])),
                            k.transpose(1, 2))               # (B*H, L, L)
         if mask is not None:
+            if tp is not None and mask.dim() == 3 \
+                    and mask.shape[0] == B * self._heads:
+                # a (B*H, L, L) mask: this rank's heads of each row
+                mask = mask.reshape(B, self._heads, *mask.shape[1:]) \
+                    .narrow(1, tp.rank * heads, heads) \
+                    .reshape(B * heads, *mask.shape[1:])
             scores = scores + mask
         att = self.dropout_layer(torch.softmax(scores, dim=-1))
         out = torch.bmm(att.to(v.dtype), v)
-        return self.out_proj(_merge_heads(out, L, B, self._heads))
+        return self._project_out(_merge_heads(out, L, B, heads))
 
     def gluon_names(self):
         return {**_dense_names("qkv_", self.qkv),

@@ -1,17 +1,27 @@
-"""Training of the PyTorch port: the one-card ``ShardedTrainer``, its
-mesh and its optimizers, and its durability — checkpoints, the step
-watchdog and the supervisor (the dp = 1 slice of ``mxnet_tpu.parallel``)
-— and the serving replica layer's placement (``replica_groups``,
-``replica_mesh``)."""
+"""Training of the PyTorch port over ``torch.distributed``: the
+process-group runtime (:mod:`.dist`), the device mesh, sharding rules
+and Megatron tensor parallelism, ``ShardedTrainer`` (dp / tp, with
+int8/fp8 gradient compression), ring attention and the GPipe pipeline,
+its optimizers, and its durability — checkpoints (sharded across ranks),
+the step watchdog and the supervisor — and the serving replica layer's
+placement (``replica_groups``, ``replica_mesh``)."""
+from . import dist
 from .checkpoint import CheckpointManager, load_checkpoint, save_checkpoint
 from .mesh import Mesh, make_mesh
+from .pipeline import make_pipeline_mesh, pipeline_apply
 from .placement import ReplicaMesh, replica_groups, replica_mesh
+from .ring_attention import ring_attention, ring_self_attention
+from .sharding import (MEGATRON_RULES, P, PartitionSpec, ShardingRules,
+                       partition_params)
 from .supervisor import (CrashLoopError, StepWatchdog, TrainingSupervisor,
                          TrainStepTimeoutError, run_with_deadline)
 from .trainer import ShardedTrainer
 
-__all__ = ["Mesh", "make_mesh", "replica_groups", "replica_mesh",
-           "ReplicaMesh", "ShardedTrainer",
-           "CheckpointManager", "save_checkpoint", "load_checkpoint",
-           "TrainingSupervisor", "StepWatchdog", "run_with_deadline",
-           "TrainStepTimeoutError", "CrashLoopError"]
+__all__ = ["Mesh", "make_mesh", "replica_groups",
+           "replica_mesh", "ReplicaMesh", "ShardingRules", "MEGATRON_RULES",
+           "PartitionSpec", "P", "partition_params", "ShardedTrainer",
+           "ring_attention", "ring_self_attention", "pipeline_apply",
+           "make_pipeline_mesh", "CheckpointManager", "save_checkpoint",
+           "load_checkpoint", "TrainingSupervisor", "StepWatchdog",
+           "run_with_deadline", "TrainStepTimeoutError", "CrashLoopError",
+           "dist"]

@@ -51,6 +51,21 @@ The state is the trainer's ``params``, ``buffers`` and ``opt_state``
   first bumps the trainer's generation, so a step abandoned by the
   watchdog can no longer replay over the restored state.  Numpy state
   (the tests' stand-in trainers) is assigned back.
+- **Sharded checkpoints.**  A trainer on a mesh of more than one rank
+  (``torch.distributed``) saves one payload per rank,
+  ``step_<n>/shard-<rank>-of-<world>.pt``: ``{"state": its local
+  shards, "layout": the mesh shape, its coordinates and every
+  parameter's placement}``.  Every rank calls ``save`` / ``wait`` /
+  ``restore`` (they are collectives).  Rank 0 prepares the step
+  directory, then all ranks write; at the barrier each rank hashes its
+  own payload, the verdicts are gathered, and only when every rank's
+  payload is verified does rank 0 write the one ``VERIFY-<n>.json``
+  (all ranks' files) and move ``LATEST``.  ``restore`` agrees on one
+  step across the ranks (a step any rank cannot verify or read falls
+  back for all), checks that the layout matches the trainer's, and
+  copies each shard back in place at the same placements, so captured
+  graphs stay valid.  The compression residuals are per-rank tensors
+  of the state; the step counter rides ``extra``.
 - **``save_on_signal``** — a SIGTERM/preemption hook: one synchronous
   save + barrier + marker commit, then the previous handler (or the
   default action) runs.
@@ -75,6 +90,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from .. import engine as _engine
 from .. import faults as _faults
@@ -108,6 +124,37 @@ def _trainer_state(trainer):
         if value:
             _flatten(tree, value, state)
     return state
+
+
+def _ranks(trainer):
+    """``(rank, world)`` when ``trainer`` trains on a mesh of more than
+    one rank (a sharded checkpoint), else None."""
+    mesh = getattr(trainer, "mesh", None)
+    if getattr(mesh, "groups", None) is None or not tdist.is_initialized():
+        return None
+    world = tdist.get_world_size()
+    return None if world == 1 else (tdist.get_rank(), world)
+
+
+def _layout(trainer):
+    """What a rank's shards mean: the mesh, this rank's coordinates and
+    each parameter's placement."""
+    mesh = trainer.mesh
+    return {"mesh": {a: int(n) for a, n in mesh.shape.items()},
+            "coords": {a: int(c) for a, c in mesh.coords.items()},
+            "placements": {n: [a for a in spec] for n, spec in
+                           getattr(trainer, "placements", {}).items()}}
+
+
+def _shard_name(rank, world):
+    return f"shard-{rank}-of-{world}.pt"
+
+
+def _all_agree(value):
+    """Every rank's ``value`` (a collective over the default group)."""
+    out = [None] * tdist.get_world_size()
+    tdist.all_gather_object(out, value)
+    return out
 
 
 def _as_tensor(leaf, name):
@@ -194,6 +241,7 @@ class CheckpointManager:
         self._staging = {}              # name -> host tensor
         self._writer = None             # the async write in flight
         self._write_error = None
+        self._shard = None              # (rank, world) of a sharded save
         self.timings = {}
 
     # ---------------------------------------------------------------- save
@@ -208,13 +256,22 @@ class CheckpointManager:
         _inject("checkpoint.save", modes=("fail", "delay", "stall"))
         self._join_writer()         # the staging buffers are free again
         t0 = time.perf_counter()
+        self._shard = _ranks(trainer)
         host, done = self._snapshot(trainer)
         root = self._step_dir(step)
-        if os.path.isdir(root):
-            shutil.rmtree(root)
-            self._remove_manifest(step)
-        os.makedirs(root)
-        self._retain(step)
+        if self._shard is not None:
+            # no rank is still writing an older step when rank 0 prunes,
+            # and every rank writes into the directory rank 0 prepared
+            host = {"state": host, "layout": _layout(trainer)}
+            _all_agree(step)
+        if self._shard is None or self._shard[0] == 0:
+            if os.path.isdir(root):
+                shutil.rmtree(root)
+                self._remove_manifest(step)
+            os.makedirs(root)
+            self._retain(step)
+        if self._shard is not None:
+            _all_agree(step)
         # the marker only advances at the durability barrier (wait/
         # close/signal-save) — a queued save is not yet a fact
         self._pending.append(step)
@@ -273,7 +330,7 @@ class CheckpointManager:
             if done is not None:
                 done.synchronize()
             t1 = time.perf_counter()
-            path = os.path.join(root, _PAYLOAD)
+            path = os.path.join(root, self._payload_name())
             with open(path + ".tmp", "wb") as f:
                 torch.save(host, f)
                 f.flush()
@@ -284,6 +341,10 @@ class CheckpointManager:
                                 write_s=time.perf_counter() - t1)
         except BaseException as e:          # noqa: BLE001 — re-raised
             self._write_error = e
+
+    def _payload_name(self, shard=None):
+        shard = shard or self._shard
+        return _PAYLOAD if shard is None else _shard_name(*shard)
 
     def _join_writer(self):
         """Wait for the write in flight; re-raise its failure."""
@@ -327,6 +388,9 @@ class CheckpointManager:
         ``step=`` restores exactly that step and raises on damage."""
         corrupt = _inject("checkpoint.restore",
                           modes=("fail", "delay", "stall", "corrupt"))
+        self._shard = _ranks(trainer)
+        if self._shard is not None:
+            return self._restore_sharded(trainer, step)
         if step is not None:
             step = int(step)
             if corrupt is not None:
@@ -385,13 +449,29 @@ class CheckpointManager:
 
     def _restore_exact(self, trainer, step: int) -> int:
         t0 = time.perf_counter()
-        path = os.path.join(self._step_dir(step), _PAYLOAD)
+        loaded = self._load_payload(trainer, step, _PAYLOAD)
+        return self._copy_in(trainer, loaded, step, t0)
+
+    def _load_payload(self, trainer, step, name):
+        """Read payload ``name`` of ``step`` and check it against the
+        trainer: the same names, shapes and dtypes (and, sharded, the
+        same layout).  Returns the flat state; raises
+        :class:`MXNetError` before anything is written."""
+        path = os.path.join(self._step_dir(step), name)
         try:
             loaded = torch.load(path, map_location="cpu", weights_only=True)
         except Exception as e:  # noqa: BLE001 — any unreadable payload
             raise MXNetError(f"checkpoint: cannot read step {step} "
                              f"({path}): {e!r}") from e
-        t1 = time.perf_counter()
+        if self._shard is not None:
+            if not isinstance(loaded, dict) \
+                    or loaded.get("layout") != _layout(trainer):
+                raise MXNetError(
+                    f"checkpoint: step {step}'s shard {name} was saved "
+                    f"with another mesh or placements: "
+                    f"{loaded.get('layout') if isinstance(loaded, dict) else None}"
+                    f" vs the trainer's {_layout(trainer)}")
+            loaded = loaded["state"]
         target = _trainer_state(trainer)
         if not isinstance(loaded, dict) or set(loaded) != set(target):
             names = set(loaded) if isinstance(loaded, dict) else set()
@@ -399,13 +479,20 @@ class CheckpointManager:
                 f"checkpoint: step {step} holds other state than the "
                 f"trainer: missing {sorted(set(target) - names)[:4]}, "
                 f"unexpected {sorted(names - set(target))[:4]}")
-        for name, leaf in target.items():
-            want, got = _as_tensor(leaf, name), loaded[name]
+        for key, leaf in target.items():
+            want, got = _as_tensor(leaf, key), loaded[key]
             if want.shape != got.shape or want.dtype != got.dtype:
                 raise MXNetError(
-                    f"checkpoint: step {step}: {name} is "
+                    f"checkpoint: step {step}: {key} is "
                     f"{tuple(got.shape)} {got.dtype}, the trainer's is "
                     f"{tuple(want.shape)} {want.dtype}")
+        return loaded
+
+    def _copy_in(self, trainer, loaded, step, t0):
+        """Bump the trainer's generation, then ``copy_`` every loaded
+        tensor into the trainer's own (addresses kept)."""
+        t1 = time.perf_counter()
+        target = _trainer_state(trainer)
         bump = getattr(trainer, "bump_generation", None)
         if bump is not None:
             bump()
@@ -418,6 +505,74 @@ class CheckpointManager:
         self.timings.update(read_s=t1 - t0,
                             copy_s=time.perf_counter() - t1)
         return int(step)
+
+    def _restore_sharded(self, trainer, step):
+        """The collective restore of a sharded checkpoint: each rank
+        verifies and reads its own shard of a candidate step, the ranks
+        agree, and only a step every rank holds intact is copied in."""
+        rank, world = self._shard
+        name = _shard_name(rank, world)
+
+        def attempt(cand, require):
+            t0 = time.perf_counter()
+            ok, why = self._verify_shard(cand, name, require)
+            self.timings["verify_s"] = time.perf_counter() - t0
+            loaded = None
+            if ok:
+                try:
+                    loaded = self._load_payload(trainer, cand, name)
+                except MXNetError as e:
+                    why = str(e)
+            bad = [(r, w) for r, w in enumerate(
+                _all_agree(None if loaded is not None else why))
+                if w is not None]
+            return loaded, bad, t0
+
+        if step is not None:
+            step = int(step)
+            loaded, bad, t0 = attempt(step, False)
+            if bad:
+                raise MXNetError(f"checkpoint: step {step} under "
+                                 f"{self._dir} is damaged: {bad}")
+            return self._copy_in(trainer, loaded, step, t0)
+        candidates = self._candidate_steps()
+        if not candidates:
+            raise MXNetError(f"no checkpoint found under {self._dir}")
+        verified = self.latest_verified_step()
+        marker_retained = verified is not None and verified in candidates
+        failures = []
+        for cand in candidates:
+            loaded, bad, t0 = attempt(
+                cand, marker_retained and cand > verified)
+            if not bad:
+                return self._copy_in(trainer, loaded, cand, t0)
+            _LOG.warning("checkpoint: step %d is not intact on every rank "
+                         "(%s) — falling back to the previous verified "
+                         "step", cand, bad)
+            failures.append((cand, bad))
+        raise MXNetError(
+            f"no restorable checkpoint under {self._dir}: every "
+            f"candidate failed verification or restore: {failures}")
+
+    def _verify_shard(self, step, name, require_manifest=False):
+        """(ok, why) for this rank's shard ``name`` of ``step``."""
+        try:
+            with open(self._manifest_path(step)) as f:
+                manifest = json.load(f)
+        except OSError:
+            if require_manifest:
+                return False, ("no manifest — the step never "
+                               "completed a durability barrier")
+            if not os.path.exists(os.path.join(self._step_dir(step), name)):
+                return False, f"no shard {name}"
+            return True, "no manifest (pre-manifest step)"
+        except ValueError as e:
+            return False, f"manifest unreadable: {e}"
+        expect = manifest.get("files", {}).get(name)
+        got = self._hash_file(os.path.join(self._step_dir(step), name))
+        if expect is None or got != expect:
+            return False, f"shard {name} digest mismatch or missing"
+        return True, "verified"
 
     @staticmethod
     def _assign(trainer, name, value):
@@ -504,6 +659,18 @@ class CheckpointManager:
             os.fsync(f.fileno())
         os.replace(tmp, path)
 
+    @staticmethod
+    def _hash_file(path):
+        """The sha256 of one file (None when it cannot be read)."""
+        h = hashlib.sha256()
+        try:
+            with open(path, "rb") as f:
+                for chunk in iter(lambda: f.read(1 << 22), b""):
+                    h.update(chunk)
+        except OSError:
+            return None
+        return h.hexdigest()
+
     def _hash_step(self, step):
         """{relative path: sha256} over the step directory."""
         root = self._step_dir(step)
@@ -581,6 +748,8 @@ class CheckpointManager:
         record each pending step's integrity manifest (+ extra payload)
         and advance the verified-latest marker to the newest of them."""
         t0 = time.perf_counter()
+        if self._shard is not None:
+            return self._wait_sharded(t0)
         self._join_writer()
         if not self._pending:
             return
@@ -607,6 +776,61 @@ class CheckpointManager:
             _LOG.warning(
                 "checkpoint: injected payload corruption at "
                 "verified step %d (%s)", newest, flipped)
+
+    def _wait_sharded(self, t0):
+        """The barrier of a sharded save (every rank calls it): each rank
+        joins its write and hashes its own payload; the verdicts are
+        gathered; only if every rank's payload is verified does rank 0
+        write the manifest of all ranks' files and the extras, and move
+        the marker.  A rank's failure raises on every rank."""
+        if not self._pending and self._writer is None:
+            return
+        err = None
+        try:
+            self._join_writer()
+        except MXNetError as e:
+            err = e
+        rank, world = self._shard
+        name = _shard_name(rank, world)
+        pending = sorted(set(self._pending))
+        mine = {}
+        t1 = time.perf_counter()
+        for step in pending if err is None else ():
+            if not os.path.isdir(self._step_dir(step)):
+                continue                # pruned by retention since
+            digest = self._hash_file(os.path.join(self._step_dir(step),
+                                                  name))
+            if digest is None:
+                err = MXNetError(f"checkpoint: shard {name} of step {step} "
+                                 f"is missing after its write")
+            mine[step] = digest
+        t2 = time.perf_counter()
+        verdicts = _all_agree(
+            {"error": None if err is None else str(err), "files": mine})
+        extras, self._pending_extra = self._pending_extra, {}
+        self._pending = []
+        failed = [(r, v["error"]) for r, v in enumerate(verdicts)
+                  if v["error"] is not None]
+        if failed:
+            raise MXNetError(f"checkpoint: sharded save under {self._dir} "
+                             f"not verified on every rank: {failed}") \
+                from err
+        if rank == 0:
+            for step in sorted(verdicts[0]["files"]):
+                if step in extras:
+                    self._atomic_write(self._extra_path(step),
+                                       json.dumps(extras[step]))
+                files = {_shard_name(r, world): v["files"][step]
+                         for r, v in enumerate(verdicts)}
+                self._atomic_write(
+                    self._manifest_path(step),
+                    json.dumps({"step": int(step), "world": world,
+                                "files": files}))
+            self._commit_marker(max(pending))
+            self._gc_sidecars()
+        _all_agree(None)                # the marker is visible to all
+        self.timings.update(hash_s=t2 - t1,
+                            barrier_s=time.perf_counter() - t0)
 
     def close(self):
         """The barrier, then the staging buffers are released."""

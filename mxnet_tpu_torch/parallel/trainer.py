@@ -33,8 +33,37 @@ launch.  A restore bumps the trainer's generation; a step checks the
 generation it started under right before it stages and replays (or
 runs its eager update), under the trainer's lock, so a step abandoned
 by the watchdog that wakes after a restore returns without touching the
-restored state.  ``compression`` and ``rules`` come with the multi-GPU
-item of ROADMAP.md; passing them is a ``TypeError``.
+restored state.
+
+Multi-rank (SPMD, as the JAX multi-process path): over a mesh of an
+initialized process group (:func:`.mesh.make_mesh` after
+:func:`.dist.initialize`) every rank is given the same global batch and
+:meth:`ShardedTrainer.shard_batch` keeps its own dp rows (a batch dp
+does not divide is refused).  Parameters follow ``rules`` (default
+:data:`.sharding.MEGATRON_RULES`, matched against the Gluon names of
+the block's ``gluon_names()``): each rank holds its local shards as
+plain tensors, and the block's layers bound to the tp group run the
+Megatron collectives (``models.*.bind_tensor_parallel``), so flash
+attention runs on the rank's ``heads / tp`` heads.  The loss returned
+is the global mean and the gradients the dp mean, all-reduced in
+float32 buckets of at most 25 MiB over the dp group (floating
+buffers, BatchNorm's running statistics, are averaged with them);
+``collectives`` counts the dp collectives the host issued (a capture
+issues a step's once; its replays issue none from the host).  On
+an NCCL mesh those collectives are captured in the step's CUDA graph; a
+gloo group cannot be captured, so ``graphs=True`` over gloo with CUDA
+tensors raises :class:`MXNetError` (pass ``graphs=False``).
+
+``compression='int8' | 'fp8' | spec`` (:mod:`..quantize`) replaces the
+dp gradient mean by the quantized collective on a pure data-parallel
+mesh: each rank error-feedback-quantizes its gradients (per-rank
+float32 ``residuals``), all-gathers the payload and the per-block
+scales, and dequantizes and sums in float32.  ``wire_bytes_per_step``
+and ``logical_bytes_per_step`` account for it, and the
+``kvstore.wire.bytes`` counter takes the wire bytes once per step.
+Stochastic rounding draws from an explicit ``torch.Generator`` seeded
+from the step counter, the dp rank and the parameter's index; the
+counter is the trainer's :meth:`extra_state`.
 """
 from __future__ import annotations
 
@@ -49,14 +78,20 @@ from torch.func import functional_call
 from .. import engine as _engine
 from .. import faults as _faults
 from .. import perf_account as _pa
+from .. import quantize as _qz
 from .. import runtime_metrics as _rm
 from ..base import KernelError, MXNetError
 from . import optim as _optim
+from .sharding import (MEGATRON_RULES, P, ShardingRules, TensorParallel,
+                       all_reduce_, gather_params, local_shard)
 from .supervisor import StepWatchdog
 
 __all__ = ["ShardedTrainer"]
 
 _LOG = logging.getLogger("mxnet_tpu_torch")
+
+# the dp all-reduce's bucket size (float32 bytes), as DDP's default
+_BUCKET_BYTES = 25 << 20
 
 _OPTIMS = {
     "sgd": (_optim.sgd_init, _optim.sgd_update),
@@ -231,7 +266,8 @@ class _StepProgram:
 
 
 class ShardedTrainer:
-    """A training step for an ``nn.Module`` on a one-card :class:`Mesh`.
+    """A training step for an ``nn.Module`` on a :class:`Mesh`: one card,
+    or this rank's part of a multi-rank mesh (module docstring).
 
     ``loss_fn(outputs, *labels) -> scalar`` is written in torch over raw
     tensors.  ``step(*batch)`` takes the block's ``n_inputs =
@@ -259,16 +295,56 @@ class ShardedTrainer:
     """
 
     def __init__(self, block, loss_fn, mesh, optimizer="adamw",
-                 optimizer_params=None, example_inputs=(), n_labels=1,
-                 dtype=None, graphs=True, program_bound=8,
+                 optimizer_params=None, rules=MEGATRON_RULES,
+                 example_inputs=(), n_labels=1, dtype=None,
+                 compression=None, graphs=True, program_bound=8,
                  step_timeout_ms=None, slow_step_factor=None):
         if optimizer not in _OPTIMS:
             raise MXNetError(f"unknown optimizer {optimizer!r}; "
                              f"known: {sorted(_OPTIMS)}")
+        if not isinstance(rules, ShardingRules):
+            raise MXNetError(f"ShardedTrainer: rules must be a "
+                             f"parallel.ShardingRules, got "
+                             f"{type(rules).__name__}")
         self.mesh = mesh
         self.device = mesh.device
         self.block = block
         self.loss_fn = loss_fn
+        self.compression = _qz.CompressionSpec.parse(compression)
+        if self.compression is not None:
+            if "dp" not in mesh.shape:
+                raise MXNetError(
+                    "ShardedTrainer(compression=...): mesh has no 'dp' "
+                    "axis to compress gradients over")
+            sharded_axes = [a for a, n in mesh.shape.items()
+                            if a != "dp" and n > 1]
+            if sharded_axes:
+                raise MXNetError(
+                    f"ShardedTrainer(compression=...) needs a pure "
+                    f"data-parallel mesh: axes {sharded_axes} have size "
+                    f"> 1, and quantized sync of tensor/pipeline-"
+                    f"sharded gradients is not supported — drop "
+                    f"compression or reshape the mesh to dp-only")
+        cuda = self.device.type == "cuda"
+        grouped = mesh.groups is not None
+        if not grouped and any(int(n) > 1 for n in mesh.shape.values()):
+            raise MXNetError(
+                f"ShardedTrainer: mesh {mesh.shape} spans several devices "
+                f"but has no process group; build it with "
+                f"parallel.make_mesh after parallel.dist.initialize")
+        if graphs and cuda and grouped and mesh.backend != "nccl":
+            raise MXNetError(
+                f"ShardedTrainer: graphs=True captures the step's "
+                f"collectives in a CUDA graph, which a {mesh.backend} "
+                f"group carrying CUDA tensors cannot be (its collectives "
+                f"run on the host); pass graphs=False, or use an NCCL "
+                f"mesh")
+        if graphs and cuda and self.compression is not None \
+                and self.compression.stochastic:
+            raise MXNetError(
+                "ShardedTrainer: stochastic rounding draws from a "
+                "generator seeded on the host each step, which a "
+                "captured step cannot replay; pass graphs=False")
         self.watchdog = StepWatchdog(timeout_ms=step_timeout_ms,
                                      slow_factor=slow_step_factor)
         # a restore bumps the generation under the lock; a step checks
@@ -287,33 +363,223 @@ class ShardedTrainer:
             opt_kw["wd"] = opt_kw.pop("weight_decay")
         self._opt_kw = opt_kw
 
-        def own(t):
-            t = t.detach()
+        # placements by the Gluon names the rules match (a block without
+        # gluon_names() is matched by its torch names)
+        named = dict(block.named_parameters())
+        gluon = {id(t): n for n, t in getattr(
+            block, "gluon_names", dict)().items()}
+        self.placements = {
+            n: rules.safe_spec(mesh, gluon.get(id(p), n), tuple(p.shape))
+            for n, p in named.items()}
+        self._full_shapes = {n: tuple(p.shape) for n, p in named.items()}
+
+        def own(t, spec=P()):
+            t = local_shard(t.detach(), spec, mesh)
             if dtype is not None and t.is_floating_point():
                 return t.to(self.device, dtype, copy=True)
             return t.to(self.device, copy=True)
 
-        self.trainable = frozenset(n for n, p in block.named_parameters()
+        self.trainable = frozenset(n for n, p in named.items()
                                    if p.requires_grad)
-        self.params = {n: own(p).requires_grad_(n in self.trainable)
-                       for n, p in block.named_parameters()}
+        self.params = {n: own(p, self.placements[n]).requires_grad_(
+            n in self.trainable) for n, p in named.items()}
         self.buffers = {n: own(b) for n, b in block.named_buffers()}
         self._train_params = {n: p for n, p in self.params.items()
                               if n in self.trainable}
         self.opt_state = opt_init(self._train_params)
+        self._tp_bound = self._bind_tensor_parallel(named)
         self._n_inputs = len(example_inputs)
         self._n_labels = int(n_labels)
+        self._dp = int(mesh.shape.get("dp", 1))
+        self._dp_group = mesh.group("dp") if grouped else None
+        self._buckets = self._make_buckets()
+        self.collectives = 0            # dp collectives issued (host)
+        self._setup_compression()
         self.graphs = bool(graphs)
         self.program_bound = int(program_bound)
         self.compiled = 0               # programs built in this process
         self.capture_seconds = 0.0      # host time those captures took
         self._programs = {}             # batch signature -> _StepProgram
         self._flops = {}                # batch signature -> step FLOPs
-        cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) \
             if self.graphs and cuda else None
         self._graph_pool = torch.cuda.graph_pool_handle() \
             if self._stream is not None else None
+
+    # ------------------------------------------------------ multi-rank
+    def _bind_tensor_parallel(self, named):
+        """The block's layers bound to the tp group: ``[(module,
+        binding)]`` from each module's ``bind_tensor_parallel``.  A
+        parameter placed across a mesh axis of size > 1 that no layer
+        runs split raises: nothing computes on a shard as if it were the
+        whole."""
+        mesh = self.mesh
+        split = {n for n, spec in self.placements.items()
+                 if any(a is not None and mesh.shape[a] > 1 for a in spec)}
+        if not split:
+            return []
+        spec_of_id = {id(p): self.placements[n] for n, p in named.items()}
+        tp = TensorParallel(mesh.group("tp"), mesh.shape["tp"],
+                            mesh.coords["tp"],
+                            lambda p: spec_of_id.get(id(p), P()))
+        bound, claimed = [], set()
+        for module in self.block.modules():
+            bind = getattr(module, "bind_tensor_parallel", None)
+            if bind is None:
+                continue
+            binding, params = bind(tp)
+            if binding is not None:
+                bound.append((module, binding))
+                claimed |= {id(p) for p in params}
+        unclaimed = sorted(n for n in split if id(named[n]) not in claimed)
+        if unclaimed:
+            raise MXNetError(
+                f"ShardedTrainer: the rules split {unclaimed[:4]} "
+                f"({[self.placements[n] for n in unclaimed[:4]]}) but no "
+                f"layer of the block runs them split; only the "
+                f"transformer layers' tensor parallelism is ported")
+        return bound
+
+    @contextlib.contextmanager
+    def _tensor_parallel(self):
+        """The tp bindings set on their layers for one forward."""
+        for module, binding in self._tp_bound:
+            module._tp = binding
+        try:
+            yield
+        finally:
+            for module, _ in self._tp_bound:
+                module._tp = None
+
+    def _make_buckets(self):
+        """The dp all-reduce's buckets: trainable parameter names in
+        order, each bucket at most ``_BUCKET_BYTES`` of float32."""
+        if self._dp_group is None:
+            return []
+        buckets, cur, size = [], [], 0
+        for n in self._train_params:
+            nbytes = 4 * self._train_params[n].numel()
+            if cur and size + nbytes > _BUCKET_BYTES:
+                buckets.append(cur)
+                cur, size = [], 0
+            cur.append(n)
+            size += nbytes
+        if cur:
+            buckets.append(cur)
+        return buckets
+
+    def _setup_compression(self):
+        spec = self.compression
+        self.residuals = {}
+        self._quant_step = 0
+        self.wire_bytes_per_step = self.logical_bytes_per_step = 0
+        if spec is None:
+            return
+        # per-rank float32 rounding error of every trainable floating
+        # parameter (the EF accumulate-wide rule)
+        self._comp_names = tuple(
+            n for n, p in self._train_params.items()
+            if p.is_floating_point())
+        self.residuals = {
+            n: torch.zeros(self.params[n].shape, dtype=torch.float32,
+                           device=self.device) for n in self._comp_names}
+        comp = set(self._comp_names)
+        self._buckets = [[n for n in b if n not in comp]
+                         for b in self._buckets]
+        self._buckets = [b for b in self._buckets if b]
+        self._quant_gen = torch.Generator(self.device) \
+            if spec.stochastic else None
+        # each of the dp ranks transmits its compressed contribution per
+        # step (vs the payload the uncompressed all-reduce would move)
+        sizes = [self.params[n].numel() for n in self._comp_names]
+        self.wire_bytes_per_step = self._dp * sum(
+            _qz.wire_bytes(n, spec) for n in sizes)
+        self.logical_bytes_per_step = self._dp * sum(
+            _qz.logical_bytes(k, self.params[n].dtype)
+            for k, n in zip(sizes, self._comp_names))
+
+    def shard_batch(self, *arrays):
+        """This rank's dp rows of each array of a global batch (every
+        rank is given the same batch); a batch dp does not divide raises.
+        Without a process group the arrays come back as tensors."""
+        arrays = _tensors(arrays)
+        if self._dp == 1:
+            return arrays
+        c = self.mesh.coords["dp"]
+        out = []
+        for a in arrays:
+            if a.dim() == 0 or a.shape[0] % self._dp:
+                raise MXNetError(
+                    f"ShardedTrainer.shard_batch: batch dim "
+                    f"{tuple(a.shape)[:1]} is not divisible by dp="
+                    f"{self._dp}")
+            rows = a.shape[0] // self._dp
+            out.append(a[c * rows:(c + 1) * rows])
+        return tuple(out)
+
+    def _reduce(self, loss, grads):
+        """The dp reduction of one step, in place where it can: the loss
+        and the gradients become their dp means (float32 buckets over the
+        dp group, or the quantized collective), floating buffers their dp
+        mean.  Without a process group only a compressed trainer's
+        quantization runs (a dp of one, as the JAX trainer's)."""
+        group = self._dp_group
+        if self.compression is not None:
+            self._reduce_compressed(grads, group)
+        if group is None:
+            return loss
+        n = float(self._dp)
+        loss = loss.reshape(1).to(torch.float32)
+        for i, bucket in enumerate(self._buckets or [[]]):
+            parts = [grads[k].reshape(-1).to(torch.float32) for k in bucket]
+            if i == 0:
+                parts.insert(0, loss)
+            flat = torch.cat(parts)
+            all_reduce_(flat, group).div_(n)
+            self.collectives += 1
+            off = 1 if i == 0 else 0
+            if i == 0:
+                loss = flat[:1]
+            for k in bucket:
+                g = grads[k]
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
+        floating = [b for b in self.buffers.values() if b.is_floating_point()]
+        if floating and self._dp > 1:
+            flat = torch.cat([b.reshape(-1).to(torch.float32)
+                              for b in floating])
+            all_reduce_(flat, group).div_(n)
+            self.collectives += 1
+            off = 0
+            for b in floating:
+                b.copy_(flat[off:off + b.numel()].view_as(b))
+                off += b.numel()
+        return loss.reshape(())
+
+    def _reduce_compressed(self, grads, group):
+        spec, gen = self.compression, self._quant_gen
+        keys = None
+        if gen is not None:
+            base = (self._quant_step + 1) * 1_000_003 \
+                + self.mesh.coords["dp"]
+            keys = [(gen, (base * 65_537 + i) % (1 << 62))
+                    for i in range(len(self._comp_names))]
+        means, residuals = _qz.allreduce_mean_many(
+            [grads[k] for k in self._comp_names],
+            [self.residuals[k] for k in self._comp_names], spec, group,
+            keys=keys)
+        if group is not None:
+            self.collectives += 2       # payloads, scales
+        for k, m, r in zip(self._comp_names, means, residuals):
+            grads[k].copy_(m)
+            self.residuals[k].copy_(r)
+
+    def gathered_params(self):
+        """The full parameters ``{name: tensor}`` (a collective over the
+        mesh: every rank calls it)."""
+        if self.mesh.groups is None:
+            return {n: p.detach() for n, p in self.params.items()}
+        return gather_params(self.params, self.placements, self.mesh)
 
     # ------------------------------------------------------------ steps
     def _to_device(self, batch):
@@ -332,7 +598,8 @@ class ShardedTrainer:
         was_training = self.block.training
         self.block.train(True)
         try:
-            out = functional_call(self.block, (params, buffers), inputs)
+            with self._tensor_parallel():
+                out = functional_call(self.block, (params, buffers), inputs)
             loss = self.loss_fn(out, *labels)
         finally:
             self.block.train(was_training)
@@ -353,9 +620,11 @@ class ShardedTrainer:
                          **self._opt_kw)
 
     def _train_step(self, batch):
-        """Forward, backward and the in-place update on device arrays:
-        the work one CUDA graph captures.  Returns the loss."""
+        """Forward, backward, the dp reduction and the in-place update on
+        device arrays: the work one CUDA graph captures.  Returns the
+        loss (the global mean)."""
         loss, grads = self._forward_backward(batch)
+        loss = self._reduce(loss, grads)
         self._update(grads)
         return loss
 
@@ -402,14 +671,20 @@ class ShardedTrainer:
             raise MXNetError(
                 f"ShardedTrainer.step: expected {self._n_inputs} inputs + "
                 f"{self._n_labels} labels, got {len(batch)} arrays")
-        batch = _tensors(batch)
+        batch = self.shard_batch(*batch)
         generation = self._generation
         if not self.watchdog.active:
-            return self._run_step(batch, generation)
-        caller = torch.cuda.current_stream(self.device) \
-            if self.device.type == "cuda" else None
-        return self.watchdog.watch(
-            lambda: self._watched_step(batch, generation, caller))
+            loss = self._run_step(batch, generation)
+        else:
+            caller = torch.cuda.current_stream(self.device) \
+                if self.device.type == "cuda" else None
+            loss = self.watchdog.watch(
+                lambda: self._watched_step(batch, generation, caller))
+        if loss is not None and self.compression is not None:
+            self._quant_step += 1
+            if _rm._ENABLED:
+                _rm.KV_WIRE_BYTES.inc(self.wire_bytes_per_step)
+        return loss
 
     def _watched_step(self, batch, generation, caller):
         """The step on the watchdog's thread, to the device's
@@ -459,13 +734,18 @@ class ShardedTrainer:
 
     def extra_state(self):
         """Step state that is not a tensor, for a checkpoint's extra
-        payload: none at dp = 1 (the JAX trainer's is the step counter of
-        its quantized collective)."""
+        payload: the quantized collective's step counter, which seeds
+        stochastic rounding (empty without compression).  The residuals
+        are tensors and travel with the parameters."""
+        if self.compression is not None:
+            return {"quant_step": int(self._quant_step)}
         return {}
 
     def set_extra_state(self, state):
-        """Take :meth:`extra_state`'s payload back: nothing to restore at
-        dp = 1."""
+        """Take :meth:`extra_state`'s payload back."""
+        if self.compression is not None and state \
+                and "quant_step" in state:
+            self._quant_step = int(state["quant_step"])
 
     def _step_attributed(self, batch, generation):
         """The observed variant of :meth:`step`: ``train.h2d``,
@@ -491,7 +771,16 @@ class ShardedTrainer:
                 self._sync()
                 t2 = time.perf_counter()
                 h.record("compute", t1, t2)
-                h.mark("collective", devices=1)
+                if self._dp_group is None:
+                    h.mark("collective", devices=1)
+                else:
+                    loss = self._reduce(loss, grads)
+                    self._sync()
+                    t3 = time.perf_counter()
+                    h.record("collective", t2, t3, devices=self.mesh.size,
+                             wire_bytes=self.wire_bytes_per_step,
+                             logical_bytes=self.logical_bytes_per_step)
+                    t2 = t3
                 self._update(grads)
                 self._sync()
                 h.record("optimizer", t2, time.perf_counter())
@@ -524,7 +813,13 @@ class ShardedTrainer:
                 return torch.empty_like(t, device="meta").requires_grad_(
                     t.requires_grad)
 
-            params = {n: meta(p) for n, p in self.params.items()}
+            # the full parameters and no tp binding: the step's model
+            # FLOPs over this rank's batch rows
+            params = {n: torch.empty(self._full_shapes[n], dtype=p.dtype,
+                                     device="meta").requires_grad_(
+                                         p.requires_grad)
+                      for n, p in self.params.items()}
+            bound, self._tp_bound = self._tp_bound, []
             buffers = {n: meta(b) for n, b in self.buffers.items()}
             args = tuple(torch.empty(shape, dtype=dt, device="meta")
                          for shape, dt in sig)
@@ -539,14 +834,18 @@ class ShardedTrainer:
                 self._flops[sig] = None
             else:
                 self._flops[sig] = float(counter.get_total_flops())
+            finally:
+                self._tp_bound = bound
         return self._flops[sig]
 
     def write_back(self):
-        """Copy the trained parameters, and the buffers the steps
+        """Copy the trained parameters (gathered from their shards: a
+        collective on a multi-rank mesh), and the buffers the steps
         updated (BatchNorm running statistics), back into the block (in
         the block's own dtypes)."""
+        full = self.gathered_params()
         with torch.no_grad():
             for n, p in self.block.named_parameters():
-                p.copy_(self.params[n])
+                p.copy_(full[n])
             for n, b in self.block.named_buffers():
                 b.copy_(self.buffers[n])

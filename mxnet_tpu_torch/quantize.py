@@ -10,9 +10,14 @@ The PyTorch port of ``mxnet_tpu.quantize``'s core and its serving half:
   ``deploy.export_stablehlo(quantize='int8'|'fp8')`` bakes into a
   manifest v4 artifact.
 
-The collective half of the reference (``allreduce_sum`` /
-``allreduce_mean``, kvstore compression and
-``ShardedTrainer(compression=...)``) comes with multi-GPU training.
+- the collective half (:func:`allreduce_sum`, :func:`allreduce_mean`
+  and the many-tensor :func:`allreduce_mean_many` that
+  ``parallel.ShardedTrainer(compression=...)`` runs) over a
+  ``torch.distributed`` process group: each rank quantizes with error
+  feedback, all-gathers the payload (fp8 as its ``uint8`` bits) and the
+  per-block float32 scales, and dequantizes and sums in float32.
+
+The kvstore's compression comes with the kvstore (ROADMAP item 6).
 
 Numerical contract, as the reference's: the payload is widened to
 float32, the scale applied in float32, and the result narrowed once to
@@ -36,7 +41,8 @@ from .base import MXNetError, get_env
 
 __all__ = [
     "CompressionSpec", "quantize", "dequantize",
-    "quantize_with_feedback", "wire_bytes", "logical_bytes",
+    "quantize_with_feedback", "allreduce_sum", "allreduce_mean",
+    "allreduce_mean_many", "wire_bytes", "logical_bytes",
     "quantize_tensor", "dequantize_tensor", "tensor_scale",
 ]
 
@@ -275,6 +281,87 @@ def quantize_with_feedback(grad, residual, spec: CompressionSpec,
     else:
         new_residual = torch.zeros_like(residual)
     return payload, scales, new_residual
+
+
+# ------------------------------------------------------- collectives
+def _world(group):
+    """The size of ``group``; None is a world of one (no collective)."""
+    import torch.distributed as tdist
+    return 1 if group is None else tdist.get_world_size(group)
+
+
+def _allreduce_sum_many(xs, residuals, spec, group, keys):
+    """Quantize every ``x`` (+ its residual) on this rank, all-gather the
+    payloads and scales of all of them in one collective each, and
+    dequantize and sum each tensor's contributions in float32.  Returns
+    (the sums, each cast once to its ``x``'s dtype; the new
+    residuals)."""
+    from .parallel.sharding import all_gather
+    fp8 = spec.kind == "fp8"
+    payloads, scales, new_res, sizes = [], [], [], []
+    for i, (x, r) in enumerate(zip(xs, residuals)):
+        key = None if keys is None else keys[i]
+        if isinstance(key, tuple):
+            key, seed = key
+            key.manual_seed(int(seed))
+        payload, sc, nr = quantize_with_feedback(x, r, spec, key=key)
+        flat = payload.reshape(-1)
+        payloads.append(flat.view(torch.uint8) if fp8 else flat)
+        scales.append(sc)
+        new_res.append(nr)
+        sizes.append((flat.numel(), sc.numel()))
+    ndev = _world(group)
+    got_p, got_s = torch.cat(payloads), torch.cat(scales)
+    if group is not None:
+        got_p, got_s = all_gather(got_p, group), all_gather(got_s, group)
+    got_p, got_s = got_p.reshape(ndev, -1), got_s.reshape(ndev, -1)
+    if fp8:
+        got_p = got_p.view(torch.float8_e4m3fn)
+    sums, po, so = [], 0, 0
+    for x, (np_, ns) in zip(xs, sizes):
+        q = got_p[:, po:po + np_].reshape(ndev, ns, -1)
+        acc = (q.to(torch.float32) * got_s[:, so:so + ns, None]).sum(0)
+        n = x.numel()
+        sums.append(acc.reshape(-1)[:n].reshape(x.shape).to(x.dtype))
+        po, so = po + np_, so + ns
+    return sums, new_res
+
+
+def allreduce_sum(x, residual, spec: CompressionSpec, group, key=None):
+    """Quantized all-reduce sum over the process group ``group``: this
+    rank quantizes ``x`` (+ its error-feedback ``residual``), every
+    rank's compressed payload and scales are all-gathered (only the
+    compressed bytes cross the wire), dequantized in float32 and summed.
+    ``group=None`` is a world of one (the quantization alone).
+    Returns ``(summed, new_residual)``: ``summed`` is the same on every
+    rank, ``new_residual`` stays this rank's.  ``key``: a seeded
+    ``torch.Generator`` for stochastic rounding."""
+    keys = None if key is None else [key]
+    sums, res = _allreduce_sum_many([x], [residual], spec, group, keys)
+    return sums[0], res[0]
+
+
+def _mean(summed, ndev, dtype):
+    return (summed.to(torch.float32) / ndev).to(dtype)
+
+
+def allreduce_mean(x, residual, spec: CompressionSpec, group, key=None):
+    """:func:`allreduce_sum` divided by the group's size (the
+    data-parallel gradient mean)."""
+    summed, res = allreduce_sum(x, residual, spec, group, key=key)
+    return _mean(summed, _world(group), x.dtype), res
+
+
+def allreduce_mean_many(xs, residuals, spec: CompressionSpec, group,
+                        keys=None):
+    """:func:`allreduce_mean` of several tensors with one all-gather of
+    payloads and one of scales (each tensor keeps its own blocks, as one
+    call per tensor would).  ``keys``: None, or per tensor a
+    ``(torch.Generator, seed)`` to seed before its stochastic rounding.
+    Returns ``(means, new_residuals)``."""
+    sums, res = _allreduce_sum_many(xs, residuals, spec, group, keys)
+    ndev = _world(group)
+    return [_mean(sm, ndev, x.dtype) for sm, x in zip(sums, xs)], res
 
 
 # -------------------------------------------------- per-tensor (serving)

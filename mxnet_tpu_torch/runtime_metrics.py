@@ -815,6 +815,12 @@ COMPILE_CACHE = counter(
     "nvcc-built kernel libraries (mxnet_tpu_torch.ops.build).",
     labelnames=("event",))
 
+KV_WIRE_BYTES = counter(
+    "kvstore.wire.bytes",
+    "Gradient-sync payload bytes that cross the interconnect: "
+    "ShardedTrainer(compression=...) adds its compressed payload + "
+    "per-block-scale size (wire_bytes_per_step, every dp rank's) once "
+    "per step.")
 TRAINER_STEP_SECONDS = histogram(
     "trainer.step.seconds",
     "Wall-clock time of one optimizer step (an attributed "

@@ -1,8 +1,8 @@
 """PyTorch port, package boundary: no module of ``mxnet_tpu_torch`` and
 not ``chip_smoke.py`` imports ``jax`` or the JAX package (an AST scan of
-every import statement), the adapter's default device refuses to fall
-back to the CPU, and the kernel build reports a missing ``nvcc`` as
-:class:`MXNetError`.
+every import statement), the adapter's and the multi-rank entry points'
+default device refuses to fall back to the CPU, and the kernel build
+reports a missing ``nvcc`` as :class:`MXNetError`.
 """
 import ast
 import os
@@ -48,7 +48,9 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "io/io.py", "random.py", "quantize.py",
                    "serving/replica.py", "parallel/placement.py",
                    "serving/admission.py", "serving/autoscaler.py",
-                   "serving/traffic.py"):
+                   "serving/traffic.py", "parallel/dist.py",
+                   "parallel/sharding.py", "parallel/ring_attention.py",
+                   "parallel/pipeline.py", "tools/launch.py"):
         assert f"mxnet_tpu_torch/{module}" in scanned, module
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
@@ -84,3 +86,26 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.build()
     path = build.library_path("ragged_paged_attention")
     assert path.startswith(str(tmp_path)) and path.endswith(".so")
+
+
+def test_multi_rank_entry_points_default_to_the_card(monkeypatch):
+    """``dist.initialize``, ``make_mesh`` and ``make_pipeline_mesh`` take
+    ``device="cuda"`` unless told otherwise, and without a card they
+    refuse instead of running on the CPU."""
+    import torch
+
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.parallel import dist
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dist.tdist, "init_process_group",
+                        lambda *a, **k: pytest.fail("group created"))
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        dist.initialize(coordinator_address="127.0.0.1:1",
+                        num_processes=1, process_id=0)
+    assert not dist.is_initialized()
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        parallel.make_mesh()
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        parallel.make_pipeline_mesh(1)
+    assert parallel.make_pipeline_mesh(1, device="cpu").device.type == "cpu"

@@ -13,7 +13,9 @@
 - ``write_back`` carries BatchNorm running statistics (buffers) to the
   block and leaves frozen parameters untouched, against the JAX trainer
   after one SGD step (atol 1e-5);
-- a mesh with an axis above 1 is refused.
+- without a process group a mesh with an axis above 1 is refused, and
+  ``compression=`` on a dp x tp mesh is refused (multi-rank training
+  itself: ``test_torch_dist.py``, ``test_torch_parallel_tp.py``).
 """
 import re
 
@@ -150,19 +152,26 @@ def test_sharded_trainer_matches_jax_three_adamw_steps():
 
 
 def test_trainer_refuses_options_of_later_slices():
+    """The twin of ``test_quantize.py::TestShardedTrainerCompression::
+    test_requires_pure_dp_mesh``: ``compression=`` on a dp x tp mesh (a
+    descriptor: the refusal comes before any process group is used)
+    raises; an unknown optimizer raises."""
     head = tm.BERTForPretrain(tm.get_bert_model(
         "bert_12_768_12", use_flash=True, device="cpu", **KW), vocab_size=64)
-    mesh = tpar.make_mesh(device="cpu")
-    with pytest.raises(TypeError):
-        tpar.ShardedTrainer(head, tm.pretrain_loss, mesh,
+    dp_tp = tpar.Mesh("cpu", {"dp": 2, "tp": 2, "sp": 1, "ep": 1})
+    with pytest.raises(MXNetError, match="pure data-parallel"):
+        tpar.ShardedTrainer(head, tm.pretrain_loss, dp_tp,
                             compression="int8")
+    mesh = tpar.make_mesh(device="cpu")
     with pytest.raises(MXNetError, match="unknown optimizer"):
         tpar.ShardedTrainer(head, tm.pretrain_loss, mesh, optimizer="adam")
 
 
 @pytest.mark.parametrize("axes", [dict(dp=2), dict(tp=2), dict(sp=4)])
 def test_make_mesh_refuses_more_than_one_device(axes):
-    with pytest.raises(MXNetError, match="multi-GPU"):
+    """Without a process group a mesh is one device: more raises and
+    says to initialize the group (``parallel.dist.initialize``)."""
+    with pytest.raises(MXNetError, match="initialize a process group"):
         tpar.make_mesh(device="cpu", **axes)
 
 

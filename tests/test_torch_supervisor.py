@@ -320,9 +320,22 @@ class TestStepWatchdog:
         assert _join_new_watchdog_workers(before)
 
     def test_trainer_refuses_multi_gpu_options(self):
-        for kw in (dict(compression="int8"), dict(rules={})):
-            with pytest.raises(TypeError):
-                _linear_trainer(**kw)
+        """Multi-rank training is ported (``test_torch_parallel_tp.py``):
+        ``compression=`` on a dp x tp mesh and ``rules=`` that are not
+        ``ShardingRules`` raise; on one card ``compression=`` runs the
+        quantization of a dp of one."""
+        dp_tp = tpar.Mesh("cpu", {"dp": 2, "tp": 2, "sp": 1, "ep": 1})
+        with pytest.raises(MXNetError, match="pure data-parallel"):
+            tpar.ShardedTrainer(torch.nn.Linear(4, 4),
+                                lambda out, lab: ((out - lab) ** 2).mean(),
+                                dp_tp, example_inputs=(np.ones((2, 4)),),
+                                compression="int8")
+        with pytest.raises(MXNetError, match="ShardingRules"):
+            _linear_trainer(rules={})
+        trainer, x = _linear_trainer(compression="int8")
+        assert float(trainer.step(x, x)) >= 0
+        assert trainer.residuals and trainer.wire_bytes_per_step > 0
+        assert trainer.extra_state() == {"quant_step": 1}
 
 
 # ---------------------------------------------------------------------------
