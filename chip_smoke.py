@@ -315,6 +315,36 @@ parent built (no ``nvcc``); a rank's failure fails the script.
    a CUDA tensor (its exit code and what arrived; the port stages
    every gloo hop through host memory whatever it finds).
 
+Then the Gluon training path (``nd``, ``autograd``, ``gluon``,
+``kvstore``), fp32 with TF32 off:
+
+19. ``gluon_lenet`` — the LeNet of ``examples/mnist_gluon.py`` at its
+   published widths (Conv2D 20 k5, MaxPool 2, Conv2D 50 k5, MaxPool 2,
+   Dense 500, Dense 10), batch 64 of 1x28x28 from ``RandomState(0)``,
+   Adam lr 1e-3, ``SoftmaxCrossEntropyLoss``, 20 steps on ``mx.gpu(0)``
+   through ``autograd.record`` / ``backward`` / ``Trainer.step``: the
+   losses fall, and the first 3 equal the same run on ``mx.cpu(0)``
+   from the same weights (``GLUON_LENET_RTOL``); ms a step;
+20. ``gluon_flash`` — one BERT-large encoder layer (units 1024, 16
+   heads, FFN 4096) written as a user ``HybridBlock`` around
+   ``F.flash_selfatt``, L 512, batch 8 with valid lengths below 512, a
+   two-way head on position 0, 3 Adam steps: losses and the qkv
+   weight's first gradient against the same layer on the host
+   (``GLUON_FLASH_*``); B1 once a forward and B2, B3 once each a
+   backward (the wrappers' counters); one
+   ``nd.ragged_paged_attention_op`` call at ``kernels``' B4 batch
+   against the host's, B4 launched once;
+21. ``gluon_dist`` — two gloo ranks on the one card (this script with
+   ``--gluon-worker``, started by ``mxnet_tpu_torch.tools.launch``),
+   the reference's ``dist_sync`` sequence on CUDA values, then
+   ``gluon_flash``'s layer by ``Trainer(..., "sgd",
+   kvstore="dist_sync")`` on 4 rows a rank, rank 1 starting from other
+   weights: the ranks' parameters bit for bit equal before the first
+   step and after each, and within ``GLUON_DIST_*`` of the one-rank
+   full-batch run; an int8-compressed push's ``kvstore.wire.bytes``
+   under its ``kvstore.push.bytes`` (timings: two ranks on one card
+   through host memory).
+
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
 main path: for B4 and B5 the ``serve`` engine's, for B1-B3 the graphs
@@ -344,7 +374,9 @@ apart) and ``traced_train_kernel_records`` over
 ``launches_dist_nccl`` (two trainers' eager first steps),
 ``traced_dist_nccl_kernel_records`` (one traced grouped replay),
 ``launches_dist_tp`` and ``launches_dist_dp_int8`` (one rank's, 3
-steps)), the
+steps), and ``launches_gluon_flash`` and ``launches_gluon_dist`` (rank
+0's) from the Gluon phases; B4 gives ``launches_gluon_nd`` (the
+``nd.ragged_paged_attention_op`` call)), the
 ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero without that line; it never
@@ -352,8 +384,9 @@ runs on the CPU.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 ``--durability-child`` is the entry of ``durability_signal``'s child
-processes and ``--dist-worker`` that of the ``dist_*`` phases' ranks,
-which the script starts itself.
+processes, ``--dist-worker`` that of the ``dist_*`` phases' ranks and
+``--gluon-worker`` that of ``gluon_dist``'s, which the script starts
+itself.
 """
 import collections
 import contextlib
@@ -5491,11 +5524,487 @@ def phase_dist(torch):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------- gluon
+# The Gluon training path of mxnet_tpu_torch (NDArray, autograd,
+# gluon.{nn,loss,Trainer}, the kvstore) through the entry points a user
+# calls.  LeNet: examples/mnist_gluon.py at its published widths; the
+# encoder layer: one BERT-large layer (units 1024, 16 heads, FFN 4096) as
+# a user HybridBlock around F.flash_selfatt (B1 forward, B2 / B3 in its
+# backward), L 512, batch 8, fp32.
+GLUON_LENET = dict(batch=64, steps=20, lr=1e-3, host_steps=3)
+# LeNet losses, card vs host from the same weights (TF32 off): step 1
+# sums the same fp32 products in cuDNN's order and the host's (1e-5
+# relative); steps 2-3 follow Adam's normalised update, which turns a
+# near-zero gradient's rounding into a step of up to lr on that weight
+# (1e-3 relative)
+GLUON_LENET_RTOL = (1e-5, 1e-3, 1e-3)
+GLUON_FLASH = dict(units=1024, heads=16, ffn=4096, L=512, B=8, steps=3,
+                   lr=1e-4, valid=(377, 280, 179, 450, 112, 92, 230, 64))
+# the encoder layer on the card (B1-B3 3xTF32, cuBLAS GEMMs with TF32
+# off) vs the same layer on the host (the plain attention): step 1's
+# loss to 1e-4 relative and the qkv weight's gradient to 1e-3 of its
+# max|grad| (FLASH_TOL's fp32 bounds: the attention's sums run over up
+# to 512 keys and 4096 rows in another order); steps 2-3 after Adam,
+# whose normalised update amplifies a near-zero gradient's rounding
+# (1e-3 relative)
+GLUON_FLASH_LOSS_RTOL = (1e-4, 1e-3, 1e-3)
+GLUON_FLASH_GRAD_TOL = 1e-3
+# two-rank dist_sync SGD vs the one-rank full batch: the summed half
+# batches differ from the full batch's sums in order only
+GLUON_DIST = dict(steps=3, lr=1e-3)
+GLUON_DIST_LOSS_RTOL = 1e-4
+GLUON_DIST_PARAM_TOL = 1e-5            # of the parameter's max|w|
+GLUON_DIST_TIMEOUT_S = 300
+
+
+def _lenet(mx):
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Conv2D(channels=20, kernel_size=5, activation="relu"),
+                nn.MaxPool2D(pool_size=2, strides=2),
+                nn.Conv2D(channels=50, kernel_size=5, activation="relu"),
+                nn.MaxPool2D(pool_size=2, strides=2),
+                nn.Dense(500, activation="relu"),
+                nn.Dense(10))
+    return net
+
+
+def _gluon_run(mx, net, batch, steps, opt, opt_params, on_step=None,
+               sync=None):
+    """``steps`` record / backward / ``Trainer.step`` iterations of
+    ``net`` on ``batch`` = (inputs..., label) on one context; returns
+    (losses, ms a step).  ``on_step(step)`` runs after each step."""
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), opt, opt_params)
+    *inputs, label = batch
+    losses, ms = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(*inputs), label)
+        loss.backward()
+        trainer.step(label.shape[0])
+        if sync is not None:
+            sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.mean().asscalar()))
+        if on_step is not None:
+            on_step(step)
+    return losses, ms
+
+
+def phase_gluon_lenet(torch):
+    """``gluon_lenet``: LeNet (published widths) trained by Adam through
+    ``autograd.record`` / ``backward`` / ``gluon.Trainer.step`` on the
+    card, batch 64 of 1x28x28; its first steps against the same run on
+    the host from the same weights."""
+    import mxnet_tpu_torch as mx
+    cfg = GLUON_LENET
+    rs = np.random.RandomState(0)
+    x = rs.rand(cfg["batch"], 1, 28, 28).astype(np.float32)
+    y = rs.randint(0, 10, cfg["batch"]).astype(np.float32)
+    tmp = tempfile.mkdtemp(prefix="mxnet-gluon-")
+    try:
+        path = os.path.join(tmp, "lenet.npz")
+        mx.random.seed(0)
+        with mx.cpu(0):
+            host = _lenet(mx)
+            host.initialize(mx.init.Xavier())
+            host(mx.nd.array(x[:1]))
+            host.save_parameters(path)
+            host_losses, host_ms = _gluon_run(
+                mx, host, (mx.nd.array(x), mx.nd.array(y)),
+                cfg["host_steps"], "adam", {"learning_rate": cfg["lr"]})
+        with mx.gpu(0):
+            net = _lenet(mx)
+            net.load_parameters(path)
+            losses, ms = _gluon_run(
+                mx, net, (mx.nd.array(x), mx.nd.array(y)), cfg["steps"],
+                "adam", {"learning_rate": cfg["lr"]},
+                sync=torch.cuda.synchronize)
+            device = str(net[0].weight.data().data_torch.device)
+            del net
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, host_losses)]
+    emit("gluon_lenet", model="lenet (examples/mnist_gluon.py)",
+         batch=cfg["batch"], steps=cfg["steps"], optimizer="adam",
+         lr=cfg["lr"], dtype="float32", device=device, losses=losses,
+         host_losses=host_losses, loss_rel_err=rel,
+         loss_rtol=GLUON_LENET_RTOL,
+         ms_per_step=float(np.median(ms[3:])), first_step_ms=ms[0],
+         host_ms_per_step=float(np.median(host_ms)))
+    check(device.startswith("cuda"), f"gluon_lenet: trained on {device}")
+    check(all(np.isfinite(losses)), f"gluon_lenet: losses {losses}")
+    check(losses[-1] < losses[0], f"gluon_lenet: losses did not fall "
+                                   f"({losses[0]} -> {losses[-1]})")
+    check(all(r <= t for r, t in zip(rel, GLUON_LENET_RTOL)),
+          f"gluon_lenet: card vs host losses {rel}, want "
+          f"{GLUON_LENET_RTOL}")
+
+
+def _encoder_layer(mx, units, heads, ffn):
+    """One BERT-large-width encoder layer as a user HybridBlock (as
+    ``tests/test_gluon.py::test_custom_hybrid_block`` writes one):
+    qkv -> ``F.flash_selfatt`` -> proj, residual + LayerNorm, FFN with
+    GELU, residual + LayerNorm, and a two-way head on position 0."""
+    nn = mx.gluon.nn
+
+    class EncoderLayer(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.qkv = nn.Dense(3 * units, flatten=False,
+                                    in_units=units)
+                self.proj = nn.Dense(units, flatten=False, in_units=units)
+                self.ln1 = nn.LayerNorm(in_channels=units)
+                self.ffn1 = nn.Dense(ffn, flatten=False, in_units=units)
+                self.gelu = nn.GELU()
+                self.ffn2 = nn.Dense(units, flatten=False, in_units=ffn)
+                self.ln2 = nn.LayerNorm(in_channels=units)
+                self.head = nn.Dense(2, in_units=units)
+
+        def hybrid_forward(self, F, x, valid_length):
+            att = F.flash_selfatt(self.qkv(x), valid_length, heads=heads)
+            h = self.ln1(x + self.proj(att))
+            h = self.ln2(h + self.ffn2(self.gelu(self.ffn1(h))))
+            return self.head(h[0])
+
+    return EncoderLayer()
+
+
+def _encoder_batch(cfg, seed=1):
+    rs = np.random.RandomState(seed)
+    x = (rs.randn(cfg["L"], cfg["B"], cfg["units"]) * 0.5).astype(
+        np.float32)
+    valid = np.array(cfg["valid"][:cfg["B"]], np.float32)
+    y = rs.randint(0, 2, cfg["B"]).astype(np.float32)
+    return x, valid, y
+
+
+def _encoder_weights(mx, cfg, path):
+    """The layer's weights from seed 0 (drawn on the host), saved."""
+    mx.random.seed(0)
+    with mx.cpu(0):
+        net = _encoder_layer(mx, cfg["units"], cfg["heads"], cfg["ffn"])
+        net.initialize(mx.init.Xavier())
+        net.save_parameters(path)
+
+
+def _b4_through_nd(torch, mx):
+    """One ``nd.ragged_paged_attention_op`` call at GPT-2-small decode
+    geometry (``phase_kernels``' B4 batch) on the card and on the host:
+    (max |card - host|, B4 launches in the card's call)."""
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    g = torch.Generator(device="cpu").manual_seed(0)
+    B, H, D, P = MAX_BATCH, GPT2_SMALL["num_heads"], 64, 64
+    N = B * P + 1
+    host = dict(
+        q=torch.randn(B, H, D, generator=g).numpy(),
+        k=torch.randn(N, PAGE_SIZE, H, D, generator=g).numpy(),
+        v=torch.randn(N, PAGE_SIZE, H, D, generator=g).numpy(),
+        bt=(torch.randperm(N - 1, generator=g)[:B * P] + 1).reshape(
+            B, P).numpy().astype(np.float32),
+        ctx=np.array([0, 1, 16, 17, 300, 511, 777, 1024], np.float32))
+    outs, launches = {}, None
+    for where in (mx.gpu(0), mx.cpu(0)):
+        before = pa.ragged_paged_attention.launches
+        with where:
+            arrs = [mx.nd.array(host[k]) for k in ("q", "k", "v", "bt",
+                                                   "ctx")]
+            outs[where.device_type] = mx.nd.ragged_paged_attention_op(
+                *arrs).asnumpy()
+        if launches is None:
+            launches = pa.ragged_paged_attention.launches - before
+    return float(np.abs(outs["gpu"] - outs["cpu"]).max()), launches
+
+
+def phase_gluon_flash(torch):
+    """``gluon_flash``: the encoder layer trained by Adam through
+    ``gluon.Trainer`` on the card (B1 once a forward, B2 and B3 once each
+    a backward), against the same layer on the host; then B4 through
+    ``nd.ragged_paged_attention_op``.  Returns the wrapper launches."""
+    import mxnet_tpu_torch as mx
+    cfg = GLUON_FLASH
+    steps = cfg["steps"]
+    x, valid, y = _encoder_batch(cfg)
+    tmp = tempfile.mkdtemp(prefix="mxnet-gluon-")
+    runs = {}
+    try:
+        path = os.path.join(tmp, "encoder.npz")
+        _encoder_weights(mx, cfg, path)
+        for where in (mx.gpu(0), mx.cpu(0)):
+            on_card = where.device_type == "gpu"
+            with where:
+                net = _encoder_layer(mx, cfg["units"], cfg["heads"],
+                                     cfg["ffn"])
+                net.load_parameters(path)
+                grads = []
+
+                def first_grad(step, net=net, grads=grads):
+                    if step == 0:
+                        grads.append(net.qkv.weight.grad().asnumpy())
+
+                if on_card:
+                    _dist_counts(zero=True)
+                losses, ms = _gluon_run(
+                    mx, net, (mx.nd.array(x), mx.nd.array(valid),
+                              mx.nd.array(y)), steps, "adam",
+                    {"learning_rate": cfg["lr"]}, on_step=first_grad,
+                    sync=torch.cuda.synchronize if on_card else None)
+                if on_card:
+                    launches = _dist_counts()
+                runs[where.device_type] = dict(losses=losses, ms=ms,
+                                               grad=grads[0])
+                del net
+        _free(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card, host = runs["gpu"], runs["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                               host["losses"])]
+    gerr = float(np.abs(card["grad"] - host["grad"]).max()
+                 / np.abs(host["grad"]).max())
+    b4_err, b4_launches = _b4_through_nd(torch, mx)
+    emit("gluon_flash", layer="bert_24_1024_16 encoder layer (user "
+         "HybridBlock, F.flash_selfatt)", dtype="float32",
+         **{k: cfg[k] for k in ("units", "heads", "ffn", "L", "B")},
+         valid_length=list(cfg["valid"]), optimizer="adam", lr=cfg["lr"],
+         losses=card["losses"], host_losses=host["losses"],
+         loss_rel_err=rel, loss_rtol=GLUON_FLASH_LOSS_RTOL,
+         qkv_grad_rel_err=gerr, qkv_grad_tol=GLUON_FLASH_GRAD_TOL,
+         launches=launches, ms_per_step=float(np.median(card["ms"][1:])),
+         first_step_ms=card["ms"][0],
+         host_ms_per_step=float(np.median(host["ms"])),
+         b4_through_nd=dict(max_abs_err=b4_err, launches=b4_launches,
+                            geometry="gpt2-small decode, kernels' B4 "
+                                     "batch"))
+    check(all(np.isfinite(card["losses"])),
+          f"gluon_flash: losses {card['losses']}")
+    check(all(r <= t for r, t in zip(rel, GLUON_FLASH_LOSS_RTOL)),
+          f"gluon_flash: card vs host losses {rel}")
+    check(gerr <= GLUON_FLASH_GRAD_TOL,
+          f"gluon_flash: qkv weight gradient {gerr} of max|grad|")
+    check(launches == {"flash_attention_fwd": steps,
+                       "flash_attention_bwd_dq": steps,
+                       "flash_attention_bwd_dkv": steps},
+          f"gluon_flash: B1-B3 launches {launches}, want {steps} each")
+    check(b4_launches == 1 and b4_err <= TOL["float32"]["atol"],
+          f"gluon_flash: B4 through nd: {b4_launches} launches, error "
+          f"{b4_err}")
+    return dict(launches, ragged_paged_attention=b4_launches)
+
+
+def _param_digest(net):
+    import hashlib
+    h = hashlib.sha256()
+    for p in net.collect_params().values():
+        h.update(p.data().asnumpy().tobytes())
+    return h.hexdigest()
+
+
+def _gluon_dist_worker(torch, outdir, rank):
+    """One rank of ``gluon_dist``: the reference's ``dist_sync`` sequence
+    on CUDA values; the encoder layer by SGD over ``kvstore="dist_sync"``
+    on this rank's 4 rows, rank 1 starting from other weights; one
+    int8-compressed push of its gradients."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import runtime_metrics as rm
+    cfg = GLUON_FLASH
+    with mx.gpu(0):
+        kv = mx.kv.create("dist_sync")
+        kv.init("w", mx.nd.array(np.full((2,), 10.0 * (kv.rank + 1),
+                                         np.float32)))
+        w0 = mx.nd.zeros((2,))
+        kv.pull("w", out=w0)
+        kv.init("3", mx.nd.zeros((2, 2)))
+        kv.push("3", mx.nd.array(np.full((2, 2), kv.rank + 1.0,
+                                         np.float32)))
+        out = mx.nd.zeros((2, 2))
+        kv.pull("3", out=out)
+        seq = dict(init_wins=w0.asnumpy().tolist(),
+                   pushed_sum=out.asnumpy().tolist(),
+                   device=str(out.data_torch.device))
+        net = _encoder_layer(mx, cfg["units"], cfg["heads"], cfg["ffn"])
+        net.load_parameters(os.path.join(outdir, "encoder.npz"))
+        if rank == 1:
+            for p in net.collect_params().values():
+                p.set_data(p.data() * 1.5)
+        x, valid, y = _encoder_batch(cfg)
+        rows = slice(4 * rank, 4 * rank + 4)
+        data, lens, label = (mx.nd.array(x[:, rows]),
+                             mx.nd.array(valid[rows]),
+                             mx.nd.array(y[rows]))
+        _dist_counts(zero=True)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": GLUON_DIST["lr"]},
+                                   kvstore="dist_sync")
+        digests, sums, ms = [_param_digest(net)], [], []
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        for step in range(GLUON_DIST["steps"]):
+            t0 = time.perf_counter()
+            with mx.autograd.record():
+                loss = loss_fn(net(data, lens), label)
+            loss.backward()
+            trainer.step(cfg["B"])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            sums.append(float(loss.sum().asscalar()))
+            digests.append(_param_digest(net))
+            if rank == 0:
+                mx.nd.save(os.path.join(outdir, f"step{step}.npz"),
+                           {k: p.data() for k, p in
+                            net._collect_params_with_prefix().items()})
+        launches = _dist_counts()
+        grads = [p.grad() for p in net.collect_params().values()]
+        keys = [f"g{i}" for i in range(len(grads))]
+        kv8 = mx.kv.create("dist_sync")
+        kv8.set_gradient_compression({"type": "int8"})
+        kv8.init(keys, [mx.nd.zeros(g.shape) for g in grads])
+        rm.enable()
+        rm.reset()
+        t0 = time.perf_counter()
+        kv8.push(keys, grads)
+        torch.cuda.synchronize()
+        int8 = dict(push_bytes=rm.KV_PUSH_BYTES.value(),
+                    wire_bytes=rm.KV_WIRE_BYTES.value(),
+                    ms=(time.perf_counter() - t0) * 1e3)
+        rm.disable()
+        rm.reset()
+    return dict(rank=rank, kvstore=trainer._kvstore.type, sequence=seq,
+                digests=digests, loss_sums=sums, ms=ms, launches=launches,
+                grad_bytes=sum(g.size * 4 for g in grads), int8=int8)
+
+
+def gluon_worker(outdir):
+    """One rank of ``gluon_dist`` (started by the port's launcher): loads
+    the kernel libraries the parent built (no ``nvcc``) and writes its
+    results to ``<outdir>/gluon-<rank>.json``."""
+    import torch
+    if not torch.cuda.is_available():
+        return 1
+    from mxnet_tpu_torch.ops import build
+    missing = [n for n in build.SOURCES
+               if not os.path.exists(build.library_path(n))]
+    check(not missing, f"gluon worker: libraries {missing} were not built "
+                       f"by the parent")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from mxnet_tpu_torch.parallel import dist
+    t0 = time.perf_counter()
+    dist.initialize(backend="gloo", timeout_s=300)
+    rank = dist.rank()
+    init_s = time.perf_counter() - t0
+    result = _gluon_dist_worker(torch, outdir, rank)
+    result.update(backend=dist.backend(), device=str(dist.device()),
+                  init_s=init_s, seconds=time.perf_counter() - t0)
+    _dist_out(outdir, "gluon", rank, result)
+    dist.barrier("gluon done")
+    dist.finalize()
+    return 0
+
+
+def _dist_param_err(mx, net, path):
+    """max over parameters of max|saved - live| / max|live|."""
+    saved = mx.nd.load(path)
+    worst = 0.0
+    for k, p in net._collect_params_with_prefix().items():
+        w = p.data().asnumpy()
+        worst = max(worst, float(np.abs(saved[k].asnumpy() - w).max()
+                                 / np.abs(w).max()))
+    return worst
+
+
+def phase_gluon_dist(torch):
+    """``gluon_dist``: two gloo ranks on the one card (this script with
+    ``--gluon-worker``), ``gluon.Trainer(..., "sgd",
+    kvstore="dist_sync")`` on the encoder layer, the batch of 8 split
+    4 + 4: ranks equal bit for bit before the first step and after each,
+    and equal to the one-rank full-batch run; the reference's
+    ``dist_sync`` sequence on CUDA values; int8 compression's wire bytes
+    under the push bytes.  Returns rank 0's B1-B3 wrapper launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.tools import launch
+    cfg = GLUON_FLASH
+    steps = GLUON_DIST["steps"]
+    root = tempfile.mkdtemp(prefix="mxnet-gluon-dist-")
+    try:
+        path = os.path.join(root, "encoder.npz")
+        _encoder_weights(mx, cfg, path)
+        t0 = time.perf_counter()
+        rc = launch.launch(2, [sys.executable, os.path.abspath(__file__),
+                               "--gluon-worker", root],
+                           timeout=GLUON_DIST_TIMEOUT_S)
+        job_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            p = os.path.join(root, f"gluon-{r}.json")
+            ranks.append(json.load(open(p)) if os.path.exists(p) else None)
+        check(rc == 0 and all(ranks), f"gluon_dist: the job exited {rc}")
+        # one rank, the whole batch, from rank 0's weights
+        x, valid, y = _encoder_batch(cfg)
+        errs = []
+        with mx.gpu(0):
+            net = _encoder_layer(mx, cfg["units"], cfg["heads"], cfg["ffn"])
+            net.load_parameters(path)
+            losses, ms = _gluon_run(
+                mx, net, (mx.nd.array(x), mx.nd.array(valid),
+                          mx.nd.array(y)), steps, "sgd",
+                {"learning_rate": GLUON_DIST["lr"]},
+                on_step=lambda s: errs.append(_dist_param_err(
+                    mx, net, os.path.join(root, f"step{s}.npz"))),
+                sync=torch.cuda.synchronize)
+            del net
+        _free(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    two = [(a + b) / cfg["B"] for a, b in zip(ranks[0]["loss_sums"],
+                                              ranks[1]["loss_sums"])]
+    rel = [abs(a - b) / abs(b) for a, b in zip(two, losses)]
+    emit("gluon_dist", layer="bert_24_1024_16 encoder layer",
+         dtype="float32", world=2, backend=ranks[0]["backend"],
+         kvstore=ranks[0]["kvstore"], optimizer="sgd",
+         lr=GLUON_DIST["lr"], rows_per_rank=cfg["B"] // 2, steps=steps,
+         timing="two ranks on one card through host memory, not a "
+                "multi-GPU figure",
+         job_seconds=job_s, losses_two_ranks=two, losses_one_rank=losses,
+         loss_rel_err=rel, param_rel_err=errs,
+         bitwise_equal=[a == b for a, b in zip(ranks[0]["digests"],
+                                               ranks[1]["digests"])],
+         one_rank_ms_per_step=float(np.median(ms[1:])),
+         ranks=[{k: r[k] for k in ("rank", "device", "init_s", "seconds",
+                                   "ms", "launches", "grad_bytes", "int8",
+                                   "sequence")} for r in ranks])
+    for r in ranks:
+        check(r["kvstore"] == "dist_sync", f"gluon_dist: {r['kvstore']}")
+        check(r["sequence"]["init_wins"] == [10.0, 10.0]
+              and r["sequence"]["pushed_sum"] == [[3.0, 3.0], [3.0, 3.0]]
+              and r["sequence"]["device"].startswith("cuda"),
+              f"gluon_dist: dist_sync sequence {r['sequence']}")
+        check(r["int8"]["wire_bytes"] < r["int8"]["push_bytes"],
+              f"gluon_dist: int8 wire bytes {r['int8']}")
+        check(r["launches"] == {"flash_attention_fwd": steps,
+                                "flash_attention_bwd_dq": steps,
+                                "flash_attention_bwd_dkv": steps},
+              f"gluon_dist: rank {r['rank']}'s B1-B3 {r['launches']}")
+    check(ranks[0]["digests"] == ranks[1]["digests"],
+          "gluon_dist: the ranks' parameters differ")
+    check(all(e <= GLUON_DIST_PARAM_TOL for e in errs),
+          f"gluon_dist: parameters vs the one-rank run {errs}")
+    check(all(e <= GLUON_DIST_LOSS_RTOL for e in rel),
+          f"gluon_dist: losses vs the one-rank run {rel}")
+    return ranks[0]["launches"]
+
+
 def main():
     if sys.argv[1:2] == ["--durability-child"]:
         return durability_child(*sys.argv[2:])
     if sys.argv[1:2] == ["--dist-worker"]:
         return dist_worker(*sys.argv[2:])
+    if sys.argv[1:2] == ["--gluon-worker"]:
+        return gluon_worker(*sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs "
@@ -5570,6 +6079,9 @@ def main():
     del head
     _free(torch)
     dist_launches = phase_dist(torch)
+    phase_gluon_lenet(torch)
+    gluon_launches = phase_gluon_flash(torch)
+    gluon_dist_launches = phase_gluon_dist(torch)
     phase_graphs(torch, dev, lm)
     replayed = phase_serve_trace(torch, lm)
     predict_traced = phase_predict_trace(torch, predict)
@@ -5607,6 +6119,8 @@ def main():
             launches_traffic=traffic["launches"][name],
             traced_traffic_kernel_records=traffic_traced[name],
             **by_dtype["float32"], bfloat16=by_dtype["bfloat16"])
+        if name == "ragged_paged_attention":
+            entry["launches_gluon_nd"] = gluon_launches[name]
         # every row of the kernels phase, with the plan's split
         keys = ("dtype", "shape", "W", "B", "n_split", "ms", "bound_ms",
                 "library_ms") if name == "ragged_paged_verify" else (
@@ -5652,7 +6166,9 @@ def main():
             traced_dist_nccl_kernel_records=dist_launches[
                 "dist_nccl_traced"][name],
             launches_dist_tp=dist_launches["dist_tp"][name],
-            launches_dist_dp_int8=dist_launches["dist_dp_int8"][name])
+            launches_dist_dp_int8=dist_launches["dist_dp_int8"][name],
+            launches_gluon_flash=gluon_launches[name],
+            launches_gluon_dist=gluon_dist_launches[name])
         if key == "fwd":
             # the predict path (fp32): the bucket graphs' captures launch
             # B1 from the wrapper; their replays are counted from trace

@@ -1,14 +1,42 @@
 """mxnet_tpu_torch — the PyTorch / CUDA port of ``mxnet_tpu``.
 
 A second package beside the JAX one, with the same module paths and
-public names.  This slice ports paged decode serving:
-``serving.DecodeEngine`` over ``serving.PagedLMAdapter`` over
-``models.TransformerDecoderLM``, whose decode and verify attention run
-in two hand-written CUDA kernels (``ops.paged_attention``, sources in
-``csrc/``).  Entry points run on ``device="cuda"`` unless the caller
-asks for ``"cpu"``.  The package imports ``torch`` and numpy, never
-``jax`` or ``mxnet_tpu``.
+public names.  Import convention, as the reference's::
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd, autograd, gluon, kvstore
+
+Entry points run on the card: the default context is ``mx.gpu(0)``, and
+a missing card raises instead of falling back to the host; ask for the
+CPU with ``ctx=mx.cpu(0)`` or ``with mx.cpu(0):``.  Kernels (the flash
+attention and paged attention sources in ``csrc/``) are built by
+``ops.build`` when first launched, never at import.  The package imports
+``torch`` and numpy, never ``jax`` or ``mxnet_tpu``.
 """
 from .base import MXNetError
+from . import context
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      num_gpus)
+from . import autograd
+from . import ndarray
+from . import ndarray as nd
+from .ndarray import NDArray
+from . import random
+from . import initializer
+from .initializer import init
+from . import lr_scheduler
+from . import optimizer
+from . import gluon
+from . import kvstore
+from . import kvstore as kv
 
-__all__ = ["MXNetError"]
+
+def waitall():
+    """Block until every queued computation has finished."""
+    nd.waitall()
+
+
+__all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
+           "current_context", "num_gpus", "autograd", "nd", "ndarray",
+           "NDArray", "random", "init", "initializer", "lr_scheduler",
+           "optimizer", "gluon", "kvstore", "kv", "waitall"]

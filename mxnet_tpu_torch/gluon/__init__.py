@@ -1,0 +1,16 @@
+"""Gluon of the PyTorch port: the imperative NN API (reference:
+python/mxnet/gluon/) — Parameter, Block / HybridBlock, ``nn``, ``loss``,
+``utils`` and ``Trainer``."""
+from . import parameter
+from .parameter import (Parameter, Constant, ParameterDict,
+                        DeferredInitializationError)
+from . import block
+from .block import Block, HybridBlock
+from . import nn
+from . import loss
+from . import utils
+from . import trainer
+from .trainer import Trainer
+
+__all__ = ["Parameter", "Constant", "ParameterDict", "Block", "HybridBlock",
+           "Trainer", "nn", "loss", "utils"]

@@ -1,0 +1,319 @@
+"""Block and HybridBlock of the PyTorch port (reference:
+``python/mxnet/gluon/block.py``).
+
+The counterpart of ``mxnet_tpu.gluon.block`` without its compiled tier:
+name scopes and prefixes, child and parameter registration,
+``collect_params`` (with ``select``), ``save_parameters`` /
+``load_parameters``, ``summary`` and forward hooks.  A HybridBlock's
+``hybrid_forward(F, x, ...)`` receives the ``nd`` namespace as ``F``
+and its registered parameters as keyword arrays.  ``hybridize()`` is
+accepted and the block runs the same ops eagerly (the CachedOp tier, one
+CUDA graph per signature, is a later slice).
+"""
+from __future__ import annotations
+
+import re
+import threading
+from collections import OrderedDict
+
+from ..base import MXNetError
+from ..context import cpu, current_context
+from .. import ndarray as nd
+from ..ndarray import NDArray
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, match_names)
+
+__all__ = ["Block", "HybridBlock"]
+
+
+class _BlockScope(threading.local):
+    """Name manager: per-process counters of block prefixes."""
+
+    def __init__(self):
+        self._current = None
+        self._counters = {}
+
+    def create(self, prefix, params, hint):
+        current = self._current
+        if current is None:
+            if prefix is None:
+                count = self._counters.get(hint, 0)
+                self._counters[hint] = count + 1
+                prefix = f"{hint}{count}_"
+            params = ParameterDict(prefix) if params is None \
+                else ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._block._scope_counters.get(hint, 0)
+            current._block._scope_counters[hint] = count + 1
+            prefix = f"{hint}{count}_"
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+
+_SCOPE = _BlockScope()
+
+
+class _NameScope:
+    def __init__(self, block):
+        self._block = block
+        self._old = None
+
+    def __enter__(self):
+        self._old = _SCOPE._current
+        _SCOPE._current = self
+        return self
+
+    def __exit__(self, *exc):
+        _SCOPE._current = self._old
+        return False
+
+
+def update_aux_state(param: Parameter, new_value, ctx=None):
+    """Write an auxiliary (non-differentiable) state such as BatchNorm's
+    running statistics, outside the tape."""
+    data = new_value._data if isinstance(new_value, NDArray) else new_value
+    for c, arr in param._data.items():
+        if ctx is None or c == ctx:
+            arr._set_data(data.detach().to(device=arr._data.device,
+                                           dtype=arr._data.dtype))
+
+
+def _prod(t):
+    out = 1
+    for x in t:
+        out *= x
+    return out
+
+
+class Block:
+    """Base class of layers and models (reference: ``gluon.Block``)."""
+
+    def __init__(self, prefix=None, params=None):
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _SCOPE.create(prefix, params,
+                                                   self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _NameScope(self)
+        self._scope_counters = {}
+        self._children: "OrderedDict[str, Block]" = OrderedDict()
+        self._reg_params: "OrderedDict[str, Parameter]" = OrderedDict()
+        self._forward_hooks = []
+        self._forward_pre_hooks = []
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    def __setattr__(self, name, value):
+        if isinstance(value, Block):
+            existing = self.__dict__.get("_children")
+            if existing is not None:
+                existing[name] = value
+        elif isinstance(value, Parameter):
+            reg = self.__dict__.get("_reg_params")
+            if reg is not None:
+                reg[name] = value
+        super().__setattr__(name, value)
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    @property
+    def params(self) -> ParameterDict:
+        return self._params
+
+    def name_scope(self):
+        return self._scope
+
+    def __repr__(self):
+        mods = "\n".join(
+            f"  ({k}): " + repr(v).replace("\n", "\n  ")
+            for k, v in self._children.items())
+        return f"{self.__class__.__name__}(\n{mods}\n)"
+
+    def collect_params(self, select=None) -> ParameterDict:
+        ret = ParameterDict(self._params.prefix)
+        if select is None:
+            ret.update(self.params)
+        else:
+            pat = re.compile(select)
+            ret.update({n: p for n, p in self.params.items()
+                        if pat.match(n)})
+        for child in self._children.values():
+            ret.update(child.collect_params(select))
+        return ret
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        from .. import initializer as init_mod
+        self.collect_params().initialize(init or init_mod.Uniform(), ctx,
+                                         verbose, force_reinit)
+
+    def cast(self, dtype):
+        for child in self._children.values():
+            child.cast(dtype)
+        for p in self._reg_params.values():
+            p.cast(dtype)
+
+    def apply(self, fn):
+        for child in self._children.values():
+            child.apply(fn)
+        fn(self)
+        return self
+
+    def register_child(self, block, name=None):
+        self._children[name or str(len(self._children))] = block
+
+    def register_forward_hook(self, hook):
+        self._forward_hooks.append(hook)
+
+    def register_forward_pre_hook(self, hook):
+        self._forward_pre_hooks.append(hook)
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Save the parameters by structural name (``0.weight``) in the
+        JAX package's npz."""
+        params = self._collect_params_with_prefix()
+        nd.save(filename, {name: p._reduce() for name, p in params.items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load :meth:`save_parameters`' file (this package's or the JAX
+        package's); names match as in :func:`match_names`."""
+        loaded = nd.load(filename, ctx=cpu(0))
+        params = self._collect_params_with_prefix()
+        mapping = match_names(list(params), list(loaded))
+        if not allow_missing:
+            for name in params:
+                if name not in mapping:
+                    raise MXNetError(
+                        f"Parameter {name!r} missing in {filename!r}")
+        used = set(mapping.values())
+        if not ignore_extra:
+            for name in loaded:
+                if name not in used:
+                    raise MXNetError(
+                        f"Parameter {name!r} in file not found in Block "
+                        f"(use ignore_extra=True)")
+        for name, src in mapping.items():
+            p, value = params[name], loaded[src]
+            if p.shape is None or not all(s and s > 0 for s in p.shape):
+                p.shape = tuple(value.shape)
+            if not p._data:
+                if p._deferred_init is not None:
+                    p._finish_deferred_init()
+                else:
+                    p.initialize(ctx=ctx or [current_context()])
+            p.set_data(value)
+
+    def _collect_params_with_prefix(self, prefix=""):
+        if prefix:
+            prefix += "."
+        ret = {prefix + n: p for n, p in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def __call__(self, *args, **kwargs):
+        for hook in self._forward_pre_hooks:
+            hook(self, args)
+        out = self.forward(*args, **kwargs)
+        for hook in self._forward_hooks:
+            hook(self, args, out)
+        return out
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def hybridize(self, active=True, **kwargs):
+        for child in self._children.values():
+            child.hybridize(active, **kwargs)
+
+    def summary(self, *inputs):
+        """Print one row per block: name, type, output shape, parameter
+        count."""
+        rows = []
+
+        def _hook(block, inp, out):
+            o = out[0] if isinstance(out, (list, tuple)) else out
+            n_params = sum(int(_prod(p.shape))
+                           for p in block._reg_params.values() if p.shape)
+            rows.append((block.name, type(block).__name__,
+                         tuple(getattr(o, "shape", ())), n_params))
+
+        blocks = list(self._iter_blocks())
+        for blk in blocks:
+            blk._forward_hooks.append(_hook)
+        try:
+            self(*inputs)
+        finally:
+            for blk in blocks:
+                blk._forward_hooks.remove(_hook)
+        lines = [f"{'Layer':<30}{'Type':<20}{'Output':<24}{'Params':<12}"]
+        total = 0
+        for name, typ, shape, npar in rows:
+            total += npar
+            lines.append(f"{name:<30}{typ:<20}{str(shape):<24}{npar:<12}")
+        lines.append(f"Total params: {total}")
+        print("\n".join(lines))
+
+    def _iter_blocks(self):
+        yield self
+        for c in self._children.values():
+            yield from c._iter_blocks()
+
+
+class HybridBlock(Block):
+    """A Block written as ``hybrid_forward(F, x, *args, **params)``."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+
+    def hybridize(self, active=True, **kwargs):
+        """Accepted; the block keeps running its ops eagerly."""
+        self._active = active
+        super().hybridize(active, **kwargs)
+
+    def infer_shape(self, *args):
+        """Overridden by layers that support deferred initialisation."""
+        raise DeferredInitializationError(
+            f"{type(self).__name__} cannot infer parameter shapes; "
+            f"provide explicit in_units/in_channels or run a forward pass")
+
+    def _get_ctx(self, args):
+        for a in args:
+            if isinstance(a, NDArray):
+                return a.context
+        return current_context()
+
+    def forward(self, x, *args, **kwargs):
+        if not isinstance(x, NDArray):
+            raise MXNetError(f"forward expects NDArray, got {type(x)}")
+        ctx = self._get_ctx((x,) + args)
+        try:
+            pdata = {n: p.data(ctx) for n, p in self._reg_params.items()}
+        except DeferredInitializationError:
+            self._finish_deferred(x, *args)
+            pdata = {n: p.data(ctx) for n, p in self._reg_params.items()}
+        return self.hybrid_forward(nd, x, *args, **pdata, **kwargs)
+
+    def _finish_deferred(self, *args):
+        self.infer_shape(*args)
+        for p in self._reg_params.values():
+            if p._deferred_init is not None:
+                p._finish_deferred_init()
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError

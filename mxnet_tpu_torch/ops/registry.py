@@ -1,0 +1,167 @@
+"""Operator registry and imperative dispatch of the PyTorch port.
+
+The counterpart of ``mxnet_tpu.ops.registry``: an op is a plain function
+on tensors (data inputs positional, parameters keyword-only), registered
+under the reference's name and aliases; ``ndarray`` generates one
+frontend per op from this registry.
+
+:func:`invoke` unwraps the NDArray inputs, runs the function under
+``torch.set_grad_enabled(autograd.is_recording())`` (so torch records
+exactly what runs inside ``record()``) and wraps the outputs on the
+first input's context.  The registry adds no dispatch of its own: a
+kernel frontend (``_contrib_flash_selfatt``,
+``_contrib_ragged_paged_attention``) calls its wrapper, whose device
+rule and ``.launches`` counter hold as they are.
+"""
+from __future__ import annotations
+
+import inspect
+from typing import Any, Callable, Dict, List, Sequence
+
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["OpDef", "register", "get_op", "list_ops", "invoke", "alias",
+           "make_frontend"]
+
+_OPS: Dict[str, "OpDef"] = {}
+
+
+class OpDef:
+    """A registered operator: ``fn`` over tensors, its arity, and whether
+    autograd records it (``differentiable=False`` cuts the tape, as for
+    integer and comparison ops)."""
+
+    __slots__ = ("name", "fn", "num_inputs", "num_outputs",
+                 "differentiable", "params", "open_schema", "aliases")
+
+    def __init__(self, name: str, fn: Callable, num_inputs, num_outputs,
+                 differentiable: bool, schema: bool = False):
+        self.name = name
+        self.fn = fn
+        self.num_inputs = num_inputs
+        self.num_outputs = num_outputs
+        self.differentiable = differentiable
+        self.aliases: List[str] = []
+        self.params: Dict[str, inspect.Parameter] = {}
+        self.open_schema = True
+        if schema:
+            sig = inspect.signature(fn)
+            self.params = {k: p for k, p in sig.parameters.items()
+                           if p.kind == inspect.Parameter.KEYWORD_ONLY}
+            self.open_schema = any(
+                p.kind == inspect.Parameter.VAR_KEYWORD
+                for p in sig.parameters.values())
+
+    def n_outputs(self, kwargs) -> int:
+        if callable(self.num_outputs):
+            return self.num_outputs(kwargs)
+        return self.num_outputs
+
+    def validate_kwargs(self, kwargs: Dict[str, Any]):
+        if self.open_schema:
+            return
+        for k in kwargs:
+            if k not in self.params:
+                raise MXNetError(
+                    f"operator {self.name}: unknown argument {k!r}; "
+                    f"schema: {sorted(self.params)}")
+
+    def __repr__(self):
+        return f"OpDef({self.name})"
+
+
+def register(name: str, num_inputs=1, num_outputs=1, differentiable=True,
+             aliases: Sequence[str] = ()):
+    """Decorator: register a tensor function as an operator."""
+
+    def _decorator(fn):
+        opdef = OpDef(name, fn, num_inputs, num_outputs, differentiable,
+                      schema=True)
+        _OPS[name] = opdef
+        for a in aliases:
+            opdef.aliases.append(a)
+            _OPS[a] = opdef
+        return fn
+
+    return _decorator
+
+
+def alias(existing: str, new: str):
+    opdef = _OPS[existing]
+    opdef.aliases.append(new)
+    _OPS[new] = opdef
+
+
+def get_op(name: str) -> OpDef:
+    if name not in _OPS:
+        raise MXNetError(f"no operator named {name!r}")
+    return _OPS[name]
+
+
+def list_ops() -> List[str]:
+    return sorted(_OPS)
+
+
+def _mark_leaves(tensors):
+    """Recording: floating-point leaf inputs start requiring grad, so the
+    tape reaches them (``autograd.grad`` with respect to an array that
+    had no ``attach_grad``)."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.grad_fn is None \
+                and not t.requires_grad and t.is_floating_point():
+            t.requires_grad_(True)
+
+
+def invoke(opdef: OpDef, inputs, kwargs: Dict[str, Any], out=None):
+    """Run an op over NDArray inputs; returns NDArray(s)."""
+    from ..autograd import is_recording
+    from ..context import current_context
+    from ..ndarray import NDArray
+    raw, ctx = [], None
+    for a in inputs:
+        if isinstance(a, NDArray):
+            raw.append(a._data)
+            ctx = ctx or a._ctx
+        else:
+            raw.append(a)
+    if kwargs:
+        opdef.validate_kwargs(kwargs)
+    record = is_recording() and opdef.differentiable
+    if record:
+        _mark_leaves(raw)
+    try:
+        with torch.set_grad_enabled(record):
+            result = opdef.fn(*raw, **kwargs)
+    except MXNetError:
+        raise
+    except Exception as e:
+        raise MXNetError(f"operator {opdef.name} failed: {e}") from e
+    nout = opdef.n_outputs(kwargs)
+    outs_raw = (result,) if nout == 1 and not isinstance(
+        result, (tuple, list)) else tuple(result)
+    if ctx is None:
+        ctx = current_context()
+    outs = [NDArray._wrap(o, ctx) for o in outs_raw]
+    if out is not None:
+        out_list = [out] if isinstance(out, NDArray) else list(out)
+        for dst, src in zip(out_list, outs):
+            dst._set_data(src._data)
+        return out
+    return outs[0] if nout == 1 else outs
+
+
+def make_frontend(opdef: OpDef) -> Callable:
+    """The user-facing function of an op (``nd.<name>``)."""
+
+    def frontend(*args, out=None, **kwargs):
+        if opdef.num_inputs is None and args and isinstance(
+                args[0], (list, tuple)):
+            args = tuple(args[0]) + tuple(args[1:])
+        return invoke(opdef, args, kwargs, out=out)
+
+    frontend.__name__ = opdef.name
+    frontend.__qualname__ = opdef.name
+    frontend.__doc__ = inspect.getdoc(opdef.fn) or f"Operator {opdef.name}."
+    return frontend

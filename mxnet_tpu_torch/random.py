@@ -3,8 +3,10 @@ snapshot or restore it for a checkpoint.
 
 The counterpart of ``mxnet_tpu.random``'s eager half (``seed``,
 ``get_state``, ``set_state``, ``uniform``, ``normal``).  The JAX package
-keeps one threefry key; the port's stream is torch's default generators:
-the CPU generator and each CUDA device's.  Dropout in a captured
+keeps one threefry key; the port's stream is torch's default generators,
+one a device: the CPU generator and each CUDA device's.  ``mx.init``'s
+initializers, ``mx.nd.random`` and the Dropout op draw from the
+generator of their array's device.  Dropout in a captured
 training step draws from the CUDA default generator too: the graph
 registered that generator at capture and reads its seed and offset at
 every replay, so restoring the generator with :func:`set_state` makes a

@@ -815,12 +815,24 @@ COMPILE_CACHE = counter(
     "nvcc-built kernel libraries (mxnet_tpu_torch.ops.build).",
     labelnames=("event",))
 
+KV_PUSH = counter("kvstore.push", "kvstore push() calls (per key).")
+KV_PUSH_BYTES = counter(
+    "kvstore.push.bytes",
+    "LOGICAL (uncompressed, shape x itemsize) bytes pushed into the "
+    "kvstore: the application-level gradient volume, not wire traffic "
+    "(kvstore.wire.bytes is what crosses).")
+KV_PULL = counter("kvstore.pull", "kvstore pull() calls (per key).")
+KV_PULL_BYTES = counter(
+    "kvstore.pull.bytes",
+    "LOGICAL (uncompressed) bytes copied out of the kvstore by pull().")
 KV_WIRE_BYTES = counter(
     "kvstore.wire.bytes",
     "Gradient-sync payload bytes that cross the interconnect: "
     "ShardedTrainer(compression=...) adds its compressed payload + "
     "per-block-scale size (wire_bytes_per_step, every dp rank's) once "
-    "per step.")
+    "per step; the kvstore adds, per push, the logical bytes "
+    "uncompressed and the payload + scales under int8/fp8 (per device "
+    "copy).")
 TRAINER_STEP_SECONDS = histogram(
     "trainer.step.seconds",
     "Wall-clock time of one optimizer step (an attributed "

@@ -1,6 +1,8 @@
 """PyTorch port, package boundary: no module of ``mxnet_tpu_torch`` and
 not ``chip_smoke.py`` imports ``jax`` or the JAX package (an AST scan of
-every import statement), the adapter's and the multi-rank entry points'
+every import statement), ``import mxnet_tpu_torch`` (which brings in
+``nd``, ``autograd``, ``gluon`` and ``kvstore``) loads neither and
+builds no kernel, the adapter's and the multi-rank entry points'
 default device refuses to fall back to the CPU, and the kernel build
 reports a missing ``nvcc`` as :class:`MXNetError`.
 """
@@ -50,11 +52,37 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "serving/admission.py", "serving/autoscaler.py",
                    "serving/traffic.py", "parallel/dist.py",
                    "parallel/sharding.py", "parallel/ring_attention.py",
-                   "parallel/pipeline.py", "tools/launch.py"):
+                   "parallel/pipeline.py", "tools/launch.py",
+                   "context.py", "autograd.py", "ndarray/ndarray.py",
+                   "ndarray/__init__.py", "ops/registry.py", "ops/tensor.py",
+                   "ops/nn.py", "ops/optimizer_ops.py", "initializer.py",
+                   "lr_scheduler.py", "optimizer/optimizer.py",
+                   "gluon/parameter.py", "gluon/block.py", "gluon/loss.py",
+                   "gluon/utils.py", "gluon/trainer.py",
+                   "gluon/nn/basic_layers.py", "gluon/nn/conv_layers.py",
+                   "kvstore/base.py", "kvstore/kvstore.py"):
         assert f"mxnet_tpu_torch/{module}" in scanned, module
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert bad == []
+
+
+def test_package_import_loads_no_jax_and_builds_no_kernel():
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            "import mxnet_tpu_torch as mx\n"
+            "from mxnet_tpu_torch import nd, autograd, gluon, kvstore\n"
+            "from mxnet_tpu_torch.ops import build\n"
+            "assert not build._LIBS, build._LIBS\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mxnet_tpu')]\n"
+            "assert not bad, bad\n"
+            "assert mx.current_context() == mx.gpu(0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_adapter_default_device_refuses_without_a_card(monkeypatch):

@@ -50,6 +50,7 @@ from mxnet_tpu_torch.parallel import (CheckpointManager, CrashLoopError,
                                       StepWatchdog, TrainingSupervisor,
                                       TrainStepTimeoutError,
                                       run_with_deadline)
+from mxnet_tpu_torch.parallel import supervisor as supervisor_mod
 from mxnet_tpu_torch.parallel.checkpoint import _trainer_state
 
 
@@ -238,13 +239,29 @@ class TestStepWatchdog:
         with pytest.raises(ZeroDivisionError):
             run_with_deadline(lambda: 1 // 0, 1000)
 
-    def test_straggler_detection(self):
+    def test_straggler_detection(self, monkeypatch):
+        # the watchdog reads a fake clock that only the watched steps
+        # advance: 2 ms six times, then 50 ms, whatever the host's load
+        class _Clock:
+            t = 0.0
+
+            def perf_counter(self):
+                return self.t
+
+            def advance(self, seconds):
+                self.t += seconds
+
+            def __getattr__(self, name):
+                return getattr(time, name)
+
+        clock = _Clock()
+        monkeypatch.setattr(supervisor_mod, "time", clock)
         wd = StepWatchdog(timeout_ms=0, slow_factor=3.0)
         assert wd.active
         for _ in range(6):
-            wd.watch(lambda: time.sleep(0.002))
+            wd.watch(lambda: clock.advance(0.002))
         assert wd.slow_steps == 0
-        wd.watch(lambda: time.sleep(0.05))
+        wd.watch(lambda: clock.advance(0.05))
         assert wd.slow_steps == 1
         state = wd.debug_state()
         assert state["slow_steps"] == 1 and state["observed"] == 7
