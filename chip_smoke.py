@@ -1560,19 +1560,24 @@ def _is_host_call(key):
     return key.startswith("cu") and ("Launch" in key or "Memcpy" in key)
 
 
-def _trace_steps(torch, step, n, step_ms):
-    """``n`` calls of ``step`` traced with ``torch.profiler``: device
-    time by kernel family (copies count under ``other`` and are also
-    given alone), kernels and copies per step, host calls (launches,
-    graph launches and copies) per step, and the device idle share
-    against the untraced ``step_ms``."""
-    with _profiled(torch) as prof:
+def _trace_steps(torch, step, n, step_ms, warm=None, where=None,
+                 names=None):
+    """``n`` calls of ``step`` traced with ``torch.profiler`` (after
+    ``warm()``, whose records are not counted, when given:
+    ``_profiled``): device time by kernel family (copies count under
+    ``other`` and are also given alone), kernels and copies per step,
+    host calls (launches, graph launches and copies) per step, and the
+    device idle share against the untraced ``step_ms``; with ``names``
+    (wrapper -> kernel name tag), each one's kernel records per step."""
+    with _profiled(torch, warm, where) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
+        torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) / n * 1e3
     split = {"ragged_paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
     kernels, host_calls, copy_us, top = 0, 0, 0.0, []
+    records = dict.fromkeys(names or (), 0)
     for evt in prof.key_averages():
         us = _kernel_us(evt, torch)
         if not us:
@@ -1581,6 +1586,9 @@ def _trace_steps(torch, step, n, step_ms):
             continue
         key = evt.key.lower()
         kernels += evt.count
+        for name in records:
+            if names[name] in evt.key:
+                records[name] += evt.count
         if "memcpy" in key:
             copy_us += us
         top.append((us, evt.count, evt.key[:90]))
@@ -1596,7 +1604,7 @@ def _trace_steps(torch, step, n, step_ms):
     busy_ms = busy_us / n / 1e3
     # the idle share is taken against the UNPROFILED step: tracing
     # stretches the host's wall time, not the kernels' device time
-    return dict(
+    out = dict(
         step_ms_host=step_ms, step_ms_host_profiled=profiled_ms,
         device_ms_per_step=busy_ms if busy_us else None,
         device_ms_per_step_by_family={k: v / n / 1e3
@@ -1606,6 +1614,9 @@ def _trace_steps(torch, step, n, step_ms):
         kernel_launches_per_step=kernels / n if busy_us else None,
         copy_ms_per_step=copy_us / n / 1e3,
         host_calls_per_step=host_calls / n, top_kernels=top)
+    if names:
+        out["records_per_step"] = {k: v / n for k, v in records.items()}
+    return out
 
 
 def phase_profile(torch, dev, lm):
@@ -5570,35 +5581,70 @@ def _lenet(mx):
     return net
 
 
-def _gluon_run(mx, net, batch, steps, opt, opt_params, on_step=None,
-               sync=None):
-    """``steps`` record / backward / ``Trainer.step`` iterations of
-    ``net`` on ``batch`` = (inputs..., label) on one context; returns
-    (losses, ms a step).  ``on_step(step)`` runs after each step."""
+def _gluon_stepper(mx, trainer, batch, net=None, block=None):
+    """One record / backward / ``Trainer.step`` over ``batch`` = (inputs...,
+    label): ``block(*batch)`` (the loss inside a block) or
+    ``SoftmaxCrossEntropyLoss()(net(*inputs), label)``; returns the loss."""
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
-    trainer = mx.gluon.Trainer(net.collect_params(), opt, opt_params)
     *inputs, label = batch
-    losses, ms = [], []
-    for step in range(steps):
-        t0 = time.perf_counter()
+
+    def step():
         with mx.autograd.record():
-            loss = loss_fn(net(*inputs), label)
+            loss = block(*batch) if block is not None \
+                else loss_fn(net(*inputs), label)
         loss.backward()
         trainer.step(label.shape[0])
+        return loss
+    return step
+
+
+def _gluon_loop(step, steps, sync=None, on_step=None):
+    """``steps`` calls of ``step``, each closed by ``sync``; returns
+    (losses, ms a step).  ``on_step(i)`` runs after each step."""
+    losses, ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        loss = step()
         if sync is not None:
             sync()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss.mean().asscalar()))
         if on_step is not None:
-            on_step(step)
+            on_step(i)
     return losses, ms
+
+
+def _gluon_run(mx, net, batch, steps, opt, opt_params, on_step=None,
+               sync=None, fused=True):
+    """``steps`` record / backward / ``Trainer.step`` iterations of
+    ``net`` on ``batch`` = (inputs..., label) on one context; returns
+    (losses, ms a step).  ``on_step(step)`` runs after each step.
+    ``fused=False`` turns the optimizer's fused form off: every step
+    takes the per-parameter ``Updater`` path."""
+    trainer = mx.gluon.Trainer(net.collect_params(), opt, opt_params)
+    if not fused:
+        trainer.optimizer.fused = False
+    return _gluon_loop(_gluon_stepper(mx, trainer, batch, net=net), steps,
+                       sync=sync, on_step=on_step)
+
+
+def _lenet_weights(mx, path, x):
+    """LeNet's weights from seed 0 (drawn on the host), saved."""
+    mx.random.seed(0)
+    with mx.cpu(0):
+        host = _lenet(mx)
+        host.initialize(mx.init.Xavier())
+        host(mx.nd.array(x[:1]))
+        host.save_parameters(path)
 
 
 def phase_gluon_lenet(torch):
     """``gluon_lenet``: LeNet (published widths) trained by Adam through
     ``autograd.record`` / ``backward`` / ``gluon.Trainer.step`` on the
-    card, batch 64 of 1x28x28; its first steps against the same run on
-    the host from the same weights."""
+    card, batch 64 of 1x28x28, once through the fused update and once
+    through the per-parameter ``Updater`` (Adam's fused form off); the
+    first steps of each against the same run on the host from the same
+    weights."""
     import mxnet_tpu_torch as mx
     cfg = GLUON_LENET
     rs = np.random.RandomState(0)
@@ -5607,41 +5653,51 @@ def phase_gluon_lenet(torch):
     tmp = tempfile.mkdtemp(prefix="mxnet-gluon-")
     try:
         path = os.path.join(tmp, "lenet.npz")
-        mx.random.seed(0)
+        _lenet_weights(mx, path, x)
         with mx.cpu(0):
             host = _lenet(mx)
-            host.initialize(mx.init.Xavier())
-            host(mx.nd.array(x[:1]))
-            host.save_parameters(path)
+            host.load_parameters(path)
             host_losses, host_ms = _gluon_run(
                 mx, host, (mx.nd.array(x), mx.nd.array(y)),
                 cfg["host_steps"], "adam", {"learning_rate": cfg["lr"]})
+        card = {}
         with mx.gpu(0):
-            net = _lenet(mx)
-            net.load_parameters(path)
-            losses, ms = _gluon_run(
-                mx, net, (mx.nd.array(x), mx.nd.array(y)), cfg["steps"],
-                "adam", {"learning_rate": cfg["lr"]},
-                sync=torch.cuda.synchronize)
-            device = str(net[0].weight.data().data_torch.device)
-            del net
+            for fused in (True, False):
+                net = _lenet(mx)
+                net.load_parameters(path)
+                card[fused] = _gluon_run(
+                    mx, net, (mx.nd.array(x), mx.nd.array(y)), cfg["steps"],
+                    "adam", {"learning_rate": cfg["lr"]},
+                    sync=torch.cuda.synchronize, fused=fused)
+                device = str(net[0].weight.data().data_torch.device)
+                del net
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    (losses, ms), (pp_losses, pp_ms) = card[True], card[False]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, host_losses)]
+    pp_rel = [abs(a - b) / abs(b) for a, b in zip(pp_losses, host_losses)]
     emit("gluon_lenet", model="lenet (examples/mnist_gluon.py)",
          batch=cfg["batch"], steps=cfg["steps"], optimizer="adam",
          lr=cfg["lr"], dtype="float32", device=device, losses=losses,
          host_losses=host_losses, loss_rel_err=rel,
          loss_rtol=GLUON_LENET_RTOL,
          ms_per_step=float(np.median(ms[3:])), first_step_ms=ms[0],
-         host_ms_per_step=float(np.median(host_ms)))
+         host_ms_per_step=float(np.median(host_ms)),
+         per_param=dict(losses=pp_losses, loss_rel_err=pp_rel,
+                        ms_per_step=float(np.median(pp_ms[3:])),
+                        first_step_ms=pp_ms[0],
+                        rel_err_vs_fused=max(
+                            abs(a - b) / abs(b)
+                            for a, b in zip(pp_losses, losses))))
     check(device.startswith("cuda"), f"gluon_lenet: trained on {device}")
-    check(all(np.isfinite(losses)), f"gluon_lenet: losses {losses}")
-    check(losses[-1] < losses[0], f"gluon_lenet: losses did not fall "
-                                   f"({losses[0]} -> {losses[-1]})")
-    check(all(r <= t for r, t in zip(rel, GLUON_LENET_RTOL)),
-          f"gluon_lenet: card vs host losses {rel}, want "
-          f"{GLUON_LENET_RTOL}")
+    for name, ls, r in (("fused", losses, rel),
+                        ("per-parameter", pp_losses, pp_rel)):
+        check(all(np.isfinite(ls)), f"gluon_lenet {name}: losses {ls}")
+        check(ls[-1] < ls[0], f"gluon_lenet {name}: losses did not fall "
+                              f"({ls[0]} -> {ls[-1]})")
+        check(all(e <= t for e, t in zip(r, GLUON_LENET_RTOL)),
+              f"gluon_lenet {name}: card vs host losses {r}, want "
+              f"{GLUON_LENET_RTOL}")
 
 
 def _encoder_layer(mx, units, heads, ffn):
@@ -5998,6 +6054,469 @@ def phase_gluon_dist(torch):
     return ranks[0]["launches"]
 
 
+# ------------------------------------------------------------ gluon_hybrid
+# hybridize's CachedOp tier and Trainer's fused tiers, at gluon_lenet's and
+# gluon_flash's widths, weights and data: LeNet hybridized with its loss
+# outside (forward and backward graphs, then the ``_fused_update``
+# graph), and the encoder layer with SoftmaxCrossEntropyLoss inside one
+# hybridized block (forward graph, then the deferred backward + update
+# graph, B2 and B3 inside it), each against the same eager run on the
+# card from the same weights; the layer's inference replay, bucketed
+# lengths, a bounded cache, Dropout and BatchNorm.
+GLUON_HYBRID = dict(lenet_steps=20, encoder_steps=10, traced_steps=3,
+                    buckets=(128, 256, 512),
+                    lengths=(100, 128, 200, 300, 512),
+                    cache_size=2, cache_batches=(1, 2, 4, 8))
+# the first hybridized loss: the eager call's kernels on the same inputs
+# (1e-6 relative; whether it is bitwise is reported)
+GLUON_HYBRID_FIRST_RTOL = 1e-6
+# later losses and the last parameters: a replay runs the eager run's
+# kernels on the same inputs, but cuBLAS and cuDNN pick their algorithm
+# per call site, stream and workspace, so a captured call may sum in
+# another order, and Adam's normalised step turns such rounding in a
+# near-zero gradient into up to lr on that weight: the CPU parity bounds
+# (tests/test_torch_fused_trainer.py)
+GLUON_HYBRID_LOSS_RTOL = 1e-4
+GLUON_HYBRID_PARAM_TOL = (1e-3, 1e-4)          # rtol, atol
+# inference replays vs the eager forward of the same (padded) input: the
+# same kernels (1e-6 of max|out|); bucketed outputs vs the eager forward
+# of the unpadded input: B1 and the GEMMs then run other shapes and sum
+# in another order (1e-4 of max|out|, GLUON_FLASH_LOSS_RTOL's first-step
+# bound)
+GLUON_HYBRID_BUCKET_TOL = (1e-6, 1e-4)
+# BatchNorm's running statistics after hybridized training calls vs the
+# eager ones (the same kernels)
+GLUON_HYBRID_BN_TOL = 1e-6
+# device memory after two evictions over what the evicted and the new
+# programs' pools predict: the allocator's rounding of the small tensors
+# a call leaves (4 MiB)
+GLUON_HYBRID_CACHE_SLACK = 4 << 20
+
+
+def _hybrid_trace(torch, run, where):
+    """``_trace_steps`` over ``GLUON_HYBRID['traced_steps']`` steps of a
+    ``_hybrid_lenet`` / ``_hybrid_encoder`` run, after a warm-up step,
+    with B1-B3's records per step."""
+    return _trace_steps(torch, run["step"], GLUON_HYBRID["traced_steps"],
+                        float(np.median(run["ms"][2:])), warm=run["step"],
+                        where=f"gluon_hybrid {where}", names=FLASH_NAMES)
+
+
+def _gluon_param_err(a_net, b_net):
+    """Largest |a - b| over max(rtol·|b|, atol) across the parameters
+    (<= 1 is within GLUON_HYBRID_PARAM_TOL)."""
+    rtol, atol = GLUON_HYBRID_PARAM_TOL
+    worst = 0.0
+    for pa, pb in zip(a_net.collect_params().values(),
+                      b_net.collect_params().values()):
+        a, b = pa.data().asnumpy(), pb.data().asnumpy()
+        worst = max(worst, float((np.abs(a - b)
+                                  / (atol + rtol * np.abs(b))).max()))
+    return worst
+
+
+def _hybrid_lenet(torch, mx, path, x, y):
+    from mxnet_tpu_torch.gluon.block import nb_cached_programs
+    cfg = GLUON_LENET
+    steps = GLUON_HYBRID["lenet_steps"]
+    runs = {}
+    for mode in ("eager", "hybrid"):
+        net = _lenet(mx)
+        net.load_parameters(path)
+        if mode == "hybrid":
+            net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": cfg["lr"]})
+        step = _gluon_stepper(mx, trainer, (mx.nd.array(x), mx.nd.array(y)),
+                              net=net)
+        programs = []
+        losses, ms = _gluon_loop(
+            step, steps, sync=torch.cuda.synchronize,
+            on_step=lambda _i: programs.append(nb_cached_programs()))
+        runs[mode] = dict(net=net, trainer=trainer, step=step,
+                          losses=losses, ms=ms, programs=programs)
+    return runs
+
+
+def _hybrid_encoder(torch, mx, path, batch):
+    cfg = GLUON_FLASH
+    steps = GLUON_HYBRID["encoder_steps"]
+    kernels = _flash_counters()
+    runs = {}
+    for mode in ("eager", "hybrid"):
+        net = _encoder_layer(mx, cfg["units"], cfg["heads"], cfg["ffn"])
+        net.load_parameters(path)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": cfg["lr"]})
+        block = None
+        if mode == "hybrid":
+            block = _loss_block(mx, net)
+            block.hybridize()
+        step = _gluon_stepper(mx, trainer, batch, net=net, block=block)
+        _dist_counts(zero=True)
+        losses, ms = _gluon_loop(step, steps, sync=torch.cuda.synchronize)
+        launches = _dist_counts()
+        runs[mode] = dict(net=net, trainer=trainer, step=step, block=block,
+                          losses=losses, ms=ms, launches=launches)
+    return runs
+
+
+def _loss_block(mx, inner):
+    """``inner`` (the encoder layer) and its SoftmaxCrossEntropyLoss as
+    one HybridBlock: ``block(x, valid_length, label)`` is the loss."""
+
+    class WithLoss(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.inner = inner
+                self.loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def hybrid_forward(self, F, x, valid_length, label):
+            return self.loss(self.inner(x, valid_length), label)
+
+    return WithLoss()
+
+
+def _hybrid_predict(torch, mx, path):
+    """The layer's inference replay, bucketed lengths and the bounded
+    cache, in predict mode."""
+    from mxnet_tpu_torch.gluon.block import nb_cached_programs
+    cfg = GLUON_FLASH
+    hc = GLUON_HYBRID
+    net = _encoder_layer(mx, cfg["units"], cfg["heads"], cfg["ffn"])
+    net.load_parameters(path)
+    x, valid, _y = _encoder_batch(cfg)
+    xs, vs = mx.nd.array(x), mx.nd.array(valid)
+    out = {}
+    with mx.autograd.predict_mode():
+        eager = net(xs, vs).asnumpy()
+        net.hybridize()
+        reps = [net(xs, vs).asnumpy() for _ in range(3)]
+        out["replay"] = dict(
+            rel_err=max(float(np.abs(r - eager).max()) for r in reps)
+            / float(np.abs(eager).max()),
+            bitwise_equal=all(bool((r == eager).all()) for r in reps),
+            programs=net._cached_op.stats()["programs"])
+        # bucketed lengths, padded with zeros on axis 0 up to the next
+        # bucket: the valid lengths go in as an (L, B) mask, whose padded
+        # rows add nothing to its sum
+        masked = _masked(mx, net)
+        masked.hybridize(bucket_shapes={0: list(hc["buckets"])})
+        n0 = nb_cached_programs()
+        counts, got = [], {}
+        for L in hc["lengths"] + hc["lengths"]:    # the second pass replays
+            got[L] = masked(mx.nd.array(x[:L]), mx.nd.array(
+                _mask(valid, L))).asnumpy()
+            counts.append(nb_cached_programs() - n0)
+        rows = []
+        for L in hc["lengths"]:
+            v = mx.nd.array(np.minimum(valid, L).astype(np.float32))
+            bucket = next(b for b in hc["buckets"] if b >= L)
+            xp = np.zeros((bucket,) + x.shape[1:], np.float32)
+            xp[:L] = x[:L]
+            padded = net(mx.nd.array(xp), v).asnumpy()
+            plain = net(mx.nd.array(x[:L]), v).asnumpy()
+            rows.append(dict(
+                L=L, bucket=bucket,
+                rel_err_vs_padded=float(np.abs(got[L] - padded).max()
+                                        / np.abs(padded).max()),
+                rel_err_vs_unpadded=float(np.abs(got[L] - plain).max()
+                                          / np.abs(plain).max())))
+        out["buckets"] = dict(buckets=list(hc["buckets"]), rows=rows,
+                              programs_after_each_call=counts,
+                              programs=masked._cached_op.stats()["programs"])
+        del masked
+        # the bounded cache: 4 batch sizes through cache_size=2, the two
+        # largest first; their programs are evicted by the last two
+        net.hybridize(cache_size=hc["cache_size"])
+        mem, pools = [], []
+        for B in sorted(hc["cache_batches"], reverse=True):
+            net(mx.nd.array(x[:, :B]), mx.nd.array(valid[:B]))
+            pools.append(net._cached_op.stats()["signatures"][-1][
+                "pool_bytes"])
+            _free(torch)
+            mem.append(torch.cuda.memory_allocated())
+        stats = net._cached_op.stats()
+        evicted, added = sum(pools[:2]), sum(pools[2:])
+        out["cache"] = dict(
+            cache_size=hc["cache_size"], evictions=stats["evictions"],
+            programs=stats["programs"], pool_bytes=pools,
+            memory_allocated=mem, evicted_pool_bytes=evicted,
+            # 0 when eviction gave back exactly its pools' bytes
+            memory_over_expected=mem[3] - (mem[1] - evicted + added))
+    del net
+    _free(torch)
+    return out
+
+
+def _mask(valid, L):
+    """(L, B) float mask of the first ``min(valid, L)`` rows of each
+    column."""
+    v = np.minimum(valid, L)
+    return (np.arange(L)[:, None] < v[None, :]).astype(np.float32)
+
+
+def _masked(mx, layer):
+    """``layer`` called as ``block(x, mask)`` with the valid lengths as an
+    (L, B) mask (padding-safe along L)."""
+
+    class Masked(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.layer = layer
+
+        def hybrid_forward(self, F, x, mask):
+            return self.layer(x, mask.sum(axis=0))
+
+    return Masked()
+
+
+def _hybrid_dropout_bn(torch, mx):
+    """Dropout masks across replays; BatchNorm's running statistics,
+    hybridized vs eager, after 4 training calls from the same weights."""
+    nn = mx.gluon.nn
+    drop = nn.HybridSequential()
+    drop.add(nn.Dropout(0.5))
+    drop.initialize()
+    drop.hybridize()
+    ones = mx.nd.ones((64, 1024))
+    masks = []
+    for _ in range(4):
+        with mx.autograd.record():
+            masks.append(drop(ones).asnumpy())
+    differ = [bool((masks[i] != masks[i + 1]).any()) for i in range(3)]
+    rs = np.random.RandomState(4)
+    nets = []
+    for mode in ("eager", "hybrid"):
+        mx.random.seed(4)
+        net = nn.HybridSequential()
+        net.add(nn.Conv2D(16, 3, in_channels=3), nn.BatchNorm(in_channels=16))
+        net.initialize(mx.init.Xavier())
+        if mode == "hybrid":
+            net.hybridize()
+        nets.append(net)
+    for i in range(4):
+        xb = mx.nd.array(rs.randn(32, 3, 16, 16).astype(np.float32))
+        for net in nets:
+            with mx.autograd.record():
+                net(xb).backward()
+    bn = [n[1] for n in nets]
+    err = max(float(np.abs(getattr(bn[0], s).data().asnumpy()
+                           - getattr(bn[1], s).data().asnumpy()).max())
+              for s in ("running_mean", "running_var"))
+    moved = float(np.abs(bn[1].running_mean.data().asnumpy()).max())
+    return dict(dropout_masks_differ=differ, bn_stat_max_abs_err=err,
+                bn_running_mean_max=moved)
+
+
+def _retained_backward_after_step(mx):
+    """``backward(retain_graph=True)``, ``Trainer.step``, ``backward``
+    on a small Dense net, hybridized and eager, after 3 steps (the
+    update replays its graph): whether the second backward raised
+    ``MXNetError`` (it would read the updated weights)."""
+    nn = mx.gluon.nn
+    x = mx.nd.array(np.random.RandomState(5).randn(8, 16).astype(
+        np.float32))
+    out = {}
+    for mode in ("hybrid", "eager"):
+        net = nn.HybridSequential()
+        net.add(nn.Dense(32, activation="relu", in_units=16),
+                nn.Dense(4, in_units=32))
+        net.initialize(mx.init.Xavier())
+        if mode == "hybrid":
+            net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 1e-3})
+        for _ in range(4):
+            with mx.autograd.record():
+                loss = (net(x) ** 2).mean()
+            loss.backward(retain_graph=True)
+            trainer.step(8)
+        try:
+            loss.backward()
+            out[mode] = "no error"
+        except mx.MXNetError as e:
+            out[mode] = str(e)
+    return out
+
+
+def phase_gluon_hybrid(torch):
+    """``gluon_hybrid``: the Gluon loop with ``net.hybridize()`` (module
+    comment above ``GLUON_HYBRID``).  Returns B1-B3's wrapper launches in
+    the encoder layer's hybridized run and their records in its traced
+    steps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.block import nb_cached_programs
+    rs = np.random.RandomState(0)
+    lx = rs.rand(GLUON_LENET["batch"], 1, 28, 28).astype(np.float32)
+    ly = rs.randint(0, 10, GLUON_LENET["batch"]).astype(np.float32)
+    ex, ev, ey = _encoder_batch(GLUON_FLASH)
+    tmp = tempfile.mkdtemp(prefix="mxnet-gluon-hybrid-")
+    try:
+        lpath = os.path.join(tmp, "lenet.npz")
+        epath = os.path.join(tmp, "encoder.npz")
+        _lenet_weights(mx, lpath, lx)
+        _encoder_weights(mx, GLUON_FLASH, epath)
+        with mx.gpu(0):
+            lenet = _hybrid_lenet(torch, mx, lpath, lx, ly)
+            lenet_err = _gluon_param_err(lenet["hybrid"]["net"],
+                                   lenet["eager"]["net"])
+            lenet_trace = {m: _hybrid_trace(torch, r, f"lenet {m}")
+                           for m, r in lenet.items()}
+            lenet_cop = lenet["hybrid"]["net"]._cached_op.stats()
+            lenet_fused = lenet["hybrid"]["trainer"].fused_stats()
+            for r in lenet.values():
+                r.pop("net"), r.pop("trainer"), r.pop("step")
+            _free(torch)
+            batch = tuple(mx.nd.array(a) for a in (ex, ev, ey))
+            enc = _hybrid_encoder(torch, mx, epath, batch)
+            enc_err = _gluon_param_err(enc["hybrid"]["net"],
+                                       enc["eager"]["net"])
+            n_before = nb_cached_programs()
+            enc_trace = {m: _hybrid_trace(torch, r, f"encoder {m}")
+                         for m, r in enc.items()}
+            enc_programs_grew = nb_cached_programs() - n_before
+            enc_cop = enc["hybrid"]["block"]._cached_op.stats()
+            enc_fused = enc["hybrid"]["trainer"].fused_stats()
+            inst = next(iter(enc["hybrid"]["block"]._cached_op._cache
+                             .values())).rec[0]
+            fused_entries = [dict(replays=e.replays, capture_s=e.capture_s,
+                                  binding_copies=e.copies)
+                             for e in inst.fused[
+                                 enc["hybrid"]["trainer"]].values()]
+            for r in enc.values():
+                for k in ("net", "trainer", "step", "block"):
+                    r.pop(k)
+            del inst
+            _free(torch)
+            predict = _hybrid_predict(torch, mx, epath)
+            small = _hybrid_dropout_bn(torch, mx)
+            retained = _retained_backward_after_step(mx)
+        _free(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def summary(runs):
+        out = {}
+        for mode, r in runs.items():
+            out[mode] = dict(losses=r["losses"], first_step_ms=r["ms"][0],
+                             second_step_ms=r["ms"][1],
+                             ms_per_step=float(np.median(r["ms"][2:])))
+        first = [runs[m]["losses"][0] for m in ("hybrid", "eager")]
+        out["first_loss_rel_err"] = abs(first[0] - first[1]) / abs(first[1])
+        out["first_loss_bitwise_equal"] = first[0] == first[1]
+        out["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(
+            runs["hybrid"]["losses"], runs["eager"]["losses"]))
+        out["losses_bitwise_equal"] = \
+            runs["hybrid"]["losses"] == runs["eager"]["losses"]
+        return out
+
+    lenet_sum, enc_sum = summary(lenet), summary(enc)
+    launches = enc["hybrid"]["launches"]
+    traced = enc_trace["hybrid"]["records_per_step"]
+    emit("gluon_hybrid", dtype="float32",
+         lenet=dict(model="lenet (examples/mnist_gluon.py)",
+                    batch=GLUON_LENET["batch"],
+                    steps=GLUON_HYBRID["lenet_steps"], optimizer="adam",
+                    lr=GLUON_LENET["lr"], path="forward + backward graphs, "
+                    "_fused_update graph", **lenet_sum,
+                    param_err_of_tol=lenet_err,
+                    programs_after_each_step=lenet["hybrid"]["programs"],
+                    cached_op=dict(param_copies=lenet_cop["param_copies"],
+                                   replays=lenet_cop["replays"],
+                                   signatures=_sig_stats_rows(lenet_cop)),
+                    trainer=lenet_fused, trace=lenet_trace),
+         encoder=dict(layer="bert_24_1024_16 encoder layer + "
+                      "SoftmaxCrossEntropyLoss in one HybridBlock",
+                      **{k: GLUON_FLASH[k] for k in ("units", "heads", "ffn",
+                                                     "L", "B")},
+                      steps=GLUON_HYBRID["encoder_steps"], optimizer="adam",
+                      lr=GLUON_FLASH["lr"], path="forward graph, deferred "
+                      "backward + update graph", **enc_sum,
+                      param_err_of_tol=enc_err,
+                      launches=enc["hybrid"]["launches"],
+                      launches_eager=enc["eager"]["launches"],
+                      programs_grew_while_traced=enc_programs_grew,
+                      cached_op=dict(param_copies=enc_cop["param_copies"],
+                                     replays=enc_cop["replays"],
+                                     signatures=_sig_stats_rows(enc_cop)),
+                      fused_entries=fused_entries, trainer=enc_fused,
+                      trace=enc_trace),
+         predict=predict, dropout_batchnorm=small,
+         retained_backward_after_step=retained,
+         loss_rtol=GLUON_HYBRID_LOSS_RTOL,
+         first_loss_rtol=GLUON_HYBRID_FIRST_RTOL,
+         param_tol=GLUON_HYBRID_PARAM_TOL)
+    for name, s, err in (("lenet", lenet_sum, lenet_err),
+                         ("encoder", enc_sum, enc_err)):
+        check(all(np.isfinite(s["hybrid"]["losses"])),
+              f"gluon_hybrid {name}: losses {s['hybrid']['losses']}")
+        check(s["first_loss_rel_err"] <= GLUON_HYBRID_FIRST_RTOL,
+              f"gluon_hybrid {name}: first loss {s['first_loss_rel_err']} "
+              f"from eager")
+        check(s["loss_rel_err"] <= GLUON_HYBRID_LOSS_RTOL,
+              f"gluon_hybrid {name}: losses {s['loss_rel_err']} from eager")
+        check(err <= 1.0, f"gluon_hybrid {name}: parameters {err} of "
+                          f"{GLUON_HYBRID_PARAM_TOL} from eager")
+    progs = lenet["hybrid"]["programs"]
+    check(len(set(progs)) == 1,
+          f"gluon_hybrid lenet: programs grew after the first call {progs}")
+    check(enc_programs_grew == 0,
+          f"gluon_hybrid encoder: {enc_programs_grew} programs while traced")
+    for cop, name in ((lenet_cop, "lenet"), (enc_cop, "encoder")):
+        check(cop["param_copies"] == 0,
+              f"gluon_hybrid {name}: {cop['param_copies']} parameter "
+              f"copies on the fused path")
+    check(enc_fused["binding_copies"] == 0
+          and all(e["binding_copies"] == 0 for e in fused_entries)
+          and lenet_fused["binding_copies"] == 0,
+          f"gluon_hybrid: trainer binding copies {enc_fused} "
+          f"{fused_entries} {lenet_fused}")
+    check(len(fused_entries) == 1 and fused_entries[0]["replays"] > 0,
+          f"gluon_hybrid encoder: backward + update entries "
+          f"{fused_entries}")
+    check(traced == dict.fromkeys(FLASH_NAMES, 1.0),
+          f"gluon_hybrid encoder: B1-B3 records per traced step {traced}")
+    check(all(v >= 1 for v in launches.values()),
+          f"gluon_hybrid encoder: B1-B3 wrapper launches {launches}")
+    rep = predict["replay"]
+    check(rep["rel_err"] <= GLUON_HYBRID_BUCKET_TOL[0],
+          f"gluon_hybrid predict: replay {rep}")
+    bk = predict["buckets"]
+    n_l = len(GLUON_HYBRID["lengths"])
+    check(bk["programs"] == 3 and bk["programs_after_each_call"][n_l:]
+          == [bk["programs_after_each_call"][n_l - 1]] * n_l,
+          f"gluon_hybrid buckets: programs {bk}")
+    for row in bk["rows"]:
+        check(row["rel_err_vs_padded"] <= GLUON_HYBRID_BUCKET_TOL[0]
+              and row["rel_err_vs_unpadded"] <= GLUON_HYBRID_BUCKET_TOL[1],
+              f"gluon_hybrid buckets: {row}")
+    ca = predict["cache"]
+    check(ca["evictions"] == 2 and ca["programs"] == 2,
+          f"gluon_hybrid cache: {ca}")
+    check(ca["memory_over_expected"] <= GLUON_HYBRID_CACHE_SLACK,
+          f"gluon_hybrid cache: eviction left "
+          f"{ca['memory_over_expected']} bytes over the evicted pools")
+    check(all(small["dropout_masks_differ"])
+          and small["bn_stat_max_abs_err"] <= GLUON_HYBRID_BN_TOL
+          and small["bn_running_mean_max"] > 0,
+          f"gluon_hybrid dropout / batchnorm: {small}")
+    check(all("in place" in v for v in retained.values()),
+          f"gluon_hybrid: a backward after the step that updated its "
+          f"weights did not refuse: {retained}")
+    return dict(launches=launches,
+                traced={k: v * GLUON_HYBRID["traced_steps"]
+                        for k, v in traced.items()})
+
+
+def _sig_stats_rows(stats):
+    return [{k: s[k] for k in ("inputs", "training", "instances",
+                               "capture_s", "pool_bytes")}
+            for s in stats["signatures"]]
+
+
 def main():
     if sys.argv[1:2] == ["--durability-child"]:
         return durability_child(*sys.argv[2:])
@@ -6082,6 +6601,7 @@ def main():
     phase_gluon_lenet(torch)
     gluon_launches = phase_gluon_flash(torch)
     gluon_dist_launches = phase_gluon_dist(torch)
+    gluon_hybrid = phase_gluon_hybrid(torch)
     phase_graphs(torch, dev, lm)
     replayed = phase_serve_trace(torch, lm)
     predict_traced = phase_predict_trace(torch, predict)
@@ -6168,7 +6688,9 @@ def main():
             launches_dist_tp=dist_launches["dist_tp"][name],
             launches_dist_dp_int8=dist_launches["dist_dp_int8"][name],
             launches_gluon_flash=gluon_launches[name],
-            launches_gluon_dist=gluon_dist_launches[name])
+            launches_gluon_dist=gluon_dist_launches[name],
+            launches_gluon_hybrid=gluon_hybrid["launches"][name],
+            traced_gluon_hybrid_kernel_records=gluon_hybrid["traced"][name])
         if key == "fwd":
             # the predict path (fp32): the bucket graphs' captures launch
             # B1 from the wrapper; their replays are counted from trace

@@ -15,6 +15,16 @@ backward computes the gradients of the attached arrays it reaches with
 then writes them (``'write'``), adds them (``'add'``) or skips them
 (``'null'``).  An array used several times in one backward gets the sum
 of its partials, as in the reference.
+
+A backward whose heads are the outputs of one recorded replay of a
+hybridized block (``gluon.cached_op``) is deferred, when every input of
+that replay is a leaf, the head gradients are the default and
+``MXNET_FUSED_HYBRID_STEP`` is not ``"0"``: ``Trainer.step`` then runs
+it together with the update as one CUDA graph (:func:`peek_pending`,
+:func:`clear_pending`).  Anything that could see the gradients first
+runs it (:func:`flush_pending`): the next backward or ``grad``, a new
+``record()``, ``waitall``, and reading or consuming one of the gradient
+buffers it writes.
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, get_env
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "backward",
@@ -34,6 +44,7 @@ class _AGState(threading.local):
     def __init__(self):
         self.recording = False
         self.training = False
+        self.pending = None             # the deferred backward, or None
 
 
 _STATE = _AGState()
@@ -64,6 +75,8 @@ class _RecordScope:
         self._old = None
 
     def __enter__(self):
+        if self._rec:
+            flush_pending()
         self._old = (_STATE.recording, _STATE.training)
         if self._rec is not None:
             _STATE.recording = self._rec
@@ -118,11 +131,11 @@ def _graph_nodes(tensors):
     return out
 
 
-def _attached_leaves(tensors):
+def _attached_leaves(nodes):
     """The arrays with an attached grad whose tensors are leaves of the
-    graph reachable from ``tensors``, in a stable order."""
+    graph of ``nodes`` (:func:`_graph_nodes`), in a stable order."""
     found, seen = [], set()
-    for fn in _graph_nodes(tensors):
+    for fn in nodes:
         var = getattr(fn, "variable", None)
         if var is None:
             continue
@@ -151,6 +164,12 @@ def _run_grad(roots, inputs, cots, retain_graph, create_graph):
                                    create_graph=create_graph,
                                    allow_unused=True)
     except RuntimeError as e:
+        if "modified by an inplace operation" in str(e):
+            raise MXNetError(
+                "backward through a graph whose saved arrays were written "
+                "in place since its forward (Trainer.step's fused update "
+                "writes the weights in place): run the backward before "
+                "the step") from e
         if "second time" not in str(e):
             raise
         raise MXNetError(
@@ -159,12 +178,87 @@ def _run_grad(roots, inputs, cots, retain_graph, create_graph):
 
 
 def _store_grad(arr, g):
-    """Write (``'write'``) or add (``'add'``) ``g`` into ``arr.grad``."""
+    """Write (``'write'``) or add (``'add'``) ``g`` into ``arr.grad``, in
+    place where the buffer's shape allows (a graph reads it by
+    address)."""
     dst = arr._grad
-    if arr._grad_req == "add":
-        dst._set_data(dst._data + g.to(dst._data.dtype))
+    g = g.to(dst._data.dtype)
+    if g.shape != dst._data.shape:
+        new = dst._data + g if arr._grad_req == "add" else g
+        dst._set_data(new)
+    elif arr._grad_req == "add":
+        dst._data.add_(g)
     else:
-        dst._set_data(g.to(dst._data.dtype))
+        dst._data.copy_(g)
+
+
+def _release_replays(nodes):
+    """After a backward that kept no graph: the replays among ``nodes``
+    have used their saved tensors (``gluon.cached_op``)."""
+    for fn in nodes:
+        claim = getattr(fn, "_mx_claim", None)
+        if claim is not None:
+            claim.release()
+
+
+# ---------------------------------------------------------------------------
+# the deferred backward
+# ---------------------------------------------------------------------------
+def peek_pending():
+    """The deferred backward (a dict: ``claim``, ``heads``, ``head_idx``,
+    ``grad_ids``), or None."""
+    return _STATE.pending
+
+
+def flush_pending():
+    """Run the deferred backward now, if there is one."""
+    p = _STATE.pending
+    if p is None:
+        return
+    _STATE.pending = None
+    _backward_now(p["heads"], [None] * len(p["heads"]), False)
+
+
+def flush_if_pending_grad(arr):
+    """Run the deferred backward if ``arr`` is one of the gradient
+    buffers it writes (an alias of ``p.grad()`` held across steps must
+    not read the step before's gradients)."""
+    p = _STATE.pending
+    if p is not None and id(arr) in p["grad_ids"]:
+        flush_pending()
+
+
+def clear_pending():
+    """Drop the deferred backward without running it: the caller ran it
+    in its own graph."""
+    p = _STATE.pending
+    _STATE.pending = None
+    if p is not None:
+        p["claim"].release()
+
+
+def _deferrable(heads, head_grads, retain_graph):
+    """The pending record if this backward may wait for ``Trainer.step``
+    (module docstring), else None."""
+    if retain_graph or any(hg is not None for hg in head_grads) \
+            or get_env("MXNET_FUSED_HYBRID_STEP", "1") == "0":
+        return None
+    node = heads[0]._data.grad_fn
+    claim = getattr(node, "_mx_claim", None)
+    if claim is None or claim.released or not claim.current() \
+            or any(h._data.grad_fn is not node for h in heads) \
+            or not claim.leaf_inputs:
+        return None
+    grad_ids = set()
+    for a in claim.arrays:
+        if a._grad is None or a._grad_req == "null":
+            continue
+        if a._grad_req != "write":
+            return None
+        grad_ids.add(id(a._grad))
+    return {"claim": claim, "heads": list(heads),
+            "head_idx": tuple(sorted({h._data.output_nr for h in heads})),
+            "grad_ids": grad_ids}
 
 
 def backward(heads, head_grads=None, retain_graph: bool = False,
@@ -173,9 +267,19 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
     array they reach, written into ``arr.grad`` by its ``grad_req``
     (reference: ``MXAutogradBackwardEx``).  ``train_mode`` is accepted
     for the reference's signature: torch's backward does not run the
-    forward again."""
+    forward again.  A backward over one hybridized replay may be
+    deferred (module docstring)."""
+    flush_pending()
     heads = _as_list(heads)
     head_grads = _as_list(head_grads) or [None] * len(heads)
+    pending = _deferrable(heads, head_grads, retain_graph)
+    if pending is not None:
+        _STATE.pending = pending
+        return
+    _backward_now(heads, head_grads, retain_graph)
+
+
+def _backward_now(heads, head_grads, retain_graph):
     roots, cots, leaf_parts = [], [], []
     for h, hg in zip(heads, head_grads):
         if h._data.grad_fn is None:
@@ -188,7 +292,8 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
             continue
         roots.append(h._data)
         cots.append(_head_grad(h, hg))
-    targets = _attached_leaves(roots) if roots else []
+    nodes = _graph_nodes(roots) if roots else []
+    targets = _attached_leaves(nodes)
     sums = {}
     if targets:
         grads = _run_grad(roots, [a._data for a in targets], cots,
@@ -196,6 +301,8 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
         for arr, g in zip(targets, grads):
             if g is not None:
                 sums[id(arr)] = (arr, g)
+    if not retain_graph:
+        _release_replays(nodes)
     for arr, g in leaf_parts:
         prev = sums.get(id(arr))
         sums[id(arr)] = (arr, g if prev is None else prev[1] + g)
@@ -212,6 +319,7 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     computation, so its results can be differentiated again, and keeps
     the graph (as ``retain_graph=True``)."""
     from .ndarray import NDArray
+    flush_pending()
     single = isinstance(variables, NDArray)
     variables = _as_list(variables)
     heads = _as_list(heads)
@@ -236,6 +344,11 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                     "grad(create_graph=True): the tape holds a custom "
                     "autograd.Function, whose host-side backward cannot "
                     "be differentiated again")
+            if getattr(fn, "_mx_claim", None) is not None:
+                raise MXNetError(
+                    "grad(create_graph=True): the tape holds a replay of "
+                    "a hybridized block, whose captured backward cannot "
+                    "be differentiated again; hybridize(False) first")
     uniq, slot = [], []
     for v in variables:
         for i, u in enumerate(uniq):
@@ -262,10 +375,13 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     outs = [None] * len(uniq)
     want = [i for i, u in enumerate(uniq) if u._data.requires_grad]
     if roots and want:
+        keep = bool(retain_graph) or create_graph
         grads = _run_grad(roots, [uniq[i]._data for i in want], cots,
-                          bool(retain_graph) or create_graph, create_graph)
+                          keep, create_graph)
         for i, g in zip(want, grads):
             outs[i] = g
+        if not keep:
+            _release_replays(_graph_nodes(roots))
     for i, g in direct.items():
         outs[i] = g if outs[i] is None else outs[i] + g
     res = []

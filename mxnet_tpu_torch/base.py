@@ -319,6 +319,17 @@ declare_env("MXNET_SERVING_TRACE_SPEED", 1.0,
             "Trace-replay time compression "
             "(serving.traffic.replay_trace): 2.0 plays an 8s trace in "
             "4s wall time; the recorded timeline itself is unchanged.")
+declare_env("MXNET_CACHED_OP_CACHE_SIZE", 16,
+            "Max per-signature programs kept per CachedOp (one CUDA "
+            "graph set each on the card; LRU-evicted beyond, with a "
+            "churn warning); override per block via "
+            "hybridize(cache_size=...).")
+declare_env("MXNET_FUSED_HYBRID_STEP", "1",
+            "Defer a backward whose heads are the outputs of one "
+            "hybridized replay, so that Trainer.step runs that backward "
+            "and the optimizer update as one CUDA graph "
+            "(record/backward/step at fused-step cost); 0 = the backward "
+            "runs when called.")
 declare_env("MXNET_COMPILE_CACHE_DIR", None,
             "Persistent compile-cache directory "
             "(mxnet_tpu_torch.compile_cache): the port keeps its nvcc-"

@@ -1,14 +1,15 @@
 """Block and HybridBlock of the PyTorch port (reference:
 ``python/mxnet/gluon/block.py``).
 
-The counterpart of ``mxnet_tpu.gluon.block`` without its compiled tier:
-name scopes and prefixes, child and parameter registration,
-``collect_params`` (with ``select``), ``save_parameters`` /
-``load_parameters``, ``summary`` and forward hooks.  A HybridBlock's
-``hybrid_forward(F, x, ...)`` receives the ``nd`` namespace as ``F``
-and its registered parameters as keyword arrays.  ``hybridize()`` is
-accepted and the block runs the same ops eagerly (the CachedOp tier, one
-CUDA graph per signature, is a later slice).
+The counterpart of ``mxnet_tpu.gluon.block``: name scopes and
+prefixes, child and parameter registration, ``collect_params`` (with
+``select``), ``save_parameters`` / ``load_parameters``, ``summary`` and
+forward hooks.  A HybridBlock's ``hybrid_forward(F, x, ...)`` receives
+the ``nd`` namespace as ``F`` and its registered parameters as keyword
+arrays.  After ``hybridize()`` a call with NDArray arguments and no
+keyword arguments goes through the block's
+:class:`~mxnet_tpu_torch.gluon.cached_op.CachedOp`: one set of CUDA
+graphs per signature on the card.
 """
 from __future__ import annotations
 
@@ -16,14 +17,17 @@ import re
 import threading
 from collections import OrderedDict
 
+import torch
+
 from ..base import MXNetError
 from ..context import cpu, current_context
 from .. import ndarray as nd
 from ..ndarray import NDArray
+from .cached_op import _TRACING, CachedOp, nb_cached_programs
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, match_names)
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "CachedOp", "nb_cached_programs"]
 
 
 class _BlockScope(threading.local):
@@ -75,12 +79,13 @@ class _NameScope:
 
 def update_aux_state(param: Parameter, new_value, ctx=None):
     """Write an auxiliary (non-differentiable) state such as BatchNorm's
-    running statistics, outside the tape."""
+    running statistics, outside the tape and in place: a CUDA graph
+    reads and writes it by address."""
     data = new_value._data if isinstance(new_value, NDArray) else new_value
-    for c, arr in param._data.items():
-        if ctx is None or c == ctx:
-            arr._set_data(data.detach().to(device=arr._data.device,
-                                           dtype=arr._data.dtype))
+    with torch.no_grad():
+        for c, arr in param._data.items():
+            if ctx is None or c == ctx:
+                arr._data.copy_(data.detach())
 
 
 def _prod(t):
@@ -280,11 +285,25 @@ class HybridBlock(Block):
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
+        self._cached_op = None
+        self._flags = {}
 
-    def hybridize(self, active=True, **kwargs):
-        """Accepted; the block keeps running its ops eagerly."""
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  cache_size=None, bucket_shapes=None, **kwargs):
+        """Run the block through a :class:`CachedOp` (``active=False``:
+        eagerly again).  ``cache_size`` bounds the programs kept (default
+        ``MXNET_CACHED_OP_CACHE_SIZE``); ``bucket_shapes={axis: [sizes]}``
+        pads inputs with zeros along those axes up to the next declared
+        size, so ragged shapes share programs (the block must be
+        padding-safe there; outputs keep the padded size).
+        ``static_alloc`` / ``static_shape`` are accepted for the
+        reference's signature: every program keeps static buffers."""
         self._active = active
-        super().hybridize(active, **kwargs)
+        self._flags = {"cache_size": cache_size,
+                       "bucket_shapes": bucket_shapes}
+        self._cached_op = None
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
 
     def infer_shape(self, *args):
         """Overridden by layers that support deferred initialisation."""
@@ -307,6 +326,20 @@ class HybridBlock(Block):
         except DeferredInitializationError:
             self._finish_deferred(x, *args)
             pdata = {n: p.data(ctx) for n, p in self._reg_params.items()}
+        if self._active and not _TRACING.get() and not kwargs \
+                and all(isinstance(a, NDArray) for a in args):
+            if self._cached_op is None:
+                self._cached_op = CachedOp(self, **self._flags)
+            try:
+                return self._cached_op([x, *args], ctx)
+            except DeferredInitializationError:
+                # a child's parameters wait for their shapes: one plain
+                # pass finds them, with the children's CachedOps off
+                tok = _TRACING.set(True)
+                try:
+                    return self.hybrid_forward(nd, x, *args, **pdata)
+                finally:
+                    _TRACING.reset(tok)
         return self.hybrid_forward(nd, x, *args, **pdata, **kwargs)
 
     def _finish_deferred(self, *args):

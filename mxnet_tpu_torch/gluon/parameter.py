@@ -24,6 +24,7 @@ import torch
 
 from ..base import MXNetError
 from ..context import Context, cpu, current_context
+from .. import autograd
 from .. import initializer as init_mod
 from .. import ndarray as nd
 from ..ndarray import NDArray, to_torch_dtype
@@ -165,12 +166,14 @@ class Parameter:
         if self._grad_req == "null":
             raise MXNetError(f"Parameter {self.name!r} has grad_req='null'")
         self._check_initialized(ctx)
+        autograd.flush_pending()
         if ctx is None:
             return next(iter(self._grad.values()))
         return self._grad[ctx]
 
     def list_grad(self) -> List[NDArray]:
         self._check_initialized()
+        autograd.flush_pending()
         return list(self._grad.values())
 
     def list_ctx(self) -> List[Context]:
@@ -198,8 +201,10 @@ class Parameter:
                                  dtype=arr._data.dtype, copy=True))
 
     def zero_grad(self):
-        for g in self._grad.values():
-            g._set_data(torch.zeros_like(g._data))
+        autograd.flush_pending()
+        with torch.no_grad():
+            for g in self._grad.values():
+                g._data.zero_()
 
     def reset_ctx(self, ctx):
         if isinstance(ctx, Context):

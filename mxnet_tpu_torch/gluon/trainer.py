@@ -1,12 +1,46 @@
 """Trainer of the PyTorch port: optimizer and kvstore orchestration
 (reference: ``python/mxnet/gluon/trainer.py``).
 
-The counterpart of ``mxnet_tpu.gluon.trainer`` without its fused tiers:
-a step sums the per-context gradients through the kvstore
-(``pushpull``), rescales by ``1 / batch_size`` and updates every context
-copy with its own :class:`~mxnet_tpu_torch.optimizer.Updater`, all of
-them driving one optimizer (per-device update counts keep bias
-corrections from advancing twice).
+The counterpart of ``mxnet_tpu.gluon.trainer``: a step sums the
+per-context gradients through the kvstore (``pushpull``), rescales by
+``1 / batch_size`` and updates every context copy with its own
+:class:`~mxnet_tpu_torch.optimizer.Updater`, all of them driving one
+optimizer (per-device update counts keep bias corrections from
+advancing twice).
+
+The fused tiers, for a fused optimizer (SGD, Adam, AdamW) on one
+context with ``grad_req='write'`` and default storage
+(:meth:`Trainer._fused_eligible`; any other step takes the
+per-parameter path):
+
+- ``_fused_update``: every parameter's update as one
+  :class:`_FusedUpdate`, one CUDA graph per key (the optimizer's type,
+  ``_fused_key()``, the updated parameters' indices and each one's
+  shape, dtype and state), on the trainer's own stream and memory pool;
+- ``_try_fused_hybrid_step``: when the last ``backward`` was deferred
+  (its heads are the outputs of one recorded replay of a hybridized
+  block, ``autograd.backward``), that backward and the update are one
+  :class:`_FusedUpdate` of the replay's instance, per (Trainer,
+  signature, optimizer key), captured in the instance's pool: it
+  writes the ``.grad`` buffers of the parameters and of the replay's
+  other attached inputs, then updates in place.
+
+Both write the weights, states and fp32 masters in place, since the
+forward graphs read them by address, and bind every array they touch
+(``NDArray._bind``).  The step-varying values (t, lr, wd, rescale) are
+device tensors, rewritten only when their host values change, and t
+advances on the device, so a learning-rate schedule never captures
+again.  Each update of a weight is counted on it
+(``ndarray.count_write``), and a replayed update also advances the
+weight's autograd version, so a backward saved before the step refuses
+to run (``gluon.cached_op``).  The first call of an entry runs eagerly
+on its stream (a real update), the capture follows, later calls
+replay.  Update counts
+advance as the per-parameter path's do; a call that fails before its
+update ran raises :class:`~mxnet_tpu_torch.base.KernelError` with the
+counts rolled back (``_fused_rollback``), and an entry whose capture
+failed raises on every later step.  On the CPU the same entries run
+eagerly, without graphs.
 
 A ``dist*`` kvstore is created at one context too (upstream MXNet's
 rule; the JAX Trainer creates none there, so its workers never
@@ -20,12 +54,201 @@ from __future__ import annotations
 
 import time
 
-from ..base import MXNetError
+import torch
+
+from ..base import KernelError, MXNetError
+from .. import autograd
 from .. import optimizer as opt
 from .. import runtime_metrics as _rm
+from ..ndarray import dtype_name
+from ..ndarray.ndarray import count_write
+from . import cached_op as _cached_op
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
+
+
+def _flat_state(state):
+    """An optimizer state's arrays in order (None left out)."""
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [a for s in state for a in _flat_state(s)]
+    return [state]
+
+
+def _state_sig(state):
+    if state is None:
+        return None
+    if isinstance(state, (tuple, list)):
+        return tuple(_state_sig(s) for s in state)
+    return (tuple(state.shape), dtype_name(state._data.dtype))
+
+
+def _raw_state(state, tensors):
+    """``state``'s structure over the next tensors of ``tensors``."""
+    if state is None:
+        return None
+    if isinstance(state, (tuple, list)):
+        return tuple(_raw_state(s, tensors) for s in state)
+    return next(tensors)
+
+
+def _fused_rollback(o, idx, before):
+    """Undo the update counts of a fused call whose update did not run:
+    the per-index counts and ``num_update`` (``before`` from
+    :func:`_advance`)."""
+    counts, num_update = before
+    for i in idx:
+        if counts[i] is None:
+            o._index_update_count.pop(i, None)
+        else:
+            o._index_update_count[i] = counts[i]
+    o.num_update = num_update
+
+
+def _advance(o, idx):
+    """Advance the update counts as the per-parameter path does; returns
+    what :func:`_fused_rollback` restores."""
+    before = ({i: o._index_update_count.get(i) for i in idx}, o.num_update)
+    for i in idx:
+        o._update_count(i)
+    return before
+
+
+class _FusedUpdate:
+    """One fused update of a :class:`Trainer` (module docstring): every
+    parameter's ``_fused_one``, written in place into the bound weights
+    and states, with t, lr, wd and rescale in device tensors.  With
+    ``backward`` (a function returning the gradients of the parameters
+    and of the other attached inputs) the gradients come from a backward
+    over a replay's saved tensors and are written into the ``.grad``
+    buffers first.  ``graphs`` / ``pool``: where it captures (None on the
+    CPU: it runs eagerly)."""
+
+    def __init__(self, o, idx, device, graphs, pool, backward=None):
+        self.opt = o
+        self.idx = list(idx)
+        n = len(self.idx)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.ts = torch.zeros(n, **f32)
+        self.lrs = torch.zeros(n, **f32)
+        self.wds = torch.zeros(n, **f32)
+        self.rescale = torch.zeros((), **f32)
+        self.counts = self.hyper = None
+        self.graphs, self.pool = graphs, pool
+        self.backward = backward
+        self.bound = None               # weights, grads, others, states
+        self.layout = None
+        self.graph = None
+        self.warm = False
+        self.failed = None
+        self.applied = False            # the last call's update ran
+        self.copies = 0
+        self.replays = 0
+        self.capture_s = 0.0
+
+    def _bind(self, arrays):
+        if self.bound is None:
+            self.bound = [a._bind()[0] for a in arrays]
+            return
+        for a, home in zip(arrays, self.bound):
+            self.copies += a._bind(home)[1]
+
+    def _written(self, replayed):
+        """Count the update's in-place write of every weight; a replay
+        also advances the weights' autograd versions, which a graph does
+        not, so that a backward saved before it refuses to run."""
+        for w in self.bound[:len(self.idx)]:
+            count_write(w)
+            if replayed:
+                torch.autograd.graph.increment_version(w)
+
+    def _refresh(self):
+        o = self.opt
+        counts = [o._index_update_count[i] for i in self.idx]
+        if self.counts != counts:
+            self.ts.copy_(torch.tensor(counts, dtype=torch.float32))
+        self.counts = [c + 1 for c in counts]
+        hyper = (tuple(float(o._get_lr(i)) for i in self.idx),
+                 tuple(float(o._get_wd(i)) for i in self.idx),
+                 float(o.rescale_grad))
+        if self.hyper != hyper:
+            self.lrs.copy_(torch.tensor(hyper[0], dtype=torch.float32))
+            self.wds.copy_(torch.tensor(hyper[1], dtype=torch.float32))
+            self.rescale.fill_(hyper[2])
+            self.hyper = hyper
+
+    def _body(self):
+        n, (n_other, states) = len(self.idx), self.layout
+        weights, grads = self.bound[:n], self.bound[n:2 * n]
+        others = self.bound[2 * n:2 * n + n_other]
+        flat = iter(self.bound[2 * n + n_other:])
+        raw = [_raw_state(s, flat) for s in states]
+        if self.backward is not None:
+            p_grads, o_grads = self.backward()
+            with torch.no_grad():
+                for buf, g in zip(grads + others, p_grads + o_grads):
+                    if g is None:
+                        buf.zero_()
+                    else:
+                        buf.copy_(g)
+        with torch.no_grad():
+            for k, (w, g, s) in enumerate(zip(weights, grads, raw)):
+                new_w, new_s = self.opt._fused_one(
+                    w, g, s, self.ts[k], self.lrs[k], self.wds[k],
+                    self.rescale)
+                w.copy_(new_w)
+                for dst, src in zip(_flat_state(s), _flat_state(new_s)):
+                    dst.copy_(src)
+            self.ts.add_(1.0)
+
+    def _capture(self):
+        t0 = time.perf_counter()
+        try:
+            self.graph, _ = self.graphs.capture(self._body, self.pool)
+        except Exception as e:
+            self.failed = e
+            raise KernelError(
+                f"Trainer: capture of the fused "
+                f"{'backward + update' if self.backward else 'update'} "
+                f"as a CUDA graph failed: {e}") from e
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, weights, grads, others, states):
+        """Update (after the backward, with ``backward``) in place."""
+        self.applied = False
+        if self.failed is not None:
+            raise KernelError(
+                f"Trainer: the fused update's CUDA graph for this key "
+                f"failed to capture earlier: {self.failed}")
+        if self.layout is None:
+            self.layout = (len(others), states)
+        self._bind(list(weights) + list(grads) + list(others)
+                   + [a for s in states for a in _flat_state(s)])
+        if self.graphs is None:
+            self._refresh()
+            self._body()
+            self.applied = True
+            self._written(False)
+            return
+        with self.graphs.on_stream():
+            self._refresh()
+            if not self.warm:
+                self._body()
+                self.applied = self.warm = True
+                self._written(False)
+                self._capture()
+                return
+            try:
+                self.graph.replay()
+            except Exception as e:
+                raise KernelError(
+                    f"Trainer: replay of the fused update's CUDA graph "
+                    f"failed: {e}") from e
+            self.applied = True
+            self.replays += 1
+            self._written(True)
 
 
 def _is_dist(kvstore) -> bool:
@@ -57,6 +280,8 @@ class Trainer:
         self._kv_initialized = False
         self._kvstore_arg = kvstore
         self._update_on_kvstore = update_on_kvstore
+        self._fused_progs = {}          # key -> _FusedUpdate
+        self._graphs = {}               # device -> (graph backend, pool)
         if _is_dist(kvstore) and all(p._data for p in self._params):
             # every rank takes rank 0's weights before its first forward
             self._init_kvstore()
@@ -155,6 +380,9 @@ class Trainer:
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        if self._kvstore is None and self._try_fused_hybrid_step():
+            return
+        autograd.flush_pending()
         self._allreduce_grads()
         self._update()
 
@@ -194,10 +422,13 @@ class Trainer:
         self._update()
 
     def _update(self):
+        autograd.flush_pending()        # update() reads the .grad buffers
         if self._update_on_kvstore:
             for i, p in enumerate(self._params):
                 if p.grad_req != "null":
                     self._kvstore.pull(str(i), out=p.list_data())
+            return
+        if self._fused_update():
             return
         for i, p in enumerate(self._params):
             if p.grad_req == "null":
@@ -208,6 +439,144 @@ class Trainer:
                 self._optimizer._set_current_context(j)
                 self._dev_updaters[j](i, g, w)
         self._optimizer._set_current_context(0)
+
+    # ------------------------------------------------------- fused tiers
+    def _fused_eligible(self):
+        """A fused optimizer, one context, default storage and
+        ``grad_req='write'`` (module docstring)."""
+        if not getattr(self._optimizer, "fused", False) \
+                or self._num_ctx() > 1:
+            return False
+        return all(p._grad_stype == "default" and p.grad_req == "write"
+                   for p in self._params if p.grad_req != "null")
+
+    def _fused_items(self):
+        """The updated parameters ``[(index, param)]``, their states made."""
+        items = [(i, p) for i, p in enumerate(self._params)
+                 if p.grad_req != "null"]
+        upd = self._updater
+        for i, p in items:
+            if i not in upd.states:
+                upd.states[i] = \
+                    self._optimizer.create_state_multi_precision(i, p.data())
+            elif not upd.states_synced.get(i, True):
+                # restored by load_states: onto the weight's device first
+                upd.states[i] = opt.optimizer._on_ctx(upd.states[i],
+                                                      p.data().context)
+                upd.states_synced[i] = True
+        return items
+
+    def _fused_key(self, idx, weights, states):
+        """An entry's key: the optimizer's type and ``_fused_key()``, the
+        updated parameters' indices, and each one's shape, dtype and
+        state (the entry binds those parameters' arrays)."""
+        o = self._optimizer
+        return (type(o), o._fused_key(), tuple(idx),
+                tuple((tuple(w.shape), dtype_name(w._data.dtype),
+                       _state_sig(s)) for w, s in zip(weights, states)))
+
+    def _run_fused(self, entry, items, weights, grads, others):
+        o = self._optimizer
+        idx = [i for i, _p in items]
+        states = [self._updater.states[i] for i in idx]
+        before = _advance(o, idx)
+        try:
+            entry(weights, grads, others, states)
+        except Exception:
+            if not entry.applied:
+                _fused_rollback(o, idx, before)
+                entry.counts = None
+            raise
+
+    def _fused_update(self):
+        """Every parameter's update as one :class:`_FusedUpdate` (module
+        docstring); False when the step is not eligible."""
+        if not self._fused_eligible():
+            return False
+        items = self._fused_items()
+        if not items:
+            return True
+        idx = [i for i, _p in items]
+        weights = [p.data() for _i, p in items]
+        grads = [w._grad for w in weights]
+        key = self._fused_key(idx, weights,
+                              [self._updater.states[i] for i in idx])
+        entry = self._fused_progs.get(key)
+        if entry is None:
+            device = weights[0]._data.device
+            if device not in self._graphs:
+                graphs = _cached_op._graph_backend(device)
+                self._graphs[device] = (
+                    graphs, graphs.pool() if graphs is not None else None)
+            entry = self._fused_progs[key] = _FusedUpdate(
+                self._optimizer, idx, device, *self._graphs[device])
+        self._run_fused(entry, items, weights, grads, [])
+        return True
+
+    def _try_fused_hybrid_step(self):
+        """Run a deferred backward and the update as one
+        :class:`_FusedUpdate` of the replay's instance (module
+        docstring); False when there is none or the step is not
+        eligible (the backward then runs on its own first)."""
+        pending = autograd.peek_pending()
+        if pending is None or not self._fused_eligible():
+            return False
+        claim = pending["claim"]
+        inst, arrays = claim.inst, claim.arrays
+        prog = inst.prog
+        items = [(i, p) for i, p in enumerate(self._params)
+                 if p.grad_req != "null"]
+        slot = {id(a): k for k, a in enumerate(arrays)}
+        p_slots = [slot.get(id(p.data())) for _i, p in items]
+        if not items or any(k is None or k not in prog.grad_pos
+                            for k in p_slots):
+            return False
+        if not claim.current():
+            # a weight changed since the forward: the backward runs on
+            # its own first (and refuses to if it would see the change)
+            return False
+        items = self._fused_items()
+        idx = [i for i, _p in items]
+        o_slots = [k for k in prog.grad_pos if k not in p_slots
+                   and arrays[k]._grad is not None
+                   and arrays[k]._grad_req != "null"]
+        weights = [arrays[k] for k in p_slots]
+        states = [self._updater.states[i] for i in idx]
+        head_idx = pending["head_idx"]
+        key = (self._fused_key(idx, weights, states), head_idx,
+               tuple(p_slots), tuple(o_slots))
+        # this Trainer's entries: another Trainer over the same block
+        # drives its own optimizer, counts and states
+        entries = inst.fused.setdefault(self, {})
+        entry = entries.get(key)
+        if entry is None:
+            ones = [torch.ones_like(inst.outs[i]) for i in head_idx]
+
+            def backward():
+                grads = inst.gradients([inst.outs[i] for i in head_idx],
+                                       ones)
+                at = dict(zip(prog.grad_pos, grads))
+                return [at[k] for k in p_slots], [at[k] for k in o_slots]
+
+            entry = entries[key] = _FusedUpdate(
+                self._optimizer, idx, prog.device, prog.graphs, inst.pool,
+                backward)
+        try:
+            self._run_fused(entry, items, weights,
+                            [w._grad for w in weights],
+                            [arrays[k]._grad for k in o_slots])
+        finally:
+            autograd.clear_pending()
+        return True
+
+    def fused_stats(self):
+        """The fused entries: ``(update_programs, binding_copies,
+        replays, capture_s)``."""
+        entries = list(self._fused_progs.values())
+        return dict(update_programs=len(entries),
+                    binding_copies=sum(e.copies for e in entries),
+                    replays=sum(e.replays for e in entries),
+                    capture_s=sum(e.capture_s for e in entries))
 
     def save_states(self, fname):
         if not self._kv_initialized:

@@ -118,7 +118,10 @@ ElementWiseSum = add_n
 
 
 def waitall():
-    """Block until every queued computation has finished."""
+    """Run a deferred backward, then block until every queued
+    computation has finished."""
+    from .. import autograd
+    autograd.flush_pending()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 

@@ -10,6 +10,19 @@ the op registry (``ops.registry.invoke``), so they record under
 the array a ``grad`` buffer of its own; ``autograd.backward`` writes
 it by the array's ``grad_req``.  A value written into an attached array
 (``_set_data``, ``copyto``) stays such a leaf.
+
+A CUDA graph reads and writes tensors by address, so an array that a
+graph uses is *bound* (:meth:`NDArray._bind`): its value lives in one
+tensor, its home.  Code that replaces the value (``_set_data``) is
+caught at the graph's next call, which copies the new value home and
+points the array at its home again.  Each such copy, and each in-place
+update of a home by ``Trainer``'s fused tiers, is counted on the home
+(:func:`count_write`): a recorded replay's backward, which reads the
+homes as they are, refuses to run after one (``gluon.cached_op``).
+
+While a backward is deferred (``autograd.backward``), reading one of
+the gradient buffers it will write (``grad``, ``asnumpy``,
+``wait_to_read``, or use as an op input) runs it first.
 """
 from __future__ import annotations
 
@@ -64,10 +77,21 @@ def _host_tensor(source, dtype):
         else torch.from_numpy(arr)
 
 
+def count_write(home):
+    """Count an in-place write of a bound tensor (module docstring)."""
+    home._mx_writes = getattr(home, "_mx_writes", 0) + 1
+
+
+def home_writes(homes):
+    """The in-place writes counted on ``homes`` so far."""
+    return sum(getattr(h, "_mx_writes", 0) for h in homes)
+
+
 class NDArray:
     """A tensor on a context (see the module docstring)."""
 
-    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "__weakref__")
+    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_home",
+                 "__weakref__")
 
     __array_priority__ = 1000.0
 
@@ -90,6 +114,7 @@ class NDArray:
         self._ctx = ctx
         self._grad = None
         self._grad_req = "null"
+        self._home = None
 
     @classmethod
     def _wrap(cls, tensor, ctx=None):
@@ -100,6 +125,7 @@ class NDArray:
         obj._ctx = ctx if ctx is not None else context_of(tensor.device)
         obj._grad = None
         obj._grad_req = "null"
+        obj._home = None
         return obj
 
     # ------------------------------------------------------------------ data
@@ -117,6 +143,34 @@ class NDArray:
             new = new.detach().requires_grad_(True)
             new._mx_owner = weakref.ref(self)
         self._data = new
+
+    def _bind(self, home=None):
+        """Keep the value in ``home`` (default: the array's home, else its
+        current tensor, which becomes the home) and return ``(home,
+        copied)``: a value that was replaced since is copied into the
+        home and the array points at the home again."""
+        if home is None:
+            home = self._home if self._home is not None else self._data
+        self._home = home
+        new = self._data
+        if new is home:
+            return home, False
+        if new.shape != home.shape or new.dtype != home.dtype \
+                or new.device != home.device:
+            raise MXNetError(
+                f"bound array changed from {tuple(home.shape)} "
+                f"{home.dtype} on {home.device} to {tuple(new.shape)} "
+                f"{new.dtype} on {new.device}")
+        with torch.no_grad():
+            home.copy_(new)
+        count_write(home)
+        if home.requires_grad != new.requires_grad:
+            home.requires_grad_(new.requires_grad)
+        owner = getattr(new, "_mx_owner", None)
+        if owner is not None:
+            home._mx_owner = owner
+        self._data = home
+        return home, True
 
     # ------------------------------------------------------------ properties
     @property
@@ -154,12 +208,17 @@ class NDArray:
 
     @property
     def grad(self):
+        if self._grad is not None:
+            from .. import autograd
+            autograd.flush_pending()
         return self._grad
 
     # ---------------------------------------------------------------- engine
     def wait_to_read(self):
         """Block until the value is computed (reference:
         ``NDArray::WaitToRead``)."""
+        from .. import autograd
+        autograd.flush_if_pending_grad(self)
         if self._data.device.type == "cuda":
             torch.cuda.current_stream(self._data.device).synchronize()
         return self
@@ -168,6 +227,8 @@ class NDArray:
 
     # --------------------------------------------------------------- convert
     def asnumpy(self) -> np.ndarray:
+        from .. import autograd
+        autograd.flush_if_pending_grad(self)
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
@@ -263,7 +324,10 @@ class NDArray:
 
     def zero_grad(self):
         if self._grad is not None:
-            self._grad._set_data(torch.zeros_like(self._grad._data))
+            from .. import autograd
+            autograd.flush_pending()
+            with torch.no_grad():
+                self._grad._data.zero_()
 
     # ------------------------------------------------------- op dispatch
     def _op(self, name, *args, **kwargs):

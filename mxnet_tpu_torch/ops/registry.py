@@ -11,7 +11,9 @@ exactly what runs inside ``record()``) and wraps the outputs on the
 first input's context.  The registry adds no dispatch of its own: a
 kernel frontend (``_contrib_flash_selfatt``,
 ``_contrib_ragged_paged_attention``) calls its wrapper, whose device
-rule and ``.launches`` counter hold as they are.
+rule and ``.launches`` counter hold as they are.  An input that is a
+gradient buffer of a deferred backward runs that backward first
+(``autograd.flush_if_pending_grad``).
 """
 from __future__ import annotations
 
@@ -116,12 +118,13 @@ def _mark_leaves(tensors):
 
 def invoke(opdef: OpDef, inputs, kwargs: Dict[str, Any], out=None):
     """Run an op over NDArray inputs; returns NDArray(s)."""
-    from ..autograd import is_recording
+    from ..autograd import flush_if_pending_grad, is_recording
     from ..context import current_context
     from ..ndarray import NDArray
     raw, ctx = [], None
     for a in inputs:
         if isinstance(a, NDArray):
+            flush_if_pending_grad(a)
             raw.append(a._data)
             ctx = ctx or a._ctx
         else:

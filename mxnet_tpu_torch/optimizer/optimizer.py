@@ -1,21 +1,31 @@
 """Optimizers of the PyTorch port (reference:
 ``python/mxnet/optimizer/optimizer.py``).
 
-The counterpart of ``mxnet_tpu.optimizer.optimizer`` without its fused
-whole-model tier: each optimizer runs its update through the ops of
-``ops/optimizer_ops.py`` on one parameter at a time and writes the new
-weight and states back.  One optimizer drives the updaters of several
-device copies; per-device update counts keep Adam-style bias
-corrections from advancing twice (``_set_current_context``).
+The counterpart of ``mxnet_tpu.optimizer.optimizer``: each optimizer
+runs its update through the ops of ``ops/optimizer_ops.py`` on one
+parameter at a time and writes the new weight and states back.  One
+optimizer drives the updaters of several device copies; per-device
+update counts keep Adam-style bias corrections from advancing twice
+(``_set_current_context``).
+
+SGD, Adam and AdamW also have a fused form (``fused = True``):
+``_fused_one`` is one parameter's update on tensors, from the same
+``optimizer_ops`` functions, with the step-varying values (t, lr, wd,
+rescale) as 0-d device tensors, so that ``gluon.Trainer`` can run every
+parameter's update as one CUDA graph (``_fused_key`` holds what that
+graph bakes in).
 """
 from __future__ import annotations
 
 import math
 import pickle
 
+import torch
+
 from ..base import MXNetError
 from .. import ndarray as nd
 from ..ndarray import NDArray, dtype_name
+from ..ops import optimizer_ops as oo
 
 _REG = {}
 
@@ -127,6 +137,19 @@ class Optimizer:
     def update(self, index, weight, grad, state):
         raise NotImplementedError
 
+    # the fused tier (module docstring)
+    fused = False
+
+    def _fused_key(self):
+        """The hyperparameters a fused update bakes in."""
+        return (self.clip_gradient, self.multi_precision)
+
+    def _fused_one(self, w, g, state, t, lr, wd, rescale):
+        """One parameter's update on tensors: ``(new_w, new_state)``,
+        ``state`` shaped as ``create_state_multi_precision``'s with
+        tensors in place of arrays."""
+        raise NotImplementedError
+
     def _is_mp_state(self, weight, state):
         return (self.multi_precision and _low_precision(weight)
                 and isinstance(state, tuple) and len(state) == 2
@@ -210,6 +233,38 @@ class SGD(Optimizer):
     def update_multi_precision(self, index, weight, grad, state):
         self.update(index, weight, grad, state)
 
+    fused = True
+
+    def _fused_key(self):
+        return super()._fused_key() + (self.momentum,)
+
+    def _fused_one(self, w, g, state, t, lr, wd, rescale):
+        kw = dict(lr=lr, wd=wd, rescale_grad=rescale,
+                  clip_gradient=_clip(self))
+        if isinstance(state, tuple):    # multi-precision (w32, mom)
+            w32, mom = state
+            if mom is None:
+                new_w, new_w32 = oo.mp_sgd_update(w, g, w32, **kw)
+                return new_w, (new_w32, None)
+            new_w, new_m, new_w32 = oo.mp_sgd_mom_update(
+                w, g, mom, w32, momentum=self.momentum, **kw)
+            return new_w, (new_w32, new_m)
+        if state is None:
+            return oo.sgd_update(w, g, **kw), None
+        return oo.sgd_mom_update(w, g, state, momentum=self.momentum, **kw)
+
+
+def _mp_split(w, g, state):
+    """Adam-style state: the weight, gradient and moments the update runs
+    on (the fp32 master and a float32 gradient under multi-precision),
+    and whether it is multi-precision."""
+    if isinstance(state, tuple) and len(state) == 2 \
+            and isinstance(state[1], tuple):
+        w32, (m, v) = state
+        return w32, g.to(torch.float32), m, v, True
+    m, v = state
+    return w, g, m, v, False
+
 
 @register
 class NAG(Optimizer):
@@ -264,6 +319,24 @@ class Adam(_Moments):
             clip_gradient=_clip(self))
         _write([(weight, new_w), (mean, new_m), (var, new_v)])
 
+    fused = True
+
+    def _fused_key(self):
+        return super()._fused_key() + (self.beta1, self.beta2,
+                                       self.epsilon)
+
+    def _fused_one(self, w, g, state, t, lr, wd, rescale):
+        weff, geff, m, v, mp = _mp_split(w, g, state)
+        lr_t = lr * torch.sqrt(1.0 - self.beta2 ** t) \
+            / (1.0 - self.beta1 ** t)
+        new_w, new_m, new_v = oo.adam_update(
+            weff, geff, m, v, lr=lr_t, beta1=self.beta1, beta2=self.beta2,
+            epsilon=self.epsilon, wd=wd, rescale_grad=rescale,
+            clip_gradient=_clip(self))
+        if mp:
+            return new_w.to(w.dtype), (new_w, (new_m, new_v))
+        return new_w, (new_m, new_v)
+
 
 @register
 class AdamW(_Moments):
@@ -291,6 +364,23 @@ class AdamW(_Moments):
             epsilon=self.epsilon, wd=self._get_wd(index),
             clip_gradient=_clip(self))
         _write([(weight, new_w), (mean, new_m), (var, new_v)])
+
+    fused = True
+
+    def _fused_key(self):
+        return super()._fused_key() + (self.beta1, self.beta2,
+                                       self.epsilon)
+
+    def _fused_one(self, w, g, state, t, lr, wd, rescale):
+        weff, geff, m, v, mp = _mp_split(w, g, state)
+        corr = torch.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        new_w, new_m, new_v = oo.adamw_update(
+            weff, geff, m, v, rescale, lr=corr, eta=lr, beta1=self.beta1,
+            beta2=self.beta2, epsilon=self.epsilon, wd=wd,
+            clip_gradient=_clip(self))
+        if mp:
+            return new_w.to(w.dtype), (new_w, (new_m, new_v))
+        return new_w, (new_m, new_v)
 
 
 @register

@@ -58,6 +58,7 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "ops/nn.py", "ops/optimizer_ops.py", "initializer.py",
                    "lr_scheduler.py", "optimizer/optimizer.py",
                    "gluon/parameter.py", "gluon/block.py", "gluon/loss.py",
+                   "gluon/cached_op.py",
                    "gluon/utils.py", "gluon/trainer.py",
                    "gluon/nn/basic_layers.py", "gluon/nn/conv_layers.py",
                    "kvstore/base.py", "kvstore/kvstore.py"):
@@ -65,6 +66,18 @@ def test_port_never_imports_jax_or_the_jax_package():
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert bad == []
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A phase's helper that reuses an earlier helper's name rebinds it
+    for every phase of the script."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    names += [t.id for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name)]
+    assert sorted({n for n in names if names.count(n) > 1}) == []
 
 
 def test_package_import_loads_no_jax_and_builds_no_kernel():
