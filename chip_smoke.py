@@ -316,7 +316,7 @@ parent built (no ``nvcc``); a rank's failure fails the script.
    every gloo hop through host memory whatever it finds).
 
 Then the Gluon training path (``nd``, ``autograd``, ``gluon``,
-``kvstore``), fp32 with TF32 off:
+``gluon.data``, ``metric``, ``kvstore``), fp32 with TF32 off:
 
 19. ``gluon_lenet`` — the LeNet of ``examples/mnist_gluon.py`` at its
    published widths (Conv2D 20 k5, MaxPool 2, Conv2D 50 k5, MaxPool 2,
@@ -343,7 +343,38 @@ Then the Gluon training path (``nd``, ``autograd``, ``gluon``,
    step and after each, and within ``GLUON_DIST_*`` of the one-rank
    full-batch run; an int8-compressed push's ``kvstore.wire.bytes``
    under its ``kvstore.push.bytes`` (timings: two ranks on one card
-   through host memory).
+   through host memory);
+22. ``gluon_hybrid`` — ``gluon_lenet``'s LeNet and ``gluon_flash``'s
+   layer hybridized (module comment above ``GLUON_HYBRID``): LeNet with
+   its loss outside, 20 steps, against the eager run; 8 recorded
+   micro-batch calls of it under one ``record()`` and one
+   ``autograd.backward`` against the eager block's gradients
+   (``GLUON_LENET_RTOL``), each instance's pool bytes, and
+   ``trainer.grad_norm`` after the ``_fused_update`` step within 1e-6
+   of the host's norm; the layer with its loss inside one block, 10
+   Adam steps at lr 1e-4, four ways: eager, with the lazy forward
+   (from step 2 the loss is lazy after ``record()``, and from step 3
+   ``Trainer.step`` replays exactly one graph: forward, backward and
+   update, B1-B3 one kernel record each a traced step inside it), with
+   ``MXNET_DEFERRED_HYBRID_FWD=0`` (two graphs a step) and with the loss read
+   before each step; the lazy runs' losses within 1e-5 relative and
+   parameters within 1e-5 of their max|w| of the two-graph one, both paths'
+   host split (record, backward, step), device ms, idle share and host
+   calls a step; ``trainer.grad_norm`` after one more full step; and
+   ``clip_global_norm`` over the layer's gradients with three
+   thresholds (one program, one capture) within 1e-6 of the same torch
+   ops run eagerly; then the layer's inference replay, bucketed
+   lengths, the bounded cache, Dropout and BatchNorm;
+23. ``gluon_mnist`` — ``examples/mnist_gluon.py``'s loop at its
+   published settings (module comment above ``GLUON_MNIST``): one epoch
+   of 128 steps on the card, batches and weights on ``cuda``, losses
+   finite and falling, the first 3 within ``GLUON_LENET_RTOL`` of a host
+   run from the same weights and batches, the epoch's accuracy above
+   0.5; a second loader with 2 workers and pinned memory gives the
+   first 8 batches bit for bit; seconds an epoch and the step's split
+   (``next(loader)``, forward / backward / step, ``metric.update``);
+   and what ``NDArray._data``'s lazy check costs an eager LeNet step
+   (reads a step times the property's cost over a slot read).
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
@@ -374,8 +405,10 @@ apart) and ``traced_train_kernel_records`` over
 ``launches_dist_nccl`` (two trainers' eager first steps),
 ``traced_dist_nccl_kernel_records`` (one traced grouped replay),
 ``launches_dist_tp`` and ``launches_dist_dp_int8`` (one rank's, 3
-steps), and ``launches_gluon_flash`` and ``launches_gluon_dist`` (rank
-0's) from the Gluon phases; B4 gives ``launches_gluon_nd`` (the
+steps), and ``launches_gluon_flash``, ``launches_gluon_dist`` (rank
+0's), ``launches_gluon_hybrid`` and
+``traced_gluon_hybrid_kernel_records`` (the lazy-forward run's) from
+the Gluon phases; B4 gives ``launches_gluon_nd`` (the
 ``nd.ragged_paged_attention_op`` call)), the
 ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -5581,19 +5614,35 @@ def _lenet(mx):
     return net
 
 
-def _gluon_stepper(mx, trainer, batch, net=None, block=None):
+def _gluon_stepper(mx, trainer, batch, net=None, block=None, split=None,
+                   lazy=None, read_early=False):
     """One record / backward / ``Trainer.step`` over ``batch`` = (inputs...,
     label): ``block(*batch)`` (the loss inside a block) or
-    ``SoftmaxCrossEntropyLoss()(net(*inputs), label)``; returns the loss."""
+    ``SoftmaxCrossEntropyLoss()(net(*inputs), label)``; returns the loss.
+    ``split`` gets each step's host ms of the recorded call, the backward
+    and the step (no synchronise), ``lazy`` whether the loss was lazy
+    after ``record()``; ``read_early`` reads the loss between the
+    backward and the step."""
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     *inputs, label = batch
 
     def step():
+        t0 = time.perf_counter()
         with mx.autograd.record():
             loss = block(*batch) if block is not None \
                 else loss_fn(net(*inputs), label)
+        t1 = time.perf_counter()
         loss.backward()
+        t2 = time.perf_counter()
+        if lazy is not None:
+            lazy.append(loss._lazy is not None)
+        if read_early:
+            loss.asnumpy()
+        t3 = time.perf_counter()
         trainer.step(label.shape[0])
+        if split is not None:
+            split.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                          (time.perf_counter() - t3) * 1e3))
         return loss
     return step
 
@@ -6066,7 +6115,23 @@ def phase_gluon_dist(torch):
 GLUON_HYBRID = dict(lenet_steps=20, encoder_steps=10, traced_steps=3,
                     buckets=(128, 256, 512),
                     lengths=(100, 128, 200, 300, 512),
-                    cache_size=2, cache_batches=(1, 2, 4, 8))
+                    cache_size=2, cache_batches=(1, 2, 4, 8),
+                    micro_batches=8, clip_fractions=(2.0, 0.5, 0.1))
+# the encoder layer's runs: eager; hybridized with the lazy forward (the
+# default: one full-step graph a step from the third step on); with
+# MXNET_DEFERRED_HYBRID_FWD=0 ("two_graphs": the forward graph, then the
+# backward + update graph); with the loss read before each step (the lazy
+# forward materialized, then the backward + update graph)
+ENCODER_MODES = ("eager", "hybrid", "two_graphs", "read_early")
+# the lazy forward against the two-graph path from the same weights: the
+# same kernels on the same inputs (losses relative, parameters of their
+# max|w|)
+GLUON_HYBRID_DEFERRED_TOL = 1e-5
+# trainer.grad_norm (float64 on the card) against the host's float64 norm
+# of the same .grad buffers; clip_global_norm's graph against the same
+# torch ops run eagerly on the card (of each array's max)
+GLUON_HYBRID_GRAD_NORM_RTOL = 1e-6
+GLUON_HYBRID_CLIP_TOL = 1e-6
 # the first hybridized loss: the eager call's kernels on the same inputs
 # (1e-6 relative; whether it is bitwise is reported)
 GLUON_HYBRID_FIRST_RTOL = 1e-6
@@ -6138,27 +6203,248 @@ def _hybrid_lenet(torch, mx, path, x, y):
     return runs
 
 
+@contextlib.contextmanager
+def _deferred_forward(on):
+    """``MXNET_DEFERRED_HYBRID_FWD`` for the block: ``"1"`` (the default)
+    or ``"0"`` (the recorded calls run when made: two graphs a step)."""
+    old = os.environ.get("MXNET_DEFERRED_HYBRID_FWD")
+    os.environ["MXNET_DEFERRED_HYBRID_FWD"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MXNET_DEFERRED_HYBRID_FWD")
+        else:
+            os.environ["MXNET_DEFERRED_HYBRID_FWD"] = old
+
+
+def _graph_replays(block, trainer):
+    """Every CUDA graph replay of a hybridized block and its Trainer: the
+    CachedOp's forward and backward graphs, the ``_fused_update`` graphs
+    and the instances' fused entries (backward + update, full step)."""
+    return (block._cached_op.stats()["replays"]
+            + trainer.fused_stats()["replays"]
+            + sum(e.replays for e in trainer._fused_step_progs.values()))
+
+
 def _hybrid_encoder(torch, mx, path, batch):
+    """The encoder layer with its loss: eager, hybridized with the lazy
+    forward (one full-step graph a step), hybridized with
+    ``MXNET_DEFERRED_HYBRID_FWD=0`` (the forward graph, then the backward
+    + update graph) and hybridized with the loss read before each step
+    (the forward materialized)."""
     cfg = GLUON_FLASH
     steps = GLUON_HYBRID["encoder_steps"]
-    kernels = _flash_counters()
     runs = {}
-    for mode in ("eager", "hybrid"):
+    for mode in ENCODER_MODES:
         net = _encoder_layer(mx, cfg["units"], cfg["heads"], cfg["ffn"])
         net.load_parameters(path)
         trainer = mx.gluon.Trainer(net.collect_params(), "adam",
                                    {"learning_rate": cfg["lr"]})
         block = None
-        if mode == "hybrid":
+        if mode != "eager":
             block = _loss_block(mx, net)
             block.hybridize()
-        step = _gluon_stepper(mx, trainer, batch, net=net, block=block)
+        split, lazy, replays = [], [], []
+        inner = _gluon_stepper(mx, trainer, batch, net=net, block=block,
+                               split=split, lazy=lazy,
+                               read_early=mode == "read_early")
+
+        def step(inner=inner, on=mode != "two_graphs"):
+            with _deferred_forward(on):
+                return inner()
+
+        def on_step(_i, block=block, trainer=trainer):
+            if block is not None:
+                replays.append(_graph_replays(block, trainer))
+
         _dist_counts(zero=True)
-        losses, ms = _gluon_loop(step, steps, sync=torch.cuda.synchronize)
+        losses, ms = _gluon_loop(step, steps, sync=torch.cuda.synchronize,
+                                 on_step=on_step)
         launches = _dist_counts()
         runs[mode] = dict(net=net, trainer=trainer, step=step, block=block,
-                          losses=losses, ms=ms, launches=launches)
+                          losses=losses, ms=ms, launches=launches,
+                          split=list(split), lazy=list(lazy),
+                          replays=replays)
     return runs
+
+
+def _deferred_summary(enc):
+    """The lazy forward against the two-graph path (and against the read
+    before the step): losses relative, parameters over their max|w|, lazy
+    losses and graph replays a step, and the host split of each
+    hybridized run."""
+    out = {}
+    for mode in ("hybrid", "two_graphs", "read_early"):
+        r = enc[mode]
+        reps = r["replays"]
+        split = np.asarray(r["split"][2:])
+        out[mode] = dict(
+            losses=r["losses"], ms_per_step=float(np.median(r["ms"][2:])),
+            lazy=r["lazy"],
+            graph_replays_per_step=[b - a for a, b in zip(reps, reps[1:])],
+            host_ms_split=dict(zip(("record", "backward", "step"),
+                                   np.median(split, axis=0).tolist())))
+    for mode in ("hybrid", "read_early"):
+        a, b = enc[mode], enc["two_graphs"]
+        out[mode]["loss_rel_err_vs_two_graphs"] = max(
+            abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+        out[mode]["losses_bitwise_equal_two_graphs"] = \
+            a["losses"] == b["losses"]
+        out[mode]["param_err_vs_two_graphs"] = max(
+            float(np.abs(pa.data().asnumpy() - pb.data().asnumpy()).max()
+                  / np.abs(pb.data().asnumpy()).max())
+            for pa, pb in zip(a["net"].collect_params().values(),
+                              b["net"].collect_params().values()))
+    return out
+
+
+def _encoder_grad_norm(torch, mx, run):
+    """One more full step of the deferred run with the gradient-norm
+    gauge on: ``trainer.grad_norm`` against the host's norm of the
+    ``.grad`` buffers."""
+    from mxnet_tpu_torch import runtime_metrics as rm
+    rm.reset()
+    rm.enable()
+    rm._GRAD_NORM = True
+    try:
+        run["step"]()
+        gauge = rm.TRAINER_GRAD_NORM.value()
+    finally:
+        rm._GRAD_NORM = False
+        rm.disable()
+        rm.reset()
+    host = float(np.sqrt(sum(
+        (p.grad().asnumpy().astype(np.float64) ** 2).sum()
+        for p in run["net"].collect_params().values()
+        if p.grad_req != "null")))
+    return dict(path="full step", grad_norm=gauge, host_grad_norm=host,
+                rel_err=abs(gauge - host) / host)
+
+
+def _clip_plain(torch, tensors, max_norm):
+    """``clip_global_norm``'s function as eager torch ops, in place."""
+    total = torch.sqrt(sum(torch.square(torch.linalg.vector_norm(t))
+                           for t in tensors))
+    scale = torch.where(torch.isfinite(total) & (total > max_norm),
+                        max_norm / (total + 1e-8), torch.ones_like(total))
+    for t in tensors:
+        t.mul_(scale)
+    return total
+
+
+def _clip_on_card(torch, mx, net):
+    """``clip_global_norm`` over the layer's ``.grad`` buffers with three
+    thresholds (one program, one capture, two replays) against the plain
+    torch computation on the card; then the device ms and the host ms of
+    a call (with its host read of the norm) of the graph and of the
+    plain ops on those buffers."""
+    from mxnet_tpu_torch.gluon import utils
+    grads = [p.grad() for p in net.collect_params().values()
+             if p.grad_req != "null"]
+    raw = [g.data_torch.detach().clone() for g in grads]
+    norm = float(torch.sqrt(sum(torch.sum(r * r) for r in raw)))
+    before = utils.clip_programs()
+    rows = []
+    for frac in GLUON_HYBRID["clip_fractions"]:
+        max_norm = frac * norm
+        for g, r in zip(grads, raw):
+            g.data_torch.copy_(r)
+        got = utils.clip_global_norm(grads, max_norm)
+        total = torch.sqrt(sum(torch.sum(r * r) for r in raw))
+        scale = max_norm / (total + 1e-8) if float(total) > max_norm else 1.0
+        err = max(float((a.data_torch - r * scale).abs().max()
+                        / (r * scale).abs().max())
+                  for a, r in zip(grads, raw))
+        rows.append(dict(max_norm=max_norm, norm=got,
+                         plain_norm=float(total),
+                         norm_rel_err=abs(got - float(total))
+                         / float(total), max_rel_err=err))
+    after = utils.clip_programs()
+    timer = Timer(torch, torch.device("cuda:0"))
+    tensors = [g.data_torch for g in grads]
+    max_norm = GLUON_HYBRID["clip_fractions"][-1] * norm
+
+    def host_ms(fn, iters=30):
+        ms = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    times = dict(
+        graph_ms=timer(lambda: utils.clip_global_norm(
+            grads, max_norm, check_isfinite=False)),
+        plain_ms=timer(lambda: _clip_plain(torch, tensors, max_norm)),
+        graph_host_ms=host_ms(lambda: utils.clip_global_norm(grads,
+                                                             max_norm)),
+        plain_host_ms=host_ms(lambda: float(_clip_plain(torch, tensors,
+                                                        max_norm))),
+        bytes=sum(t.numel() * t.element_size() for t in tensors))
+    del timer
+    return dict(arrays=len(grads), rows=rows, **times,
+                **{k: after[k] - before[k] for k in after})
+
+
+def _instance_pools(torch, block):
+    """Each recorded instance of ``block``'s signature with recorded
+    instances: the bytes its capture left allocated (``pool_bytes``),
+    and the bytes its pool holds now, allocated and reserved, with what
+    the Trainer's graphs captured into it since."""
+    prog = next(p for p in block._cached_op._cache.values() if p.rec)
+    return [dict(at_capture=i.pool_bytes,
+                 allocated=_pool_bytes(torch, i.pool),
+                 reserved=_pool_reserved(torch, i.pool)) for i in prog.rec]
+
+
+def _lenet_micro_batches(torch, mx, path, x, y):
+    """Gradient accumulation: the hybridized LeNet's ``micro_batches``
+    recorded calls under one ``record()``, one ``autograd.backward``,
+    against the eager block's; each instance's pool bytes; then a
+    ``_fused_update`` step with the gradient-norm gauge on."""
+    from mxnet_tpu_torch import runtime_metrics as rm
+    k = GLUON_HYBRID["micro_batches"]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    grads, nets = {}, {}
+    for mode in ("eager", "hybrid"):
+        net = _lenet(mx)
+        net.load_parameters(path)
+        if mode == "hybrid":
+            net.hybridize()
+        with mx.autograd.record():
+            losses = [loss_fn(net(mx.nd.array(a)), mx.nd.array(b))
+                      for a, b in zip(np.split(x, k), np.split(y, k))]
+        mx.autograd.backward(losses)
+        grads[mode] = [p.grad().asnumpy() for p in
+                       net.collect_params().values()]
+        nets[mode] = net
+    err = max(float(np.abs(a - b).max() / np.abs(b).max())
+              for a, b in zip(grads["hybrid"], grads["eager"]))
+    net = nets["hybrid"]
+    prog = next(p for p in net._cached_op._cache.values() if p.rec)
+    pools = _instance_pools(torch, net)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": GLUON_LENET["lr"]})
+    rm.reset()
+    rm.enable()
+    rm._GRAD_NORM = True
+    try:
+        trainer.step(x.shape[0])
+        gauge = rm.TRAINER_GRAD_NORM.value()
+    finally:
+        rm._GRAD_NORM = False
+        rm.disable()
+        rm.reset()
+    host = float(np.sqrt(sum((g.astype(np.float64) ** 2).sum()
+                             for g in grads["hybrid"])))
+    return dict(calls=k, rows_per_call=x.shape[0] // k,
+                grad_rel_err=err, instances=len(prog.rec),
+                pool_bytes=pools,
+                grad_norm=dict(path="_fused_update", grad_norm=gauge,
+                               host_grad_norm=host,
+                               rel_err=abs(gauge - host) / host))
 
 
 def _loss_block(mx, inner):
@@ -6367,25 +6653,37 @@ def phase_gluon_hybrid(torch):
                            for m, r in lenet.items()}
             lenet_cop = lenet["hybrid"]["net"]._cached_op.stats()
             lenet_fused = lenet["hybrid"]["trainer"].fused_stats()
+            lenet_pools = _instance_pools(torch, lenet["hybrid"]["net"])
             for r in lenet.values():
                 r.pop("net"), r.pop("trainer"), r.pop("step")
+            _free(torch)
+            micro = _lenet_micro_batches(torch, mx, lpath, lx, ly)
             _free(torch)
             batch = tuple(mx.nd.array(a) for a in (ex, ev, ey))
             enc = _hybrid_encoder(torch, mx, epath, batch)
             enc_err = _gluon_param_err(enc["hybrid"]["net"],
                                        enc["eager"]["net"])
+            deferred = _deferred_summary(enc)
             n_before = nb_cached_programs()
-            enc_trace = {m: _hybrid_trace(torch, r, f"encoder {m}")
-                         for m, r in enc.items()}
+            enc_trace, graph_launches = {}, {}
+            for m in ("eager", "hybrid", "two_graphs"):
+                enc_trace[m] = _hybrid_trace(torch, enc[m], f"encoder {m}")
+                graph_launches[m] = TRACE_LAUNCHES[-1]["counted"]
             enc_programs_grew = nb_cached_programs() - n_before
             enc_cop = enc["hybrid"]["block"]._cached_op.stats()
             enc_fused = enc["hybrid"]["trainer"].fused_stats()
             inst = next(iter(enc["hybrid"]["block"]._cached_op._cache
                              .values())).rec[0]
-            fused_entries = [dict(replays=e.replays, capture_s=e.capture_s,
+            fused_entries = [dict(key=k[0] if k[0] == "full"
+                                  else "backward + update",
+                                  replays=e.replays, capture_s=e.capture_s,
                                   binding_copies=e.copies)
-                             for e in inst.fused[
-                                 enc["hybrid"]["trainer"]].values()]
+                             for k, e in inst.fused[
+                                 enc["hybrid"]["trainer"]].items()]
+            pools = {m: _instance_pools(torch, enc[m]["block"])
+                     for m in ("hybrid", "two_graphs", "read_early")}
+            grad_norm = _encoder_grad_norm(torch, mx, enc["hybrid"])
+            clip = _clip_on_card(torch, mx, enc["hybrid"]["net"])
             for r in enc.values():
                 for k in ("net", "trainer", "step", "block"):
                     r.pop(k)
@@ -6413,7 +6711,8 @@ def phase_gluon_hybrid(torch):
             runs["hybrid"]["losses"] == runs["eager"]["losses"]
         return out
 
-    lenet_sum, enc_sum = summary(lenet), summary(enc)
+    lenet_sum = summary(lenet)
+    enc_sum = summary({m: enc[m] for m in ("eager", "hybrid")})
     launches = enc["hybrid"]["launches"]
     traced = enc_trace["hybrid"]["records_per_step"]
     emit("gluon_hybrid", dtype="float32",
@@ -6427,23 +6726,31 @@ def phase_gluon_hybrid(torch):
                     cached_op=dict(param_copies=lenet_cop["param_copies"],
                                    replays=lenet_cop["replays"],
                                    signatures=_sig_stats_rows(lenet_cop)),
-                    trainer=lenet_fused, trace=lenet_trace),
+                    trainer=lenet_fused, instance_pools=lenet_pools,
+                    trace=lenet_trace),
          encoder=dict(layer="bert_24_1024_16 encoder layer + "
                       "SoftmaxCrossEntropyLoss in one HybridBlock",
                       **{k: GLUON_FLASH[k] for k in ("units", "heads", "ffn",
                                                      "L", "B")},
                       steps=GLUON_HYBRID["encoder_steps"], optimizer="adam",
-                      lr=GLUON_FLASH["lr"], path="forward graph, deferred "
-                      "backward + update graph", **enc_sum,
-                      param_err_of_tol=enc_err,
+                      lr=GLUON_FLASH["lr"], path="lazy forward: one "
+                      "full-step graph (forward, backward, update)",
+                      **enc_sum, param_err_of_tol=enc_err,
+                      deferred=deferred,
+                      graph_launches_per_traced_step={
+                          m: len(v) / GLUON_HYBRID["traced_steps"]
+                          for m, v in graph_launches.items()},
                       launches=enc["hybrid"]["launches"],
+                      launches_two_graphs=enc["two_graphs"]["launches"],
                       launches_eager=enc["eager"]["launches"],
                       programs_grew_while_traced=enc_programs_grew,
                       cached_op=dict(param_copies=enc_cop["param_copies"],
                                      replays=enc_cop["replays"],
                                      signatures=_sig_stats_rows(enc_cop)),
                       fused_entries=fused_entries, trainer=enc_fused,
+                      instance_pools=pools,
                       trace=enc_trace),
+         micro_batches=micro, grad_norm=grad_norm, clip_global_norm=clip,
          predict=predict, dropout_batchnorm=small,
          retained_backward_after_step=retained,
          loss_rtol=GLUON_HYBRID_LOSS_RTOL,
@@ -6474,11 +6781,47 @@ def phase_gluon_hybrid(torch):
           and lenet_fused["binding_copies"] == 0,
           f"gluon_hybrid: trainer binding copies {enc_fused} "
           f"{fused_entries} {lenet_fused}")
-    check(len(fused_entries) == 1 and fused_entries[0]["replays"] > 0,
-          f"gluon_hybrid encoder: backward + update entries "
-          f"{fused_entries}")
-    check(traced == dict.fromkeys(FLASH_NAMES, 1.0),
-          f"gluon_hybrid encoder: B1-B3 records per traced step {traced}")
+    check(len(fused_entries) == 1 and fused_entries[0]["key"] == "full"
+          and fused_entries[0]["replays"] > 0,
+          f"gluon_hybrid encoder: fused entries {fused_entries}")
+    for mode in ("hybrid", "two_graphs"):
+        rec = enc_trace[mode]["records_per_step"]
+        check(rec == dict.fromkeys(FLASH_NAMES, 1.0),
+              f"gluon_hybrid encoder {mode}: B1-B3 records per traced "
+              f"step {rec}")
+    check(len(graph_launches["hybrid"]) == GLUON_HYBRID["traced_steps"],
+          f"gluon_hybrid encoder: {graph_launches['hybrid']} graph "
+          f"launches in {GLUON_HYBRID['traced_steps']} traced lazy steps")
+    d = deferred["hybrid"]
+    check(d["lazy"] == [False] + [True] * (GLUON_HYBRID["encoder_steps"] - 1)
+          and deferred["two_graphs"]["lazy"]
+          == [False] * GLUON_HYBRID["encoder_steps"],
+          f"gluon_hybrid deferred: lazy losses {d['lazy']} "
+          f"{deferred['two_graphs']['lazy']}")
+    # step 2 runs the full step eagerly and captures it; later steps
+    # replay its graph and nothing else
+    check(d["graph_replays_per_step"][1:]
+          == [1] * (GLUON_HYBRID["encoder_steps"] - 2),
+          f"gluon_hybrid deferred: graph replays a step "
+          f"{d['graph_replays_per_step']}")
+    for mode in ("hybrid", "read_early"):
+        dm = deferred[mode]
+        check(dm["loss_rel_err_vs_two_graphs"] <= GLUON_HYBRID_DEFERRED_TOL
+              and dm["param_err_vs_two_graphs"] <= GLUON_HYBRID_DEFERRED_TOL,
+              f"gluon_hybrid deferred {mode} vs the two-graph path: {dm}")
+    for name, g in (("lenet", micro["grad_norm"]), ("encoder", grad_norm)):
+        check(g["rel_err"] <= GLUON_HYBRID_GRAD_NORM_RTOL,
+              f"gluon_hybrid {name}: trainer.grad_norm {g}")
+    check(micro["grad_rel_err"] <= GLUON_LENET_RTOL[0]
+          and micro["instances"] >= GLUON_HYBRID["micro_batches"] - 1,
+          f"gluon_hybrid: {GLUON_HYBRID['micro_batches']} recorded calls "
+          f"before one backward: {micro}")
+    check(clip["programs"] == 1 and clip["captures"] == 1
+          and clip["replays"] == len(GLUON_HYBRID["clip_fractions"]) - 1
+          and all(r["max_rel_err"] <= GLUON_HYBRID_CLIP_TOL
+                  and r["norm_rel_err"] <= GLUON_HYBRID_CLIP_TOL
+                  for r in clip["rows"]),
+          f"gluon_hybrid: clip_global_norm {clip}")
     check(all(v >= 1 for v in launches.values()),
           f"gluon_hybrid encoder: B1-B3 wrapper launches {launches}")
     rep = predict["replay"]
@@ -6509,6 +6852,184 @@ def phase_gluon_hybrid(torch):
     return dict(launches=launches,
                 traced={k: v * GLUON_HYBRID["traced_steps"]
                         for k, v in traced.items()})
+
+
+# ------------------------------------------------------------- gluon_mnist
+# examples/mnist_gluon.py's training loop through the port at its
+# published settings: the synthetic MNIST (8192 images: no files under
+# root), DataLoader(batch_size=64, shuffle=True) after np.random.seed(42),
+# the hybridized LeNet (static_alloc=True), Adam at lr 1e-3,
+# SoftmaxCrossEntropyLoss and mx.metric.Accuracy, one epoch (128 steps).
+GLUON_MNIST = dict(batch=64, lr=1e-3, seed=42, host_steps=3,
+                   loader_batches=8, workers=2, property_reads=200000)
+# the epoch's accuracy over the synthetic set (chance is 0.1)
+GLUON_MNIST_MIN_ACCURACY = 0.5
+
+
+def _mnist_loader(mx, train, **kw):
+    np.random.seed(GLUON_MNIST["seed"])
+    return mx.gluon.data.DataLoader(train, batch_size=GLUON_MNIST["batch"],
+                                    shuffle=True, **kw)
+
+
+def _mnist_step(mx, net, trainer, loss_fn, x, y):
+    """The example's step: scale the uint8 NHWC batch, record, backward,
+    step; returns (output, loss)."""
+    x = x.astype("float32").transpose((0, 3, 1, 2)) / 255.0
+    with mx.autograd.record():
+        out = net(x)
+        loss = loss_fn(out, y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return out, loss
+
+
+def _data_property_cost(torch, mx, net, loss_fn, x, y):
+    """What the lazy state costs an eager LeNet step: ``NDArray._data``
+    reads in one step, times the property's cost over a plain slot read
+    (``timeit`` on the host)."""
+    import timeit
+    from mxnet_tpu_torch.ndarray import NDArray
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": GLUON_MNIST["lr"]})
+    _mnist_step(mx, net, trainer, loss_fn, x, y)
+    torch.cuda.synchronize()
+    prop, reads = NDArray.__dict__["_data"], [0]
+
+    def counted(arr):
+        reads[0] += 1
+        return prop.fget(arr)
+
+    NDArray._data = property(counted, prop.fset)
+    try:
+        _mnist_step(mx, net, trainer, loss_fn, x, y)
+    finally:
+        NDArray._data = prop
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _mnist_step(mx, net, trainer, loss_fn, x, y)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    a, n = x, GLUON_MNIST["property_reads"]
+    t_prop = timeit.timeit(lambda: a._data, number=n) / n
+    t_slot = timeit.timeit(lambda: a._t, number=n) / n
+    return dict(reads_per_step=reads[0], property_ns=t_prop * 1e9,
+                slot_ns=t_slot * 1e9,
+                cost_us_per_step=reads[0] * (t_prop - t_slot) * 1e6,
+                eager_step_ms=step_ms)
+
+
+def phase_gluon_mnist(torch):
+    """``gluon_mnist``: examples/mnist_gluon.py's loop on the card (module
+    comment above ``GLUON_MNIST``), its first steps against the same
+    weights and batches on the host, a second loader with workers and
+    pinned memory, and the host cost of the lazy state on an eager
+    step."""
+    import mxnet_tpu_torch as mx
+    cfg = GLUON_MNIST
+    tmp = tempfile.mkdtemp(prefix="mxnet-gluon-mnist-")
+    try:
+        path = os.path.join(tmp, "lenet.npz")
+        _lenet_weights(mx, path, np.zeros((1, 1, 28, 28), np.float32))
+        train = mx.gluon.data.vision.MNIST(root=os.path.join(tmp, "mnist"),
+                                           train=True)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        with mx.gpu(0):
+            net = _lenet(mx)
+            net.load_parameters(path)
+            net.hybridize(static_alloc=True)
+            trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                       {"learning_rate": cfg["lr"]})
+            metric = mx.metric.Accuracy()
+            loader = _mnist_loader(mx, train)
+            steps = len(loader)
+            it = iter(loader)
+            t_next, t_train, t_metric, losses, first = [], [], [], [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                ta = time.perf_counter()
+                x, y = next(it)
+                tb = time.perf_counter()
+                out, loss = _mnist_step(mx, net, trainer, loss_fn, x, y)
+                tc = time.perf_counter()
+                metric.update(y, out)
+                td = time.perf_counter()
+                t_next.append((tb - ta) * 1e3)
+                t_train.append((tc - tb) * 1e3)
+                t_metric.append((td - tc) * 1e3)
+                losses.append(loss)
+                if i < cfg["loader_batches"]:
+                    first.append((x, y))
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            acc_name, acc = metric.get()
+            losses = [float(v.mean().asscalar()) for v in losses]
+            devices = sorted({str(first[0][0].data_torch.device),
+                              str(first[0][1].data_torch.device),
+                              str(net[0].weight.data().data_torch.device)})
+            with _mnist_loader(mx, train, num_workers=cfg["workers"],
+                               pin_memory=True) as pinned:
+                again = [b for _i, b in zip(range(cfg["loader_batches"]),
+                                            pinned)]
+            same = all(bool((a.data_torch == b.data_torch).all())
+                       for (xa, ya), (xb, yb) in zip(first, again)
+                       for a, b in ((xa, xb), (ya, yb)))
+            pinned_ctx = str(again[0][0].context)
+            host_batches = [(x.asnumpy(), y.asnumpy())
+                            for x, y in first[:cfg["host_steps"]]]
+            eager = _lenet(mx)
+            eager.load_parameters(path)
+            cost = _data_property_cost(torch, mx, eager, loss_fn,
+                                       *first[0])
+            del net, trainer, first, again, eager
+        with mx.cpu(0):
+            host = _lenet(mx)
+            host.load_parameters(path)
+            host.hybridize(static_alloc=True)
+            htrainer = mx.gluon.Trainer(host.collect_params(), "adam",
+                                        {"learning_rate": cfg["lr"]})
+            host_losses = [float(_mnist_step(
+                mx, host, htrainer, loss_fn, mx.nd.array(x, dtype="uint8"),
+                mx.nd.array(y, dtype="int32"))[1].mean().asscalar())
+                for x, y in host_batches]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free(torch)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, host_losses)]
+    head, tail = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+    emit("gluon_mnist", example="examples/mnist_gluon.py",
+         dataset="MNIST (synthetic)", synthetic=train.synthetic,
+         images=len(train), batch=cfg["batch"], steps=steps,
+         optimizer="adam", lr=cfg["lr"], dtype="float32", devices=devices,
+         seconds_per_epoch=epoch_s, metric=acc_name, accuracy=acc,
+         first_losses=losses[:8], last_losses=losses[-8:],
+         mean_loss_first8=head, mean_loss_last8=tail,
+         host_losses=host_losses, loss_rel_err=rel,
+         loss_rtol=GLUON_LENET_RTOL,
+         step_ms_split=dict(next_loader=float(np.median(t_next)),
+                            forward_backward_step=float(np.median(t_train)),
+                            metric_update=float(np.median(t_metric))),
+         step_ms_split_mean=dict(
+             next_loader=float(np.mean(t_next)),
+             forward_backward_step=float(np.mean(t_train)),
+             metric_update=float(np.mean(t_metric))),
+         pinned_loader=dict(workers=cfg["workers"], context=pinned_ctx,
+                            batches=cfg["loader_batches"],
+                            bitwise_equal=same),
+         data_property=cost)
+    check(train.synthetic and len(train) == 8192 and steps == 128,
+          f"gluon_mnist: dataset {len(train)} images, {steps} steps")
+    check(all(d.startswith("cuda") for d in devices),
+          f"gluon_mnist: batches and weights on {devices}")
+    check(all(np.isfinite(losses)) and tail < head,
+          f"gluon_mnist: losses {head} -> {tail}")
+    check(all(e <= t for e, t in zip(rel, GLUON_LENET_RTOL)),
+          f"gluon_mnist: card vs host losses {rel}, want {GLUON_LENET_RTOL}")
+    check(acc > GLUON_MNIST_MIN_ACCURACY,
+          f"gluon_mnist: accuracy {acc} over the epoch")
+    check(same and pinned_ctx.startswith("gpu"),
+          f"gluon_mnist: the pinned loader's batches differ ({pinned_ctx})")
 
 
 def _sig_stats_rows(stats):
@@ -6602,6 +7123,7 @@ def main():
     gluon_launches = phase_gluon_flash(torch)
     gluon_dist_launches = phase_gluon_dist(torch)
     gluon_hybrid = phase_gluon_hybrid(torch)
+    phase_gluon_mnist(torch)
     phase_graphs(torch, dev, lm)
     replayed = phase_serve_trace(torch, lm)
     predict_traced = phase_predict_trace(torch, predict)

@@ -29,6 +29,8 @@ from . import optimizer
 from . import gluon
 from . import kvstore
 from . import kvstore as kv
+from . import metric
+from . import recordio
 
 
 def waitall():
@@ -39,4 +41,5 @@ def waitall():
 __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "current_context", "num_gpus", "autograd", "nd", "ndarray",
            "NDArray", "random", "init", "initializer", "lr_scheduler",
-           "optimizer", "gluon", "kvstore", "kv", "waitall"]
+           "optimizer", "gluon", "kvstore", "kv", "metric", "recordio",
+           "waitall"]

@@ -21,7 +21,11 @@ hybridized block (``gluon.cached_op``) is deferred, when every input of
 that replay is a leaf, the head gradients are the default and
 ``MXNET_FUSED_HYBRID_STEP`` is not ``"0"``: ``Trainer.step`` then runs
 it together with the update as one CUDA graph (:func:`peek_pending`,
-:func:`clear_pending`).  Anything that could see the gradients first
+:func:`clear_pending`).  A backward over the lazy outputs of such a
+call, whose forward has not run (``gluon.cached_op``), is deferred the
+same way without running the forward: ``Trainer.step`` then runs
+forward, backward and update as one graph.  Running a deferred backward
+runs its lazy forward first.  Anything that could see the gradients first
 runs it (:func:`flush_pending`): the next backward or ``grad``, a new
 ``record()``, ``waitall``, and reading or consuming one of the gradient
 buffers it writes.
@@ -206,7 +210,8 @@ def _release_replays(nodes):
 # ---------------------------------------------------------------------------
 def peek_pending():
     """The deferred backward (a dict: ``claim``, ``heads``, ``head_idx``,
-    ``grad_ids``), or None."""
+    ``grad_ids``, and ``lazy``: the lazy forward of its heads, or None
+    when they were computed), or None."""
     return _STATE.pending
 
 
@@ -243,11 +248,20 @@ def _deferrable(heads, head_grads, retain_graph):
     if retain_graph or any(hg is not None for hg in head_grads) \
             or get_env("MXNET_FUSED_HYBRID_STEP", "1") == "0":
         return None
-    node = heads[0]._data.grad_fn
-    claim = getattr(node, "_mx_claim", None)
-    if claim is None or claim.released or not claim.current() \
-            or any(h._data.grad_fn is not node for h in heads) \
-            or not claim.leaf_inputs:
+    # a lazy head's forward has not run: reading its _data would run it
+    lazy = heads[0]._lazy
+    if lazy is not None:
+        claim = lazy.claim
+        if claim is None or any(h._lazy is not lazy for h in heads):
+            return None
+        head_idx = tuple(sorted({lazy.index(h) for h in heads}))
+    else:
+        node = heads[0]._data.grad_fn
+        claim = getattr(node, "_mx_claim", None)
+        if claim is None or any(h._data.grad_fn is not node for h in heads):
+            return None
+        head_idx = tuple(sorted({h._data.output_nr for h in heads}))
+    if claim.released or not claim.current() or not claim.leaf_inputs:
         return None
     grad_ids = set()
     for a in claim.arrays:
@@ -256,9 +270,8 @@ def _deferrable(heads, head_grads, retain_graph):
         if a._grad_req != "write":
             return None
         grad_ids.add(id(a._grad))
-    return {"claim": claim, "heads": list(heads),
-            "head_idx": tuple(sorted({h._data.output_nr for h in heads})),
-            "grad_ids": grad_ids}
+    return {"claim": claim, "heads": list(heads), "head_idx": head_idx,
+            "grad_ids": grad_ids, "lazy": lazy}
 
 
 def backward(heads, head_grads=None, retain_graph: bool = False,

@@ -83,6 +83,11 @@ declare_env("MXNET_RUNTIME_METRICS", "0",
             "engine/io/kvstore/trainer instrumentation, Prometheus + "
             "chrome-trace + TensorBoard exporters. Off by default; the "
             "disabled path is a single flag check per site.")
+declare_env("MXNET_RUNTIME_METRICS_GRAD_NORM", "0",
+            "1 = also publish the global L2 gradient norm in the "
+            "trainer.grad_norm gauge after each Trainer.step, read from "
+            "the .grad buffers after the step's graphs ran (one host "
+            "sync a step).")
 declare_env("MXNET_TRACE", "0",
             "1 = enable the request span tracer (mxnet_tpu_torch.tracing): "
             "every serving request gets a trace-id/span-id timeline "
@@ -330,6 +335,15 @@ declare_env("MXNET_FUSED_HYBRID_STEP", "1",
             "and the optimizer update as one CUDA graph "
             "(record/backward/step at fused-step cost); 0 = the backward "
             "runs when called.")
+declare_env("MXNET_DEFERRED_HYBRID_FWD", "1",
+            "From the second recorded call of a hybridized block's "
+            "signature on, return lazy outputs and run nothing: with the "
+            "backward deferred too (MXNET_FUSED_HYBRID_STEP), "
+            "Trainer.step runs forward, backward and update as one CUDA "
+            "graph; any earlier read of an output runs the forward "
+            "first.  0 = every recorded call runs when it is made.  "
+            "MXNET_FUSED_STEP_SAVE_POLICY gets no counterpart: torch's "
+            "autograd saves what it saves.")
 declare_env("MXNET_COMPILE_CACHE_DIR", None,
             "Persistent compile-cache directory "
             "(mxnet_tpu_torch.compile_cache): the port keeps its nvcc-"

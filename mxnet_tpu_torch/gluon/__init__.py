@@ -1,6 +1,6 @@
 """Gluon of the PyTorch port: the imperative NN API (reference:
 python/mxnet/gluon/) — Parameter, Block / HybridBlock, ``nn``, ``loss``,
-``utils`` and ``Trainer``."""
+``utils``, ``Trainer`` and ``data``."""
 from . import parameter
 from .parameter import (Parameter, Constant, ParameterDict,
                         DeferredInitializationError)
@@ -11,6 +11,7 @@ from . import loss
 from . import utils
 from . import trainer
 from .trainer import Trainer
+from . import data
 
 __all__ = ["Parameter", "Constant", "ParameterDict", "Block", "HybridBlock",
-           "Trainer", "nn", "loss", "utils"]
+           "Trainer", "nn", "loss", "utils", "data"]

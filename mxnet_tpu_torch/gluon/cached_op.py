@@ -30,11 +30,49 @@ stream), each instance in a memory pool of its own:
   backward graph and returns copies of the gradients.  An instance is
   busy from its forward until a backward that keeps no graph ran over
   it or its outputs died; a recorded call that finds every instance of
-  its signature busy captures another one (at most
-  :data:`MAX_INSTANCES`), so two recorded calls before one backward
-  keep their own saved tensors.  ``Trainer.step`` adds graphs of the
-  backward and the update to an instance (``instance.fused``, by
-  Trainer).
+  its signature busy captures another one, as many as the calls that
+  wait (gradient accumulation over micro-batches in one ``record()``),
+  and an idle instance is reused before a new one is captured.  Each
+  instance holds its own pool: the static buffers, the graphs'
+  workspace and the saved activations of one call.  ``stats()``'s
+  ``pool_bytes`` is what the capture left allocated; the pool reserves
+  more, for the captures' temporaries.  ``Trainer.step`` adds graphs
+  of the backward and the update, or of the whole step, to an
+  instance's pool (``instance.fused``, by Trainer); the whole step's
+  graph holds a second forward's saved activations there.  On an H100
+  (fp32): a BERT-large encoder layer with its loss at L 512, batch 8,
+  453 MB allocated at capture, 841 MB reserved with the backward +
+  update graph and 1,076 MB with the whole step's; LeNet of
+  ``examples/mnist_gluon.py`` at batch 64, 42 MB allocated; each
+  further LeNet instance of an 8-row micro-batch 2.6 MB allocated,
+  23 MB reserved (the allocator's segments are 20 MB at least).
+
+The lazy forward (``MXNET_DEFERRED_HYBRID_FWD``, default ``"1"``; the
+reference's deferred forward).  The first recorded call of a signature
+runs and captures as above; from the second on, a recorded call claims
+an instance, copies its inputs into the instance's static buffers at
+once (an input written in place before the step does not change it)
+and returns lazy outputs (``NDArray._deferred``): nothing runs.  A
+backward over them stays pending (``autograd.backward``), and
+``Trainer.step`` runs forward, backward and update as one CUDA graph
+of the instance (``Trainer._full_fused_step``).  Anything else
+that reads a lazy output first runs the forward as a recorded replay
+(:meth:`_Lazy.materialize`), and the step then takes the backward +
+update graph with the same numbers.  A lazy forward runs at the latest
+before anything writes the weights it reads: ``Trainer.step`` and
+``update`` run every other one first, and so do a call of a block
+that binds a replaced parameter value, ``Parameter.set_data``,
+``nd.waitall`` and a write of a weight array (``NDArray.__setitem__``,
+``_set_data``: :func:`before_write`, which also runs a deferred
+backward over that weight first).  A lazy forward's effects happen
+when it runs, not when it was recorded: BatchNorm's running statistics are written then (by a
+materialized forward or by the step's graph, never both; reading one
+runs the forward first), and Dropout draws its mask then, from the
+default generator of the device, so the deferred and the materialized
+forward of one call draw the same mask when nothing else draws in
+between (on the card the graph registered that generator at capture
+and advances its offset at every replay).  ``MXNET_DEFERRED_HYBRID_FWD=0`` runs
+every recorded call when it is made.
 
 The graphs read the parameters by address.  Each call binds every
 parameter array (``NDArray._bind``): a value replaced since the last
@@ -79,20 +117,72 @@ from ..ndarray import NDArray, dtype_name
 from ..ndarray.ndarray import home_writes
 from ..ops.registry import OpDef, invoke
 
-__all__ = ["CachedOp", "nb_cached_programs"]
+__all__ = ["CachedOp", "before_write", "nb_cached_programs", "run_lazy"]
 
 # set while a CachedOp runs its block's forward: the children run their
 # plain forward inside the parent's program
 _TRACING = contextvars.ContextVar("mxnet_tpu_torch_cached_op_tracing",
                                   default=False)
-# recorded instances one signature may hold at once
-MAX_INSTANCES = 4
 _N_CACHED_PROGRAMS = 0
+# the lazy forwards not run yet, in the order they were recorded
+_LAZY = []
 
 
 def nb_cached_programs():
     """Programs built by the CachedOps of this process."""
     return _N_CACHED_PROGRAMS
+
+
+def _defer_forward():
+    """Recorded calls after a signature's first return lazy outputs
+    (module docstring)."""
+    return get_env("MXNET_FUSED_HYBRID_STEP", "1") != "0" \
+        and get_env("MXNET_DEFERRED_HYBRID_FWD", "1") != "0"
+
+
+@contextlib.contextmanager
+def recording(training):
+    """``autograd``'s state of a recorded call, for a forward that runs
+    after its ``record()`` scope closed."""
+    rec = autograd.set_recording(True)
+    train = autograd.set_training(training)
+    try:
+        with torch.enable_grad():
+            yield
+    finally:
+        autograd.set_recording(rec)
+        autograd.set_training(train)
+
+
+def _pending_lazy():
+    """The lazy forwards not run yet, in the order they were recorded."""
+    live = [r() for r in _LAZY]
+    _LAZY[:] = [r for r, lz in zip(_LAZY, live)
+                if lz is not None and lz.claim is not None]
+    return [lz for lz in live if lz is not None and lz.claim is not None]
+
+
+def run_lazy(exclude=None):
+    """Run every lazy forward not run yet but ``exclude``'s, in the order
+    they were recorded (module docstring)."""
+    if _LAZY:
+        for lz in _pending_lazy():
+            if lz is not exclude:
+                lz.materialize()
+
+
+def before_write(home):
+    """``home``, a bound tensor, is about to be written in place or its
+    array's value replaced: every lazy forward (in order) if one of them
+    reads it, then a deferred backward over a replay that reads it, so
+    that both see the value their call was recorded with."""
+    if _LAZY and any(h is home for lz in _pending_lazy()
+                     for h in lz.claim.inst.prog.homes):
+        run_lazy()
+    pending = autograd.peek_pending()
+    if pending is not None and any(h is home for h in
+                                   pending["claim"].inst.prog.homes):
+        autograd.flush_pending()
 
 
 def _as_is():
@@ -178,14 +268,15 @@ class _Claim:
     lives as long as the replay's tape node."""
 
     __slots__ = ("inst", "arrays", "leaf_inputs", "released", "writes",
-                 "__weakref__")
+                 "staged", "__weakref__")
 
-    def __init__(self, inst, arrays, leaf_inputs):
+    def __init__(self, inst, arrays, leaf_inputs, staged=False):
         self.inst = inst
         self.arrays = arrays            # the replay's inputs, then params
         self.leaf_inputs = leaf_inputs
         self.released = False
         self.writes = home_writes(inst.prog.homes)
+        self.staged = staged            # inputs copied in at record time
 
     def release(self):
         self.released = True
@@ -194,7 +285,7 @@ class _Claim:
         """No weight was written in place or replaced since the
         forward."""
         return home_writes(self.inst.prog.homes) == self.writes and all(
-            a._data is a._home for a in self.arrays[self.inst.prog.n_in:])
+            a._t is a._home for a in self.arrays[self.inst.prog.n_in:])
 
 
 class _Replay(torch.autograd.Function):
@@ -203,7 +294,8 @@ class _Replay(torch.autograd.Function):
     @staticmethod
     def forward(ctx, claim, *tensors):
         ctx._mx_claim = claim
-        return tuple(claim.inst.forward(tensors[:claim.inst.prog.n_in]))
+        return tuple(claim.inst.forward(tensors[:claim.inst.prog.n_in],
+                                        stage=not claim.staged))
 
     @staticmethod
     def backward(ctx, *cots):
@@ -221,6 +313,77 @@ class _Replay(torch.autograd.Function):
                 "gradient at the forward's weights; run the backward "
                 "before the step")
         return (None,) + tuple(claim.inst.backward(cots))
+
+
+class _Lazy:
+    """The forward of one deferred recorded call (module docstring):
+    its claim on an instance (inputs staged), the call's input tensors
+    (the tape's links) and its lazy outputs.  The forward writes the
+    block's parameters without a gradient in place (BatchNorm's running
+    statistics): those arrays carry the lazy forward too (``_lazy``),
+    so that reading one runs it first."""
+
+    __slots__ = ("claim", "tensors", "outs", "aux", "failed", "training",
+                 "__weakref__")
+
+    def __init__(self, claim, tensors, training):
+        self.claim = claim              # None once the forward ran
+        self.tensors = tensors
+        self.training = training
+        self.outs = []                  # weakrefs of the lazy outputs
+        self.aux = [a for a in claim.arrays[claim.inst.prog.n_in:]
+                    if a._grad_req == "null"]
+        for a in self.aux:
+            a._lazy = self
+        self.failed = None
+
+    def start(self):
+        """The forward is about to run: its aux arrays read as they are."""
+        for a in self.aux:
+            if a._lazy is self:
+                a._lazy = None
+
+    def index(self, arr):
+        """The flat output position of ``arr``."""
+        return next(i for i, r in enumerate(self.outs) if r() is arr)
+
+    def fill(self, tensors):
+        """Give the lazy outputs their values: the forward ran."""
+        self.start()
+        for ref, t in zip(self.outs, tensors):
+            out = ref()
+            if out is not None:
+                out._data = t
+        self.claim = None
+        self.tensors = None
+
+    def fail(self, error):
+        """The step that was to run this forward failed: every read of an
+        output raises."""
+        self.start()
+        self.failed = error
+        self.claim = None
+        self.tensors = None
+
+    def materialize(self):
+        """Run the forward now, as a recorded replay on the tape."""
+        if self.failed is not None:
+            raise KernelError(
+                f"this output's hybridized forward was to run inside a "
+                f"Trainer.step that failed: {self.failed}")
+        claim = self.claim
+        if claim is None:
+            return
+        if not claim.current():
+            raise MXNetError(
+                "a lazy output of a hybridized block is read after the "
+                "weights its forward reads were written in place; read it "
+                "before the write, or set MXNET_DEFERRED_HYBRID_FWD=0")
+        prog = claim.inst.prog
+        self.start()
+        with recording(self.training):
+            outs = _Replay.apply(claim, *self.tensors, *prog.homes)
+        self.fill(outs)
 
 
 class _Instance:
@@ -296,16 +459,19 @@ class _Instance:
                 self.grads = list(grads)
         self.capture_s = time.perf_counter() - t0
 
-    def forward(self, tensors):
-        """Copies of the outputs of a forward over ``tensors``."""
+    def forward(self, tensors, stage=True):
+        """Copies of the outputs of a forward over ``tensors`` (staged
+        already when not ``stage``)."""
         prog = self.prog
         if prog.graphs is None:
-            self.stage(tensors)
+            if stage:
+                self.stage(tensors)
             with torch.enable_grad():
                 self.outs = self.run()
             return [o.detach().clone() for o in self.outs]
         with prog.graphs.on_stream() as caller:
-            self.stage(tensors)
+            if stage:
+                self.stage(tensors)
             prog.replay(self.fwd)
             outs = [o.detach().clone() for o in self.outs]
         for o in outs:
@@ -358,6 +524,7 @@ class _HybridProgram:
                           if a._grad is not None and a._grad_req != "null"]
         self.graphs = cop._graphs_on(self.device)
         self.tree = None
+        self.out_specs = None           # recorded outputs' (shape, dtype)
         self.warm = set()               # uses that ran their eager call
         self.infer = None               # the inference instance
         self.rec = []                   # recorded instances
@@ -423,25 +590,52 @@ class _HybridProgram:
             inst = self._instance(recording, tensors)
             if recording:
                 self.rec.append(inst)
+                self._recorded(outs)
             else:
                 self.infer = inst
             return outs
         if not recording:
             return self._infer(tensors)
+        leaf = all(t.grad_fn is None for t in tensors)
+        if self.out_specs is not None and _defer_forward():
+            return self._defer(inputs, arrays, tensors, leaf)
+        inst = self._idle(tensors)
+        claim = _Claim(inst, list(inputs) + list(arrays), leaf)
+        inst.claim = weakref.ref(claim)
+        outs = list(_Replay.apply(claim, *tensors, *self.homes))
+        self._recorded(outs)
+        return outs
+
+    def _recorded(self, outs):
+        """The first recorded call ran: later ones may defer."""
+        if self.out_specs is None:
+            self.out_specs = [(tuple(o.shape), o.dtype) for o in outs]
+
+    def _idle(self, tensors):
+        """An idle recorded instance, else a new one."""
         inst = next((i for i in self.rec if not i.busy()), None)
         if inst is None:
-            if len(self.rec) >= MAX_INSTANCES:
-                raise MXNetError(
-                    f"CachedOp for block {self.block.name!r}: "
-                    f"{MAX_INSTANCES} recorded calls of one signature wait "
-                    f"for their backward; run backward (or drop the "
-                    f"outputs) before calling the block again")
             inst = self._instance(True, tensors)
             self.rec.append(inst)
-        claim = _Claim(inst, list(inputs) + list(arrays),
-                       all(t.grad_fn is None for t in tensors))
+        return inst
+
+    def _defer(self, inputs, arrays, tensors, leaf):
+        """Claim an instance, stage the inputs, return lazy outputs."""
+        inst = self._idle(tensors)
+        if self.graphs is None:
+            inst.stage(tensors)
+        else:
+            with self.graphs.on_stream():
+                inst.stage(tensors)
+        claim = _Claim(inst, list(inputs) + list(arrays), leaf, staged=True)
         inst.claim = weakref.ref(claim)
-        return list(_Replay.apply(claim, *tensors, *self.homes))
+        lazy = _Lazy(claim, tensors, self.sig[2])
+        outs = [NDArray._deferred(shape, dtype, self.ctx, lazy)
+                for shape, dtype in self.out_specs]
+        lazy.outs = [weakref.ref(o) for o in outs]
+        _pending_lazy()
+        _LAZY.append(weakref.ref(lazy))
+        return outs
 
     def _infer(self, tensors):
         if self.infer is None:
@@ -517,6 +711,11 @@ class CachedOp:
                tuple((tuple(a.shape), dtype_name(a._data.dtype), p.grad_req)
                      for p, a in zip(params, arrays)),
                autograd.is_training(), inputs[0]._data.device)
+        if _LAZY and any(a._home is not None and a._t is not a._home
+                         for a in arrays):
+            # a replaced value is about to be copied into a weight that a
+            # lazy forward reads
+            run_lazy()
         prog = self._cache.get(sig)
         if prog is None:
             homes = [self._bind(a) for a in arrays]
@@ -527,7 +726,9 @@ class CachedOp:
                 self._bind(a, home)
         outs = prog(inputs, arrays, recording)
         ctx = inputs[0].context
-        return _unflatten([NDArray._wrap(o, ctx) for o in outs], prog.tree)
+        return _unflatten([o if isinstance(o, NDArray)
+                           else NDArray._wrap(o, ctx) for o in outs],
+                          prog.tree)
 
     def _graphs_on(self, device):
         if device not in self._graphs:

@@ -184,7 +184,10 @@ class Parameter:
         return list(self._data)
 
     def set_data(self, data):
-        """Set the value on every context (a copy on each)."""
+        """Set the value on every context (a copy on each); a lazy
+        forward that reads the old value runs first."""
+        from .cached_op import run_lazy
+        run_lazy()
         if not _shape_is_known(self.shape):
             self.shape = tuple(data.shape)
         if self._deferred_init is not None:

@@ -23,9 +23,19 @@ per-parameter path):
   :class:`_FusedUpdate` of the replay's instance, per (Trainer,
   signature, optimizer key), captured in the instance's pool: it
   writes the ``.grad`` buffers of the parameters and of the replay's
-  other attached inputs, then updates in place.
+  other attached inputs, then updates in place;
+- the full step (:meth:`Trainer._full_fused_step`): when those heads
+  are lazy (the forward of the recorded call has not run,
+  ``gluon.cached_op``), forward, backward and update are one
+  :class:`_FusedUpdate` of the instance, per (Trainer, signature,
+  optimizer key), its key starting with ``"full"``
+  (``Trainer._fused_step_progs``): the forward over the inputs staged at
+  record time, the backward from ones over the heads, then the
+  update.  After it the lazy outputs get copies of the graph's outputs.
+  Every other lazy forward runs first (``cached_op.run_lazy``), since
+  the step writes the weights they read.
 
-Both write the weights, states and fp32 masters in place, since the
+All three write the weights, states and fp32 masters in place, since the
 forward graphs read them by address, and bind every array they touch
 (``NDArray._bind``).  The step-varying values (t, lr, wd, rescale) are
 device tensors, rewritten only when their host values change, and t
@@ -39,8 +49,14 @@ replay.  Update counts
 advance as the per-parameter path's do; a call that fails before its
 update ran raises :class:`~mxnet_tpu_torch.base.KernelError` with the
 counts rolled back (``_fused_rollback``), and an entry whose capture
-failed raises on every later step.  On the CPU the same entries run
-eagerly, without graphs.
+failed raises on every later step (a full step's lazy outputs then
+raise when read).  On the CPU the same entries run eagerly, without
+graphs.
+
+With ``MXNET_RUNTIME_METRICS`` and ``MXNET_RUNTIME_METRICS_GRAD_NORM``
+on, every step publishes the global L2 norm of the gradients in the
+``trainer.grad_norm`` gauge, read from the ``.grad`` buffers after the
+step's graphs ran (one host sync).
 
 A ``dist*`` kvstore is created at one context too (upstream MXNet's
 rule; the JAX Trainer creates none there, so its workers never
@@ -53,6 +69,7 @@ step.
 from __future__ import annotations
 
 import time
+import weakref
 
 import torch
 
@@ -127,6 +144,8 @@ class _FusedUpdate:
     CPU: it runs eagerly)."""
 
     def __init__(self, o, idx, device, graphs, pool, backward=None):
+        # backward() returns the parameters' gradients, the other
+        # inputs' and the outputs of a forward it ran (or None)
         self.opt = o
         self.idx = list(idx)
         n = len(self.idx)
@@ -141,6 +160,8 @@ class _FusedUpdate:
         self.bound = None               # weights, grads, others, states
         self.layout = None
         self.graph = None
+        self.static = None              # the graph's outputs
+        self.outs = None                # the last call's outputs
         self.warm = False
         self.failed = None
         self.applied = False            # the last call's update ran
@@ -185,8 +206,9 @@ class _FusedUpdate:
         others = self.bound[2 * n:2 * n + n_other]
         flat = iter(self.bound[2 * n + n_other:])
         raw = [_raw_state(s, flat) for s in states]
+        outs = None
         if self.backward is not None:
-            p_grads, o_grads = self.backward()
+            p_grads, o_grads, outs = self.backward()
             with torch.no_grad():
                 for buf, g in zip(grads + others, p_grads + o_grads):
                     if g is None:
@@ -202,11 +224,13 @@ class _FusedUpdate:
                 for dst, src in zip(_flat_state(s), _flat_state(new_s)):
                     dst.copy_(src)
             self.ts.add_(1.0)
+        return outs
 
     def _capture(self):
         t0 = time.perf_counter()
         try:
-            self.graph, _ = self.graphs.capture(self._body, self.pool)
+            self.graph, self.static = self.graphs.capture(self._body,
+                                                          self.pool)
         except Exception as e:
             self.failed = e
             raise KernelError(
@@ -226,18 +250,20 @@ class _FusedUpdate:
             self.layout = (len(others), states)
         self._bind(list(weights) + list(grads) + list(others)
                    + [a for s in states for a in _flat_state(s)])
+        self.outs = None
         if self.graphs is None:
             self._refresh()
-            self._body()
+            self.outs = self._body()
             self.applied = True
             self._written(False)
             return
-        with self.graphs.on_stream():
+        with self.graphs.on_stream() as caller:
             self._refresh()
             if not self.warm:
-                self._body()
+                self.outs = self._body()
                 self.applied = self.warm = True
                 self._written(False)
+                self._keep(caller)
                 self._capture()
                 return
             try:
@@ -249,6 +275,14 @@ class _FusedUpdate:
             self.applied = True
             self.replays += 1
             self._written(True)
+            if self.static is not None:
+                self.outs = [o.detach().clone() for o in self.static]
+                self._keep(caller)
+
+    def _keep(self, caller):
+        """The outputs outlive the graph's stream: the caller's now."""
+        for o in self.outs or ():
+            o.record_stream(caller)
 
 
 def _is_dist(kvstore) -> bool:
@@ -281,6 +315,7 @@ class Trainer:
         self._kvstore_arg = kvstore
         self._update_on_kvstore = update_on_kvstore
         self._fused_progs = {}          # key -> _FusedUpdate
+        self._fused_insts = weakref.WeakSet()   # instances with entries
         self._graphs = {}               # device -> (graph backend, pool)
         if _is_dist(kvstore) and all(p._data for p in self._params):
             # every rank takes rank 0's weights before its first forward
@@ -357,7 +392,9 @@ class Trainer:
         """Sum the gradients across contexts (and workers), rescale by
         ``1 / batch_size``, update (reference: ``Trainer.step``).  With
         runtime metrics on, the step's wall time, synchronised with the
-        card, goes to ``trainer.step.seconds``."""
+        card, goes to ``trainer.step.seconds``, and with
+        ``MXNET_RUNTIME_METRICS_GRAD_NORM`` on the gradients' global norm
+        to ``trainer.grad_norm``."""
         if not _rm._ENABLED:
             self._step_impl(batch_size)
             return
@@ -367,6 +404,9 @@ class Trainer:
         finally:
             self._sync()
             _rm.TRAINER_STEP_SECONDS.observe(time.perf_counter() - t0)
+        if _rm.grad_norm_enabled():
+            _rm.publish_grad_norm(p.list_grad()[0] for p in self._params
+                                  if p.grad_req != "null")
 
     def _sync(self):
         import torch
@@ -380,6 +420,8 @@ class Trainer:
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        pending = autograd.peek_pending()
+        _cached_op.run_lazy(exclude=pending and pending["lazy"])
         if self._kvstore is None and self._try_fused_hybrid_step():
             return
         autograd.flush_pending()
@@ -419,6 +461,7 @@ class Trainer:
                 "update() cannot be called when update_on_kvstore=True; "
                 "use step()")
         self._optimizer.rescale_grad = self._scale / batch_size
+        _cached_op.run_lazy()
         self._update()
 
     def _update(self):
@@ -515,9 +558,10 @@ class Trainer:
 
     def _try_fused_hybrid_step(self):
         """Run a deferred backward and the update as one
-        :class:`_FusedUpdate` of the replay's instance (module
-        docstring); False when there is none or the step is not
-        eligible (the backward then runs on its own first)."""
+        :class:`_FusedUpdate` of the replay's instance, with the forward
+        too when its heads are lazy (module docstring); False when there
+        is none or the step is not eligible (the backward, and a lazy
+        forward before it, then run on their own first)."""
         pending = autograd.peek_pending()
         if pending is None or not self._fused_eligible():
             return False
@@ -543,31 +587,80 @@ class Trainer:
         weights = [arrays[k] for k in p_slots]
         states = [self._updater.states[i] for i in idx]
         head_idx = pending["head_idx"]
+        lazy = pending["lazy"]
+        full = lazy is not None and lazy.claim is not None
         key = (self._fused_key(idx, weights, states), head_idx,
                tuple(p_slots), tuple(o_slots))
+        if full:
+            key = ("full",) + key
         # this Trainer's entries: another Trainer over the same block
         # drives its own optimizer, counts and states
         entries = inst.fused.setdefault(self, {})
+        self._fused_insts.add(inst)
         entry = entries.get(key)
         if entry is None:
-            ones = [torch.ones_like(inst.outs[i]) for i in head_idx]
-
-            def backward():
-                grads = inst.gradients([inst.outs[i] for i in head_idx],
-                                       ones)
-                at = dict(zip(prog.grad_pos, grads))
-                return [at[k] for k in p_slots], [at[k] for k in o_slots]
-
+            make = self._full_fused_step if full else self._fused_backward
             entry = entries[key] = _FusedUpdate(
                 self._optimizer, idx, prog.device, prog.graphs, inst.pool,
-                backward)
+                make(inst, head_idx, p_slots, o_slots))
+        if full:
+            lazy.start()
         try:
             self._run_fused(entry, items, weights,
                             [w._grad for w in weights],
                             [arrays[k]._grad for k in o_slots])
+        except Exception as e:
+            if full:
+                if entry.applied and entry.outs is not None:
+                    lazy.fill(entry.outs)
+                else:
+                    lazy.fail(e)
+            raise
         finally:
             autograd.clear_pending()
+        if full:
+            lazy.fill(entry.outs)
         return True
+
+    @staticmethod
+    def _fused_backward(inst, head_idx, p_slots, o_slots):
+        """The backward of a replay over its saved tensors, from ones over
+        the heads: the gradients of the parameters and other inputs."""
+        ones = [torch.ones_like(inst.outs[i]) for i in head_idx]
+        prog = inst.prog
+
+        def backward():
+            grads = inst.gradients([inst.outs[i] for i in head_idx], ones)
+            at = dict(zip(prog.grad_pos, grads))
+            return [at[k] for k in p_slots], [at[k] for k in o_slots], None
+        return backward
+
+    @staticmethod
+    def _full_fused_step(inst, head_idx, p_slots, o_slots):
+        """The full step's forward over the instance's staged
+        inputs in the recorded call's mode, then the backward from ones
+        over the heads; the gradients and the forward's outputs."""
+        prog = inst.prog
+        ones = [torch.ones(prog.out_specs[i][0], dtype=prog.out_specs[i][1],
+                           device=prog.device) for i in head_idx]
+
+        def forward_backward():
+            with _cached_op.recording(prog.sig[2]):
+                outs = inst.run()
+                grads = torch.autograd.grad(
+                    [outs[i] for i in head_idx], inst.leaves(), ones,
+                    allow_unused=True)
+            at = dict(zip(prog.grad_pos, grads))
+            return ([at[k] for k in p_slots], [at[k] for k in o_slots],
+                    [o.detach() for o in outs])
+        return forward_backward
+
+    @property
+    def _fused_step_progs(self):
+        """This Trainer's entries of hybridized instances, by key (a full
+        step's key starts with ``"full"``)."""
+        return {key: entry for inst in list(self._fused_insts)
+                for key, entry in inst.fused.get(self, {}).items()}
 
     def fused_stats(self):
         """The fused entries: ``(update_programs, binding_copies,

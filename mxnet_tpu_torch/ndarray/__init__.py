@@ -118,10 +118,13 @@ ElementWiseSum = add_n
 
 
 def waitall():
-    """Run a deferred backward, then block until every queued
-    computation has finished."""
+    """Run a deferred backward and every lazy forward (as the JAX
+    package's engine sweep materializes its deferred outputs), then
+    block until every queued computation has finished."""
     from .. import autograd
+    from ..gluon import cached_op
     autograd.flush_pending()
+    cached_op.run_lazy()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 

@@ -15,14 +15,29 @@ A CUDA graph reads and writes tensors by address, so an array that a
 graph uses is *bound* (:meth:`NDArray._bind`): its value lives in one
 tensor, its home.  Code that replaces the value (``_set_data``) is
 caught at the graph's next call, which copies the new value home and
-points the array at its home again.  Each such copy, and each in-place
-update of a home by ``Trainer``'s fused tiers, is counted on the home
-(:func:`count_write`): a recorded replay's backward, which reads the
-homes as they are, refuses to run after one (``gluon.cached_op``).
+points the array at its home again.  Each such copy, each in-place
+update of a home by ``Trainer``'s fused tiers and each ``__setitem__``
+of a bound array is counted on the home (:func:`count_write`): a
+recorded replay's backward, which reads the homes as they are, refuses
+to run after one (``gluon.cached_op``).  Before a bound array is
+written (``__setitem__``, ``_set_data``), a lazy forward that reads its
+home, and a deferred backward over a replay that reads it, run
+(``gluon.cached_op.before_write``): they see the value their call was
+recorded with, as the JAX package's snapshot does.
 
 While a backward is deferred (``autograd.backward``), reading one of
 the gradient buffers it will write (``grad``, ``asnumpy``,
 ``wait_to_read``, or use as an op input) runs it first.
+
+An array can be *lazy*: the output of a recorded call of a hybridized
+block whose forward has not run yet (``gluon.cached_op``; the
+reference's ``NDArray._deferred``).  ``shape``, ``dtype``, ``size``,
+``ndim`` and ``context`` answer from the recorded shape (a tensor on
+the ``meta`` device stands in for the value); every other read goes
+through ``_data``, a property that runs the forward first, so no read
+site can see the stand-in: ``asnumpy``, ``asscalar``, ``wait_to_read``,
+use as an op input, indexing, ``copyto``, ``as_in_context``,
+arithmetic.
 """
 from __future__ import annotations
 
@@ -90,7 +105,7 @@ def home_writes(homes):
 class NDArray:
     """A tensor on a context (see the module docstring)."""
 
-    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_home",
+    __slots__ = ("_t", "_lazy", "_ctx", "_grad", "_grad_req", "_home",
                  "__weakref__")
 
     __array_priority__ = 1000.0
@@ -121,14 +136,48 @@ class NDArray:
         """An array over ``tensor`` as it is, on ``ctx`` (or the
         tensor's device's context)."""
         obj = cls.__new__(cls)
-        obj._data = tensor
+        obj._t = tensor
+        obj._lazy = None
         obj._ctx = ctx if ctx is not None else context_of(tensor.device)
         obj._grad = None
         obj._grad_req = "null"
         obj._home = None
         return obj
 
+    @classmethod
+    def _deferred(cls, shape, dtype, ctx, lazy):
+        """A lazy array of ``shape`` and ``dtype`` on ``ctx`` whose value
+        ``lazy.materialize()`` fills (module docstring)."""
+        obj = cls._wrap(torch.empty(shape, dtype=dtype, device="meta"), ctx)
+        obj._lazy = lazy
+        return obj
+
     # ------------------------------------------------------------------ data
+    @property
+    def _data(self) -> torch.Tensor:
+        """The tensor; a lazy array's forward runs first."""
+        if self._lazy is not None:
+            self._lazy.materialize()
+        return self._t
+
+    @_data.setter
+    def _data(self, tensor):
+        self._t = tensor
+        self._lazy = None
+
+    def _before_write(self):
+        """A bound array is about to be written: a lazy forward or a
+        deferred backward that reads its home runs first (module
+        docstring)."""
+        if self._home is not None:
+            from ..gluon.cached_op import before_write
+            before_write(self._home)
+
+    def _lazy_materialize(self):
+        """Run a lazy array's forward (a no-op for any other array)."""
+        if self._lazy is not None:
+            self._lazy.materialize()
+
     @property
     def data_torch(self) -> torch.Tensor:
         """The tensor behind the array."""
@@ -139,6 +188,7 @@ class NDArray:
         requires grad."""
         if isinstance(new, NDArray):
             new = new._data
+        self._before_write()
         if self._grad is not None and self._grad_req != "null":
             new = new.detach().requires_grad_(True)
             new._mx_owner = weakref.ref(self)
@@ -175,22 +225,22 @@ class NDArray:
     # ------------------------------------------------------------ properties
     @property
     def shape(self):
-        return tuple(self._data.shape)
+        return tuple(self._t.shape)
 
     @property
     def dtype(self):
         """A numpy dtype (``torch.bfloat16`` for bfloat16, which numpy
         lacks)."""
-        np_dt = _NP_OF_TORCH.get(self._data.dtype)
-        return np.dtype(np_dt) if np_dt is not None else self._data.dtype
+        np_dt = _NP_OF_TORCH.get(self._t.dtype)
+        return np.dtype(np_dt) if np_dt is not None else self._t.dtype
 
     @property
     def size(self):
-        return int(self._data.numel())
+        return int(self._t.numel())
 
     @property
     def ndim(self):
-        return self._data.dim()
+        return self._t.dim()
 
     @property
     def context(self) -> Context:
@@ -461,6 +511,7 @@ class NDArray:
         key = self._index(key)
         if isinstance(value, NDArray):
             value = value._data
+        self._before_write()
         with torch.no_grad():
             if isinstance(key, slice) and key == slice(None) \
                     and not isinstance(value, torch.Tensor):
@@ -468,6 +519,8 @@ class NDArray:
             else:
                 self._data[key] = torch.as_tensor(
                     value, dtype=self._data.dtype, device=self._data.device)
+        if self._home is not None and self._t is self._home:
+            count_write(self._home)
 
     # ------------------------------------------------------------ repr
     def __repr__(self):

@@ -41,12 +41,15 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
     "counter", "gauge", "histogram", "enable", "disable", "enabled",
     "reset", "snapshot", "dump_prometheus", "chrome_counter_events",
-    "sample_memory",
+    "sample_memory", "grad_norm_enabled", "publish_grad_norm",
 ]
 
 # fast-path switch read by every instrumentation site (module attribute
 # load + branch — the whole disabled-path cost)
 _ENABLED = env_truthy("MXNET_RUNTIME_METRICS", False)
+# the per-step gradient norm reads the gradients (a host sync), so it is
+# switched on apart from the cheap counters
+_GRAD_NORM = env_truthy("MXNET_RUNTIME_METRICS_GRAD_NORM", False)
 
 
 def enable():
@@ -62,6 +65,10 @@ def disable():
 
 def enabled() -> bool:
     return _ENABLED
+
+
+def grad_norm_enabled() -> bool:
+    return _GRAD_NORM
 
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
@@ -837,6 +844,10 @@ TRAINER_STEP_SECONDS = histogram(
     "trainer.step.seconds",
     "Wall-clock time of one optimizer step (an attributed "
     "ShardedTrainer.step, device-synchronised).")
+TRAINER_GRAD_NORM = gauge(
+    "trainer.grad_norm",
+    "Global L2 gradient norm after the last gluon.Trainer.step "
+    "(MXNET_RUNTIME_METRICS_GRAD_NORM=1 to publish it).")
 TRAIN_RESTARTS = counter(
     "train.restarts",
     "TrainingSupervisor restore+restart cycles after a transient "
@@ -879,6 +890,23 @@ TRAIN_BOTTLENECK = gauge(
     "comm_bound (collective dominates).  A non-compute verdict "
     "requires its phases to reach the StepAttribution threshold "
     "(default 25%) of windowed wall time.")
+
+
+def publish_grad_norm(grads) -> Optional[float]:
+    """The global L2 norm of an iterable of gradient NDArrays, summed in
+    float64 on their device and read with one host sync, into the
+    ``trainer.grad_norm`` gauge; returns it (None for no gradient)."""
+    import torch
+    total = None
+    for g in grads:
+        t = g._data.detach().to(torch.float64)
+        sq = torch.sum(t * t)
+        total = sq if total is None else total + sq.to(total.device)
+    if total is None:
+        return None
+    norm = math.sqrt(float(total))
+    TRAINER_GRAD_NORM.set(norm)
+    return norm
 
 
 # ---------------------------------------------------------------------------

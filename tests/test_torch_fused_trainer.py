@@ -447,27 +447,39 @@ class TestFusedHybridStep:
         assert o.num_update == num_update_before
         assert autograd.peek_pending() is None
 
-    def test_broken_fusion_raises_and_counts_advance_by_zero(self):
-        net, blk = self._build(25)
-        tr = gluon.Trainer(net.collect_params(), "adam",
-                           {"learning_rate": 1e-2})
-        x, y = self._data(4)
-        with autograd.record():
-            loss = blk(x, y)
-        loss.backward()
-        tr.step(8)
-        o = tr._optimizer
-        counts1 = dict(o._index_update_count)
-        inst = blk._cached_op._cache[next(iter(blk._cached_op._cache))].rec[0]
-        for entry in inst.fused[tr].values():
-            entry.failed = RuntimeError("capture failed")
-        for _ in range(2):
-            with autograd.record():
-                loss = blk(x, y)
-            loss.backward()
-            with pytest.raises(KernelError, match="capture failed"):
+    def test_broken_fusion_raises_and_counts_advance_by_zero(
+            self, monkeypatch):
+        """Both fused entries of a hybridized step: the backward + update
+        (``MXNET_DEFERRED_HYBRID_FWD=0``) and the full step."""
+        for knob in ("0", "1"):
+            monkeypatch.setenv("MXNET_DEFERRED_HYBRID_FWD", knob)
+            net, blk = self._build(25)
+            tr = gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-2})
+            x, y = self._data(4)
+            for _ in range(2):
+                with autograd.record():
+                    loss = blk(x, y)
+                loss.backward()
                 tr.step(8)
-            assert dict(o._index_update_count) == counts1
+            o = tr._optimizer
+            counts1 = dict(o._index_update_count)
+            inst = blk._cached_op._cache[
+                next(iter(blk._cached_op._cache))].rec[0]
+            assert any(k[0] == "full" for k in inst.fused[tr]) \
+                == (knob == "1")
+            for entry in inst.fused[tr].values():
+                entry.failed = RuntimeError("capture failed")
+            for _ in range(2):
+                with autograd.record():
+                    loss = blk(x, y)
+                loss.backward()
+                with pytest.raises(KernelError, match="capture failed"):
+                    tr.step(8)
+                assert dict(o._index_update_count) == counts1
+            if knob == "1":
+                with pytest.raises(KernelError, match="capture failed"):
+                    loss.asnumpy()
 
     def test_lr_change_and_frozen_param_through_fusion(self):
         mx.random.seed(26)

@@ -1,0 +1,332 @@
+"""PyTorch port, ``gluon.data`` (``mxnet_tpu_torch/gluon/data/``: the
+datasets, samplers, ``DataLoader``, ``vision.datasets`` and
+``vision.transforms``), and the slice as a whole: the training loop of
+``examples/mnist_gluon.py`` on both packages.
+
+Against the JAX package, bit for bit where the operation is exact: the
+synthetic MNIST, FashionMNIST and CIFAR10 sets; samplers and shuffled
+``DataLoader`` batches under one ``np.random.seed`` (each
+``last_batch``, tuple batchify, ``num_workers`` 0 and 2); each
+transform (the random ones under one ``np.random.seed``; ``Resize``'s
+linear interpolation sums in another order: 1e-4 of the range, and a
+uint8 result within 1 of the JAX package's truncation); the twin of
+``tests/test_io.py::test_mnist_dataset_real_file_branch``;
+``ImageFolderDataset`` over ``.npy`` files.  The mnist loop: 4 steps at
+batch 16 from the JAX LeNet's weights carried across by name, losses
+within rtol 1e-4 and equal accuracies.
+"""
+import gzip
+import struct
+
+import numpy as np
+import pytest
+
+import mxnet_tpu as jmx
+from mxnet_tpu import nd as jnd
+
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import gluon, nd
+from mxnet_tpu_torch.base import MXNetError
+
+T = gluon.data.vision.transforms
+JT = jmx.gluon.data.vision.transforms
+
+
+@pytest.fixture(autouse=True)
+def _on_the_host():
+    with mx.cpu(0):
+        yield
+
+
+def _np(x):
+    return x.asnumpy() if hasattr(x, "asnumpy") else np.asarray(x)
+
+
+def test_public_names_match_the_jax_package():
+    for ours, theirs in ((gluon.data, jmx.gluon.data),
+                         (gluon.data.vision, jmx.gluon.data.vision),
+                         (T, JT), (mx.metric, jmx.metric),
+                         (mx.recordio, jmx.recordio)):
+        assert set(theirs.__all__) <= set(ours.__all__), ours.__name__
+        for name in theirs.__all__:
+            assert hasattr(ours, name), (ours.__name__, name)
+
+
+@pytest.mark.parametrize("name,train", [("MNIST", True), ("MNIST", False),
+                                        ("FashionMNIST", True),
+                                        ("CIFAR10", False)])
+def test_synthetic_sets_equal_the_jax_package(tmp_path, name, train):
+    root = str(tmp_path / "absent")
+    ds = getattr(gluon.data.vision, name)(root=root, train=train)
+    jds = getattr(jmx.gluon.data.vision, name)(root=root, train=train)
+    assert ds.synthetic and jds.synthetic and len(ds) == len(jds)
+    np.testing.assert_array_equal(ds._data.asnumpy(), jds._data.asnumpy())
+    np.testing.assert_array_equal(ds._label, jds._label)
+    assert ds._data.context == mx.cpu(0)
+    img, lab = ds[5]
+    jimg, jlab = jds[5]
+    np.testing.assert_array_equal(img.asnumpy(), jimg.asnumpy())
+    assert img.dtype == np.uint8 and int(lab) == int(jlab)
+
+
+def test_mnist_dataset_real_file_branch(tmp_path):
+    rng = np.random.RandomState(1)
+    n = 16
+    images = rng.randint(0, 255, (n, 28, 28), np.uint8)
+    labels = rng.randint(0, 10, (n,)).astype(np.uint8)
+    root = tmp_path / "mnist"
+    root.mkdir()
+    with gzip.open(root / "train-images-idx3-ubyte.gz", "wb") as f:
+        f.write(struct.pack(">IIII", 0x803, n, 28, 28))
+        f.write(images.tobytes())
+    with gzip.open(root / "train-labels-idx1-ubyte.gz", "wb") as f:
+        f.write(struct.pack(">II", 0x801, n))
+        f.write(labels.tobytes())
+    ds = gluon.data.vision.MNIST(root=str(root), train=True)
+    assert not ds.synthetic
+    assert len(ds) == n
+    img, lab = ds[3]
+    assert img.shape == (28, 28, 1)
+    np.testing.assert_array_equal(img.asnumpy()[:, :, 0], images[3])
+    assert int(lab) == int(labels[3])
+
+
+def test_image_folder_dataset_over_npy(tmp_path):
+    rs = np.random.RandomState(2)
+    for cls in ("cat", "dog"):
+        (tmp_path / cls).mkdir()
+        for i in range(3):
+            np.save(tmp_path / cls / f"{i}.npy",
+                    rs.randint(0, 255, (5, 4, 3)).astype(np.uint8))
+    (tmp_path / "dog" / "photo.jpg").write_bytes(b"\xff\xd8")
+    ds = gluon.data.vision.ImageFolderDataset(str(tmp_path))
+    jds = jmx.gluon.data.vision.ImageFolderDataset(str(tmp_path))
+    assert ds.synsets == jds.synsets == ["cat", "dog"]
+    assert [lab for _p, lab in ds.items] == [lab for _p, lab in jds.items]
+    for i in range(6):
+        (img, lab), (jimg, jlab) = ds[i], jds[i]
+        np.testing.assert_array_equal(img.asnumpy(), jimg.asnumpy())
+        assert lab == jlab
+    with pytest.raises(MXNetError, match="image/"):
+        ds[len(ds) - 1 if ds.items[-1][0].endswith(".jpg") else 6]
+    ds2 = gluon.data.vision.ImageFolderDataset(
+        str(tmp_path), transform=lambda x, y: (x.astype("float32"), y + 1))
+    assert ds2[0][1] == 1 and ds2[0][0].dtype == np.float32
+
+
+def test_datasets_transform_take_filter():
+    data = [np.float32(i) for i in range(10)]
+    for pkg in (gluon, jmx.gluon):
+        ds = pkg.data.SimpleDataset(data)
+        assert [float(v) for v in ds.transform(lambda x: x * 2)] == \
+            [2.0 * i for i in range(10)]
+        assert len(ds.take(3)) == 3 and len(ds.filter(lambda x: x > 6)) == 3
+        arr = pkg.data.ArrayDataset(np.arange(10), np.arange(10) * 3)
+        t = arr.transform_first(lambda x: x + 1, lazy=False)
+        assert t[4] == (5, 12)
+    with pytest.raises(MXNetError):
+        gluon.data.ArrayDataset(np.arange(3), np.arange(4))
+
+
+@pytest.mark.parametrize("last_batch", ["keep", "discard", "rollover"])
+def test_samplers_match_the_jax_package(last_batch):
+    got = []
+    for data in (gluon.data, jmx.gluon.data):
+        np.random.seed(3)
+        bs = data.BatchSampler(data.RandomSampler(23), 5, last_batch)
+        epochs = [list(bs) for _ in range(2)]
+        got.append((epochs, len(bs)))
+        seq = list(data.SequentialSampler(4, start=2))
+        got.append(seq)
+    assert got[0] == got[2] and got[1] == got[3] == [2, 3, 4, 5]
+
+
+def _loader_batches(pkg, ds, n=None, **kw):
+    np.random.seed(11)
+    loader = pkg.gluon.data.DataLoader(ds, **kw)
+    out = []
+    with loader:
+        for i, b in enumerate(loader):
+            if n is not None and i == n:
+                break
+            out.append([_np(f) for f in b] if isinstance(b, list)
+                       else _np(b))
+    return out, len(loader)
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+@pytest.mark.parametrize("last_batch", ["keep", "discard", "rollover"])
+def test_dataloader_batches_match_the_jax_package(workers, last_batch):
+    rs = np.random.RandomState(4)
+    x = rs.rand(19, 3, 2).astype(np.float32)
+    y = rs.randint(0, 4, 19).astype(np.int64)
+    got = []
+    for pkg in (mx, jmx):
+        ds = pkg.gluon.data.ArrayDataset(x, y)
+        got.append(_loader_batches(pkg, ds, batch_size=4, shuffle=True,
+                                   last_batch=last_batch,
+                                   num_workers=workers))
+    (ours, n), (theirs, jn) = got
+    assert n == jn and len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        for fa, fb in zip(a, b):
+            assert fa.dtype == fb.dtype
+            np.testing.assert_array_equal(fa, fb)
+
+
+def test_mnist_loader_batches_match_the_jax_package(tmp_path):
+    root = str(tmp_path / "absent")
+    got = []
+    for pkg in (mx, jmx):
+        ds = pkg.gluon.data.vision.MNIST(root=root, train=False)
+        got.append(_loader_batches(pkg, ds, n=3, batch_size=16,
+                                   shuffle=True)[0])
+    for a, b in zip(*got):
+        assert a[0].dtype == b[0].dtype == np.uint8
+        assert a[1].dtype == b[1].dtype == np.int32
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_batchify_of_plain_values_and_custom_batchify():
+    samples = [(np.float64(i), [i, i + 1]) for i in range(4)]
+    ours = gluon.data.default_batchify_fn(samples)
+    theirs = jmx.gluon.data.default_batchify_fn(samples)
+    for a, b in zip(ours, theirs):
+        assert _np(a).dtype == _np(b).dtype
+        np.testing.assert_array_equal(_np(a), _np(b))
+    loader = gluon.data.DataLoader(gluon.data.SimpleDataset(list(range(6))),
+                                   batch_size=4, batchify_fn=sum)
+    assert list(loader) == [6, 9]
+    with pytest.raises(MXNetError):
+        gluon.data.DataLoader(gluon.data.SimpleDataset([1]))
+
+
+def test_batches_land_on_the_current_context():
+    ds = gluon.data.ArrayDataset(np.zeros((4, 2), np.float32))
+    with mx.cpu(1):
+        batch = next(iter(gluon.data.DataLoader(ds, batch_size=2)))
+    assert batch.context == mx.cpu(1)
+
+
+def _image(seed, shape=(12, 10, 3), dtype=np.uint8):
+    rs = np.random.RandomState(seed)
+    return rs.randint(0, 256, shape).astype(dtype)
+
+
+TRANSFORMS = [
+    ("Cast", lambda t: t.Cast("float16"), 0),
+    ("ToTensor", lambda t: t.ToTensor(), 0),
+    ("Normalize", lambda t: t.Compose([t.ToTensor(), t.Normalize(
+        (0.4, 0.5, 0.6), (0.2, 0.3, 0.25))]), 1e-6),
+    ("CenterCrop", lambda t: t.CenterCrop((6, 4)), 0),
+    ("RandomCrop", lambda t: t.RandomCrop(5, pad=2), 0),
+    ("RandomFlipLeftRight", lambda t: t.RandomFlipLeftRight(), 0),
+    ("RandomFlipTopBottom", lambda t: t.RandomFlipTopBottom(), 0),
+    ("RandomBrightness", lambda t: t.RandomBrightness(0.3), 1),
+    ("RandomContrast", lambda t: t.RandomContrast(0.3), 1),
+    ("RandomSaturation", lambda t: t.RandomSaturation(0.3), 1),
+    ("RandomLighting", lambda t: t.RandomLighting(0.5), 1),
+]
+
+
+@pytest.mark.parametrize("name,make,atol", TRANSFORMS,
+                         ids=[c[0] for c in TRANSFORMS])
+def test_transform_matches_the_jax_package(name, make, atol):
+    for seed in range(3):
+        img = _image(seed)
+        outs = []
+        for tmod, ndm in ((T, nd), (JT, jnd)):
+            np.random.seed(seed)
+            fn = make(tmod)
+            outs.append(_np(fn(ndm.array(img, dtype="uint8"))))
+        assert outs[0].dtype == outs[1].dtype and \
+            outs[0].shape == outs[1].shape
+        np.testing.assert_allclose(outs[0].astype(np.float64),
+                                   outs[1].astype(np.float64), rtol=0,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("size,interp", [((5, 7), 1), ((17, 20), 1),
+                                         ((6, 15), 0), (8, 1)])
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_resize_matches_the_jax_package(size, interp, dtype):
+    img = _image(5, dtype=dtype)
+    if dtype == np.float32:
+        img = img / np.float32(7.0)
+    outs = []
+    for tmod, ndm in ((T, nd), (JT, jnd)):
+        fn = tmod.Resize(size, interpolation=interp)
+        outs.append(_np(fn(ndm.array(img, dtype=np.dtype(dtype).name))))
+    assert outs[0].shape == outs[1].shape and outs[0].dtype == outs[1].dtype
+    atol = 1.0 if dtype == np.uint8 and interp else 1e-4 * 255
+    np.testing.assert_allclose(outs[0].astype(np.float64),
+                               outs[1].astype(np.float64), rtol=0, atol=atol)
+
+
+def test_random_resized_crop_and_keep_ratio_match_the_jax_package():
+    img = _image(6, (16, 12, 3)).astype(np.float32)
+    for make in (lambda t: t.RandomResizedCrop(8),
+                 lambda t: t.Resize(6, keep_ratio=True)):
+        outs = []
+        for tmod, ndm in ((T, nd), (JT, jnd)):
+            np.random.seed(9)
+            outs.append(_np(make(tmod)(ndm.array(img))))
+        assert outs[0].shape == outs[1].shape
+        np.testing.assert_allclose(outs[0], outs[1], rtol=0, atol=1e-4 * 255)
+
+
+# ---------------------------------------------------------------------------
+# the slice as a whole: examples/mnist_gluon.py's loop
+# ---------------------------------------------------------------------------
+def _lenet(pkg):
+    nnm = pkg.gluon.nn
+    net = nnm.HybridSequential()
+    net.add(nnm.Conv2D(20, 5, activation="relu"), nnm.MaxPool2D(2, 2),
+            nnm.Conv2D(50, 5, activation="relu"), nnm.MaxPool2D(2, 2),
+            nnm.Dense(500, activation="relu"), nnm.Dense(10))
+    return net
+
+
+def _mnist_loop(pkg, net, steps, batch_size):
+    train = pkg.gluon.data.vision.MNIST(root="/nonexistent/mnist",
+                                        train=True)
+    np.random.seed(42)
+    loader = pkg.gluon.data.DataLoader(train, batch_size=batch_size,
+                                       shuffle=True)
+    net.hybridize(static_alloc=True)
+    trainer = pkg.gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 1e-3})
+    loss_fn = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = pkg.metric.Accuracy()
+    losses = []
+    for i, (x, y) in enumerate(loader):
+        if i == steps:
+            break
+        x = x.astype("float32").transpose((0, 3, 1, 2)) / 255.0
+        with pkg.autograd.record():
+            out = net(x)
+            loss = loss_fn(out, y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        metric.update(y, out)
+        losses.append(loss.asnumpy().mean())
+    return losses, metric.get()
+
+
+def test_mnist_gluon_loop_matches_the_jax_package():
+    jnet, net = _lenet(jmx), _lenet(mx)
+    jmx.random.seed(42)
+    jnet.initialize(jmx.init.Xavier())
+    net.initialize(mx.init.Xavier())
+    probe = np.zeros((1, 1, 28, 28), np.float32)
+    jnet(jnd.array(probe))
+    net(nd.array(probe))
+    theirs = jnet._collect_params_with_prefix()
+    for name, p in net._collect_params_with_prefix().items():
+        p.set_data(nd.array(theirs[name].data().asnumpy()))
+    (lo, acc), (jlo, jacc) = (_mnist_loop(mx, net, 4, 16),
+                              _mnist_loop(jmx, jnet, 4, 16))
+    assert len(lo) == 4 and all(np.isfinite(lo))
+    np.testing.assert_allclose(lo, jlo, rtol=1e-4)
+    assert acc == jacc

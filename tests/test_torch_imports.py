@@ -1,7 +1,8 @@
 """PyTorch port, package boundary: no module of ``mxnet_tpu_torch`` and
 not ``chip_smoke.py`` imports ``jax`` or the JAX package (an AST scan of
 every import statement), ``import mxnet_tpu_torch`` (which brings in
-``nd``, ``autograd``, ``gluon`` and ``kvstore``) loads neither and
+``nd``, ``autograd``, ``gluon`` with ``gluon.data``, ``kvstore``,
+``metric`` and ``recordio``) loads neither and
 builds no kernel, the adapter's and the multi-rank entry points'
 default device refuses to fall back to the CPU, and the kernel build
 reports a missing ``nvcc`` as :class:`MXNetError`.
@@ -61,7 +62,13 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "gluon/cached_op.py",
                    "gluon/utils.py", "gluon/trainer.py",
                    "gluon/nn/basic_layers.py", "gluon/nn/conv_layers.py",
-                   "kvstore/base.py", "kvstore/kvstore.py"):
+                   "kvstore/base.py", "kvstore/kvstore.py",
+                   "gluon/data/__init__.py", "gluon/data/dataset.py",
+                   "gluon/data/sampler.py", "gluon/data/dataloader.py",
+                   "gluon/data/vision/__init__.py",
+                   "gluon/data/vision/datasets.py",
+                   "gluon/data/vision/transforms.py", "metric.py",
+                   "recordio.py"):
         assert f"mxnet_tpu_torch/{module}" in scanned, module
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
@@ -86,6 +93,8 @@ def test_package_import_loads_no_jax_and_builds_no_kernel():
     code = ("import sys\n"
             "import mxnet_tpu_torch as mx\n"
             "from mxnet_tpu_torch import nd, autograd, gluon, kvstore\n"
+            "from mxnet_tpu_torch import metric, recordio\n"
+            "from mxnet_tpu_torch.gluon.data import vision\n"
             "from mxnet_tpu_torch.ops import build\n"
             "assert not build._LIBS, build._LIBS\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
