@@ -374,7 +374,25 @@ Then the Gluon training path (``nd``, ``autograd``, ``gluon``,
    first 8 batches bit for bit; seconds an epoch and the step's split
    (``next(loader)``, forward / backward / step, ``metric.update``);
    and what ``NDArray._data``'s lazy check costs an eager LeNet step
-   (reads a step times the property's cost over a slot read).
+   (reads a step times the property's cost over a slot read);
+24. ``gluon_ssd`` — ``examples/ssd_detection.py``'s loop at its
+   published settings (module comment above ``GLUON_SSD``): TinySSD,
+   batch 32, 150 Adam iterations through ``MultiBoxPrior``,
+   ``MultiBoxTarget`` and ``smooth_l1``, then 64 images through
+   ``MultiBoxDetection``: the example's mIoU above 0.4, losses finite
+   and falling, the first 3 within ``GLUON_LENET_RTOL`` of the host run,
+   the hybridized forward within 1e-5 of eager with ``MultiBoxPrior``
+   inside its graph (not called by a replay); ms an iteration split into
+   forward, ``MultiBoxTarget``, loss, backward and step, and the
+   evaluation's forward and ``MultiBoxDetection`` ms;
+25. ``ops_card`` — every op of the op library's 160-name long tail, on the
+   card against the port's CPU over ``_ops_card_specs``' seeded inputs
+   (module comment above ``OPS_CARD_NEW``: forward bit for bit for
+   integer and quantized outputs, fp32 rtol 1e-5 / atol 1e-6,
+   decompositions 1e-4 of max, gradients 1e-4 of max), the samplers'
+   moments on the card, a captured sampler drawing anew at each replay,
+   ``boolean_mask`` refusing capture, and the ``RNN`` op at
+   ``examples/word_language_model.py``'s widths.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
@@ -7032,6 +7050,826 @@ def phase_gluon_mnist(torch):
           f"gluon_mnist: the pinned loader's batches differ ({pinned_ctx})")
 
 
+# --------------------------------------------------------------- gluon_ssd
+# examples/ssd_detection.py's loop through the port at its published
+# settings: TinySSD (32x32 inputs, one 8x8 scale, K = 4 anchors a cell,
+# so N = 256), batch 32, 150 iterations, Adam lr 5e-3, Xavier after
+# mx.random.seed(0), RandomState(0) data, MultiBoxTarget with hard
+# negatives (ratio 3) under autograd.pause, SoftmaxCrossEntropyLoss +
+# smooth_l1; then 64 images through nd.softmax and
+# MultiBoxDetection(nms_threshold=0.45), scored by the example's mIoU of
+# each image's top detection.  The weights are drawn on the host and
+# loaded on the card, so the host run starts from them too.
+GLUON_SSD = dict(img=32, classes=2, batch=32, iters=150, lr=5e-3,
+                 eval_images=64, nms_threshold=0.45, host_steps=3)
+# the example's own bar (its assert)
+GLUON_SSD_MIN_MIOU = 0.4
+# the hybridized TinySSD forward against the eager one, of each output's
+# max|value|
+GLUON_SSD_HYBRID_TOL = 1e-5
+
+
+def _ssd_batch(mx, rng, n):
+    """``synth_batch`` of examples/ssd_detection.py: images with one
+    square, label rows [cls, xmin, ymin, xmax, ymax] (numpy)."""
+    img = GLUON_SSD["img"]
+    imgs = np.zeros((n, 1, img, img), np.float32)
+    labels = np.zeros((n, 1, 5), np.float32)
+    for i in range(n):
+        size = rng.randint(8, 16)
+        x0 = rng.randint(0, img - size)
+        y0 = rng.randint(0, img - size)
+        cls = rng.randint(0, GLUON_SSD["classes"])
+        imgs[i, 0, y0:y0 + size, x0:x0 + size] = 0.4 if cls == 0 else 0.9
+        labels[i, 0] = [cls, x0 / img, y0 / img, (x0 + size) / img,
+                        (y0 + size) / img]
+    return imgs, labels
+
+
+def _tiny_ssd(mx):
+    """examples/ssd_detection.py's TinySSD on the port."""
+    nn = mx.gluon.nn
+    n_cls = GLUON_SSD["classes"]
+
+    class TinySSD(mx.gluon.HybridBlock):
+        SIZES = (0.3, 0.45)
+        RATIOS = (1.0, 2.0, 0.5)
+        K = len(SIZES) + len(RATIOS) - 1
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.backbone = nn.HybridSequential()
+                self.backbone.add(
+                    nn.Conv2D(16, 3, padding=1, activation="relu"),
+                    nn.MaxPool2D(2, 2),
+                    nn.Conv2D(32, 3, padding=1, activation="relu"),
+                    nn.MaxPool2D(2, 2),
+                    nn.Conv2D(64, 3, padding=1, activation="relu"))
+                self.cls_head = nn.Conv2D(self.K * (n_cls + 1), 3,
+                                          padding=1)
+                self.box_head = nn.Conv2D(self.K * 4, 3, padding=1)
+
+        def hybrid_forward(self, F, x):
+            feat = self.backbone(x)
+            anchors = F.MultiBoxPrior(feat, sizes=self.SIZES,
+                                      ratios=self.RATIOS)
+            cls = self.cls_head(feat)
+            box = self.box_head(feat)
+            B = cls.shape[0]
+            cls = cls.transpose((0, 2, 3, 1)).reshape(
+                (B, -1, n_cls + 1)).transpose((0, 2, 1))
+            box = box.transpose((0, 2, 3, 1)).reshape((B, -1))
+            return anchors, cls, box
+
+    return TinySSD()
+
+
+def _ssd_weights(mx, path):
+    """TinySSD's weights from seed 0 (Xavier, drawn on the host), saved."""
+    mx.random.seed(0)
+    with mx.cpu(0):
+        net = _tiny_ssd(mx)
+        net.initialize(mx.init.Xavier())
+        img = GLUON_SSD["img"]
+        net(mx.nd.zeros((1, 1, img, img)))
+        net.save_parameters(path)
+
+
+def _ssd_step(mx, net, trainer, ce, imgs, labels, marks=None):
+    """One iteration of the example's loop; returns (loss, cls_l, box_l).
+    ``marks(tag)`` is called after the forward, MultiBoxTarget, the loss,
+    the backward and the step."""
+    nd, n_cls = mx.nd, GLUON_SSD["classes"]
+    mark = marks or (lambda tag: None)
+    with mx.autograd.record():
+        anchors, cls_pred, box_pred = net(imgs)
+        mark("forward")
+        with mx.autograd.pause():
+            box_t, box_m, cls_t = nd.MultiBoxTarget(
+                anchors, labels, cls_pred, negative_mining_ratio=3.0)
+        mark("multibox_target")
+        cls_l = ce(cls_pred.transpose((0, 2, 1)).reshape((-1, n_cls + 1)),
+                   cls_t.reshape((-1,)))
+        w = (cls_t.reshape((-1,)) >= 0)
+        cls_l = (cls_l * w).sum() / w.sum()
+        box_l = (nd.smooth_l1(box_pred - box_t) * box_m).sum() \
+            / box_m.sum().clip(1.0, None)
+        loss = cls_l + box_l
+        mark("loss")
+    loss.backward()
+    mark("backward")
+    trainer.step(imgs.shape[0])
+    mark("step")
+    return loss, cls_l, box_l
+
+
+def _ssd_eval(mx, net, imgs, labels, marks=None):
+    """The example's evaluation: (mIoU, class accuracy) of each image's
+    best-scoring detection."""
+    nd = mx.nd
+    anchors, cls_pred, box_pred = net(imgs)
+    cls_prob = nd.softmax(cls_pred, axis=1)
+    if marks:
+        marks("forward")
+    dets = nd.MultiBoxDetection(cls_prob, box_pred, anchors,
+                                nms_threshold=GLUON_SSD["nms_threshold"])
+    if marks:
+        marks("multibox_detection")
+    dets = dets.asnumpy()
+    ious, hits = [], []
+    for top, gt in zip(dets[:, 0], labels[:, 0]):
+        bx, gx = top[2:], gt[1:]
+        ix = max(0.0, min(bx[2], gx[2]) - max(bx[0], gx[0]))
+        iy = max(0.0, min(bx[3], gx[3]) - max(bx[1], gx[1]))
+        inter = ix * iy
+        union = ((bx[2] - bx[0]) * (bx[3] - bx[1])
+                 + (gx[2] - gx[0]) * (gx[3] - gx[1]) - inter)
+        ious.append(inter / max(union, 1e-9))
+        hits.append(float(top[0] == gt[0]))
+    return float(np.mean(ious)), float(np.mean(hits))
+
+
+class _Marks:
+    """Host ms between consecutive ``mark`` calls, the card synchronised
+    at each (so each part's ms holds its device work)."""
+
+    def __init__(self, torch):
+        self.torch, self.ms = torch, collections.defaultdict(list)
+        self.start()
+
+    def start(self):
+        self.torch.cuda.synchronize()
+        self.t = time.perf_counter()
+
+    def __call__(self, tag):
+        self.torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.ms[tag].append((now - self.t) * 1e3)
+        self.t = now
+
+    def median(self):
+        return {k: float(np.median(v)) for k, v in self.ms.items()}
+
+
+def phase_gluon_ssd(torch):
+    """``gluon_ssd``: examples/ssd_detection.py's training loop and
+    evaluation on the card (module comment above ``GLUON_SSD``), its
+    first iterations against the host from the same weights and batches,
+    and the hybridized TinySSD forward (MultiBoxPrior inside its CUDA
+    graph) against the eager one."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+    cfg = GLUON_SSD
+    tmp = tempfile.mkdtemp(prefix="mxnet-gluon-ssd-")
+    try:
+        path = os.path.join(tmp, "ssd.npz")
+        _ssd_weights(mx, path)
+        rng = np.random.RandomState(0)
+        batches = [_ssd_batch(mx, rng, cfg["batch"])
+                   for _ in range(cfg["iters"])]
+        eval_imgs, eval_labels = _ssd_batch(mx, rng, cfg["eval_images"])
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        with mx.gpu(0):
+            net = _tiny_ssd(mx)
+            net.load_parameters(path)
+            trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                       {"learning_rate": cfg["lr"]})
+            marks = _Marks(torch)
+            t0 = time.perf_counter()
+            losses = []
+            for imgs, labels in batches:
+                marks.start()
+                loss, _c, _b = _ssd_step(
+                    mx, net, trainer, ce, mx.nd.array(imgs),
+                    mx.nd.array(labels), marks)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            losses = [float(v.asscalar()) for v in losses]
+            train_split = marks.median()
+            emarks = _Marks(torch)
+            miou, acc = _ssd_eval(mx, net, mx.nd.array(eval_imgs),
+                                  eval_labels, emarks)
+            eval_split = emarks.median()
+            # the hybridized forward against the eager one, same weights
+            x = mx.nd.array(eval_imgs)
+            eager = [o.asnumpy() for o in net(x)]
+            net.hybridize()
+            prior = registry.get_op("MultiBoxPrior")
+            calls, fn = [0], prior.fn
+
+            def counted(*a, **k):
+                calls[0] += 1
+                return fn(*a, **k)
+
+            prior.fn = counted
+            try:
+                net(x)                    # eager warm-up, then capture
+                before = calls[0]
+                hybrid = [o.asnumpy() for o in net(x)]
+                replay_calls = calls[0] - before
+            finally:
+                prior.fn = fn
+            stats = net._cached_op.stats()
+            hyb_err = [float(np.abs(h - e).max() / max(np.abs(e).max(),
+                                                       1e-30))
+                       for h, e in zip(hybrid, eager)]
+            devices = sorted({str(p.data().data_torch.device)
+                              for p in net.collect_params().values()})
+            del net, trainer
+        with mx.cpu(0):
+            host = _tiny_ssd(mx)
+            host.load_parameters(path)
+            htrainer = mx.gluon.Trainer(host.collect_params(), "adam",
+                                        {"learning_rate": cfg["lr"]})
+            host_losses = [float(_ssd_step(
+                mx, host, htrainer, ce, mx.nd.array(imgs),
+                mx.nd.array(labels))[0].asscalar())
+                for imgs, labels in batches[:cfg["host_steps"]]]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free(torch)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, host_losses)]
+    head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    emit("gluon_ssd", example="examples/ssd_detection.py",
+         model="TinySSD", anchors=256, batch=cfg["batch"],
+         iters=cfg["iters"], optimizer="adam", lr=cfg["lr"],
+         dtype="float32", devices=devices, train_seconds=train_s,
+         iter_ms_split=train_split,
+         iter_ms=float(sum(train_split.values())),
+         eval_images=cfg["eval_images"], eval_ms_split=eval_split,
+         mean_iou=miou, class_accuracy=acc,
+         first_losses=losses[:5], last_losses=losses[-5:],
+         mean_loss_first10=head, mean_loss_last10=tail,
+         host_losses=host_losses, loss_rel_err=rel,
+         loss_rtol=GLUON_LENET_RTOL, hybrid_rel_err=hyb_err,
+         hybrid_programs=stats["programs"],
+         hybrid_replays=stats["replays"],
+         multibox_prior_calls_in_replay=replay_calls)
+    check(all(d.startswith("cuda") for d in devices),
+          f"gluon_ssd: weights on {devices}")
+    check(all(np.isfinite(losses)) and tail < head,
+          f"gluon_ssd: losses {head} -> {tail}")
+    check(all(e <= t for e, t in zip(rel, GLUON_LENET_RTOL)),
+          f"gluon_ssd: card vs host losses {rel}, want {GLUON_LENET_RTOL}")
+    check(miou > GLUON_SSD_MIN_MIOU,
+          f"gluon_ssd: the detector did not localize (mIoU {miou})")
+    check(all(e <= GLUON_SSD_HYBRID_TOL for e in hyb_err),
+          f"gluon_ssd: hybridized vs eager forward {hyb_err}")
+    check(stats["programs"] == 1 and stats["replays"] >= 1
+          and replay_calls == 0,
+          f"gluon_ssd: the hybridized forward did not replay one graph "
+          f"holding MultiBoxPrior ({stats}, {replay_calls} calls)")
+
+
+# ---------------------------------------------------------------- ops_card
+# Every op of the op library's long tail (160 names), on the card and on
+# the port's CPU over the same seeded inputs (the table below: the card
+# has no JAX, so the CPU port, held to the JAX package by
+# tests/test_torch_op_sweep.py, is the reference here).  Forward: integer, index and quantized outputs
+# bit for bit; float32 (TF32 off) within rtol 1e-5, atol 1e-6; the
+# decompositions within 1e-4 of the output's max (syevd's eigenvector
+# rows up to sign).  Differentiable ops: the gradient of
+# sum_i sum(out_i * cot_i) with respect to the float inputs within 1e-4
+# of the host gradient's max.  The samplers by their moments on the
+# card; the RNN op at examples/word_language_model.py's widths.
+OPS_CARD_NEW = 160             # names of the long tail (Custom waits)
+OPS_CARD_RTOL, OPS_CARD_ATOL = 1e-5, 1e-6
+OPS_CARD_FACTOR_TOL = 1e-4     # of the output's max
+OPS_CARD_GRAD_TOL = 1e-4       # of the host gradient's max
+OPS_CARD_FACTORS = ("_linalg_gelqf", "_linalg_syevd", "_linalg_potrf",
+                    "_linalg_potri", "_linalg_inverse", "_linalg_det",
+                    "_linalg_slogdet")
+# examples/word_language_model.py: embed 64, hidden 128, 2 LSTM layers,
+# batch 16, bptt 20
+OPS_CARD_RNN = dict(T=20, N=16, I=64, H=128, layers=2)
+OPS_CARD_DRAWS = 200000
+
+
+def _r32(r, *s):
+    return r.randn(*s).astype(np.float32)
+
+
+def _pos32(r, *s):
+    return (np.abs(r.randn(*s)) + 0.3).astype(np.float32)
+
+
+def _i8(r, *s):
+    return np.clip(r.randn(*s) * 50, -127, 127).astype(np.int8)
+
+
+def _spd32(r, n, batch=()):
+    m = r.randn(*batch, n, n)
+    return (m @ np.swapaxes(m, -1, -2) + n * np.eye(n)).astype(np.float32)
+
+
+def _mm():
+    return [np.array([-1.0], np.float32), np.array([1.0], np.float32)]
+
+
+def _ssd_label(r, B, M):
+    lab = np.zeros((B, M, 5), np.float32)
+    for b in range(B):
+        for m in range(M):
+            x0, y0 = r.uniform(0, 0.6, 2)
+            w, h = r.uniform(0.1, 0.4, 2)
+            lab[b, m] = [r.randint(0, 3) if m < M - 1 else -1, x0, y0,
+                         x0 + w, y0 + h]
+    return lab
+
+
+def _ops_card_specs():
+    """name -> (inputs(rng), kwargs, indices of the inputs to
+    differentiate or None for every float one)."""
+    N = 8 * 8 * 4
+    return {
+        # detection (SSD's shapes: 8x8 cells, 4 anchors, 3 classes)
+        "_contrib_MultiBoxPrior": (lambda r: [_r32(r, 2, 4, 8, 8)],
+                                   dict(sizes=(0.3, 0.45),
+                                        ratios=(1.0, 2.0, 0.5)), None),
+        "_contrib_MultiBoxTarget": (
+            lambda r: [np.sort(r.rand(1, N, 2, 2), axis=2).transpose(
+                0, 1, 3, 2).reshape(1, N, 4).astype(np.float32),
+                _ssd_label(r, 4, 3), r.rand(4, 3, N).astype(np.float32)],
+            dict(negative_mining_ratio=3.0), None),
+        "_contrib_MultiBoxDetection": (
+            lambda r: [r.dirichlet(np.ones(3), (4, N)).transpose(0, 2, 1)
+                       .astype(np.float32), _r32(r, 4, N * 4) * 0.5,
+                       np.sort(r.rand(1, N, 2, 2), axis=2).transpose(
+                           0, 1, 3, 2).reshape(1, N, 4).astype(np.float32)],
+            dict(nms_threshold=0.45), None),
+        # contrib
+        "_contrib_div_sqrt_dim": (lambda r: [_r32(r, 4, 8, 64)], {}, None),
+        "_contrib_interleaved_matmul_selfatt_qk": (
+            lambda r: [_r32(r, 16, 4, 4 * 3 * 32)], dict(heads=4), None),
+        "_contrib_interleaved_matmul_selfatt_valatt": (
+            lambda r: [_r32(r, 16, 4, 4 * 3 * 32), _pos32(r, 16, 16, 16)],
+            dict(heads=4), None),
+        "_contrib_interleaved_matmul_encdec_qk": (
+            lambda r: [_r32(r, 12, 4, 4 * 32), _r32(r, 16, 4, 4 * 2 * 32)],
+            dict(heads=4), None),
+        "_contrib_interleaved_matmul_encdec_valatt": (
+            lambda r: [_r32(r, 16, 4, 4 * 2 * 32), _pos32(r, 16, 12, 16)],
+            dict(heads=4), None),
+        "_contrib_AdaptiveAvgPooling2D": (
+            lambda r: [_r32(r, 2, 8, 14, 14)], dict(output_size=(5, 3)),
+            None),
+        "_contrib_BilinearResize2D": (
+            lambda r: [_r32(r, 2, 8, 12, 12)], dict(height=20, width=7,
+                                                    align_corners=False),
+            None),
+        "_contrib_ROIAlign": (
+            lambda r: [_r32(r, 2, 8, 16, 16),
+                       np.array([[0, 1.5, 2.0, 9.0, 12.5],
+                                 [1, 0.0, 0.0, 15.0, 15.0],
+                                 [0, 4.2, 3.3, 6.1, 11.0]], np.float32)],
+            dict(pooled_size=(4, 4), sample_ratio=2), [0]),
+        "_contrib_index_copy": (
+            lambda r: [_r32(r, 16, 8), np.array([3, 0, 11], np.float32),
+                       _r32(r, 3, 8)], {}, [0, 2]),
+        "_contrib_index_array": (lambda r: [_r32(r, 3, 4, 5)],
+                                 dict(axes=(0, 2)), None),
+        "smooth_l1": (lambda r: [_r32(r, 8, 64)], dict(scalar=1.0), None),
+        # tensor
+        "rcbrt": (lambda r: [_r32(r, 8, 64)], {}, None),
+        "gamma": (lambda r: [_pos32(r, 8, 64) * 3], {}, None),
+        "shape_array": (lambda r: [_r32(r, 3, 4, 5)], {}, None),
+        "size_array": (lambda r: [_r32(r, 3, 4, 5)], {}, None),
+        "make_loss": (lambda r: [_r32(r, 8, 16)], {}, None),
+        "_hypot_scalar": (lambda r: [_r32(r, 8, 16)], dict(scalar=1.5),
+                          None),
+        "_greater_scalar_rev": (lambda r: [_r32(r, 8, 16)],
+                                dict(scalar=0.25), None),
+        "nansum": (lambda r: [np.where(r.rand(8, 16) < 0.2, np.nan,
+                                       _r32(r, 8, 16)).astype(np.float32)],
+                   dict(axis=1), None),
+        "nanprod": (lambda r: [np.where(r.rand(8, 16) < 0.2, np.nan,
+                                        _pos32(r, 8, 16)).astype(
+                                            np.float32)],
+                    dict(axis=0), None),
+        "argmax_channel": (lambda r: [_r32(r, 8, 16)], {}, None),
+        "khatri_rao": (lambda r: [_r32(r, 4, 6), _r32(r, 5, 6),
+                                  _r32(r, 3, 6)], {}, None),
+        "depth_to_space": (lambda r: [_r32(r, 2, 16, 5, 5)],
+                           dict(block_size=2), None),
+        "space_to_depth": (lambda r: [_r32(r, 2, 4, 8, 8)],
+                           dict(block_size=2), None),
+        "diag": (lambda r: [_r32(r, 6, 7)], dict(k=1), None),
+        "gather_nd": (lambda r: [_r32(r, 6, 7, 3),
+                                 np.array([[0, 5, 2, 3], [1, 6, 0, 4]],
+                                          np.float32)], {}, [0]),
+        "scatter_nd": (lambda r: [_r32(r, 5, 3),
+                                  np.array([[0, 2, 2, 1, 0]], np.float32)],
+                       dict(shape=(4, 3)), [0]),
+        "sequence_mask": (lambda r: [_r32(r, 10, 4, 6),
+                                     np.array([3, 10, 1, 7], np.float32)],
+                          dict(use_sequence_length=True, value=-1.0), [0]),
+        "sequence_last": (lambda r: [_r32(r, 10, 4, 6),
+                                     np.array([3, 10, 1, 7], np.float32)],
+                          dict(use_sequence_length=True), [0]),
+        "sequence_reverse": (lambda r: [_r32(r, 10, 4, 6),
+                                        np.array([3, 10, 1, 7],
+                                                 np.float32)],
+                             dict(use_sequence_length=True), [0]),
+        "boolean_mask": (lambda r: [_r32(r, 12, 5),
+                                    (r.rand(12) > 0.5).astype(np.float32)],
+                         {}, None),
+        "_zeros": (lambda r: [], dict(shape=(3, 5)), None),
+        "_ones": (lambda r: [], dict(shape=(3, 5), dtype="int32"), None),
+        "_full": (lambda r: [], dict(shape=(3, 5), value=2.5), None),
+        "_arange": (lambda r: [], dict(start=1, stop=20, step=1.5,
+                                       repeat=2), None),
+        "_linspace": (lambda r: [], dict(start=-1, stop=3, num=17), None),
+        "_eye": (lambda r: [], dict(N=5, M=7, k=1), None),
+        "_contrib_arange_like": (lambda r: [_r32(r, 4, 6)],
+                                 dict(start=1.0, step=0.5), None),
+        "amp_cast": (lambda r: [_r32(r, 8, 16)], dict(dtype="float16"),
+                     None),
+        "amp_multicast": (lambda r: [_r32(r, 8, 16).astype(np.float16),
+                                     _r32(r, 16)], dict(num_outputs=2),
+                          None),
+        "all_finite": (lambda r: [_r32(r, 8, 16), _r32(r, 5)], {}, None),
+        "cumsum": (lambda r: [_r32(r, 8, 16)], dict(axis=1), None),
+        "cumprod": (lambda r: [_pos32(r, 4, 6)], {}, None),
+        "digamma": (lambda r: [_pos32(r, 8, 16) * 4], {}, None),
+        "unravel_index": (lambda r: [np.array([0, 5, 17, 59], np.float32)],
+                          dict(shape=(3, 4, 5)), None),
+        "split_v2": (lambda r: [_r32(r, 12, 6)],
+                     dict(indices_or_sections=(2, 7), axis=0), None),
+        "Crop": (lambda r: [_r32(r, 2, 3, 12, 12), _r32(r, 1, 1, 8, 6)],
+                 dict(center_crop=True, num_args=2), [0]),
+        # nn
+        "softmin": (lambda r: [_r32(r, 8, 16)], {}, None),
+        "SoftmaxActivation": (lambda r: [_r32(r, 4, 6, 5)],
+                              dict(mode="channel"), None),
+        "L2Normalization": (lambda r: [_r32(r, 4, 6, 5)], {}, None),
+        "LRN": (lambda r: [_r32(r, 2, 8, 6, 6)], dict(nsize=5), None),
+        "UpSampling": (lambda r: [_r32(r, 2, 4, 5, 5)],
+                       dict(scale=2, sample_type="bilinear", num_args=1),
+                       None),
+        "BilinearSampler": (lambda r: [_r32(r, 2, 4, 8, 8),
+                                       np.clip(_r32(r, 2, 2, 6, 6) * 0.6,
+                                               -0.99, 0.99)], {}, None),
+        "Correlation": (lambda r: [_r32(r, 2, 8, 12, 12),
+                                   _r32(r, 2, 8, 12, 12)],
+                        dict(kernel_size=3, max_displacement=2, stride1=1,
+                             stride2=1, pad_size=3), None),
+        "GridGenerator": (lambda r: [_r32(r, 2, 6)],
+                          dict(target_shape=(6, 7)), None),
+        "hard_sigmoid": (lambda r: [_r32(r, 8, 16) * 3], {}, None),
+        "im2col": (lambda r: [_r32(r, 2, 4, 9, 9)],
+                   dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1)), None),
+        "col2im": (lambda r: [_r32(r, 2, 36, 25)],
+                   dict(output_size=(9, 9), kernel=(3, 3), stride=(2, 2),
+                        pad=(1, 1)), None),
+        # a dyadic theta and grid (5 x 9 points on [-1, 1]): every
+        # grid coordinate is exact, so the comparison reads the sampler,
+        # not the last bit of linspace (XLA's and torch's round apart)
+        "SpatialTransformer": (
+            lambda r: [_r32(r, 2, 4, 9, 9),
+                       np.array([[0.875, 0.125, 0.0625, -0.125, 1.125,
+                                  0.0]] * 2, np.float32)],
+            dict(target_shape=(5, 9)), None),
+        "ROIPooling": (lambda r: [_r32(r, 2, 4, 12, 12),
+                                  np.array([[0, 1, 1, 8, 9],
+                                            [1, 0, 3, 11, 11]],
+                                           np.float32)],
+                       dict(pooled_size=(3, 3), spatial_scale=1.0), [0]),
+        "RNN": (lambda r: [_r32(r, 5, 3, 6) * 0.5,
+                           (r.rand(2 * (3 * 8 * 6 + 3 * 8 * 8 + 6 * 8)
+                                   + 2 * (3 * 8 * 16 + 3 * 8 * 8 + 6 * 8))
+                            - 0.5).astype(np.float32) * 0.5,
+                           _r32(r, 4, 3, 8) * 0.1],
+                dict(state_size=8, num_layers=2, mode="gru",
+                     bidirectional=True, state_outputs=True), None),
+        # linalg
+        "_linalg_gemm": (lambda r: [_r32(r, 3, 4, 5), _r32(r, 3, 6, 5),
+                                    _r32(r, 3, 4, 6)],
+                         dict(transpose_b=True, alpha=0.5, beta=2.0), None),
+        "_linalg_gemm2": (lambda r: [_r32(r, 3, 5, 4), _r32(r, 3, 5, 6)],
+                          dict(transpose_a=True), None),
+        "_linalg_potrf": (lambda r: [_spd32(r, 6, (2,))], {}, None),
+        "_linalg_potri": (lambda r: [np.linalg.cholesky(
+            _spd32(r, 6, (2,))).astype(np.float32)], {}, None),
+        "_linalg_trsm": (lambda r: [np.tril(_spd32(r, 5)), _r32(r, 4, 5)],
+                         dict(rightside=True, alpha=2.0), None),
+        "_linalg_trmm": (lambda r: [np.tril(_spd32(r, 5)), _r32(r, 5, 4)],
+                         dict(transpose=True), None),
+        "_linalg_syrk": (lambda r: [_r32(r, 2, 4, 6)], dict(alpha=0.5),
+                         None),
+        "_linalg_sumlogdiag": (lambda r: [_spd32(r, 5, (2,))], {}, None),
+        "_linalg_extractdiag": (lambda r: [_r32(r, 2, 5, 5)],
+                                dict(offset=-1), None),
+        "_linalg_makediag": (lambda r: [_r32(r, 2, 5)], dict(offset=1),
+                             None),
+        "_linalg_det": (lambda r: [_spd32(r, 5, (2,))], {}, None),
+        "_linalg_slogdet": (lambda r: [_r32(r, 2, 5, 5)], {}, None),
+        "_linalg_inverse": (lambda r: [_spd32(r, 5, (2,))], {}, None),
+        "_linalg_gelqf": (lambda r: [_r32(r, 4, 7)], {}, None),
+        "_linalg_syevd": (lambda r: [_spd32(r, 6)], {}, None),
+        # quantization (int32 / int8 outputs bit for bit)
+        "_contrib_quantize": (lambda r: [_r32(r, 8, 32)] + _mm(), {}, None),
+        "_contrib_quantize_v2": (lambda r: [_r32(r, 8, 32)], {}, None),
+        "_contrib_dequantize": (lambda r: [_i8(r, 8, 32)] + _mm(), {},
+                                None),
+        "_contrib_requantize": (
+            lambda r: [(r.randn(8, 32) * 1e6).astype(np.int32)] + _mm(),
+            {}, None),
+        "_contrib_quantized_fully_connected": (
+            lambda r: [_i8(r, 16, 512), _i8(r, 64, 512),
+                       _i8(r, 64)] + _mm() * 3,
+            dict(num_hidden=64), None),
+        "_contrib_quantized_conv": (
+            lambda r: [_i8(r, 2, 16, 12, 12), _i8(r, 32, 16, 3, 3),
+                       _i8(r, 32)] + _mm() * 3,
+            dict(kernel=(3, 3), pad=(1, 1), num_filter=32), None),
+        "_contrib_quantized_pooling": (
+            lambda r: [_i8(r, 2, 4, 9, 9)] + _mm(),
+            dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                 pool_type="avg"), None),
+        "_contrib_quantized_flatten": (lambda r: [_i8(r, 2, 3, 4)] + _mm(),
+                                       {}, None),
+        "_contrib_quantized_act": (lambda r: [_i8(r, 8, 16)] + _mm(), {},
+                                   None),
+        # MoE, LARS
+        "_contrib_moe_top1_dispatch": (lambda r: [_r32(r, 32, 4)],
+                                       dict(capacity_factor=1.5), None),
+        "_contrib_moe_ffn": (
+            lambda r: [_r32(r, 2, 16, 8), _r32(r, 8, 4),
+                       _r32(r, 4, 8, 16) * 0.3, _r32(r, 4, 16) * 0.1,
+                       _r32(r, 4, 16, 8) * 0.3, _r32(r, 4, 8) * 0.1],
+            {}, None),
+        "_contrib_multi_lars": (lambda r: [_pos32(r, 6), _pos32(r, 6),
+                                           _pos32(r, 6), _pos32(r, 6) * 0.1],
+                                dict(eta=0.01), None),
+    }
+
+
+# samplers: kwargs of a draw of OPS_CARD_DRAWS on the card, and its mean
+# and variance (zipfian's from its formula)
+def _ops_card_samplers():
+    zipf = np.floor(np.exp(np.linspace(0, 1, 2000001)[:-1] * np.log(50)))
+    zipf = np.clip(zipf - 1, 0, 49)
+    return {
+        "_random_uniform": (dict(low=-1.0, high=3.0), 1.0, 16 / 12),
+        "_random_normal": (dict(loc=0.5, scale=2.0), 0.5, 4.0),
+        "_random_gamma": (dict(alpha=2.5, beta=1.5), 3.75, 5.625),
+        "_random_exponential": (dict(lam=2.0), 0.5, 0.25),
+        "_random_poisson": (dict(lam=3.5), 3.5, 3.5),
+        "_random_randint": (dict(low=-3, high=7), 1.5, 99 / 12),
+        "_random_negative_binomial": (dict(k=3, p=0.4), 4.5, 11.25),
+        "_sample_unique_zipfian": (dict(range_max=50), float(zipf.mean()),
+                                   float(zipf.var())),
+    }
+
+
+# samplers checked by their own draws in phase_ops_card
+OPS_CARD_OTHER_SAMPLERS = ("_sample_multinomial", "_shuffle",
+                           "sample_uniform", "sample_normal")
+
+
+def _ops_card_names(registry):
+    """Every registered name (aliases too) whose op the phase runs."""
+    ops = set(_ops_card_specs()) | set(_ops_card_samplers()) \
+        | set(OPS_CARD_OTHER_SAMPLERS)
+    return [n for n in registry.list_ops() if registry.get_op(n).name in ops]
+
+
+def _ops_card_run(torch, mx, name, arrays, kwargs, wrt, dev, cots=None):
+    """``name``'s registered function on ``dev``: (outputs as host
+    numpy, gradients of sum(out_i * cot_i) w.r.t. ``wrt`` as host numpy
+    or None, the cotangents)."""
+    from mxnet_tpu_torch.ops import registry
+    op = registry.get_op(name)
+    ctx = mx.gpu(0) if dev.type == "cuda" else mx.cpu(0)
+    ts = [torch.tensor(a, device=dev) for a in arrays]
+    if wrt is None:
+        wrt = [i for i, a in enumerate(arrays)
+               if np.issubdtype(a.dtype, np.floating)]
+    diff = op.differentiable and bool(wrt)
+    for i in wrt if diff else ():
+        ts[i].requires_grad_(True)
+    with ctx, torch.enable_grad():
+        outs = op.fn(*ts, **kwargs)
+        outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+        grads = None
+        floats = [i for i, o in enumerate(outs) if o.is_floating_point()
+                  and o.requires_grad]
+        if diff and floats:
+            if cots is None:
+                r = np.random.RandomState(len(name))
+                cots = {i: np.asarray(r.randn(*outs[i].shape), np.float32)
+                        for i in floats}
+            scalar = sum((outs[i].float() * torch.tensor(
+                cots[i], device=dev)).sum() for i in floats)
+            got = torch.autograd.grad(scalar, [ts[i] for i in wrt],
+                                      allow_unused=True)
+            grads = [np.zeros(arrays[i].shape, np.float32) if g is None
+                     else g.detach().cpu().numpy()
+                     for i, g in zip(wrt, got)]
+    return [o.detach().cpu().numpy() for o in outs], grads, cots
+
+
+def _ops_card_err(name, i, got, want):
+    """(error, limit) of one output on the card against the host."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf"), 0.0
+    if not np.issubdtype(want.dtype, np.floating):
+        return float(np.count_nonzero(got != want)), 0.0
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    if name in OPS_CARD_FACTORS:
+        if name == "_linalg_syevd" and i == 0:
+            s = np.sign(np.sum(g * w, axis=-1, keepdims=True))
+            g = g * np.where(s == 0, 1, s)
+        return float(np.abs(g - w).max()), \
+            OPS_CARD_FACTOR_TOL * float(np.abs(w).max())
+    # the worst element's excess over rtol |want| + atol, as a ratio
+    lim = OPS_CARD_ATOL + OPS_CARD_RTOL * np.abs(w)
+    diff = np.where(np.isnan(w) & np.isnan(g), 0.0, np.abs(g - w))
+    return float((diff / lim).max()) if g.size else 0.0, 1.0
+
+
+def _ops_card_capture(torch, mx, dev):
+    """A sampler captured in a CUDA graph draws anew at every replay,
+    and boolean_mask refuses to be captured."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops import registry
+    out = {}
+    stream = torch.cuda.Stream()
+    for name, kwargs in (("_random_normal", dict(shape=(4096,))),
+                         ("_sample_multinomial", {})):
+        fn = registry.get_op(name).fn
+        probs = torch.tensor([[0.1, 0.2, 0.3, 0.4]] * 4096, device=dev)
+        args = [probs] if name == "_sample_multinomial" else []
+        g = torch.cuda.CUDAGraph()
+        with mx.gpu(0):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                fn(*args, **kwargs)             # warm-up
+                torch.cuda.synchronize()
+                with torch.cuda.graph(g, stream=stream):
+                    static = fn(*args, **kwargs)
+            torch.cuda.current_stream().wait_stream(stream)
+        g.replay()
+        a = static.clone()
+        g.replay()
+        b = static.clone()
+        torch.cuda.synchronize()
+        out[name] = dict(differ=bool((a != b).any()),
+                         mean=float(b.float().mean()))
+    mask_err = None
+    g = torch.cuda.CUDAGraph()
+    data = torch.ones(8, 3, device=dev)
+    index = torch.ones(8, device=dev)
+    try:
+        with torch.cuda.stream(stream):
+            with torch.cuda.graph(g, stream=stream):
+                mx.nd.boolean_mask(mx.nd.NDArray._wrap(data),
+                                   mx.nd.NDArray._wrap(index))
+    except MXNetError as e:
+        mask_err = str(e)
+    except Exception as e:              # the graph rejected the sync
+        mask_err = f"{type(e).__name__}: {e}"
+    torch.cuda.synchronize()
+    out["boolean_mask_under_capture"] = mask_err
+    return out
+
+
+def phase_ops_card(torch, dev):
+    """``ops_card``: every op of the long tail on the card against
+    the port's CPU (module comment above ``OPS_CARD_NEW``), the samplers'
+    moments on the card, a captured sampler replayed twice, boolean_mask
+    under capture, and the RNN op at the word language model's widths."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+    t0 = time.perf_counter()
+    host = torch.device("cpu")
+    specs = _ops_card_specs()
+    samplers = _ops_card_samplers()
+    covered = _ops_card_names(registry)
+    failures, worst = [], {}
+    for name, (make, kwargs, wrt) in sorted(specs.items()):
+        arrays = make(np.random.RandomState(len(name) * 7 + 1))
+        want, want_g, cots = _ops_card_run(torch, mx, name, arrays, kwargs,
+                                           wrt, host)
+        got, got_g, _ = _ops_card_run(torch, mx, name, arrays, kwargs, wrt,
+                                      dev, cots)
+        if name == "_linalg_syevd":
+            # eigenvector rows come with either sign: the card's gradient
+            # is taken against the cotangent flipped with its rows
+            flip = np.sign(np.sum(got[0] * want[0], axis=-1, keepdims=True))
+            got, got_g, _ = _ops_card_run(
+                torch, mx, name, arrays, kwargs, wrt, dev,
+                {**cots, 0: (cots[0] * np.where(flip == 0, 1, flip))
+                 .astype(np.float32)})
+        errs = [_ops_card_err(name, i, g, w)
+                for i, (g, w) in enumerate(zip(got, want))]
+        if len(got) != len(want):
+            errs.append((float("inf"), 0.0))
+        if want_g is not None:
+            for g, w in zip(got_g or [], want_g):
+                errs.append((float(np.abs(g - w).max()),
+                             OPS_CARD_GRAD_TOL * float(np.abs(w).max())))
+        worst[name] = max(e / lim if lim else (0.0 if e == 0 else np.inf)
+                          for e, lim in errs)
+        if worst[name] > 1.0:
+            failures.append((name, errs))
+    moments = {}
+    for name, (kwargs, mean, var) in samplers.items():
+        with mx.gpu(0):
+            x = registry.get_op(name).fn(shape=(OPS_CARD_DRAWS,), **kwargs)
+        x = x.double()
+        m, v = float(x.mean()), float(x.var())
+        se = np.sqrt(var / OPS_CARD_DRAWS)
+        moments[name] = dict(device=str(x.device), mean=m, want_mean=mean,
+                             var=v, want_var=var,
+                             mean_z=abs(m - mean) / se)
+    probs = torch.tensor([[0.1, 0.2, 0.3, 0.4]], device=dev)
+    draws = registry.get_op("_sample_multinomial").fn(
+        probs, shape=(OPS_CARD_DRAWS,))
+    freq = torch.bincount(draws.reshape(-1).long(), minlength=4).double() \
+        / OPS_CARD_DRAWS
+    moments["_sample_multinomial"] = dict(
+        device=str(draws.device), freq=freq.tolist(),
+        want=[0.1, 0.2, 0.3, 0.4])
+    rows = torch.arange(1000, device=dev, dtype=torch.float32)
+    perm = registry.get_op("_shuffle").fn(rows)
+    shuffle_ok = bool((torch.sort(perm).values == rows).all()) \
+        and float((perm != rows).float().mean()) > 0.9
+    lo = torch.full((1,), -1.0, device=dev)
+    u = registry.get_op("sample_uniform").fn(lo, lo + 3.0,
+                                             shape=(OPS_CARD_DRAWS,))
+    z = registry.get_op("sample_normal").fn(lo + 2.0, lo + 1.5,
+                                            shape=(OPS_CARD_DRAWS,))
+    moments["sample_uniform"] = dict(mean=float(u.mean()), want_mean=0.5,
+                                     min=float(u.min()), max=float(u.max()))
+    moments["sample_normal"] = dict(mean=float(z.mean()), want_mean=1.0,
+                                    std=float(z.std()), want_std=0.5)
+    captured = _ops_card_capture(torch, mx, dev)
+    # the RNN op at the word language model's widths
+    cfg = OPS_CARD_RNN
+    r = np.random.RandomState(11)
+    I, H, L = cfg["I"], cfg["H"], cfg["layers"]
+    n_params = sum(4 * H * (I if l == 0 else H) + 4 * H * H + 8 * H
+                   for l in range(L))
+    arrays = [r.randn(cfg["T"], cfg["N"], I).astype(np.float32) * 0.5,
+              (r.rand(n_params).astype(np.float32) - 0.5) * 0.2,
+              r.randn(L, cfg["N"], H).astype(np.float32) * 0.1,
+              r.randn(L, cfg["N"], H).astype(np.float32) * 0.1]
+    kw = dict(state_size=H, num_layers=L, mode="lstm", state_outputs=True)
+    want, want_g, cots = _ops_card_run(torch, mx, "RNN", arrays, kw, [1],
+                                       host)
+    t_rnn = time.perf_counter()
+    got, got_g, _ = _ops_card_run(torch, mx, "RNN", arrays, kw, [1], dev,
+                                  cots)
+    rnn_ms = (time.perf_counter() - t_rnn) * 1e3
+    rnn_err = max(_ops_card_err("RNN", i, g, w)[0]
+                  for i, (g, w) in enumerate(zip(got, want)))
+    rnn_grad_err = float(np.abs(got_g[0] - want_g[0]).max()
+                         / np.abs(want_g[0]).max())
+    seconds = time.perf_counter() - t0
+    emit("ops_card", names=len(covered),
+         ops=len(specs) + len(samplers) + len(OPS_CARD_OTHER_SAMPLERS),
+         worst_err_over_limit=worst, failures=[f[0] for f in failures],
+         failure_errors={f[0]: f[1] for f in failures},
+         samplers=moments, shuffle_permutes=shuffle_ok, captured=captured,
+         rnn=dict(**cfg, params=n_params, max_err_over_limit=rnn_err,
+                  param_grad_rel_err=rnn_grad_err,
+                  card_ms_with_host=rnn_ms),
+         seconds=seconds)
+    check(len(covered) == OPS_CARD_NEW,
+          f"ops_card: the table covers {len(covered)} names, "
+          f"want {OPS_CARD_NEW}")
+    check(not failures, f"ops_card: card vs host beyond the limits: "
+          f"{[(n, e) for n, e in failures]}")
+    for name, mo in moments.items():
+        if "mean_z" in mo:
+            check(mo["device"].startswith("cuda") and mo["mean_z"] < 5
+                  and abs(mo["var"] - mo["want_var"]) < 0.05 * mo["want_var"],
+                  f"ops_card: {name}'s moments on the card {mo}")
+    check(np.abs(np.array(moments["_sample_multinomial"]["freq"])
+                 - np.array([0.1, 0.2, 0.3, 0.4])).max() < 0.01,
+          f"ops_card: multinomial frequencies {moments['_sample_multinomial']}")
+    check(shuffle_ok, "ops_card: _shuffle did not permute the rows")
+    check(abs(moments["sample_uniform"]["mean"] - 0.5) < 0.02
+          and moments["sample_uniform"]["min"] >= -1.0
+          and moments["sample_uniform"]["max"] < 2.0
+          and abs(moments["sample_normal"]["mean"] - 1.0) < 0.01
+          and abs(moments["sample_normal"]["std"] - 0.5) < 0.01,
+          f"ops_card: per-element samplers {moments['sample_uniform']} "
+          f"{moments['sample_normal']}")
+    check(all(captured[n]["differ"] for n in ("_random_normal",
+                                              "_sample_multinomial")),
+          f"ops_card: a captured sampler replayed the same draw {captured}")
+    check(captured["boolean_mask_under_capture"] is not None
+          and "boolean_mask" in captured["boolean_mask_under_capture"],
+          f"ops_card: boolean_mask under capture: {captured}")
+    check(rnn_err <= 1.0 and rnn_grad_err <= OPS_CARD_GRAD_TOL,
+          f"ops_card: the RNN op at word-LM widths, forward "
+          f"{rnn_err} of the limit, parameter gradient {rnn_grad_err}")
+
+
 def _sig_stats_rows(stats):
     return [{k: s[k] for k in ("inputs", "training", "instances",
                                "capture_s", "pool_bytes")}
@@ -7124,6 +7962,8 @@ def main():
     gluon_dist_launches = phase_gluon_dist(torch)
     gluon_hybrid = phase_gluon_hybrid(torch)
     phase_gluon_mnist(torch)
+    phase_gluon_ssd(torch)
+    phase_ops_card(torch, dev)
     phase_graphs(torch, dev, lm)
     replayed = phase_serve_trace(torch, lm)
     predict_traced = phase_predict_trace(torch, predict)

@@ -18,8 +18,14 @@ import torch
 from ..base import MXNetError
 from ..context import Context, current_context
 from ..ops import registry as _reg
+from .. import random as _random_ops  # noqa: F401  the sampling ops
+from ..ops import contrib as _contrib_ops  # noqa: F401
+from ..ops import detection as _detection_ops  # noqa: F401
+from ..ops import linalg as _linalg_ops  # noqa: F401
+from ..ops import moe as _moe_ops  # noqa: F401
 from ..ops import nn as _nn_ops  # noqa: F401  registers the nn ops
 from ..ops import optimizer_ops as _opt_ops  # noqa: F401
+from ..ops import quantization as _quant_ops  # noqa: F401
 from ..ops import tensor as _tensor_ops  # noqa: F401
 from .ndarray import NDArray, dtype_name, to_torch_dtype
 

@@ -2,6 +2,9 @@
 
 Draws come from the default generator of the context's device, which
 ``mx.random.seed`` seeds; they cannot equal the JAX package's draws.
+``gamma``, ``exponential``, ``poisson``, ``negative_binomial``,
+``multinomial`` and ``shuffle`` run the registered sampling ops
+(``mxnet_tpu_torch.random``).
 """
 from __future__ import annotations
 
@@ -10,7 +13,8 @@ import torch
 from ..context import current_context
 from .ndarray import NDArray, to_torch_dtype
 
-__all__ = ["uniform", "normal", "randint", "randn"]
+__all__ = ["uniform", "normal", "randint", "randn", "gamma", "exponential",
+           "poisson", "negative_binomial", "multinomial", "shuffle"]
 
 
 def _shape(shape):
@@ -44,3 +48,44 @@ def randint(low, high, shape=None, dtype="int32", ctx=None, out=None):
 
 def randn(*shape, loc=0.0, scale=1.0, dtype="float32", ctx=None):
     return normal(loc, scale, shape, dtype, ctx)
+
+
+def _sample(name, inputs, ctx, out, **kwargs):
+    from ..ops import registry
+    if not inputs:
+        kwargs["ctx"] = ctx or current_context()
+    return registry.invoke(registry.get_op(name), inputs, kwargs, out=out)
+
+
+def gamma(alpha=1.0, beta=1.0, shape=None, dtype="float32", ctx=None,
+          out=None):
+    return _sample("_random_gamma", [], ctx, out, alpha=float(alpha),
+                   beta=float(beta), shape=shape, dtype=dtype)
+
+
+def exponential(scale=1.0, shape=None, dtype="float32", ctx=None, out=None):
+    """Exponential draws of mean ``scale`` (rate 1/scale)."""
+    return _sample("_random_exponential", [], ctx, out,
+                   lam=1.0 / float(scale), shape=shape, dtype=dtype)
+
+
+def poisson(lam=1.0, shape=None, dtype="float32", ctx=None, out=None):
+    return _sample("_random_poisson", [], ctx, out, lam=float(lam),
+                   shape=shape, dtype=dtype)
+
+
+def negative_binomial(k=1, p=1.0, shape=None, dtype="float32", ctx=None,
+                      out=None):
+    return _sample("_random_negative_binomial", [], ctx, out, k=int(k),
+                   p=float(p), shape=shape, dtype=dtype)
+
+
+def multinomial(data, shape=None, get_prob=False, dtype="int32", out=None):
+    """Category draws from the probability rows of ``data``."""
+    return _sample("_sample_multinomial", [data], None, out, shape=shape,
+                   get_prob=get_prob, dtype=dtype)
+
+
+def shuffle(data, out=None):
+    """The rows of ``data`` in a random order."""
+    return _sample("_shuffle", [data], None, out)

@@ -23,7 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import autograd
+from .contrib import resize_linear
 from .registry import register
+from .tensor import linspace
 
 
 def _act(data, act_type):
@@ -284,7 +286,7 @@ def GroupNorm(data, gamma, beta, *, num_groups: int = 1, eps: float = 1e-5):
     return x * gamma.reshape(shape) + beta.reshape(shape)
 
 
-@register("Dropout")
+@register("Dropout", mutates_rng=True)
 def Dropout(data, *, p: float = 0.5, mode: str = "training", axes=(),
             cudnn_off: bool = False):
     """Dropout, scaled by 1/(1-p), drawn from the default generator of
@@ -395,3 +397,316 @@ def ragged_paged_attention_op(q, k_pages, v_pages, block_tables,
     return ragged_paged_attention(q, k_pages, v_pages,
                                   block_tables.to(torch.int32),
                                   context_lens.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the reference's nn ops (the long tail of ``mxnet_tpu.ops.nn``)
+# ---------------------------------------------------------------------------
+@register("softmin")
+def softmin(data, *, axis: int = -1, temperature=None, dtype=None):
+    """softmax(-data); ``temperature`` and ``dtype`` are accepted and
+    ignored, as by the JAX op."""
+    return torch.softmax(-data, dim=axis)
+
+
+@register("SoftmaxActivation")
+def SoftmaxActivation(data, *, mode: str = "instance"):
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
+        data.shape)
+
+
+@register("L2Normalization")
+def L2Normalization(data, *, eps: float = 1e-10, mode: str = "instance"):
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    else:
+        red = tuple(range(2, data.dim()))
+    return data / torch.sqrt(torch.square(data).sum(dim=red, keepdim=True)
+                             + eps)
+
+
+@register("LRN")
+def LRN(data, *, alpha: float = 1e-4, beta: float = 0.75,
+        knorm: float = 2.0, nsize: int = 5):
+    """Local response normalisation across channels."""
+    half = nsize // 2
+    sq = F.pad(torch.square(data).movedim(1, -1), (half, half)).movedim(
+        -1, 1)
+    windows = sum(sq[:, i:i + data.shape[1]] for i in range(nsize))
+    return data / torch.pow(knorm + alpha * windows / nsize, beta)
+
+
+@register("hard_sigmoid")
+def hard_sigmoid(data, *, alpha: float = 0.2, beta: float = 0.5):
+    return torch.clamp(alpha * data + beta, 0.0, 1.0)
+
+
+@register("UpSampling", num_inputs=None)
+def UpSampling(*data, scale: int = 1, sample_type: str = "nearest",
+               num_args: int = 1, num_filter: int = 0,
+               multi_input_mode: str = "concat", workspace: int = 512):
+    """Nearest (repeat) or bilinear (``jax.image``'s linear resize, see
+    ``ops.contrib.resize_linear``) upsampling; several inputs are
+    concatenated on the channels."""
+    outs = []
+    for d in data:
+        if sample_type == "nearest":
+            outs.append(torch.repeat_interleave(
+                torch.repeat_interleave(d, scale, dim=2), scale, dim=3))
+        else:
+            outs.append(resize_linear(d, d.shape[2] * scale,
+                                      d.shape[3] * scale))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+@register("BilinearSampler", num_inputs=2)
+def BilinearSampler(data, grid, *, cudnn_off: bool = False):
+    """Bilinear samples of (N, C, H, W) data at grid (N, 2, Ho, Wo) [x; y]
+    in [-1, 1], edges clamped."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1) * (w - 1) / 2
+    gy = (grid[:, 1] + 1) * (h - 1) / 2
+    x0 = torch.floor(gx).to(torch.int64)
+    y0 = torch.floor(gy).to(torch.int64)
+    wx, wy = gx - x0, gy - y0
+    flat = data.reshape(n, c, h * w)
+
+    def gather(yy, xx):
+        lin = (torch.clamp(yy, 0, h - 1) * w + torch.clamp(xx, 0, w - 1)) \
+            .reshape(n, 1, -1)
+        return torch.gather(flat, 2, lin.expand(n, c, lin.shape[-1])) \
+            .reshape((n, c) + tuple(gx.shape[1:]))
+
+    return (gather(y0, x0) * ((1 - wx) * (1 - wy))[:, None]
+            + gather(y0, x0 + 1) * (wx * (1 - wy))[:, None]
+            + gather(y0 + 1, x0) * ((1 - wx) * wy)[:, None]
+            + gather(y0 + 1, x0 + 1) * (wx * wy)[:, None])
+
+
+@register("GridGenerator")
+def GridGenerator(data, *, transform_type: str = "affine", target_shape=()):
+    """Affine sampling grid (N, 2, h, w) from theta (N, 6)."""
+    h, w = target_shape
+    ys = linspace(-1.0, 1.0, h, device=data.device)
+    xs = linspace(-1.0, 1.0, w, device=data.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    base = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                        torch.ones_like(gx).reshape(-1)], dim=0)
+    out = torch.matmul(data.reshape(-1, 2, 3), base)
+    return out.reshape(-1, 2, h, w)
+
+
+@register("SpatialTransformer", num_inputs=2)
+def SpatialTransformer(data, loc, *, target_shape=(),
+                       transform_type: str = "affine",
+                       sampler_type: str = "bilinear",
+                       cudnn_off: bool = False):
+    """GridGenerator then BilinearSampler."""
+    return BilinearSampler(data, GridGenerator(
+        loc, transform_type=transform_type, target_shape=target_shape))
+
+
+@register("im2col")
+def im2col(data, *, kernel=(), stride=(1, 1), dilate=(1, 1), pad=(0, 0)):
+    """Sliding-window patches, NCHW -> (N, C*kh*kw, L)."""
+    return F.unfold(data, tuple(kernel), dilation=tuple(dilate),
+                    padding=tuple(pad), stride=tuple(stride))
+
+
+@register("col2im")
+def col2im(data, *, output_size=(), kernel=(), stride=(1, 1),
+           dilate=(1, 1), pad=(0, 0)):
+    """The adjoint of :func:`im2col`: patches summed back into NCHW."""
+    return F.fold(data, tuple(output_size), tuple(kernel),
+                  dilation=tuple(dilate), padding=tuple(pad),
+                  stride=tuple(stride))
+
+
+@register("ROIPooling", num_inputs=2)
+def ROIPooling(data, rois, *, pooled_size=(), spatial_scale: float = 1.0):
+    """Max over ROI bins, the JAX package's way: each bin sampled on a
+    static sub-grid dense enough (``ceil(H/ph)`` a side, at least 2)
+    that samples lie at most a pixel apart, then the nearest pixels'
+    max.  Not upstream's integer bins."""
+    ph, pw = pooled_size
+    _n, c, h, w = data.shape
+    R = rois.shape[0]
+    dev = data.device
+    batch_idx = rois[:, 0].to(torch.int64)
+    x1 = torch.round(rois[:, 1] * spatial_scale)
+    y1 = torch.round(rois[:, 2] * spatial_scale)
+    x2 = torch.round(rois[:, 3] * spatial_scale)
+    y2 = torch.round(rois[:, 4] * spatial_scale)
+    bin_h = torch.clamp(y2 - y1 + 1, min=1.0) / ph
+    bin_w = torch.clamp(x2 - x1 + 1, min=1.0) / pw
+    sgy = max(2, -(-h // ph))
+    sgx = max(2, -(-w // pw))
+    iy = (torch.arange(ph * sgy, device=dev) + 0.5) / sgy
+    ix = (torch.arange(pw * sgx, device=dev) + 0.5) / sgx
+    yi = torch.clamp(torch.floor(y1[:, None] + iy[None, :] * bin_h[:, None]),
+                     0, h - 1).to(torch.int64)
+    xi = torch.clamp(torch.floor(x1[:, None] + ix[None, :] * bin_w[:, None]),
+                     0, w - 1).to(torch.int64)
+    imgs = data[batch_idx]
+    rows = torch.gather(imgs, 2, yi[:, None, :, None].expand(
+        R, c, yi.shape[1], w))
+    vals = torch.gather(rows, 3, xi[:, None, None, :].expand(
+        R, c, yi.shape[1], xi.shape[1]))
+    return vals.reshape(R, c, ph, sgy, pw, sgx).amax(dim=(3, 5))
+
+
+@register("Correlation", num_inputs=2)
+def Correlation(data1, data2, *, kernel_size: int = 1,
+                max_displacement: int = 1, stride1: int = 1,
+                stride2: int = 1, pad_size: int = 0,
+                is_multiply: bool = True):
+    """FlowNet cost volume: one channel per displacement of the stride2
+    grid, each the channel- and window-summed product (or absolute
+    difference) of data1 with data2 shifted, over kernel_size^2 * C.
+    The shift is ``torch.roll`` (it wraps round, as the JAX op's
+    ``jnp.roll`` does), not a zero-padded shift."""
+    N, C, H, W = data1.shape
+    kr = (kernel_size - 1) // 2
+    border = max_displacement + kr
+    pH, pW = H + 2 * pad_size, W + 2 * pad_size
+    if pH - 2 * border < 1 or pW - 2 * border < 1:
+        raise ValueError(
+            f"Correlation: displacement border {border} "
+            f"(max_displacement + kernel radius) leaves no valid output "
+            f"for padded input {pH}x{pW}; increase pad_size or shrink "
+            f"max_displacement/kernel_size")
+    top_h = -(-(pH - 2 * border) // stride1)
+    top_w = -(-(pW - 2 * border) // stride1)
+    grid_r = max_displacement // stride2
+    sumelems = float(kernel_size * kernel_size * C)
+    pad = (pad_size,) * 4
+    p1 = F.pad(data1, pad)
+    p2 = F.pad(data2, pad)
+    start = border - kr
+    span_h = (top_h - 1) * stride1 + 1
+    span_w = (top_w - 1) * stride1 + 1
+    planes = []
+    for dy in range(-grid_r * stride2, grid_r * stride2 + 1, stride2):
+        for dx in range(-grid_r * stride2, grid_r * stride2 + 1, stride2):
+            shifted = torch.roll(p2, (-dy, -dx), dims=(2, 3))
+            prod = p1 * shifted if is_multiply else torch.abs(p1 - shifted)
+            s = prod.sum(dim=1)
+            if kernel_size > 1:
+                oh = s.shape[1] - kernel_size + 1
+                ow = s.shape[2] - kernel_size + 1
+                s = sum(s[:, i:i + oh, j:j + ow]
+                        for i in range(kernel_size)
+                        for j in range(kernel_size))
+            sub = s[:, start:start + span_h:stride1,
+                    start:start + span_w:stride1]
+            planes.append(sub / sumelems)
+    return torch.stack(planes, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# fused RNN: the flat cuDNN-layout parameter vector, a plain recurrence
+# over T
+# ---------------------------------------------------------------------------
+_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+
+
+def _rnn_nout(kwargs):
+    if not kwargs.get("state_outputs", False):
+        return 1
+    return 3 if kwargs.get("mode", "lstm") == "lstm" else 2
+
+
+def _unpack_rnn_params(params, mode, num_layers, input_size, H, D):
+    """Split the flat parameter vector: every i2h / h2h weight (layer
+    major, direction minor), then every bias pair in the same order."""
+    G = _GATES[mode]
+    weights, offset = [], 0
+    for layer in range(num_layers):
+        for _d in range(D):
+            in_sz = input_size if layer == 0 else H * D
+            for shape in ((G * H, in_sz), (G * H, H)):
+                n = shape[0] * shape[1]
+                weights.append(params[offset:offset + n].reshape(shape))
+                offset += n
+    biases = []
+    for _ in range(2 * num_layers * D):
+        biases.append(params[offset:offset + G * H])
+        offset += G * H
+    return weights, biases
+
+
+def _run_layer(x, mode, w_i2h, w_h2h, b_i2h, b_h2h, h, c, reverse):
+    """x (T, N, I) -> (T, N, H), h_T, c_T; gate orders: LSTM i, f, g, o;
+    GRU r, z, n with n = tanh(x_n + r * (W_hn h + b_hn))."""
+    xin = torch.flip(x, dims=(0,)) if reverse else x
+    gates_i = torch.matmul(xin, w_i2h.t()) + b_i2h
+    ys = []
+    for t in range(xin.shape[0]):
+        g_h = torch.matmul(h, w_h2h.t()) + b_h2h
+        if mode == "lstm":
+            i, f, g, o = torch.chunk(gates_i[t] + g_h, 4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+        elif mode == "gru":
+            ir, iz, inn = torch.chunk(gates_i[t], 3, dim=-1)
+            hr, hz, hn = torch.chunk(g_h, 3, dim=-1)
+            r = torch.sigmoid(ir + hr)
+            z = torch.sigmoid(iz + hz)
+            n = torch.tanh(inn + r * hn)
+            h = (1 - z) * n + z * h
+        elif mode == "rnn_tanh":
+            h = torch.tanh(gates_i[t] + g_h)
+        else:
+            h = torch.relu(gates_i[t] + g_h)
+        ys.append(h)
+    ys = torch.stack(ys)
+    if reverse:
+        ys = torch.flip(ys, dims=(0,))
+    return ys, h, c
+
+
+@register("RNN", num_inputs=lambda kw: 4 if kw.get("mode") == "lstm" else 3,
+          num_outputs=_rnn_nout, mutates_rng=True)
+def RNN(data, parameters, state, state_cell=None, *, state_size: int = 0,
+        num_layers: int = 1, mode: str = "lstm", bidirectional: bool = False,
+        p: float = 0.0, state_outputs: bool = False, projection_size=None,
+        use_sequence_length: bool = False, lstm_state_clip_min=None,
+        lstm_state_clip_max=None, lstm_state_clip_nan: bool = False):
+    """Fused multi-layer (bidirectional) LSTM / GRU / tanh / relu RNN over
+    TNC input with the flat cuDNN-layout parameter vector.  Dropout of
+    ``p`` between layers only in training, drawn from the default
+    generator of the data's device.  ``projection_size``,
+    ``use_sequence_length`` and the ``lstm_state_clip_*`` arguments are
+    accepted and ignored, as by the JAX op."""
+    _T, _N, I = data.shape
+    D = 2 if bidirectional else 1
+    weights, biases = _unpack_rnn_params(parameters, mode, num_layers, I,
+                                         state_size, D)
+    x = data
+    h_states, c_states = [], []
+    for layer in range(num_layers):
+        outs = []
+        for d in range(D):
+            li = layer * D + d
+            ys, h_T, c_T = _run_layer(
+                x, mode, weights[2 * li], weights[2 * li + 1],
+                biases[2 * li], biases[2 * li + 1], state[li],
+                state_cell[li] if mode == "lstm" else None, reverse=d == 1)
+            outs.append(ys)
+            h_states.append(h_T)
+            if mode == "lstm":
+                c_states.append(c_T)
+        x = outs[0] if D == 1 else torch.cat(outs, dim=-1)
+        if p > 0 and layer < num_layers - 1 and autograd.is_training():
+            keep = torch.rand(x.shape, device=x.device) < (1.0 - p)
+            x = torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    if not state_outputs:
+        return x
+    h_out = torch.stack(h_states, dim=0)
+    if mode == "lstm":
+        return x, h_out, torch.stack(c_states, dim=0)
+    return x, h_out

@@ -194,3 +194,16 @@ def signum_update(weight, grad, mom, *, lr: float = 0.01,
     g = _prep_grad(grad, rescale_grad, clip_gradient, wd, weight)
     mom_new = momentum * mom - (1 - momentum) * g
     return (1 - lr * wd_lh) * weight + lr * torch.sign(mom_new), mom_new
+
+
+@register("_contrib_multi_lars", num_inputs=4, aliases=["multi_lars"])
+def multi_lars(lrs, weights_sum_sq, grads_sum_sq, wds, *, eta: float = 0.001,
+               eps: float = 1e-8, rescale_grad: float = 1.0):
+    """LARS learning rates over stacked squared norms: lr * eta |w| /
+    (|g| + wd |w| + eps) where both norms are positive, else lr."""
+    w_norm = torch.sqrt(weights_sum_sq)
+    g_norm = torch.sqrt(grads_sum_sq) * rescale_grad
+    trust = torch.where((w_norm > 0) & (g_norm > 0),
+                        eta * w_norm / (g_norm + wds * w_norm + eps),
+                        torch.ones_like(w_norm))
+    return lrs * trust

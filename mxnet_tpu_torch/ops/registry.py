@@ -36,15 +36,18 @@ class OpDef:
     integer and comparison ops)."""
 
     __slots__ = ("name", "fn", "num_inputs", "num_outputs",
-                 "differentiable", "params", "open_schema", "aliases")
+                 "differentiable", "mutates_rng", "params", "open_schema",
+                 "aliases")
 
     def __init__(self, name: str, fn: Callable, num_inputs, num_outputs,
-                 differentiable: bool, schema: bool = False):
+                 differentiable: bool, schema: bool = False,
+                 mutates_rng: bool = False):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs
         self.num_outputs = num_outputs
         self.differentiable = differentiable
+        self.mutates_rng = mutates_rng
         self.aliases: List[str] = []
         self.params: Dict[str, inspect.Parameter] = {}
         self.open_schema = True
@@ -75,12 +78,15 @@ class OpDef:
 
 
 def register(name: str, num_inputs=1, num_outputs=1, differentiable=True,
-             aliases: Sequence[str] = ()):
-    """Decorator: register a tensor function as an operator."""
+             mutates_rng=False, aliases: Sequence[str] = ()):
+    """Decorator: register a tensor function as an operator.
+    ``mutates_rng`` marks a sampler: it draws from the default generator
+    of its output's device each time it runs (a CUDA graph replays it
+    with a fresh draw)."""
 
     def _decorator(fn):
         opdef = OpDef(name, fn, num_inputs, num_outputs, differentiable,
-                      schema=True)
+                      schema=True, mutates_rng=mutates_rng)
         _OPS[name] = opdef
         for a in aliases:
             opdef.aliases.append(a)
@@ -119,7 +125,7 @@ def _mark_leaves(tensors):
 def invoke(opdef: OpDef, inputs, kwargs: Dict[str, Any], out=None):
     """Run an op over NDArray inputs; returns NDArray(s)."""
     from ..autograd import flush_if_pending_grad, is_recording
-    from ..context import current_context
+    from ..context import context_of
     from ..ndarray import NDArray
     raw, ctx = [], None
     for a in inputs:
@@ -144,9 +150,9 @@ def invoke(opdef: OpDef, inputs, kwargs: Dict[str, Any], out=None):
     nout = opdef.n_outputs(kwargs)
     outs_raw = (result,) if nout == 1 and not isinstance(
         result, (tuple, list)) else tuple(result)
-    if ctx is None:
-        ctx = current_context()
-    outs = [NDArray._wrap(o, ctx) for o in outs_raw]
+    # an op without array inputs (a fill, a sampler) made its outputs on
+    # the device its ``ctx`` argument or the current context names
+    outs = [NDArray._wrap(o, ctx or context_of(o.device)) for o in outs_raw]
     if out is not None:
         out_list = [out] if isinstance(out, NDArray) else list(out)
         for dst, src in zip(out_list, outs):
