@@ -385,7 +385,23 @@ Then the Gluon training path (``nd``, ``autograd``, ``gluon``,
    inside its graph (not called by a replay); ms an iteration split into
    forward, ``MultiBoxTarget``, loss, backward and step, and the
    evaluation's forward and ``MultiBoxDetection`` ms;
-25. ``ops_card`` — every op of the op library's 160-name long tail, on the
+25. ``symbolic`` — the symbolic API (module comment above
+   ``SYMBOLIC_LENET``): ``examples/lenet_symbol.py``'s ``Module.fit`` at
+   its settings (the first 3 batches within ``GLUON_LENET_RTOL`` of the
+   host, accuracy at least the JAX package's less 0.02, 2 programs after
+   the first batch and 3 after ``score``); ``gluon_flash``'s encoder
+   layer composed over Symbols and trained 5 SGD steps through
+   ``Module`` (step 1's output and qkv gradient against the eager Gluon
+   step, every step against the host's Module; B1-B3 one wrapper launch
+   each in the first step, none after, one record each per traced step
+   inside the Executor's graphs; 2 programs); ``export`` /
+   ``SymbolBlock.imports`` of the hybridized LeNet, the layer's symbol
+   as a hybridized SymbolBlock (B1 in its CachedOp graph) and the JAX
+   package's symbol file ``tests/fixtures/jax_symbol_graph.json`` on the
+   card against the host; a ``BucketingModule`` of the layer over L
+   128 / 256 / 512 (one weight object per name, at most 6 programs,
+   B1-B3 at each L);
+26. ``ops_card`` — every op of the op library's 160-name long tail, on the
    card against the port's CPU over ``_ops_card_specs``' seeded inputs
    (module comment above ``OPS_CARD_NEW``: forward bit for bit for
    integer and quantized outputs, fp32 rtol 1e-5 / atol 1e-6,
@@ -426,7 +442,10 @@ apart) and ``traced_train_kernel_records`` over
 steps), and ``launches_gluon_flash``, ``launches_gluon_dist`` (rank
 0's), ``launches_gluon_hybrid`` and
 ``traced_gluon_hybrid_kernel_records`` (the lazy-forward run's) from
-the Gluon phases; B4 gives ``launches_gluon_nd`` (the
+the Gluon phases, and ``launches_symbolic`` (the encoder Module's
+first step), ``traced_symbolic_kernel_records`` (its traced replays)
+and ``launches_symbolic_bucketing`` (each bucket's first step) from
+``symbolic``; B4 gives ``launches_gluon_nd`` (the
 ``nd.ragged_paged_attention_op`` call)), the
 ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -5771,7 +5790,8 @@ def _encoder_layer(mx, units, heads, ffn):
     """One BERT-large-width encoder layer as a user HybridBlock (as
     ``tests/test_gluon.py::test_custom_hybrid_block`` writes one):
     qkv -> ``F.flash_selfatt`` -> proj, residual + LayerNorm, FFN with
-    GELU, residual + LayerNorm, and a two-way head on position 0."""
+    GELU, residual + LayerNorm, and a two-way head on position 0.  Its
+    ``hybrid_forward`` composes over Symbols as well (``symbolic``)."""
     nn = mx.gluon.nn
 
     class EncoderLayer(mx.gluon.HybridBlock):
@@ -5792,7 +5812,10 @@ def _encoder_layer(mx, units, heads, ffn):
             att = F.flash_selfatt(self.qkv(x), valid_length, heads=heads)
             h = self.ln1(x + self.proj(att))
             h = self.ln2(h + self.ffn2(self.gelu(self.ffn1(h))))
-            return self.head(h[0])
+            # position 0 (h[0] on arrays; written so that the layer also
+            # composes over Symbol inputs, where [0] picks an output)
+            return self.head(F.squeeze(F.slice_axis(h, axis=0, begin=0,
+                                                    end=1), axis=0))
 
     return EncoderLayer()
 
@@ -6867,9 +6890,15 @@ def phase_gluon_hybrid(torch):
     check(all("in place" in v for v in retained.values()),
           f"gluon_hybrid: a backward after the step that updated its "
           f"weights did not refuse: {retained}")
+    ht = enc_trace["hybrid"]
     return dict(launches=launches,
                 traced={k: v * GLUON_HYBRID["traced_steps"]
-                        for k, v in traced.items()})
+                        for k, v in traced.items()},
+                encoder=dict(ms_per_step=enc_sum["hybrid"]["ms_per_step"],
+                             **{k: ht[k] for k in (
+                                 "step_ms_host", "device_ms_per_step",
+                                 "device_idle_share",
+                                 "host_calls_per_step")}))
 
 
 # ------------------------------------------------------------- gluon_mnist
@@ -7321,6 +7350,508 @@ def phase_gluon_ssd(torch):
           and replay_calls == 0,
           f"gluon_ssd: the hybridized forward did not replay one graph "
           f"holding MultiBoxPrior ({stats}, {replay_calls} calls)")
+
+
+# ---------------------------------------------------------------- symbolic
+# The symbolic API of mxnet_tpu_torch (Symbol, shape inference, Executor,
+# Module, BucketingModule, SymbolBlock), fp32 with TF32 off:
+# - examples/lenet_symbol.py's Module.fit at its settings (2048 samples
+#   of 64 features from RandomState(0), batch 128, shuffled, 5 epochs,
+#   SGD lr 0.1, mx.random.seed(0)), its initial weights drawn by the
+#   module's default initializer on the host so that the card's first
+#   batches can be held against the same loop on the host (numpy's
+#   shuffle seeded 0 for both);
+# - gluon_flash's encoder layer at BERT-large widths composed over Symbol
+#   inputs data and valid_length, SoftmaxOutput on its head, trained 5
+#   SGD steps through Module (B1 inside the Executor's forward graph, B2
+#   and B3 inside its backward graph), against the layer's eager Gluon
+#   step on the card and the same Module on the host;
+# - HybridBlock.export / SymbolBlock.imports of gluon_mnist's LeNet, the
+#   layer's symbol as a hybridized SymbolBlock over the layer's own
+#   parameters, and the JAX package's symbol file of
+#   tests/test_torch_symbol.py's fixture graph on the card and the host;
+# - a BucketingModule of the layer over L 128 / 256 / 512.
+SYMBOLIC_LENET = dict(n=2048, features=64, classes=10, batch=128, epochs=5,
+                      lr=0.1, host_batches=3)
+# examples/lenet_symbol.py through the JAX package on the CPU reaches
+# accuracy 1.0 (its final score); the card must reach that less 0.02
+SYMBOLIC_LENET_MIN_ACCURACY = 1.0 - 0.02
+SYMBOLIC_ENCODER = dict(steps=5, lr=0.01, traced_steps=3)
+SYMBOLIC_BUCKETS = (128, 256, 512)
+SYMBOLIC_BUCKET_STEPS = 2
+# a SymbolBlock against the block it came from: the same kernels on the
+# same inputs (of the output's max)
+SYMBOLIC_BLOCK_TOL = 1e-6
+SYMBOLIC_FIXTURE = os.path.join("tests", "fixtures", "jax_symbol_graph.json")
+SYMBOLIC_FIXTURE_SHAPES = dict(data=(16, 2, 32), valid_length=(2,),
+                               image=(2, 3, 8, 8))
+
+
+def _lenet_symbol(mx):
+    """``examples/lenet_symbol.py``'s ``build_symbol``."""
+    sym = mx.sym
+    data = sym.var("data")
+    h = sym.FullyConnected(data, sym.var("fc1_weight"), sym.var("fc1_bias"),
+                           num_hidden=128, name="fc1")
+    h = sym.Activation(h, act_type="relu")
+    h = sym.FullyConnected(h, sym.var("fc2_weight"), sym.var("fc2_bias"),
+                           num_hidden=10, name="fc2")
+    return sym.SoftmaxOutput(h, sym.var("softmax_label"), name="softmax")
+
+
+def _lenet_symbol_data():
+    cfg = SYMBOLIC_LENET
+    rng = np.random.RandomState(0)
+    centers = rng.randn(cfg["classes"], cfg["features"]).astype(
+        np.float32) * 3
+    labels = rng.randint(0, cfg["classes"], cfg["n"])
+    data = centers[labels] + rng.randn(cfg["n"], cfg["features"]).astype(
+        np.float32)
+    return data, labels.astype(np.float32)
+
+
+def _lenet_symbol_fit(torch, mx, where, epochs, arg_params=None):
+    """``examples/lenet_symbol.py``'s ``main`` on ``where`` (its weights
+    ``arg_params`` when given): the module, the first batches' outputs,
+    ms a batch, seconds an epoch, programs after the first batch, the
+    final score."""
+    from mxnet_tpu_torch.module import Module
+    cfg = SYMBOLIC_LENET
+    data, labels = _lenet_symbol_data()
+    on_card = where.device_type == "gpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    outs, stamps, epoch_s, programs = [], [], [], []
+    mx.random.seed(0)
+    np.random.seed(0)
+    with where:
+        it = mx.io.NDArrayIter(
+            data={"data": mx.nd.array(data)},
+            label={"softmax_label": mx.nd.array(labels)},
+            batch_size=cfg["batch"], shuffle=True)
+        mod = Module(_lenet_symbol(mx), data_names=("data",),
+                     label_names=("softmax_label",))
+        init = {}
+        if arg_params is None:
+            mod.bind(data_shapes=it.provide_data,
+                     label_shapes=it.provide_label)
+            mod.init_params()
+            init = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+        def on_batch(param):
+            sync()
+            stamps.append(time.perf_counter())
+            m = param.locals["self"]
+            if len(outs) < cfg["host_batches"]:
+                outs.append(m.get_outputs()[0].asnumpy())
+            if not programs:
+                programs.append(m.num_compiles)
+
+        def on_epoch(epoch, *_args):
+            epoch_s.append(time.perf_counter())
+
+        stamps.append(time.perf_counter())
+        t0 = stamps[0]
+        mod.fit(it, num_epoch=epochs, optimizer="sgd",
+                optimizer_params={"learning_rate": cfg["lr"]},
+                eval_metric="acc", batch_end_callback=on_batch,
+                epoch_end_callback=on_epoch,
+                arg_params=None if arg_params is None else {
+                    k: mx.nd.array(v) for k, v in arg_params.items()})
+        score = mod.score(it, mx.metric.Accuracy())
+    ms = np.diff(stamps) * 1e3
+    return dict(module=mod, init=init, outs=outs, ms=ms,
+                epoch_s=list(np.diff([t0] + epoch_s)),
+                programs_after_first_batch=programs[0],
+                programs_after_score=mod.num_compiles,
+                accuracy=dict(score)["accuracy"],
+                device=str(mod._exec.arg_dict["fc1_weight"]._data.device))
+
+
+def _phase_lenet_symbol(torch, mx):
+    cfg = SYMBOLIC_LENET
+    host = _lenet_symbol_fit(torch, mx, mx.cpu(0), 1)
+    card = _lenet_symbol_fit(torch, mx, mx.gpu(0), cfg["epochs"],
+                             arg_params=host["init"])
+    rel = [float(np.abs(a - b).max() / np.abs(b).max())
+           for a, b in zip(card["outs"], host["outs"])]
+    steps = len(card["ms"])
+    out = dict(model="examples/lenet_symbol.py (Module.fit)",
+               samples=cfg["n"], batch=cfg["batch"], epochs=cfg["epochs"],
+               optimizer="sgd", lr=cfg["lr"], device=card["device"],
+               first_batches_rel_err=rel, rtol=GLUON_LENET_RTOL,
+               accuracy=card["accuracy"],
+               min_accuracy=SYMBOLIC_LENET_MIN_ACCURACY,
+               ms_per_batch=float(np.median(card["ms"][1:])),
+               first_batch_ms=float(card["ms"][0]), batches=steps,
+               epoch_s=card["epoch_s"],
+               host_ms_per_batch=float(np.median(host["ms"][1:])),
+               programs_after_first_batch=card["programs_after_first_batch"],
+               programs_after_score=card["programs_after_score"],
+               capture_s={str(k): p.capture_s for k, p in
+                          card["module"]._exec._programs.items()})
+    check(card["device"].startswith("cuda"),
+          f"symbolic lenet: trained on {card['device']}")
+    check(all(e <= t for e, t in zip(rel, GLUON_LENET_RTOL))
+          and len(rel) == cfg["host_batches"],
+          f"symbolic lenet: first batches vs the host {rel}")
+    check(card["accuracy"] >= SYMBOLIC_LENET_MIN_ACCURACY,
+          f"symbolic lenet: accuracy {card['accuracy']}")
+    check(card["programs_after_first_batch"] == 2
+          and card["programs_after_score"] == 3,
+          f"symbolic lenet: programs {card['programs_after_first_batch']} "
+          f"after the first batch, {card['programs_after_score']} after "
+          f"score")
+    return out
+
+
+def _encoder_symbol(mx, net, head=True):
+    """The layer composed over Symbol inputs (with SoftmaxOutput on its
+    head when ``head``)."""
+    out = net(mx.sym.var("data"), mx.sym.var("valid_length"))
+    if head:
+        out = mx.sym.SoftmaxOutput(out, mx.sym.var("softmax_label"),
+                                   name="softmax")
+    return out
+
+
+def _encoder_module(mx, net, where, L=None, sym=None):
+    """A Module over the layer's symbol, bound for (L, B) on ``where``,
+    the layer's values set into it, SGD."""
+    from mxnet_tpu_torch.module import Module
+    cfg = GLUON_FLASH
+    L = L or cfg["L"]
+    mod = Module(sym or _encoder_symbol(mx, net),
+                 data_names=("data", "valid_length"),
+                 label_names=("softmax_label",), context=where)
+    mod.bind(data_shapes=[("data", (L, cfg["B"], cfg["units"])),
+                          ("valid_length", (cfg["B"],))],
+             label_shapes=[("softmax_label", (cfg["B"],))])
+    mod.set_params({p.name: p.data() for p in
+                    net.collect_params().values()}, {})
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate":
+                                         SYMBOLIC_ENCODER["lr"]})
+    return mod
+
+
+def _encoder_batch_nd(mx, x, valid, y, L=None):
+    L = L or GLUON_FLASH["L"]
+    v = np.minimum(valid, L).astype(np.float32)
+    b = mx.io.DataBatch(data=[mx.nd.array(x[:L]), mx.nd.array(v)],
+                        label=[mx.nd.array(y)])
+    b.bucket_key = L
+    b.provide_data = [("data", (L,) + x.shape[1:]),
+                      ("valid_length", v.shape)]
+    b.provide_label = [("softmax_label", y.shape)]
+    return b
+
+
+def _module_steps(torch, mod, batch, steps, sync, grad_name=None):
+    """``steps`` forward_backward + update: outputs, ms a step, and the
+    first step's gradient of ``grad_name``."""
+    outs, ms, grad = [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        if i == 0 and grad_name is not None:
+            grad = mod._exec.grad_dict[grad_name].asnumpy()
+        mod.update()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(mod.get_outputs()[0].asnumpy())
+    return outs, ms, grad
+
+
+def _softmax(z):
+    e = np.exp(z - z.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+def _phase_encoder_module(torch, mx, path, hybrid):
+    cfg = GLUON_FLASH
+    steps = SYMBOLIC_ENCODER["steps"]
+    x, valid, y = _encoder_batch(cfg)
+    sync = torch.cuda.synchronize
+    with mx.gpu(0):
+        net = _encoder_layer(mx, cfg["units"], cfg["heads"], cfg["ffn"])
+        net.load_parameters(path)
+        # the layer's eager Gluon step on the card
+        xs, vs, ys = (mx.nd.array(a) for a in (x, valid, y))
+        with mx.autograd.record():
+            logits = net(xs, vs)
+            loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(logits, ys)
+        loss.backward()
+        gluon_prob = _softmax(logits.asnumpy())
+        gluon_grad = net.qkv.weight.grad().asnumpy()
+        qkv = net.qkv.weight.name
+        mod = _encoder_module(mx, net, mx.gpu(0))
+        batch = _encoder_batch_nd(mx, x, valid, y)
+        _dist_counts(zero=True)
+        first_outs, first_ms, grad = _module_steps(torch, mod, batch, 1,
+                                                   sync, grad_name=qkv)
+        launches = _dist_counts()
+        _dist_counts(zero=True)
+        outs, ms, _ = _module_steps(torch, mod, batch, steps - 1, sync)
+        after = _dist_counts()
+        outs, ms = first_outs + outs, first_ms + ms
+        programs = mod.num_compiles
+        step = functools.partial(_module_steps, torch, mod, batch, 1,
+                                 lambda: None)
+        trace = _trace_steps(torch, step, SYMBOLIC_ENCODER["traced_steps"],
+                             float(np.median(ms[1:])), warm=step,
+                             where="symbolic encoder_module",
+                             names=FLASH_NAMES)
+        capture_s = {str(k): p.capture_s
+                     for k, p in mod._exec._programs.items()}
+        del mod, logits, loss
+    _free(torch)
+    with mx.cpu(0):
+        hnet = _encoder_layer(mx, cfg["units"], cfg["heads"], cfg["ffn"])
+        hnet.load_parameters(path)
+        hmod = _encoder_module(mx, hnet, mx.cpu(0))
+        host_outs, host_ms, host_grad = _module_steps(
+            torch, hmod, _encoder_batch_nd(mx, x, valid, y), steps,
+            lambda: None, grad_name=hnet.qkv.weight.name)
+        del hmod, hnet
+    first_rel = float(np.abs(outs[0] - gluon_prob).max()
+                      / np.abs(gluon_prob).max())
+    grad_rel = float(np.abs(grad - gluon_grad).max()
+                     / np.abs(gluon_grad).max())
+    host_rel = [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(outs, host_outs)]
+    host_grad_rel = float(np.abs(grad - host_grad).max()
+                          / np.abs(host_grad).max())
+    rtol = list(GLUON_FLASH_LOSS_RTOL) + [GLUON_FLASH_LOSS_RTOL[-1]] * (
+        steps - len(GLUON_FLASH_LOSS_RTOL))
+    losses = [float(-np.log(o[np.arange(len(y)), y.astype(int)]).mean())
+              for o in outs]
+    out = dict(layer="bert_24_1024_16 encoder layer (gluon_flash's) "
+               "composed over Symbol inputs, SoftmaxOutput head, Module",
+               **{k: cfg[k] for k in ("units", "heads", "ffn", "L", "B")},
+               optimizer="sgd", lr=SYMBOLIC_ENCODER["lr"], steps=steps,
+               losses=losses, first_output_rel_err_vs_gluon=first_rel,
+               qkv_grad_rel_err_vs_gluon=grad_rel,
+               output_rel_err_vs_host=host_rel,
+               qkv_grad_rel_err_vs_host=host_grad_rel, rtol=rtol,
+               grad_tol=GLUON_FLASH_GRAD_TOL,
+               launches_first_step=launches, launches_after_capture=after,
+               programs=programs, capture_s=capture_s,
+               first_step_ms=ms[0], ms_per_step=float(np.median(ms[1:])),
+               host_ms_per_step=float(np.median(host_ms)), trace=trace,
+               gluon_hybrid=hybrid)
+    check(first_rel <= rtol[0],
+          f"symbolic encoder: step 1's output {first_rel} from the eager "
+          f"Gluon step")
+    check(grad_rel <= GLUON_FLASH_GRAD_TOL,
+          f"symbolic encoder: qkv gradient {grad_rel} of max from the "
+          f"eager Gluon step")
+    check(all(e <= t for e, t in zip(host_rel, rtol))
+          and host_grad_rel <= GLUON_FLASH_GRAD_TOL,
+          f"symbolic encoder: outputs vs the host Module {host_rel}, "
+          f"gradient {host_grad_rel}")
+    check(all(v == 1 for v in launches.values()),
+          f"symbolic encoder: B1-B3 wrapper launches in the first step "
+          f"{launches}")
+    check(all(v == 0 for v in after.values()),
+          f"symbolic encoder: wrapper launches after capture {after}")
+    check(trace.get("records_per_step") == dict.fromkeys(FLASH_NAMES, 1.0),
+          f"symbolic encoder: B1-B3 records per traced step "
+          f"{trace.get('records_per_step')}")
+    check(programs == 2, f"symbolic encoder: {programs} programs")
+    traced = {k: v * SYMBOLIC_ENCODER["traced_steps"]
+              for k, v in trace["records_per_step"].items()}
+    return out, launches, traced
+
+
+def _phase_symbol_block(torch, mx, lenet_path, enc_path):
+    """``export`` / ``SymbolBlock.imports`` of the hybridized LeNet, the
+    layer's symbol as a hybridized SymbolBlock over its parameters, and
+    the JAX package's fixture on the card and the host."""
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    cfg = GLUON_FLASH
+    rs = np.random.RandomState(0)
+    lx = mx.nd.array(rs.rand(GLUON_MNIST["batch"], 1, 28, 28).astype(
+        np.float32), ctx=mx.gpu(0))
+    tmp = tempfile.mkdtemp(prefix="mxnet-symbolic-")
+    res = {}
+    try:
+        with mx.gpu(0):
+            lenet = _lenet(mx)
+            lenet.load_parameters(lenet_path)
+            lenet.hybridize(static_alloc=True)
+            want = lenet(lx).asnumpy()
+            sym_file = lenet.export(os.path.join(tmp, "lenet"))
+            blk = SymbolBlock.imports(sym_file, "data",
+                                      os.path.join(tmp, "lenet-0000.params"),
+                                      ctx=mx.gpu(0))
+            got = blk(lx).asnumpy()
+            res["lenet_export"] = dict(
+                rel_err=float(np.abs(got - want).max() / np.abs(want).max()),
+                params=len(blk.collect_params()),
+                device=str(blk.collect_params()[
+                    next(iter(blk.collect_params().keys()))].data()
+                    .data_torch.device))
+
+            net = _encoder_layer(mx, cfg["units"], cfg["heads"], cfg["ffn"])
+            net.load_parameters(enc_path)
+            x, valid, _y = _encoder_batch(cfg)
+            xs, vs = mx.nd.array(x), mx.nd.array(valid)
+            want = net(xs, vs).asnumpy()
+            sb = SymbolBlock(_encoder_symbol(mx, net, head=False),
+                             [mx.sym.var("data"), mx.sym.var("valid_length")],
+                             params=net.collect_params())
+            sb.hybridize()
+            first = sb(xs, vs).asnumpy()
+            _dist_counts(zero=True)
+
+            def call():
+                return sb(xs, vs)
+
+            replayed = call().asnumpy()
+            launches = _dist_counts()
+            records = _kernel_records(torch, call, names=FLASH_NAMES,
+                                      warm=call, where="symbolic "
+                                      "symbol_block")
+            res["encoder_symbol_block"] = dict(
+                first_rel_err=float(np.abs(first - want).max()
+                                    / np.abs(want).max()),
+                replay_rel_err=float(np.abs(replayed - want).max()
+                                     / np.abs(want).max()),
+                wrapper_launches_in_replay=launches,
+                traced_records=records,
+                cached_op=_sig_stats_rows(sb._cached_op.stats()))
+            del sb, net, blk, lenet
+        _free(torch)
+        fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               SYMBOLIC_FIXTURE)
+        g = mx.sym.load(fixture)
+        arg_shapes, _, aux_shapes = g.infer_shape(**SYMBOLIC_FIXTURE_SHAPES)
+        frs = np.random.RandomState(0)
+        args = {n: (np.array([16.0, 0.0], np.float32) if n == "valid_length"
+                    else (frs.randn(*s) * 0.5).astype(np.float32))
+                for n, s in zip(g.list_arguments(), arg_shapes)}
+        aux = {n: (frs.rand(*s) + 0.5).astype(np.float32)
+               for n, s in zip(g.list_auxiliary_states(), aux_shapes)}
+        outs = []                       # the card's, then the host's
+        for where in (mx.gpu(0), mx.cpu(0)):
+            ex = g.bind(where, {k: mx.nd.array(v, ctx=where)
+                                for k, v in args.items()},
+                        aux_states={k: mx.nd.array(v, ctx=where)
+                                    for k, v in aux.items()},
+                        grad_req="null")
+            ex.forward(is_train=False)
+            outs.append([o.asnumpy() for o in ex.forward(is_train=False)])
+        res["jax_fixture"] = dict(
+            file=SYMBOLIC_FIXTURE, outputs=g.list_outputs(),
+            rel_err=[float(np.abs(a - b).max() / np.abs(b).max())
+                     for a, b in zip(*outs)],
+            rtol=GLUON_FLASH_LOSS_RTOL[0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    le, eb, jf = (res["lenet_export"], res["encoder_symbol_block"],
+                  res["jax_fixture"])
+    check(le["rel_err"] <= SYMBOLIC_BLOCK_TOL
+          and le["device"].startswith("cuda"),
+          f"symbolic symbol_block: LeNet imports {le}")
+    check(eb["first_rel_err"] <= SYMBOLIC_BLOCK_TOL
+          and eb["replay_rel_err"] <= SYMBOLIC_BLOCK_TOL,
+          f"symbolic symbol_block: encoder SymbolBlock {eb}")
+    check(all(v == 0 for v in eb["wrapper_launches_in_replay"].values())
+          and eb["traced_records"]["flash_attention_fwd"] == 1,
+          f"symbolic symbol_block: B1 in the CachedOp graph {eb}")
+    check(all(e <= jf["rtol"] for e in jf["rel_err"]),
+          f"symbolic symbol_block: the JAX fixture on the card {jf}")
+    return res
+
+
+def _phase_bucketing(torch, mx, path):
+    from mxnet_tpu_torch.module import BucketingModule
+    cfg = GLUON_FLASH
+    x, valid, y = _encoder_batch(cfg)
+    rows = []
+    with mx.gpu(0):
+        net = _encoder_layer(mx, cfg["units"], cfg["heads"], cfg["ffn"])
+        net.load_parameters(path)
+        symbol = _encoder_symbol(mx, net)
+
+        def sym_gen(_L):
+            return symbol, ("data", "valid_length"), ("softmax_label",)
+
+        top = max(SYMBOLIC_BUCKETS)
+        bm = BucketingModule(sym_gen, default_bucket_key=top,
+                             context=mx.gpu(0), bucket_keys=SYMBOLIC_BUCKETS)
+        b0 = _encoder_batch_nd(mx, x, valid, y, top)
+        bm.bind(data_shapes=b0.provide_data, label_shapes=b0.provide_label)
+        bm.set_params({p.name: p.data() for p in
+                       net.collect_params().values()}, {})
+        bm.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": SYMBOLIC_ENCODER["lr"]})
+        for L in SYMBOLIC_BUCKETS:
+            b = _encoder_batch_nd(mx, x, valid, y, L)
+            _dist_counts(zero=True)
+            ms = []
+            for _ in range(SYMBOLIC_BUCKET_STEPS):
+                t0 = time.perf_counter()
+                bm.forward(b, is_train=True)
+                bm.backward()
+                bm.update()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            ex = bm._buckets[L]._exec
+            out = bm.get_outputs()[0].asnumpy()
+            rows.append(dict(L=L, launches=_dist_counts(), step_ms=ms,
+                             capture_s=sum(p.capture_s for p in
+                                           ex._programs.values()),
+                             finite=bool(np.isfinite(out).all())))
+        names = [p.name for p in net.collect_params().values()]
+        shared = all(bm._buckets[k]._exec.arg_dict[n]
+                     is bm._buckets[top]._exec.arg_dict[n]
+                     for k in SYMBOLIC_BUCKETS for n in names)
+        programs = bm.num_compiles
+        del bm, net
+    _free(torch)
+    out = dict(buckets=rows, programs=programs,
+               program_bound=2 * len(SYMBOLIC_BUCKETS),
+               one_weight_object_per_name=shared)
+    check(shared, "symbolic bucketing: weights not shared across buckets")
+    check(programs <= 2 * len(SYMBOLIC_BUCKETS),
+          f"symbolic bucketing: {programs} programs")
+    for r in rows:
+        check(r["finite"] and all(v >= 1 for v in r["launches"].values()),
+              f"symbolic bucketing: bucket {r}")
+    return out
+
+
+def phase_symbolic(torch, hybrid=None):
+    """``symbolic``: the symbolic API on the card (module comment above
+    ``SYMBOLIC_LENET``).  ``hybrid`` is ``gluon_hybrid``'s hybridized
+    encoder layer (ms a step and its trace), printed beside the Module's.
+    Returns B1-B3's wrapper launches in the encoder Module's run and
+    their records in its traced steps."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mxnet-symbolic-")
+    try:
+        lenet_path = os.path.join(tmp, "lenet.npz")
+        enc_path = os.path.join(tmp, "encoder.npz")
+        rs = np.random.RandomState(0)
+        _lenet_weights(mx, lenet_path,
+                       rs.rand(1, 1, 28, 28).astype(np.float32))
+        _encoder_weights(mx, GLUON_FLASH, enc_path)
+        lenet = _phase_lenet_symbol(torch, mx)
+        _free(torch)
+        encoder, launches, traced = _phase_encoder_module(
+            torch, mx, enc_path, hybrid)
+        block = _phase_symbol_block(torch, mx, lenet_path, enc_path)
+        bucketing = _phase_bucketing(torch, mx, enc_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("symbolic", dtype="float32", lenet_symbol=lenet,
+         encoder_module=encoder, symbol_block=block, bucketing=bucketing,
+         seconds=time.perf_counter() - t0)
+    return dict(launches=launches, traced=traced,
+                bucketing={r["L"]: r["launches"] for r in bucketing[
+                    "buckets"]})
 
 
 # ---------------------------------------------------------------- ops_card
@@ -7963,6 +8494,7 @@ def main():
     gluon_hybrid = phase_gluon_hybrid(torch)
     phase_gluon_mnist(torch)
     phase_gluon_ssd(torch)
+    symbolic = phase_symbolic(torch, gluon_hybrid["encoder"])
     phase_ops_card(torch, dev)
     phase_graphs(torch, dev, lm)
     replayed = phase_serve_trace(torch, lm)
@@ -8052,7 +8584,11 @@ def main():
             launches_gluon_flash=gluon_launches[name],
             launches_gluon_dist=gluon_dist_launches[name],
             launches_gluon_hybrid=gluon_hybrid["launches"][name],
-            traced_gluon_hybrid_kernel_records=gluon_hybrid["traced"][name])
+            traced_gluon_hybrid_kernel_records=gluon_hybrid["traced"][name],
+            launches_symbolic=symbolic["launches"][name],
+            traced_symbolic_kernel_records=symbolic["traced"][name],
+            launches_symbolic_bucketing={
+                L: c[name] for L, c in symbolic["bucketing"].items()})
         if key == "fwd":
             # the predict path (fp32): the bucket graphs' captures launch
             # B1 from the wrapper; their replays are counted from trace

@@ -31,6 +31,16 @@ from . import kvstore
 from . import kvstore as kv
 from . import metric
 from . import recordio
+from . import io
+from . import attribute
+from .attribute import AttrScope
+from . import symbol
+from . import symbol as sym
+from .symbol import Symbol
+from . import executor
+from . import module
+from . import callback
+from . import compat
 
 
 def waitall():
@@ -42,4 +52,5 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "current_context", "num_gpus", "autograd", "nd", "ndarray",
            "NDArray", "random", "init", "initializer", "lr_scheduler",
            "optimizer", "gluon", "kvstore", "kv", "metric", "recordio",
-           "waitall"]
+           "io", "attribute", "AttrScope", "symbol", "sym", "Symbol", "executor",
+           "module", "callback", "compat", "waitall"]

@@ -1,11 +1,11 @@
 """Gluon of the PyTorch port: the imperative NN API (reference:
 python/mxnet/gluon/) — Parameter, Block / HybridBlock, ``nn``, ``loss``,
-``utils``, ``Trainer`` and ``data``."""
+``utils``, ``Trainer``, ``data`` and ``SymbolBlock``."""
 from . import parameter
 from .parameter import (Parameter, Constant, ParameterDict,
                         DeferredInitializationError)
 from . import block
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from . import nn
 from . import loss
 from . import utils
@@ -14,4 +14,4 @@ from .trainer import Trainer
 from . import data
 
 __all__ = ["Parameter", "Constant", "ParameterDict", "Block", "HybridBlock",
-           "Trainer", "nn", "loss", "utils", "data"]
+           "SymbolBlock", "Trainer", "nn", "loss", "utils", "data"]

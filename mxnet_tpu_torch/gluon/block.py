@@ -9,7 +9,12 @@ the ``nd`` namespace as ``F`` and its registered parameters as keyword
 arrays.  After ``hybridize()`` a call with NDArray arguments and no
 keyword arguments goes through the block's
 :class:`~mxnet_tpu_torch.gluon.cached_op.CachedOp`: one set of CUDA
-graphs per signature on the card.
+graphs per signature on the card.  Called with Symbols, a HybridBlock
+composes a graph: ``hybrid_forward(mx.sym, x, ...)`` with its
+parameters' variables (``Parameter.var``); ``export`` writes that graph
+and the parameters (``path-symbol.json``, ``path-0000.params``), and
+:class:`SymbolBlock` runs a graph as a block (through its CachedOp when
+hybridized).
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from .cached_op import _TRACING, CachedOp, nb_cached_programs
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, match_names)
 
-__all__ = ["Block", "HybridBlock", "CachedOp", "nb_cached_programs"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "CachedOp",
+           "nb_cached_programs"]
 
 
 class _BlockScope(threading.local):
@@ -319,7 +325,16 @@ class HybridBlock(Block):
 
     def forward(self, x, *args, **kwargs):
         if not isinstance(x, NDArray):
-            raise MXNetError(f"forward expects NDArray, got {type(x)}")
+            from ..symbol import Symbol
+            if isinstance(x, Symbol):
+                # symbolic composition: a graph over the parameters'
+                # variables
+                from .. import symbol as sym_mod
+                pvars = {n: p.var() for n, p in self._reg_params.items()}
+                return self.hybrid_forward(sym_mod, x, *args, **pvars,
+                                           **kwargs)
+            raise MXNetError(
+                f"forward expects NDArray or Symbol, got {type(x)}")
         ctx = self._get_ctx((x,) + args)
         try:
             pdata = {n: p.data(ctx) for n, p in self._reg_params.items()}
@@ -350,3 +365,118 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    def export(self, path, epoch=0):
+        """Write the block's graph (its forward over a Symbol input named
+        ``data``) to ``path-symbol.json`` and its parameters, by name, to
+        ``path-NNNN.params`` (the JAX package's npz); returns the symbol
+        file's name (reference: HybridBlock.export)."""
+        from .. import symbol as sym_mod
+        out = self(sym_mod.var("data"))
+        if isinstance(out, (list, tuple)):
+            out = sym_mod.Group(list(out))
+        sym_file = f"{path}-symbol.json"
+        out.save(sym_file)
+        nd.save(f"{path}-{epoch:04d}.params",
+                {name: p._reduce()
+                 for name, p in self.collect_params().items()})
+        return sym_file
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph as a block (reference: gluon.SymbolBlock).  The
+    graph's arguments other than ``inputs``, and its auxiliary states
+    (``grad_req="null"``), are the block's parameters: those of
+    ``params`` with the same names (shared), new ones otherwise.  A call records on the tape under ``record()``; after
+    ``hybridize()`` it goes through the block's CachedOp like any
+    HybridBlock's."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        from .. import symbol as sym_mod
+        from ..symbol import Symbol
+        if isinstance(outputs, (list, tuple)):
+            outputs = sym_mod.Group(list(outputs))
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        self._out_sym = outputs
+        self._in_names = [s.name for s in inputs]
+        in_set = set(self._in_names)
+        aux = set(outputs.list_auxiliary_states())
+        for arg in outputs.list_arguments() + sorted(aux):
+            if arg in in_set:
+                continue
+            # the graph's argument names are the parameters' full names:
+            # a shared parameter of that name is adopted as it is
+            if params is not None and arg in params:
+                self._params._params[arg] = params[arg]
+            else:
+                self._params.get(arg, shape=None, allow_deferred_init=True,
+                                 grad_req="null" if arg in aux else "write")
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock over a symbol file and, optionally, its
+        parameters (this package's export, the JAX package's, or an
+        upstream ``.params``)."""
+        from .. import symbol as sym_mod
+        out = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        blk = SymbolBlock(out, [sym_mod.var(n) for n in input_names])
+        if param_file is not None:
+            loaded = nd.load(param_file, ctx=cpu(0))
+            for name, value in loaded.items():
+                name = name.split(":", 1)[-1]   # a Module's arg: / aux:
+                if name in blk._params:
+                    p = blk._params[name]
+                    p.shape = tuple(value.shape)
+                    p.initialize(ctx=ctx or [current_context()])
+                    p.set_data(value)
+        return blk
+
+    def infer_shape(self, *args):
+        shapes = {n: tuple(a.shape) for n, a in zip(self._in_names, args)}
+        arg_shapes, _, aux_shapes = self._out_sym.infer_shape_partial(
+            **shapes)
+        names = self._out_sym.list_arguments() + \
+            self._out_sym.list_auxiliary_states()
+        for name, shape in zip(names, arg_shapes + aux_shapes):
+            if name in self._params and shape is not None:
+                self._params[name].shape = shape
+
+    def forward(self, x, *args):
+        from ..symbol import Symbol
+        inputs = (x,) + args
+        if isinstance(x, Symbol):
+            return self._out_sym(**dict(zip(self._in_names, inputs)))
+        ctx = self._get_ctx(inputs)
+        try:
+            for p in self._params.values():
+                p.data(ctx)
+        except DeferredInitializationError:
+            self.infer_shape(*inputs)
+            for p in self._params.values():
+                p._finish_deferred_init()
+        if self._active and not _TRACING.get():
+            if self._cached_op is None:
+                self._cached_op = CachedOp(self, **self._flags)
+            return self._cached_op(list(inputs), ctx)
+        return self._run_graph(inputs, ctx)
+
+    def _run_graph(self, inputs, ctx):
+        """The graph over the inputs and the parameters' values, on the
+        tape when recording."""
+        from .. import autograd
+        from ..ops.registry import _mark_leaves
+        feed = {n: a._data for n, a in zip(self._in_names, inputs)}
+        for name, p in self._params.items():
+            if name not in feed:
+                feed[name] = p.data(ctx)._data
+        record = autograd.is_recording()
+        if record and not _TRACING.get():
+            _mark_leaves(feed.values())
+        with torch.set_grad_enabled(record):
+            outs = self._out_sym._interpret(feed)
+        outs = [NDArray._wrap(o, ctx) for o in outs]
+        return outs[0] if len(outs) == 1 else outs

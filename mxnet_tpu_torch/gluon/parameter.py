@@ -63,6 +63,7 @@ class Parameter:
         self._data: "OrderedDict[Context, NDArray]" = OrderedDict()
         self._grad: "OrderedDict[Context, NDArray]" = OrderedDict()
         self._deferred_init = None   # (init, ctx_list, default_init)
+        self._var = None
 
     @property
     def grad_req(self):
@@ -231,6 +232,14 @@ class Parameter:
             for c, a in self._data.items())
         if self._grad_req != "null":
             self._init_grad()
+
+    def var(self):
+        """The parameter's Symbol variable (reference: Parameter.var)."""
+        if self._var is None:
+            from .. import symbol as sym_mod
+            self._var = sym_mod.var(self.name, shape=self.shape,
+                                    dtype=self.dtype)
+        return self._var
 
     def _reduce(self) -> NDArray:
         return self.data()

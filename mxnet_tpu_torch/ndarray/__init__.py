@@ -161,7 +161,11 @@ def save(fname, data):
 
 def load(fname, ctx=None):
     """Load what :func:`save` (or the JAX package's ``nd.save``) wrote:
-    a dict or a list of arrays on ``ctx`` (the current context)."""
+    a dict or a list of arrays on ``ctx`` (the current context).  A
+    legacy upstream ``.params`` container is read by ``compat``."""
+    from ..compat import is_dmlc_params, load_params_dmlc
+    if is_dmlc_params(fname):
+        return load_params_dmlc(fname, ctx=ctx)
     with _np.load(fname, allow_pickle=False) as z:
         fmt = str(z["__mx_format__"]) if "__mx_format__" in z else "dict"
         if fmt == "list":

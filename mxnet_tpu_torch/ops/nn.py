@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from .. import autograd
 from .contrib import resize_linear
-from .registry import register
+from .registry import get_op, register
 from .tensor import linspace
 
 
@@ -246,6 +246,27 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, *,
     if output_mean_var:
         return out, mean, inv_std
     return out
+
+
+def _batchnorm_aux_update(args, kwargs):
+    """``OpDef.aux_update`` of BatchNorm: in a training interpretation
+    the executor writes the moving statistics moved toward the batch's
+    (the reference's batch_norm.cc moves them inside Forward)."""
+    if kwargs.get("use_global_stats") or kwargs.get("output_mean_var"):
+        return None
+    out, mean, inv_std = BatchNorm(*args,
+                                   **dict(kwargs, output_mean_var=True))
+    eps = float(kwargs.get("eps", 1e-3))
+    mom = float(kwargs.get("momentum", 0.9))
+    with torch.no_grad():
+        var = 1.0 / (inv_std * inv_std) - eps
+        return (out,), {
+            3: mom * args[3] + (1.0 - mom) * mean.to(args[3].dtype),
+            4: mom * args[4] + (1.0 - mom) * var.to(args[4].dtype),
+        }
+
+
+get_op("BatchNorm").aux_update = _batchnorm_aux_update
 
 
 @register("LayerNorm", num_inputs=3, num_outputs=_bn_nout,

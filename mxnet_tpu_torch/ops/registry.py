@@ -13,7 +13,9 @@ kernel frontend (``_contrib_flash_selfatt``,
 ``_contrib_ragged_paged_attention``) calls its wrapper, whose device
 rule and ``.launches`` counter hold as they are.  An input that is a
 gradient buffer of a deferred backward runs that backward first
-(``autograd.flush_if_pending_grad``).
+(``autograd.flush_if_pending_grad``).  Called with a Symbol first (or a
+list whose first item is one), a frontend or :func:`invoke` builds a
+graph node instead (``symbol.invoke_symbolic``).
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ class OpDef:
 
     __slots__ = ("name", "fn", "num_inputs", "num_outputs",
                  "differentiable", "mutates_rng", "params", "open_schema",
-                 "aliases")
+                 "aliases", "aux_update")
 
     def __init__(self, name: str, fn: Callable, num_inputs, num_outputs,
                  differentiable: bool, schema: bool = False,
@@ -48,6 +50,12 @@ class OpDef:
         self.num_outputs = num_outputs
         self.differentiable = differentiable
         self.mutates_rng = mutates_rng
+        # a stateful op's hook for graph executors: called as
+        # aux_update(args, kwargs) in a training interpretation; returns
+        # None (not applicable) or (outputs, {input_slot: new_value}), the
+        # new values of the auxiliary states the op moves (BatchNorm's
+        # moving statistics), which the executor writes in place
+        self.aux_update = None
         self.aliases: List[str] = []
         self.params: Dict[str, inspect.Parameter] = {}
         self.open_schema = True
@@ -122,8 +130,26 @@ def _mark_leaves(tensors):
             t.requires_grad_(True)
 
 
+def _symbolic(args) -> bool:
+    """The first argument, or the first of a list argument, is a Symbol:
+    the call builds a graph node."""
+    if not args:
+        return False
+    first = args[0]
+    if isinstance(first, (list, tuple)) and first:
+        first = first[0]
+    if type(first).__name__ != "Symbol":
+        return False
+    from ..symbol.symbol import Symbol
+    return isinstance(first, Symbol)
+
+
 def invoke(opdef: OpDef, inputs, kwargs: Dict[str, Any], out=None):
-    """Run an op over NDArray inputs; returns NDArray(s)."""
+    """Run an op over NDArray inputs; returns NDArray(s).  Over Symbols
+    it returns the graph node's Symbol (``symbol.invoke_symbolic``)."""
+    if _symbolic(inputs):
+        from ..symbol.symbol import invoke_symbolic
+        return invoke_symbolic(opdef, inputs, kwargs)
     from ..autograd import flush_if_pending_grad, is_recording
     from ..context import context_of
     from ..ndarray import NDArray

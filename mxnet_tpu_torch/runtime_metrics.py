@@ -843,11 +843,15 @@ KV_WIRE_BYTES = counter(
 TRAINER_STEP_SECONDS = histogram(
     "trainer.step.seconds",
     "Wall-clock time of one optimizer step (an attributed "
-    "ShardedTrainer.step, device-synchronised).")
+    "ShardedTrainer.step, device-synchronised; a Module.fit batch's "
+    "forward, backward and update).")
 TRAINER_GRAD_NORM = gauge(
     "trainer.grad_norm",
     "Global L2 gradient norm after the last gluon.Trainer.step "
     "(MXNET_RUNTIME_METRICS_GRAD_NORM=1 to publish it).")
+TRAINER_SAMPLES_PER_SEC = gauge(
+    "trainer.samples_per_sec",
+    "Training throughput published by callback.Speedometer.")
 TRAIN_RESTARTS = counter(
     "train.restarts",
     "TrainingSupervisor restore+restart cycles after a transient "

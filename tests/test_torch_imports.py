@@ -2,9 +2,11 @@
 not ``chip_smoke.py`` imports ``jax`` or the JAX package (an AST scan of
 every import statement), ``import mxnet_tpu_torch`` (which brings in
 ``nd``, ``autograd``, ``gluon`` with ``gluon.data``, ``kvstore``,
-``metric`` and ``recordio``) loads neither and
-builds no kernel, the adapter's and the multi-rank entry points'
-default device refuses to fall back to the CPU, and the kernel build
+``metric``, ``recordio``, ``sym``, ``executor``, ``module``,
+``callback``, ``attribute`` and ``compat``) loads neither and
+builds no kernel, the adapter's, the multi-rank entry points' and
+``Module``'s default device refuses to fall back to the CPU, and the
+kernel build
 reports a missing ``nvcc`` as :class:`MXNetError`.
 """
 import ast
@@ -68,7 +70,11 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "gluon/data/vision/__init__.py",
                    "gluon/data/vision/datasets.py",
                    "gluon/data/vision/transforms.py", "metric.py",
-                   "recordio.py"):
+                   "recordio.py", "attribute.py", "symbol/__init__.py",
+                   "symbol/symbol.py", "symbol/infer.py", "executor.py",
+                   "module/__init__.py", "module/base_module.py",
+                   "module/module.py", "module/bucketing_module.py",
+                   "callback.py", "compat.py"):
         assert f"mxnet_tpu_torch/{module}" in scanned, module
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
@@ -94,6 +100,9 @@ def test_package_import_loads_no_jax_and_builds_no_kernel():
             "import mxnet_tpu_torch as mx\n"
             "from mxnet_tpu_torch import nd, autograd, gluon, kvstore\n"
             "from mxnet_tpu_torch import metric, recordio\n"
+            "from mxnet_tpu_torch import sym, executor, module, callback\n"
+            "from mxnet_tpu_torch import attribute, compat\n"
+            "assert mx.Symbol is sym.Symbol and mx.AttrScope\n"
             "from mxnet_tpu_torch.gluon.data import vision\n"
             "from mxnet_tpu_torch.ops import build\n"
             "assert not build._LIBS, build._LIBS\n"
@@ -159,3 +168,18 @@ def test_multi_rank_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(MXNetError, match="no CUDA device"):
         parallel.make_pipeline_mesh(1)
     assert parallel.make_pipeline_mesh(1, device="cpu").device.type == "cpu"
+
+
+def test_module_default_context_is_the_card():
+    """A Module made without ``context`` binds on ``mx.gpu(0)``; without
+    a card its bind refuses instead of running on the CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.base import MXNetError
+    s = mx.sym
+    out = s.FullyConnected(s.var("data"), s.var("w"), s.var("b"),
+                           num_hidden=2, name="fc")
+    mod = mx.module.Module(out, label_names=None)
+    assert mod._context == mx.gpu(0)
+    if mx.num_gpus() == 0:
+        with pytest.raises(MXNetError, match="no device"):
+            mod.bind(data_shapes=[("data", (2, 3))])
