@@ -401,7 +401,33 @@ Then the Gluon training path (``nd``, ``autograd``, ``gluon``,
    card against the host; a ``BucketingModule`` of the layer over L
    128 / 256 / 512 (one weight object per name, at most 6 programs,
    B1-B3 at each L);
-26. ``ops_card`` — every op of the op library's 160-name long tail, on the
+26. ``word_lm`` — ``examples/word_language_model.py``'s loop at its own
+   sizes (module comment above ``WORD_LM``): 3 epochs on the card,
+   perplexity below the unigram's, the first 3 losses within 1e-5
+   relative of the host run, ms a batch and s an epoch; then Zaremba's
+   medium LSTM LM (vocabulary 33,278, 650 wide, bptt 35, batch 20,
+   untied) with ``sparse_grad=True`` and then ``False``, 2 warm-up and
+   10 timed lazy-Adam steps each: ms a step, host and device ms, idle
+   share, the sparse conversions' host syncs a step and the embedding
+   rows a step touches; one step from the same weights and batch on the
+   card and on the host (loss 1e-5 relative, embedding gradient 1e-5 of
+   its max, updated rows and moments rtol 1e-4 / atol 1e-6, untouched
+   rows and their moments bit for bit as before the step); the sparse
+   run's loss finite and falling; ``tostype("row_sparse")`` refused
+   inside a capture; a hybridized LSTM's inter-layer dropout drawing new
+   masks at each replay of its graph; ``nd.sparse`` (CSR ``dot`` with and without
+   ``transpose_a``, row-sparse round trip, ``retain``,
+   ``row_sparse_pull`` from a ``device`` store) on the card against the
+   host;
+27. ``model_zoo`` — (module comment above ``MODEL_ZOO``) ResNet-50
+   trained at 224x224, batch 32, SGD: 2 eager steps, then hybridized,
+   the first hybridized loss within 1e-5 relative of the eager loss
+   from the same state and the loss falling; ms a step, samples/s, host
+   and device ms, idle share, capture seconds and pool bytes; then 11
+   models, one of each family and block kind of the zoo's table, in
+   inference on the card against the host from the same weights, logits
+   within 1e-4 of max|logit|;
+28. ``ops_card`` — every op of the op library's 160-name long tail, on the
    card against the port's CPU over ``_ops_card_specs``' seeded inputs
    (module comment above ``OPS_CARD_NEW``: forward bit for bit for
    integer and quantized outputs, fp32 rtol 1e-5 / atol 1e-6,
@@ -464,6 +490,7 @@ import functools
 import gc
 import json
 import logging
+import math
 import os
 import shutil
 import subprocess
@@ -7854,6 +7881,661 @@ def phase_symbolic(torch, hybrid=None):
                     "buckets"]})
 
 
+# ----------------------------------------------------------------- word_lm
+# (a) examples/word_language_model.py's loop through the port at its own
+# sizes: its synthetic grammar corpus (2000 sentences, RandomState(0)),
+# embed 64, hidden 128, 2 LSTM layers, NTC, batch 16, seq 20, Adam 3e-3,
+# hybridize(static_alloc=True), 3 epochs; the Xavier weights after
+# mx.random.seed(1) are drawn on the host and loaded on the card, so the
+# host run starts from them too.
+# (b) Zaremba et al. 2014's "medium" LSTM LM, GluonNLP's
+# standard_lstm_lm_650: WikiText-2's vocabulary (33,278), embed 650,
+# hidden 650, 2 LSTM layers, dropout 0.5, bptt 35, batch 20, untied
+# (tying would make the embedding's gradient dense), the embedding
+# nn.Embedding(33278, 650, sparse_grad=True) and the decoder
+# Dense(33278, flatten=False); hybridized, Trainer on Adam
+# (lazy_update=True) at lr 1e-3; token ids from a seeded Zipf(1.1) over
+# the vocabulary (numpy), so a batch touches a few hundred rows.
+WORD_LM = dict(embed=64, hidden=128, layers=2, batch=16, seq=20, lr=3e-3,
+               epochs=3, host_steps=3, seed=1)
+WORD_LM_RTOL = 1e-5            # the first 3 losses, card vs host
+WORD_LM_650 = dict(vocab=33278, embed=650, hidden=650, layers=2,
+                   dropout=0.5, bptt=35, batch=20, lr=1e-3, zipf=1.1,
+                   warm=2, steps=10, traced_steps=3, seed=0)
+# one lazy-Adam step from the same weights and batch, card vs host: the
+# loss (relative), the updated rows and moments (rtol, atol), the
+# embedding's gradient (of its max)
+WORD_LM_650_LOSS_RTOL = 1e-5
+WORD_LM_650_ROW_TOL = (1e-4, 1e-6)
+WORD_LM_650_GRAD_TOL = 1e-5
+# nd.sparse on the card against the host: floats within this of the
+# result's max, indices exactly
+WORD_LM_SPARSE_TOL = 1e-5
+WORD_LM_CSR = dict(rows=64, density=0.01)
+
+
+def _word_lm_corpus(n_sentences=2000, seed=0):
+    """``make_corpus`` of examples/word_language_model.py: token ids of
+    subject-verb-object sentences from a tiny grammar, and the vocab."""
+    rng = np.random.RandomState(seed)
+    subjects = ["the cat", "a dog", "the bird", "my friend"]
+    verbs = ["sees", "likes", "chases", "finds"]
+    objects = ["the ball", "a fish", "the tree", "some food"]
+    sentences = []
+    for _ in range(n_sentences):
+        sentences.append(subjects[rng.randint(4)].split()
+                         + [verbs[rng.randint(4)]]
+                         + objects[rng.randint(4)].split() + ["<eos>"])
+    vocab = sorted({w for s in sentences for w in s} | {"<eos>"})
+    w2i = {w: i for i, w in enumerate(vocab)}
+    ids = np.array([w2i[w] for s in sentences for w in s], np.int32)
+    return ids, vocab
+
+
+def _word_lm_batches(ids, batch_size, seq_len):
+    """``batchify`` of the example, as numpy (x, y) pairs."""
+    n = (len(ids) - 1) // (batch_size * seq_len)
+    usable = n * batch_size * seq_len
+    x = ids[:usable].reshape(batch_size, -1)
+    y = ids[1:usable + 1].reshape(batch_size, -1)
+    return [(x[:, i:i + seq_len], y[:, i:i + seq_len])
+            for i in range(0, x.shape[1] - seq_len + 1, seq_len)]
+
+
+def _word_lm_model(mx, vocab, embed=64, hidden=128, layers=2, dropout=0.0,
+                   sparse_grad=False):
+    """The example's ``RNNModel`` on the port (its parameters by the same
+    structural names); with ``dropout`` GluonNLP's dropout after the
+    embedding, between the LSTM layers and before the decoder."""
+    nn, rnn = mx.gluon.nn, mx.gluon.rnn
+
+    class RNNModel(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embedding = nn.Embedding(vocab, embed,
+                                              sparse_grad=sparse_grad)
+                self.rnn = rnn.LSTM(hidden, num_layers=layers,
+                                    layout="NTC", dropout=dropout)
+                self.decoder = nn.Dense(vocab, flatten=False)
+                self.drop = nn.Dropout(dropout) if dropout else None
+
+        def hybrid_forward(self, F, x):
+            h = self.embedding(x)
+            if self.drop is not None:
+                h = self.drop(h)
+            h = self.rnn(h)
+            if self.drop is not None:
+                h = self.drop(h)
+            return self.decoder(h)
+
+    return RNNModel()
+
+
+def _word_lm_step(mx, net, trainer, loss_fn, x, y, vocab):
+    """One step of the example's loop; returns the mean loss."""
+    with mx.autograd.record():
+        logits = net(x)
+        loss = loss_fn(logits.reshape((-1, vocab)),
+                       y.reshape((-1,))).mean()
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def _word_lm_weights(mx, path, vocab, seq, seed, **kw):
+    """Xavier weights after ``mx.random.seed(seed)``, drawn on the host,
+    saved to ``path``."""
+    mx.random.seed(seed)
+    with mx.cpu(0):
+        net = _word_lm_model(mx, vocab, **kw)
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.zeros((1, seq), dtype="int32"))
+        net.save_parameters(path)
+
+
+def _word_lm_example(mx, path):
+    """(a): the example's 3 epochs on the card, its first steps on the
+    host."""
+    cfg = WORD_LM
+    ids, vocab = _word_lm_corpus()
+    V = len(vocab)
+    counts = np.bincount(ids, minlength=V) / len(ids)
+    nz = counts[counts > 0]
+    unigram_ppl = math.exp(-(nz * np.log(nz)).sum())
+    batches = _word_lm_batches(ids, cfg["batch"], cfg["seq"])
+    _word_lm_weights(mx, path, V, cfg["seq"], cfg["seed"])
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def run(ctx, epochs, steps=None):
+        with ctx:
+            net = _word_lm_model(mx, V)
+            net.load_parameters(path)
+            net.hybridize(static_alloc=True)
+            trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                       {"learning_rate": cfg["lr"]})
+            losses, epoch_s, ppl = [], [], []
+            for _epoch in range(epochs):
+                total, n = 0.0, 0
+                t0 = time.perf_counter()
+                for x, y in batches[:steps]:
+                    loss = _word_lm_step(
+                        mx, net, trainer, loss_fn,
+                        mx.nd.array(x, dtype="int32"),
+                        mx.nd.array(y, dtype="int32"), V)
+                    losses.append(float(loss.asscalar()))
+                    total += losses[-1]
+                    n += 1
+                epoch_s.append(time.perf_counter() - t0)
+                ppl.append(math.exp(total / n))
+            device = str(net.embedding.weight.data().data_torch.device)
+            return losses, epoch_s, ppl, device, net._cached_op.stats()
+
+    losses, epoch_s, ppl, device, stats = run(mx.gpu(0), cfg["epochs"])
+    host, _s, _p, _d, _st = run(mx.cpu(0), 1, cfg["host_steps"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, host)]
+    out = dict(example="examples/word_language_model.py", vocab=V,
+               tokens=int(len(ids)), batches_per_epoch=len(batches),
+               unigram_ppl=unigram_ppl, ppl_by_epoch=ppl,
+               seconds_per_epoch=epoch_s,
+               ms_per_batch=[s / len(batches) * 1e3 for s in epoch_s],
+               first_losses=losses[:8], host_losses=host,
+               loss_rel_err=rel, device=device,
+               programs=stats["programs"],
+               capture_s=sum(s["capture_s"] for s in stats["signatures"]),
+               pool_bytes=sum(s["pool_bytes"] for s in stats["signatures"]))
+    check(device.startswith("cuda"), f"word_lm: weights on {device}")
+    check(all(np.isfinite(ppl)) and ppl[-1] < unigram_ppl,
+          f"word_lm: perplexity {ppl} against the unigram {unigram_ppl}")
+    check(len(rel) == cfg["host_steps"]
+          and all(e <= WORD_LM_RTOL for e in rel),
+          f"word_lm: card vs host losses {rel}, want {WORD_LM_RTOL}")
+    return out
+
+
+def _zipf_tokens(rng, n, vocab, a):
+    """``n`` token ids from Zipf(``a``) over ``vocab`` ranks (draws past
+    the vocabulary are dropped)."""
+    out = np.empty(0, np.int64)
+    while out.size < n:
+        z = rng.zipf(a, size=2 * n) - 1
+        out = np.concatenate([out, z[z < vocab]])
+    return out[:n].astype(np.int32)
+
+
+def _word_lm_650_batches(cfg):
+    rng = np.random.RandomState(cfg["seed"])
+    out = []
+    for _ in range(cfg["warm"] + cfg["steps"]):
+        seq = _zipf_tokens(rng, cfg["batch"] * (cfg["bptt"] + 1),
+                           cfg["vocab"], cfg["zipf"]).reshape(
+            cfg["batch"], cfg["bptt"] + 1)
+        out.append((seq[:, :-1], seq[:, 1:]))
+    return out
+
+
+def _word_lm_650_net(mx, path, sparse_grad, dropout):
+    cfg = WORD_LM_650
+    net = _word_lm_model(mx, cfg["vocab"], cfg["embed"], cfg["hidden"],
+                         cfg["layers"], dropout=dropout,
+                         sparse_grad=sparse_grad)
+    net.load_parameters(path)
+    net.hybridize(static_alloc=True)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": cfg["lr"],
+                                "lazy_update": True})
+    return net, trainer
+
+
+def _adam_state(trainer, param):
+    """The Adam moments of ``param`` (host copies)."""
+    i = trainer._params.index(param)
+    mean, var = trainer._updater.states[i]
+    return mean.asnumpy(), var.asnumpy()
+
+
+def _word_lm_650_check(mx, path, batches, ctx):
+    """Two lazy-Adam steps of the dropout-free model from the saved
+    weights: the state before the second step and after it, its loss and
+    its embedding gradient (host copies)."""
+    cfg = WORD_LM_650
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with ctx:
+        net, trainer = _word_lm_650_net(mx, path, True, 0.0)
+        emb = net.embedding.weight
+        out = {}
+        for i, (x, y) in enumerate(batches[:2]):
+            if i == 1:
+                out["before"] = (emb.data().asnumpy(),
+                                 *_adam_state(trainer, emb))
+            loss = _word_lm_step(mx, net, trainer, loss_fn,
+                                 mx.nd.array(x, dtype="int32"),
+                                 mx.nd.array(y, dtype="int32"),
+                                 cfg["vocab"])
+        out["loss"] = float(loss.asscalar())
+        out["grad"] = emb.grad().asnumpy()
+        out["after"] = (emb.data().asnumpy(), *_adam_state(trainer, emb))
+        out["device"] = str(emb.data().data_torch.device)
+    return out
+
+
+def _word_lm_650_run(torch, mx, path, batches, sparse_grad):
+    """(b): 2 warm-up and 10 timed steps at the configuration's dropout:
+    ms a step, host syncs a step, rows touched a step and a traced
+    step's split."""
+    from mxnet_tpu_torch.ndarray import sparse
+    cfg = WORD_LM_650
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.gpu(0):
+        net, trainer = _word_lm_650_net(mx, path, sparse_grad,
+                                        cfg["dropout"])
+        data = [(mx.nd.array(x, dtype="int32"),
+                 mx.nd.array(y, dtype="int32")) for x, y in batches]
+        losses, ms = [], []
+        for i, (x, y) in enumerate(data):
+            if i == cfg["warm"]:
+                syncs0 = sum(sparse.HOST_SYNCS.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(_word_lm_step(mx, net, trainer, loss_fn, x, y,
+                                        cfg["vocab"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        syncs = sum(sparse.HOST_SYNCS.values()) - syncs0
+        losses = [float(v.asscalar()) for v in losses]
+        step_ms = float(np.median(ms[cfg["warm"]:]))
+        x, y = data[-1]
+        trace = _trace_steps(torch, functools.partial(
+            _word_lm_step, mx, net, trainer, loss_fn, x, y, cfg["vocab"]),
+            cfg["traced_steps"], step_ms)
+        fused = trainer.fused_stats()
+        stats = net._cached_op.stats()
+    rows = [int(np.unique(x).size) for x, _y in batches[cfg["warm"]:]]
+    return dict(sparse_grad=sparse_grad, losses=losses,
+                step_ms=step_ms, step_ms_all=ms,
+                host_syncs_per_step=syncs / cfg["steps"],
+                rows_touched_per_step=float(np.mean(rows)),
+                rows_touched=rows, fused_update_programs=fused[
+                    "update_programs"], programs=stats["programs"],
+                **trace)
+
+
+def _rnn_dropout_replays(mx):
+    """A hybridized 2-layer LSTM with inter-layer dropout, recorded three
+    times on one input: the eager first call and two replays of its
+    graph.  Whether the replays drew different masks, and the programs
+    the layer holds."""
+    with mx.gpu(0):
+        cfg = WORD_LM_650
+        layer = mx.gluon.rnn.LSTM(cfg["hidden"], num_layers=cfg["layers"],
+                                  dropout=cfg["dropout"],
+                                  input_size=cfg["embed"])
+        layer.initialize()
+        layer.hybridize(static_alloc=True)
+        x = mx.nd.array(np.random.RandomState(0).rand(
+            cfg["bptt"], cfg["batch"], cfg["embed"]).astype(np.float32))
+        outs = []
+        for _ in range(3):
+            with mx.autograd.record():
+                outs.append(layer(x).asnumpy())
+        return dict(replays_differ=not np.array_equal(outs[1], outs[2]),
+                    programs=layer._cached_op.stats()["programs"])
+
+
+def _word_lm_capture_refusal(torch, mx):
+    """A dense-to-row-sparse conversion attempted inside a CUDA-graph
+    capture: the error's text (None when nothing raised)."""
+    from mxnet_tpu_torch.base import MXNetError
+    g = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    grad = mx.nd.NDArray._wrap(torch.ones(16, 4, device="cuda"))
+    stream.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.stream(stream):
+            with torch.cuda.graph(g, stream=stream):
+                grad.tostype("row_sparse")
+    except MXNetError as e:
+        return str(e)
+    finally:
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+    return None
+
+
+def _word_lm_sparse_surface(mx, ctx):
+    """``nd.sparse`` on ``ctx``: CSR dot with and without transpose_a
+    against a dense product of the same matrix, a row-sparse round
+    trip, retain, and row_sparse_pull from a ``device`` store (host
+    copies)."""
+    cfg, csr = WORD_LM_650, WORD_LM_CSR
+    rng = np.random.RandomState(0)
+    V, E = cfg["vocab"], cfg["embed"]
+    dense = np.zeros((csr["rows"], V), np.float32)
+    mask = rng.rand(*dense.shape) < csr["density"]
+    dense[mask] = rng.randn(int(mask.sum())).astype(np.float32)
+    emb = rng.randn(V, E).astype(np.float32)
+    rhs_t = rng.randn(csr["rows"], E).astype(np.float32)
+    rows = np.unique(rng.randint(0, V, 300)).astype(np.int32)
+    grad = np.zeros((V, E), np.float32)
+    grad[rows] = rng.randn(rows.size, E).astype(np.float32)
+    keep = rows[::3]
+    with ctx:
+        sp, nd = mx.nd.sparse, mx.nd
+        a = sp.csr_matrix(dense)
+        a_dense = nd.array(dense)
+        out = dict(
+            dot=sp.dot(a, nd.array(emb)).asnumpy(),
+            dot_dense=nd.dot(a_dense, nd.array(emb)).asnumpy(),
+            dot_t=sp.dot(a, nd.array(rhs_t), transpose_a=True).asnumpy(),
+            dot_t_dense=nd.dot(a_dense, nd.array(rhs_t),
+                               transpose_a=True).asnumpy(),
+            csr_indptr=a.indptr.asnumpy(), csr_indices=a.indices.asnumpy())
+        rsp = nd.array(grad).tostype("row_sparse")
+        kept = sp.retain(rsp, nd.array(keep, dtype="int32"))
+        out.update(rsp_indices=rsp.indices.asnumpy(),
+                   rsp_data=rsp.data.asnumpy(),
+                   rsp_dense=rsp.tostype("default").asnumpy(),
+                   kept_indices=kept.indices.asnumpy(),
+                   kept_dense=kept.asnumpy())
+        kv = mx.kvstore.create("device")
+        kv.init("emb", nd.array(emb))
+        pulled = nd.zeros((keep.size, E))
+        kv.row_sparse_pull("emb", out=pulled,
+                           row_ids=nd.array(keep, dtype="int32"))
+        out["pulled"] = pulled.asnumpy()
+    out["want_dot"], out["want_dot_t"] = dense @ emb, dense.T @ rhs_t
+    out["want_pulled"], out["rows"], out["keep"] = emb[keep], rows, keep
+    out["grad"] = grad
+    return out
+
+
+def _sparse_surface_errors(card, host):
+    """Each float result's error against the host's (of its max) and
+    whether each index array is equal."""
+    floats = ("dot", "dot_dense", "dot_t", "dot_t_dense", "rsp_data",
+              "rsp_dense", "kept_dense", "pulled")
+    errs = {k: float(np.abs(card[k] - host[k]).max()
+                     / max(float(np.abs(host[k]).max()), 1e-30))
+            for k in floats}
+    # the dense products of the same matrix
+    errs["dot_vs_dense"] = float(np.abs(card["dot"] - card["dot_dense"])
+                                 .max() / np.abs(card["dot_dense"]).max())
+    errs["dot_t_vs_dense"] = float(
+        np.abs(card["dot_t"] - card["dot_t_dense"]).max()
+        / np.abs(card["dot_t_dense"]).max())
+    exact = {k: bool(np.array_equal(card[k], host[k])) for k in
+             ("csr_indptr", "csr_indices", "rsp_indices", "kept_indices")}
+    exact["rsp_rows"] = bool(np.array_equal(card["rsp_indices"],
+                                            card["rows"]))
+    exact["kept_rows"] = bool(np.array_equal(card["kept_indices"],
+                                             card["keep"]))
+    exact["pulled_rows"] = bool(np.array_equal(card["pulled"],
+                                               card["want_pulled"]))
+    return errs, exact
+
+
+def phase_word_lm(torch):
+    """``word_lm``: examples/word_language_model.py's loop on the card
+    and Zaremba's medium LM with a row-sparse embedding (module comment
+    above ``WORD_LM``)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import sparse
+    t0 = time.perf_counter()
+    cfg = WORD_LM_650
+    tmp = tempfile.mkdtemp(prefix="mxnet-word-lm-")
+    split, since = {}, [t0]
+
+    def lap(name):
+        split[name] = time.perf_counter() - since[0]
+        since[0] += split[name]
+
+    try:
+        example = _word_lm_example(mx, os.path.join(tmp, "lm.npz"))
+        _free(torch)
+        lap("example")
+        path = os.path.join(tmp, "lm650.npz")
+        _word_lm_weights(mx, path, cfg["vocab"], cfg["bptt"], cfg["seed"],
+                         embed=cfg["embed"], hidden=cfg["hidden"],
+                         layers=cfg["layers"])
+        batches = _word_lm_650_batches(cfg)
+        lap("medium_weights")
+        runs = [_word_lm_650_run(torch, mx, path, batches, s)
+                for s in (True, False)]
+        _free(torch)
+        lap("medium_runs")
+        card = _word_lm_650_check(mx, path, batches, mx.gpu(0))
+        lap("step_check_card")
+        host = _word_lm_650_check(mx, path, batches, mx.cpu(0))
+        lap("step_check_host")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free(torch)
+    refusal = _word_lm_capture_refusal(torch, mx)
+    dropout = _rnn_dropout_replays(mx)
+    surface_card = _word_lm_sparse_surface(mx, mx.gpu(0))
+    surface_host = _word_lm_sparse_surface(mx, mx.cpu(0))
+    lap("sparse_surface")
+    surface, surface_exact = _sparse_surface_errors(surface_card,
+                                                    surface_host)
+    # the step's check (module comment): the second batch's rows
+    touched = np.unique(batches[1][0])
+    untouched = np.setdiff1d(np.arange(cfg["vocab"]), touched)
+    frozen = all(np.array_equal(a[untouched], b[untouched])
+                 for a, b in zip(card["before"], card["after"]))
+    frozen_host = all(np.array_equal(a[untouched], b[untouched])
+                      for a, b in zip(host["before"], host["after"]))
+    rtol, atol = WORD_LM_650_ROW_TOL
+    row_errs = [float(np.max(np.abs(c[touched] - h[touched])
+                             / (atol + rtol * np.abs(h[touched]))))
+                for c, h in zip(card["after"], host["after"])]
+    loss_rel = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    grad_err = float(np.abs(card["grad"] - host["grad"]).max()
+                     / np.abs(host["grad"]).max())
+    sparse_run = runs[0]
+    head = float(np.mean(sparse_run["losses"][:3]))
+    tail = float(np.mean(sparse_run["losses"][-3:]))
+    emit("word_lm", dtype="float32", example=example,
+         medium=dict(config="Zaremba et al. 2014 medium "
+                     "(GluonNLP standard_lstm_lm_650), untied",
+                     **{k: v for k, v in cfg.items()}),
+         runs=runs, step_check=dict(
+             loss_card=card["loss"], loss_host=host["loss"],
+             loss_rel_err=loss_rel, grad_err=grad_err,
+             touched_rows=int(touched.size),
+             row_err_over_tol=row_errs, untouched_frozen=frozen,
+             untouched_frozen_host=frozen_host, device=card["device"]),
+         capture_refusal=refusal, rnn_dropout=dropout,
+         sparse_surface=surface,
+         sparse_surface_exact=surface_exact,
+         host_syncs=dict(sparse.HOST_SYNCS),
+         seconds=time.perf_counter() - t0, seconds_split=split)
+    check(card["device"].startswith("cuda"),
+          f"word_lm: the medium LM's weights on {card['device']}")
+    check(loss_rel <= WORD_LM_650_LOSS_RTOL,
+          f"word_lm: card vs host loss {loss_rel}")
+    check(grad_err <= WORD_LM_650_GRAD_TOL,
+          f"word_lm: card vs host embedding gradient {grad_err}")
+    check(all(e <= 1.0 for e in row_errs),
+          f"word_lm: updated rows card vs host {row_errs} of the tolerance")
+    check(frozen and frozen_host,
+          f"word_lm: untouched rows or moments moved ({frozen}, "
+          f"{frozen_host})")
+    check(all(np.isfinite(sparse_run["losses"])) and tail < head,
+          f"word_lm: the sparse run's losses {head} -> {tail}")
+    check(sparse_run["host_syncs_per_step"] == 1.0
+          and runs[1]["host_syncs_per_step"] == 0.0,
+          f"word_lm: host syncs a step {[r['host_syncs_per_step'] for r in runs]}")
+    check(refusal is not None and "row_sparse" in refusal,
+          f"word_lm: tostype under capture: {refusal}")
+    check(dropout["replays_differ"] and dropout["programs"] == 1,
+          f"word_lm: the LSTM's dropout under replay: {dropout}")
+    check(all(v <= WORD_LM_SPARSE_TOL for v in surface.values())
+          and all(surface_exact.values()),
+          f"word_lm: nd.sparse on the card: {surface} {surface_exact}")
+
+
+# -------------------------------------------------------------- model_zoo
+# (a) resnet50_v1 (1000 classes) trained at 224x224, batch 32, SGD with
+# momentum 0.9 and wd 1e-4 at lr 0.0125 (0.1 for batch 256, scaled
+# linearly: Goyal et al. 2017) on one fixed seeded batch: 2 eager steps,
+# then hybridize(static_alloc=True) and 2 warm-up and 10 timed steps.
+# The weights: MSRAPrelu (He et al. 2015), as GluonCV's ImageNet
+# recipes.  (b) every family of the model zoo's table (ResNet V1 and V2
+# with each block kind, VGG, AlexNet, MobileNet V1 and V2, SqueezeNet,
+# DenseNet, Inception V3; tests/test_torch_model_zoo*.py hold the
+# names to the JAX package on the host) in inference mode on the card
+# against the port on the host, the host's weights carried across by
+# save_parameters / load_parameters, batch 2 at the smallest input the
+# family takes (below).
+MODEL_ZOO = dict(model="resnet50_v1", classes=1000, image=224, batch=32,
+                 lr=0.0125, momentum=0.9, wd=1e-4, eager_steps=2, warm=2,
+                 steps=10, traced_steps=3, seed=0)
+MODEL_ZOO_FIRST_RTOL = 1e-5     # first hybridized loss vs the eager one
+MODEL_ZOO_TOL = 1e-4            # logits, card vs host, of max|logit|
+MODEL_ZOO_BATCH = 2
+MODEL_ZOO_FAMILIES = ("resnet18_v1", "resnet50_v1", "resnet18_v2",
+                      "resnet50_v2", "vgg11", "alexnet", "mobilenet1.0",
+                      "mobilenetv2_1.0", "squeezenet1.0", "densenet121",
+                      "inceptionv3")
+# the smallest input of each family (AlexNet's 11x11 stride-4 stem and
+# three 3x3 stride-2 pools need 63; Inception V3 ends in an 8x8 pool)
+MODEL_ZOO_INPUT = {"alexnet": 63, "inceptionv3": 299}
+MODEL_ZOO_INPUT_DEFAULT = 32
+
+
+def _zoo_train_step(mx, net, trainer, loss_fn, x, y):
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y).mean()
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def _zoo_resnet50(torch, mx):
+    """(a): ResNet-50's eager then hybridized training steps."""
+    cfg = MODEL_ZOO
+    rng = np.random.RandomState(cfg["seed"])
+    x = rng.rand(cfg["batch"], 3, cfg["image"], cfg["image"]) \
+        .astype(np.float32)
+    y = rng.randint(0, cfg["classes"], cfg["batch"]).astype(np.int32)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    mx.random.seed(cfg["seed"])
+    with mx.gpu(0):
+        net = mx.gluon.model_zoo.get_model(cfg["model"],
+                                           classes=cfg["classes"])
+        net.initialize(mx.init.MSRAPrelu())
+        xs, ys = mx.nd.array(x), mx.nd.array(y, dtype="int32")
+        trainer = mx.gluon.Trainer(
+            net.collect_params(), "sgd",
+            {"learning_rate": cfg["lr"], "momentum": cfg["momentum"],
+             "wd": cfg["wd"]})
+        losses, ms = [], []
+
+        def timed():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(_zoo_train_step(mx, net, trainer, loss_fn, xs,
+                                          ys))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+
+        for _ in range(cfg["eager_steps"]):
+            timed()
+        # the eager loss from the state the first hybridized step starts
+        # from (a training forward: batch statistics)
+        with mx.autograd.record():
+            eager_loss = float(loss_fn(net(xs), ys).mean().asscalar())
+        net.hybridize(static_alloc=True)
+        for _ in range(cfg["warm"] + cfg["steps"]):
+            timed()
+        losses = [float(v.asscalar()) for v in losses]
+        e = cfg["eager_steps"]
+        step_ms = float(np.median(ms[e + cfg["warm"]:]))
+        trace = _trace_steps(torch, functools.partial(
+            _zoo_train_step, mx, net, trainer, loss_fn, xs, ys),
+            cfg["traced_steps"], step_ms)
+        stats = net._cached_op.stats()
+        fused = trainer.fused_stats()
+        device = str(net.output.weight.data().data_torch.device)
+    first_rel = abs(losses[e] - eager_loss) / abs(eager_loss)
+    out = dict(model=cfg["model"], image=cfg["image"], batch=cfg["batch"],
+               optimizer="sgd", lr=cfg["lr"], momentum=cfg["momentum"],
+               wd=cfg["wd"], losses=losses, eager_loss=eager_loss,
+               first_hybrid_rel_err=first_rel, eager_ms=ms[:e],
+               step_ms=step_ms, samples_per_s=cfg["batch"] / step_ms * 1e3,
+               step_ms_all=ms, device=device,
+               capture_s=sum(s["capture_s"] for s in stats["signatures"]),
+               pool_bytes=sum(s["pool_bytes"] for s in stats["signatures"]),
+               programs=stats["programs"],
+               update_capture_s=fused["capture_s"],
+               update_programs=fused["update_programs"], **trace)
+    check(device.startswith("cuda"), f"model_zoo: weights on {device}")
+    check(first_rel <= MODEL_ZOO_FIRST_RTOL,
+          f"model_zoo: first hybridized loss vs eager {first_rel}")
+    check(all(np.isfinite(losses))
+          and np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"model_zoo: ResNet-50 losses {losses}")
+    return out
+
+
+def _zoo_families(mx, tmp):
+    """(b): each family of the table, card against host."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    rows = []
+    for name in MODEL_ZOO_FAMILIES:
+        size = MODEL_ZOO_INPUT.get(name, MODEL_ZOO_INPUT_DEFAULT)
+        x = np.random.RandomState(len(name)).rand(
+            MODEL_ZOO_BATCH, 3, size, size).astype(np.float32)
+        path = os.path.join(tmp, f"{name}.npz")
+        t0 = time.perf_counter()
+        mx.random.seed(0)
+        with mx.cpu(0):
+            host = vision.get_model(name)
+            host.initialize(mx.init.MSRAPrelu())
+            want = host(mx.nd.array(x)).asnumpy()
+            host.save_parameters(path)
+        with mx.gpu(0):
+            net = vision.get_model(name)
+            net.load_parameters(path)
+            got = net(mx.nd.array(x)).asnumpy()
+            device = str(next(iter(net.collect_params().values()))
+                         .data().data_torch.device)
+        del host, net
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        rows.append(dict(model=name, input=size, logits=list(got.shape),
+                         max_logit=float(np.abs(want).max()), err=err,
+                         device=device,
+                         seconds=time.perf_counter() - t0))
+    return rows
+
+
+def phase_model_zoo(torch):
+    """``model_zoo``: ResNet-50 training and every model of the zoo on
+    the card (module comment above ``MODEL_ZOO``)."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    resnet = _zoo_resnet50(torch, mx)
+    _free(torch)
+    t1 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mxnet-model-zoo-")
+    try:
+        families = _zoo_families(mx, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free(torch)
+    emit("model_zoo", dtype="float32", resnet50=resnet, families=families,
+         seconds=time.perf_counter() - t0,
+         seconds_split=dict(resnet50=t1 - t0,
+                            families=time.perf_counter() - t1))
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    kinds = {type(vision.get_model(n)).__name__ for n in vision._MODELS}
+    tried = {type(vision.get_model(r["model"])).__name__ for r in families}
+    bad = [r for r in families if not (r["err"] <= MODEL_ZOO_TOL
+                                       and r["device"].startswith("cuda"))]
+    check(tried == kinds and not bad,
+          f"model_zoo: card vs host logits {bad}, families {tried}")
+
+
 # ---------------------------------------------------------------- ops_card
 # Every op of the op library's long tail (160 names), on the card and on
 # the port's CPU over the same seeded inputs (the table below: the card
@@ -8495,6 +9177,8 @@ def main():
     phase_gluon_mnist(torch)
     phase_gluon_ssd(torch)
     symbolic = phase_symbolic(torch, gluon_hybrid["encoder"])
+    phase_word_lm(torch)
+    phase_model_zoo(torch)
     phase_ops_card(torch, dev)
     phase_graphs(torch, dev, lm)
     replayed = phase_serve_trace(torch, lm)

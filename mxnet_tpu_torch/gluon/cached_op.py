@@ -74,14 +74,20 @@ between (on the card the graph registered that generator at capture
 and advances its offset at every replay).  ``MXNET_DEFERRED_HYBRID_FWD=0`` runs
 every recorded call when it is made.
 
-The graphs read the parameters by address.  Each call binds every
-parameter array (``NDArray._bind``): a value replaced since the last
-call (``Parameter.set_data``, ``load_parameters``, a per-parameter
-optimizer's write) is copied into the bound tensor first and counted in
-:meth:`CachedOp.stats` (``param_copies``).  Autograd saves tensors as
-they are, without its version check (:func:`_as_is`): a replayed
-backward reads what the last forward replay wrote, whatever in-place
-writes (input staging, the update) came after the capture.  So a
+The graphs read the parameters by address.  A captured forward reads
+each parameter through an alias of its home (a fresh leaf over the
+same storage, one per instance), and the captured backward
+differentiates with respect to the aliases: a home's own autograd
+accumulator may have been made on another stream by an eager recorded
+call whose graph is still alive (a kept loss), and a capture that ran
+into it would make the legacy stream wait on the capturing one.  Each
+call binds every parameter array (``NDArray._bind``): a value replaced
+since the last call (``Parameter.set_data``, ``load_parameters``, a
+per-parameter optimizer's write) is copied into the bound tensor first
+and counted in :meth:`CachedOp.stats` (``param_copies``).  Autograd
+saves tensors as they are, without its version check (:func:`_as_is`):
+a replayed backward reads what the last forward replay wrote, whatever
+in-place writes (input staging, the update) came after the capture.  So a
 replay's backward that would read weights written in place since its
 forward (a binding copy, or ``Trainer.step``'s fused update between a
 ``backward(retain_graph=True)`` and the next) raises
@@ -409,6 +415,10 @@ class _Instance:
         self.claim = None               # weakref of the replay holding it
         self.capture_s = 0.0
         self.pool_bytes = 0
+        # on the card the graphs read and differentiate fresh leaves over
+        # the homes' storage (module docstring)
+        self.alias = None if prog.graphs is None else [
+            h.detach().requires_grad_(h.requires_grad) for h in prog.homes]
 
     def busy(self):
         claim = self.claim() if self.claim is not None else None
@@ -417,7 +427,8 @@ class _Instance:
     def leaves(self):
         """The tensors the backward differentiates with respect to."""
         n_in = self.prog.n_in
-        return [self.inputs[k] if k < n_in else self.prog.homes[k - n_in]
+        homes = self.alias if self.alias is not None else self.prog.homes
+        return [self.inputs[k] if k < n_in else homes[k - n_in]
                 for k in self.prog.grad_pos]
 
     def stage(self, tensors):
@@ -425,9 +436,26 @@ class _Instance:
             for buf, t in zip(self.inputs, tensors):
                 buf.copy_(t)
 
+    @contextlib.contextmanager
+    def _aliased(self):
+        """The parameter arrays read this instance's aliases of their
+        homes for the block's forward."""
+        if self.alias is None:
+            yield
+            return
+        arrays = self.prog.arrays
+        saved = [a._t for a in arrays]
+        for a, t in zip(arrays, self.alias):
+            a._t = t
+        try:
+            yield
+        finally:
+            for a, t in zip(arrays, saved):
+                a._t = t
+
     def run(self):
         """The block's forward on the static inputs, saving as it is."""
-        with _as_is():
+        with _as_is(), self._aliased():
             outs = self.prog.run(self.inputs)
         if self.recording:
             self.root_idx = tuple(i for i, o in enumerate(outs)
@@ -517,6 +545,7 @@ class _HybridProgram:
         self.in_specs = [(tuple(x.shape), x._data.dtype, need)
                          for x, (_s, _d, need) in zip(inputs, sig[0])]
         self.n_in = len(inputs)
+        self.arrays = list(arrays)
         self.homes = homes
         self.grad_pos = [k for k, spec in enumerate(self.in_specs)
                          if spec[2]]
@@ -724,6 +753,7 @@ class CachedOp:
             self._cache.move_to_end(sig)
             for a, home in zip(arrays, prog.homes):
                 self._bind(a, home)
+            prog.arrays = arrays
         outs = prog(inputs, arrays, recording)
         ctx = inputs[0].context
         return _unflatten([o if isinstance(o, NDArray)

@@ -8,10 +8,19 @@ per-context gradients through the kvstore (``pushpull``), rescales by
 optimizer (per-device update counts keep bias corrections from
 advancing twice).
 
+A parameter with ``grad_stype="row_sparse"`` (``nn.Embedding(...,
+sparse_grad=True)``, ``contrib.nn.SparseEmbedding``) has its gradient
+compressed to its non-zero rows before its update
+(``tostype("row_sparse")``: one host read of the row mask, so one
+device synchronisation a step on the card), and SGD's and Adam's
+``lazy_update`` then move only those rows and their states, as in the
+JAX package.
+
 The fused tiers, for a fused optimizer (SGD, Adam, AdamW) on one
 context with ``grad_req='write'`` and default storage
-(:meth:`Trainer._fused_eligible`; any other step takes the
-per-parameter path):
+(:meth:`Trainer._fused_eligible`; any other step, a Trainer holding a
+row-sparse parameter's included, takes the per-parameter path,
+eagerly):
 
 - ``_fused_update``: every parameter's update as one
   :class:`_FusedUpdate`, one CUDA graph per key (the optimizer's type,
@@ -476,10 +485,16 @@ class Trainer:
         for i, p in enumerate(self._params):
             if p.grad_req == "null":
                 continue
+            sparse_grad = p._grad_stype == "row_sparse"
             for j, (w, g) in enumerate(zip(p.list_data(), p.list_grad())):
                 if j not in self._dev_updaters:
                     self._dev_updaters[j] = opt.get_updater(self._optimizer)
                 self._optimizer._set_current_context(j)
+                if sparse_grad:
+                    # the stored rows only (one host read of the row
+                    # mask): a lazy optimizer then touches just the rows
+                    # this batch used
+                    g = g.tostype("row_sparse")
                 self._dev_updaters[j](i, g, w)
         self._optimizer._set_current_context(0)
 

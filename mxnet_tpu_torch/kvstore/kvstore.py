@@ -203,6 +203,24 @@ class KVStore(KVStoreBase):
             for o in outs:
                 self._store[k].copyto(o)
 
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull only the rows ``row_ids`` of each key's value into
+        ``out`` (reference: ``KVStore.row_sparse_pull``).  The store
+        keeps dense values, so ``out`` gets the gathered rows, dense, on
+        its own device and in its dtype, as in the JAX package."""
+        if out is None or row_ids is None:
+            raise MXNetError("row_sparse_pull requires out= and row_ids=")
+        for (k, outs), (_k, rids) in zip(_normalize(key, out),
+                                         _normalize(key, row_ids)):
+            if k not in self._store:
+                raise MXNetError(f"kvstore: pull of uninitialized key {k!r}")
+            stored = self._store[k]._data.detach()
+            for o, r in zip(outs, rids):
+                idx = r._data.to(device=stored.device, dtype=torch.int64)
+                rows = stored.index_select(0, idx)
+                o._set_data(rows.to(device=o._data.device,
+                                    dtype=o._data.dtype))
+
     def pushpull(self, key, value, out=None, priority=0):
         self.push(key, value, priority)
         if out is not None:

@@ -176,6 +176,8 @@ def load(fname, ctx=None):
 
 
 from . import random  # noqa: E402  mx.nd.random
+from . import sparse  # noqa: E402  mx.nd.sparse
+from .sparse import CSRNDArray, RowSparseNDArray  # noqa: E402
 
 for _name in _reg.list_ops():
     if _name not in globals():
@@ -183,4 +185,5 @@ for _name in _reg.list_ops():
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "arange", "empty",
            "zeros_like", "ones_like", "concatenate", "add_n", "save",
-           "load", "waitall", "op", "random", "dtype_name"]
+           "load", "waitall", "op", "random", "sparse", "CSRNDArray",
+           "RowSparseNDArray", "dtype_name"]

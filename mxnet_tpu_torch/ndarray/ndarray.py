@@ -357,7 +357,9 @@ class NDArray:
     def attach_grad(self, grad_req: str = "write", stype=None):
         """Make this array a variable: a leaf of the tape with a ``grad``
         buffer written by ``grad_req`` (``'write'``, ``'add'`` or
-        ``'null'``)."""
+        ``'null'``).  ``stype`` is accepted and the buffer stays dense,
+        as in the JAX package: a row-sparse gradient is compressed where
+        it is consumed (``gluon.Trainer``)."""
         if grad_req not in ("write", "add", "null"):
             raise MXNetError(f"invalid grad_req {grad_req!r}")
         self._grad_req = grad_req
@@ -652,7 +654,9 @@ class NDArray:
                         constant_value=constant_value)
 
     def tostype(self, stype):
+        """Convert the storage type (reference: ``NDArray.tostype``);
+        ``'csr'`` and ``'row_sparse'`` live in ``ndarray/sparse.py``."""
         if stype == "default":
             return self
-        raise MXNetError(f"tostype({stype!r}): sparse storage is not "
-                         f"ported yet")
+        from . import sparse
+        return sparse.tostype(self, stype)

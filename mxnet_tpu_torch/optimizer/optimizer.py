@@ -6,7 +6,10 @@ runs its update through the ops of ``ops/optimizer_ops.py`` on one
 parameter at a time and writes the new weight and states back.  One
 optimizer drives the updaters of several device copies; per-device
 update counts keep Adam-style bias corrections from advancing twice
-(``_set_current_context``).
+(``_set_current_context``).  SGD and Adam take a row-sparse gradient
+lazily (``lazy_update``, the default): only its stored rows, and their
+momentum or moments, move; every other row keeps its bits, as in the
+JAX package.
 
 SGD, Adam and AdamW also have a fused form (``fused = True``):
 ``_fused_one`` is one parameter's update on tensors, from the same
@@ -195,6 +198,36 @@ def _clip(opt):
     return opt.clip_gradient or -1.0
 
 
+def _rsp_rows(grad):
+    """``(row indices, row values)`` of a row-sparse gradient, else
+    None.  ``Trainer``'s compression takes the indices from ``nonzero``
+    of a row mask: unique, so the write-back below is deterministic."""
+    from ..ndarray.sparse import RowSparseNDArray
+    if isinstance(grad, RowSparseNDArray):
+        return (grad._components["indices"].to(torch.int64),
+                grad._components["data"])
+    return None
+
+
+def _lazy_rows(opt, index, weight, rows):
+    """The stored rows' indices, their weights and their prepared
+    gradient (rescaled, clipped, plus weight decay)."""
+    idx, gvals = rows
+    w = weight._data.detach()
+    wr = w.index_select(0, idx)
+    g = oo._prep_grad(gvals.to(w.dtype), opt.rescale_grad,
+                      opt.clip_gradient, opt._get_wd(index), wr)
+    return idx, wr, g
+
+
+def _write_rows(arr, idx, rows):
+    """``arr`` with the rows ``idx`` replaced by ``rows``; every other
+    row keeps its bits."""
+    out = arr._data.detach().clone()
+    out.index_copy_(0, idx, rows.to(out.dtype))
+    arr._set_data(out)
+
+
 @register
 class SGD(Optimizer):
     """SGD with momentum (``sgd_update`` / ``sgd_mom_update``)."""
@@ -209,6 +242,23 @@ class SGD(Optimizer):
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
+        rows = _rsp_rows(grad) if not isinstance(state, tuple) else None
+        if rows is not None and self.lazy_update:
+            # lazy row-sparse update (reference: sgd_update's
+            # kRowSparseStorage path): only the stored rows move, and
+            # only their momentum advances
+            lr = self._get_lr(index)
+            with torch.no_grad():
+                idx, wr, g = _lazy_rows(self, index, weight, rows)
+                if state is None:
+                    new_rows = wr - lr * g
+                else:
+                    mr = self.momentum * state._data.index_select(0, idx) \
+                        - lr * g
+                    _write_rows(state, idx, mr)
+                    new_rows = wr + mr
+                _write_rows(weight, idx, new_rows)
+            return
         kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
                   rescale_grad=self.rescale_grad, clip_gradient=_clip(self))
         if isinstance(state, tuple):  # multi-precision
@@ -312,6 +362,21 @@ class Adam(_Moments):
         lr = self._get_lr(index)
         lr *= math.sqrt(1. - self.beta2 ** t) / (1. - self.beta1 ** t)
         mean, var = state
+        rows = _rsp_rows(grad) if isinstance(mean, NDArray) else None
+        if rows is not None and self.lazy_update:
+            # lazy Adam (reference: adam_update's kRowSparseStorage
+            # path): only the stored rows advance their moments
+            with torch.no_grad():
+                idx, wr, g = _lazy_rows(self, index, weight, rows)
+                mr = self.beta1 * mean._data.index_select(0, idx) \
+                    + (1 - self.beta1) * g
+                vr = self.beta2 * var._data.index_select(0, idx) \
+                    + (1 - self.beta2) * g * g
+                _write_rows(mean, idx, mr)
+                _write_rows(var, idx, vr)
+                _write_rows(weight, idx,
+                            wr - lr * mr / (torch.sqrt(vr) + self.epsilon))
+            return
         new_w, new_m, new_v = _apply(
             "adam_update", [weight, grad, mean, var],
             lr=lr, beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,

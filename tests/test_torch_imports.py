@@ -1,13 +1,15 @@
 """PyTorch port, package boundary: no module of ``mxnet_tpu_torch`` and
 not ``chip_smoke.py`` imports ``jax`` or the JAX package (an AST scan of
 every import statement), ``import mxnet_tpu_torch`` (which brings in
-``nd``, ``autograd``, ``gluon`` with ``gluon.data``, ``kvstore``,
-``metric``, ``recordio``, ``sym``, ``executor``, ``module``,
-``callback``, ``attribute`` and ``compat``) loads neither and
-builds no kernel, the adapter's, the multi-rank entry points' and
-``Module``'s default device refuses to fall back to the CPU, and the
-kernel build
-reports a missing ``nvcc`` as :class:`MXNetError`.
+``nd`` with ``nd.sparse``, ``autograd``, ``gluon`` with
+``gluon.data``, ``gluon.rnn``, ``gluon.contrib`` and
+``gluon.model_zoo``, ``kvstore``, ``metric``, ``recordio``, ``sym``,
+``executor``, ``module``, ``callback``, ``attribute`` and ``compat``)
+loads neither and builds no kernel, the adapter's, the multi-rank entry
+points' and ``Module``'s default device refuses to fall back to the
+CPU, the kernel build reports a missing ``nvcc`` as
+:class:`MXNetError`, and the ``gluon.contrib`` names not ported yet
+raise :class:`MXNetError` naming ROADMAP 6.4b.
 """
 import ast
 import os
@@ -74,7 +76,13 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "symbol/symbol.py", "symbol/infer.py", "executor.py",
                    "module/__init__.py", "module/base_module.py",
                    "module/module.py", "module/bucketing_module.py",
-                   "callback.py", "compat.py"):
+                   "callback.py", "compat.py", "ndarray/sparse.py",
+                   "gluon/rnn/__init__.py", "gluon/rnn/rnn_layer.py",
+                   "gluon/rnn/rnn_cell.py", "gluon/contrib/__init__.py",
+                   "gluon/contrib/nn.py", "gluon/contrib/rnn.py",
+                   "gluon/contrib/estimator.py",
+                   "gluon/model_zoo/__init__.py",
+                   "gluon/model_zoo/vision.py"):
         assert f"mxnet_tpu_torch/{module}" in scanned, module
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
@@ -102,6 +110,9 @@ def test_package_import_loads_no_jax_and_builds_no_kernel():
             "from mxnet_tpu_torch import metric, recordio\n"
             "from mxnet_tpu_torch import sym, executor, module, callback\n"
             "from mxnet_tpu_torch import attribute, compat\n"
+            "from mxnet_tpu_torch.gluon import rnn, contrib, model_zoo\n"
+            "from mxnet_tpu_torch.gluon.contrib import nn, estimator\n"
+            "assert mx.nd.sparse.RowSparseNDArray\n"
             "assert mx.Symbol is sym.Symbol and mx.AttrScope\n"
             "from mxnet_tpu_torch.gluon.data import vision\n"
             "from mxnet_tpu_torch.ops import build\n"
@@ -183,3 +194,14 @@ def test_module_default_context_is_the_card():
     if mx.num_gpus() == 0:
         with pytest.raises(MXNetError, match="no device"):
             mod.bind(data_shapes=[("data", (2, 3))])
+
+
+@pytest.mark.parametrize("name", ["detection", "FusedTrainStep", "MoEFFN"])
+def test_gluon_contrib_names_still_to_come_raise(name):
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon import contrib
+    with pytest.raises(MXNetError, match=r"ROADMAP 6\.4b"):
+        getattr(contrib, name)
+    with pytest.raises(AttributeError):
+        contrib.no_such_name
+    assert {"nn", "rnn", "estimator"} <= set(dir(contrib))
