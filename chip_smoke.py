@@ -311,7 +311,11 @@ parent built (no ``nvcc``); a rank's failure fails the script.
    = 3 x ``wire_bytes_per_step``; sp 2 ring attention (B 1, H 16, L
    4096, D 64, causal and causal with window 512) against the dense
    masked softmax on rank 0 (out 1e-4, dQ / dK / dV 1e-3 of max), with
-   the transport used; then a two-rank probe of gloo's send / recv of
+   the transport used; ``dist_ep``: ``gluon_moe``'s Switch-width layer
+   (a Gluon block through ``ShardedTrainer``) at dp 1 x ep 2, each rank
+   holding 4 of the 8 experts, batch 2, 3 AdamW steps against the
+   one-rank trainer (losses 1e-4 relative, gathered parameters atol
+   3e-4); then a two-rank probe of gloo's send / recv of
    a CUDA tensor (its exit code and what arrived; the port stages
    every gloo hop through host memory whatever it finds).
 
@@ -436,6 +440,28 @@ Then the Gluon training path (``nd``, ``autograd``, ``gluon``,
    ``boolean_mask`` refusing capture, and the ``RNN`` op at
    ``examples/word_language_model.py``'s widths.
 
+Run after ``gluon_ssd`` (``gluon.contrib``, fp32 with TF32 off):
+
+29. ``gluon_fused`` — ``FusedTrainStep`` (one CUDA graph a step) on
+   ``gluon_flash``'s encoder layer against the three-call recipe from
+   the same weights (module comment above ``GLUON_FUSED``): 3 steps'
+   losses and parameters, ``.grad`` untouched, ms a step, host calls,
+   graph launches and B1-B3 records per traced step (1 each), and a
+   failure injected into the replay: the reference's "donated" error,
+   "reset" on the next call, counts rolled back, training again after
+   a reload and ``reset()``;
+30. ``gluon_moe`` — one encoder layer at Switch-Base-8's widths
+   (``MoEFFN``, 8 experts, capacity factor 1.25; module comment above
+   ``SWITCH``) at batch 8 x L 512 trained by ``FusedTrainStep`` against
+   the three-call recipe, the first step at batch 2 against the host
+   with the router's choices token by token; tokens dropped a step, ms
+   a step, device ms split into GEMMs (the einsums), B1-B3 and the
+   optimizer, idle share, B1-B3 records per traced step (1 each);
+31. ``faster_rcnn`` — ``examples/faster_rcnn.py``'s recipe on synthetic
+   arrays (module comment above ``FASTER_RCNN``): 120 eager iterations,
+   held-out recall at least 0.5, the first iteration's RPN and ROI
+   losses against the host.
+
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
 main path: for B4 and B5 the ``serve`` engine's, for B1-B3 the graphs
@@ -471,7 +497,11 @@ steps), and ``launches_gluon_flash``, ``launches_gluon_dist`` (rank
 the Gluon phases, and ``launches_symbolic`` (the encoder Module's
 first step), ``traced_symbolic_kernel_records`` (its traced replays)
 and ``launches_symbolic_bucketing`` (each bucket's first step) from
-``symbolic``; B4 gives ``launches_gluon_nd`` (the
+``symbolic``, ``launches_gluon_fused`` / ``launches_gluon_moe`` (each
+``FusedTrainStep``'s eager first step) with
+``traced_gluon_fused_kernel_records`` /
+``traced_gluon_moe_kernel_records`` (their traced replays), and
+``launches_dist_ep`` (one rank's, 3 steps); B4 gives ``launches_gluon_nd`` (the
 ``nd.ragged_paged_attention_op`` call)), the
 ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -1657,15 +1687,44 @@ def _is_host_call(key):
     return key.startswith("cu") and ("Launch" in key or "Memcpy" in key)
 
 
+def _kernel_sequence(torch, prof):
+    """The kernel records of a trace (copies and sets left out) in the
+    order they started: [(kernel name, device us)]."""
+    cuda = torch.autograd.DeviceType.CUDA
+    recs = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                  for e in prof.events()
+                  if getattr(e, "device_type", None) == cuda
+                  and not any(t in e.name.lower()
+                              for t in ("memcpy", "memset")))
+    return [(name, us) for _t, name, us in recs]
+
+
+def _runs_of(seq, tail):
+    """The runs of ``tail`` (kernel names in order) in ``seq``
+    (``_kernel_sequence``), non-overlapping, found from the end: (how
+    many, their device us)."""
+    k, i, runs, us = len(tail), len(seq) - len(tail), 0, 0.0
+    while k and i >= 0:
+        if all(seq[i + j][0] == tail[j] for j in range(k)):
+            runs += 1
+            us += sum(u for _n, u in seq[i:i + k])
+            i -= k
+        else:
+            i -= 1
+    return runs, us
+
+
 def _trace_steps(torch, step, n, step_ms, warm=None, where=None,
-                 names=None):
+                 names=None, tail=None):
     """``n`` calls of ``step`` traced with ``torch.profiler`` (after
     ``warm()``, whose records are not counted, when given:
     ``_profiled``): device time by kernel family (copies count under
     ``other`` and are also given alone), kernels and copies per step,
     host calls (launches, graph launches and copies) per step, and the
     device idle share against the untraced ``step_ms``; with ``names``
-    (wrapper -> kernel name tag), each one's kernel records per step."""
+    (wrapper -> kernel name tag), each one's kernel records and device
+    ms per step; with ``tail`` (kernel names in order), how many runs of
+    that sequence the trace holds and their device ms per step."""
     with _profiled(torch, warm, where) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
@@ -1675,6 +1734,7 @@ def _trace_steps(torch, step, n, step_ms, warm=None, where=None,
     split = {"ragged_paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
     kernels, host_calls, copy_us, top = 0, 0, 0.0, []
     records = dict.fromkeys(names or (), 0)
+    name_us = dict.fromkeys(names or (), 0.0)
     for evt in prof.key_averages():
         us = _kernel_us(evt, torch)
         if not us:
@@ -1686,6 +1746,7 @@ def _trace_steps(torch, step, n, step_ms, warm=None, where=None,
         for name in records:
             if names[name] in evt.key:
                 records[name] += evt.count
+                name_us[name] += us
         if "memcpy" in key:
             copy_us += us
         top.append((us, evt.count, evt.key[:90]))
@@ -1713,6 +1774,11 @@ def _trace_steps(torch, step, n, step_ms, warm=None, where=None,
         host_calls_per_step=host_calls / n, top_kernels=top)
     if names:
         out["records_per_step"] = {k: v / n for k, v in records.items()}
+        out["device_ms_per_step_by_name"] = {k: v / n / 1e3
+                                             for k, v in name_us.items()}
+    if tail:
+        runs, us = _runs_of(_kernel_sequence(torch, prof), tail)
+        out["tail_runs"], out["tail_device_ms_per_step"] = runs, us / n / 1e3
     return out
 
 
@@ -4194,7 +4260,7 @@ def phase_train_parity(torch, dev):
           f"train_parity: flash loss {l_f} vs dense {l_d}")
     # 1e-3 of each tensor's max|grad|: 24 fp32 layers, attention summed
     # in another order (online softmax vs dense softmax), TF32 off
-    worst = (0.0, None)
+    worst = (0.0, "")
     for n, a, b in zip(names, g_f, g_d):
         ratio = float((a - b).abs().max()) / max(float(b.abs().max()),
                                                   1e-30)
@@ -5303,7 +5369,7 @@ def _dist_nccl_worker(torch, dist, dev):
 
 
 def _params_close(torch, got, want):
-    worst = (0.0, None)
+    worst = (0.0, "")
     for n, w in want.items():
         worst = max(worst, (float((got[n].float() - w.detach().float())
                                   .abs().max()),
@@ -5493,6 +5559,70 @@ def _dist_ring(torch, dev, rank):
     return out
 
 
+def _dist_ep(torch, dist, dev, rank):
+    """dp 1 x ep 2 over gloo, fp32 (TF32 off), ``graphs=False``:
+    ``gluon_moe``'s Switch-width layer (a Gluon block, each rank holding
+    4 of the 8 experts) at batch 2, three AdamW steps; then rank 0 runs
+    the one-rank trainer from the same weights and holds losses and the
+    gathered parameters to it."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel
+    cfg = SWITCH
+    x, v, y = _switch_batch(cfg["dist_B"], seed=3)
+    batch = (x, v, y)
+
+    # one block from seed 0 for both trainers (each holds its own copy)
+    mx.random.seed(0)
+    with mx.cpu(0):
+        net = _switch_layer(mx)
+        net.initialize(mx.init.Xavier())
+
+    def loss_fn(outputs, label):
+        logits, aux = outputs
+        return torch.nn.functional.cross_entropy(
+            logits.float(), label.long()) + cfg["aux_weight"] * aux
+
+    def trainer(mesh):
+        return parallel.ShardedTrainer(
+            net, loss_fn, mesh, optimizer="adamw",
+            optimizer_params={"learning_rate": DIST_LR},
+            example_inputs=(x, v), n_labels=1, graphs=False)
+
+    tr = trainer(parallel.make_mesh(dp=1, ep=2))
+    w1 = next(n for n in tr.params if n.endswith("expert_w1"))
+    _dist_counts(zero=True)
+    losses, ms = _timed_steps(torch, tr, batch, DIST_STEPS)
+    launches = _dist_counts()
+    full = tr.gathered_params()
+    out = dict(losses=losses, ms_per_step=ms, launches=launches,
+               experts_local=int(tr.params[w1].shape[0]),
+               w1_spec=[str(a) for a in tr.placements[w1]],
+               bound=len(tr._tp_bound))
+    del tr
+    _free(torch)
+    if rank == 0:
+        ref = trainer(parallel.Mesh(dev))
+        ref_losses, ref_ms = _timed_steps(torch, ref, batch, DIST_STEPS)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        worst = _params_close(torch, full, ref.params)
+        experts = _params_close(torch, full, {
+            n: p for n, p in ref.params.items() if "expert_" in n})
+        check(rel <= DIST_LOSS_RTOL,
+              f"dist_ep: losses {losses} vs the one-rank trainer's "
+              f"{ref_losses}")
+        check(worst[0] <= DIST_PARAM_ATOL,
+              f"dist_ep: gathered {worst[1]} off by {worst[0]}")
+        out.update(losses_one_rank=ref_losses, ms_per_step_one_rank=ref_ms,
+                   losses_max_rel_err=rel, params_max_abs_err=worst[0],
+                   params_worst=worst[1],
+                   expert_params_max_abs_err=experts[0])
+        del ref
+    del full
+    _free(torch)
+    dist.barrier("dist_ep", timeout_s=600)
+    return out
+
+
 def _gloo_p2p_probe(torch, dist, dev, rank):
     """Whether gloo's send / recv take a CUDA tensor as it is (the port
     stages every gloo hop of a CUDA tensor through host memory whatever
@@ -5513,7 +5643,7 @@ def _gloo_p2p_probe(torch, dist, dev, rank):
 def dist_worker(job, outdir):
     """One rank of a ``dist`` job (started by the port's launcher):
     ``nccl`` (world 1), ``gloo`` (dist_tp, dist_checkpoint,
-    dist_dp_int8 and dist_ring on two ranks of the one card) or
+    dist_dp_int8, dist_ring and dist_ep on two ranks of the one card) or
     ``probe``.  Loads the kernel libraries the parent built (no
     ``nvcc``) and writes its results to ``<outdir>/<job>-<rank>.json``."""
     import torch
@@ -5544,6 +5674,7 @@ def dist_worker(job, outdir):
         del head
         _free(torch)
         result["dist_ring"] = _dist_ring(torch, dev, rank)
+        result["dist_ep"] = _dist_ep(torch, dist, dev, rank)
     result.update(rank=rank, backend=dist.backend(), device=str(dev),
                   init_s=init_s, seconds=time.perf_counter() - t0)
     _dist_out(outdir, job, rank, result)
@@ -5624,10 +5755,25 @@ def phase_dist(torch):
              transport=ranks[0]["dist_ring"]["transport"],
              gloo_cuda_p2p_probe=dict(exit_code=rc_p, ranks=probe),
              ranks=[r["dist_ring"] for r in ranks])
+        ep = [r["dist_ep"] for r in ranks]
+        emit("dist_ep", layer="gluon_moe's Switch-Base-8-width layer",
+             dtype="float32", mesh="dp1 x ep2", backend="gloo",
+             steps=DIST_STEPS, lr=DIST_LR, batch=SWITCH["dist_B"],
+             L=SWITCH["L"], experts=SWITCH["experts"], timing=label,
+             loss_rtol=DIST_LOSS_RTOL, param_atol=DIST_PARAM_ATOL,
+             ranks=ep)
+        for e in ep:
+            check(e["experts_local"] == SWITCH["experts"] // 2
+                  and e["w1_spec"][0] == "ep" and e["bound"] == 1,
+                  f"dist_ep: rank layout {e}")
+            check(all(n == DIST_STEPS for n in e["launches"].values()),
+                  f"dist_ep: B1-B3 wrapper launches {e['launches']}, want "
+                  f"one a step")
         return {"dist_nccl": nccl["launches"],
                 "dist_nccl_traced": nccl["traced_replay_records"]["grouped"],
                 "dist_tp": tp[0]["launches"],
-                "dist_dp_int8": ranks[0]["dist_dp_int8"]["launches"]}
+                "dist_dp_int8": ranks[0]["dist_dp_int8"]["launches"],
+                "dist_ep": ep[0]["launches"]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -7377,6 +7523,714 @@ def phase_gluon_ssd(torch):
           and replay_calls == 0,
           f"gluon_ssd: the hybridized forward did not replay one graph "
           f"holding MultiBoxPrior ({stats}, {replay_calls} calls)")
+
+
+# ------------------------------------------------------------- gluon_fused
+# gluon.contrib.FusedTrainStep (one CUDA graph a step: the forward with B1,
+# the backward with B2 and B3, Adam) on gluon_flash's BERT-large-width
+# encoder layer with its loss, against the three-call recipe (the
+# hybridized loss block under record / backward / Trainer.step: the lazy
+# forward's full-step graph) from the same weights and batch, fp32 with
+# TF32 off: 3 steps each, losses within GLUON_HYBRID_LOSS_RTOL (the first
+# within GLUON_HYBRID_FIRST_RTOL: both are eager calls of the same
+# kernels) and parameters within GLUON_HYBRID_PARAM_TOL (a replay runs
+# the same kernels, but cuBLAS picks its algorithm per stream and
+# workspace, and Adam's normalised step turns such rounding of a
+# near-zero gradient into up to lr); then timed and traced steps, the
+# .grad buffers untouched, and a failure injected after the launch (the
+# graph's replay raising) poisoning the instance until a reload and
+# reset().
+GLUON_FUSED = dict(steps=3, timed_steps=10, traced_steps=3)
+
+
+def _fused_runs(mx, path, batch):
+    """The encoder layer with its loss from ``path``'s weights, twice:
+    trained by ``FusedTrainStep`` and by the three-call recipe."""
+    from mxnet_tpu_torch.gluon.contrib import FusedTrainStep
+    cfg = GLUON_FLASH
+    runs = {}
+    for mode in ("fused", "three_call"):
+        net = _encoder_layer(mx, cfg["units"], cfg["heads"], cfg["ffn"])
+        net.load_parameters(path)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": cfg["lr"]})
+        block = _loss_block(mx, net)
+        if mode == "fused":
+            fused = FusedTrainStep(block, trainer)
+            # the batch is (L, B, units): B examples, as trainer.step's
+            step = functools.partial(fused, *batch,
+                                     batch_size=batch[-1].shape[0])
+        else:
+            block.hybridize()
+            fused = None
+            step = _gluon_stepper(mx, trainer, batch, block=block)
+        runs[mode] = dict(net=net, trainer=trainer, fused=fused, step=step)
+    return runs
+
+
+class _FailingGraph:
+    """A CUDA graph stand-in whose replay fails after the launch."""
+
+    def replay(self):
+        raise RuntimeError("injected failure after the launch")
+
+
+def _fused_poison(torch, mx, run, path, batch):
+    """A failure injected into the fused step's replay: the error names
+    the donated buffers, the next call refuses until ``reset()``, the
+    update counts roll back; after a reload and ``reset()`` the step
+    captures its graph anew and trains."""
+    from mxnet_tpu_torch.base import KernelError
+    fused, o = run["fused"], run["trainer"]._optimizer
+    entry = next(iter(fused._cache.values()))
+    real = entry.update.graph
+    counts = dict(o._index_update_count)
+    errors = []
+    entry.update.graph = _FailingGraph()
+    try:
+        for _ in range(2):
+            try:
+                fused(*batch, batch_size=batch[-1].shape[0])
+                errors.append(None)
+            except KernelError as e:
+                errors.append(str(e))
+    finally:
+        entry.update.graph = real
+    rolled_back = dict(o._index_update_count) == counts
+    guidance = bool(errors[0] and "donated" in errors[0]
+                    and errors[1] and "reset" in errors[1])
+    run["net"].load_parameters(path)
+    fused.reset()
+    _dist_counts(zero=True)
+    after = [float(fused(*batch, batch_size=batch[-1].shape[0])
+                   .mean().asscalar()) for _ in range(2)]
+    torch.cuda.synchronize()
+    return dict(first_error=errors[0] and errors[0][:160],
+                later_error=errors[1] and errors[1][:160],
+                guidance=guidance,
+                counts_rolled_back=rolled_back, losses_after_reset=after,
+                launches_after_reset=_dist_counts(),
+                signatures_after_reset=len(fused._cache))
+
+
+def phase_gluon_fused(torch):
+    """``gluon_fused``: ``FusedTrainStep`` against the three-call recipe
+    (module comment above ``GLUON_FUSED``).  Returns B1-B3's wrapper
+    launches in the fused run and their records in its traced steps."""
+    import mxnet_tpu_torch as mx
+    cfg = GLUON_FUSED
+    ex, ev, ey = _encoder_batch(GLUON_FLASH)
+    tmp = tempfile.mkdtemp(prefix="mxnet-gluon-fused-")
+    try:
+        path = os.path.join(tmp, "encoder.npz")
+        _encoder_weights(mx, GLUON_FLASH, path)
+        with mx.gpu(0):
+            batch = tuple(mx.nd.array(a) for a in (ex, ev, ey))
+            runs = _fused_runs(mx, path, batch)
+            fnet = runs["fused"]["net"]
+            grads0 = [p.grad().asnumpy() for p in
+                      fnet.collect_params().values() if p.grad_req != "null"]
+            for r in runs.values():
+                _dist_counts(zero=True)
+                r["losses"], r["first_ms"] = _gluon_loop(
+                    r["step"], cfg["steps"], sync=torch.cuda.synchronize)
+                r["launches"] = _dist_counts()
+            param_err = _gluon_param_err(fnet, runs["three_call"]["net"])
+            grads_untouched = all(
+                np.array_equal(g, p.grad().asnumpy()) for g, p in zip(
+                    grads0, [p for p in fnet.collect_params().values()
+                             if p.grad_req != "null"]))
+            for r in runs.values():
+                _l, ms = _gluon_loop(r["step"], cfg["timed_steps"],
+                                     sync=torch.cuda.synchronize)
+                r["ms_per_step"] = float(np.median(ms))
+            fused = runs["fused"]
+            trace = _trace_steps(torch, fused["step"], cfg["traced_steps"],
+                                 fused["ms_per_step"], warm=fused["step"],
+                                 where="gluon_fused", names=FLASH_NAMES)
+            graph_launches = TRACE_LAUNCHES[-1]["counted"]
+            entry = next(iter(fused["fused"]._cache.values()))
+            replays, capture_s = entry.update.replays, entry.update.capture_s
+            del entry
+            poison = _fused_poison(torch, mx, fused, path, batch)
+            for r in runs.values():
+                for k in ("net", "trainer", "fused", "step"):
+                    r.pop(k)
+        _free(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    f, t = runs["fused"], runs["three_call"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(f["losses"], t["losses"])]
+    first_after = abs(poison["losses_after_reset"][0] - f["losses"][0]) \
+        / abs(f["losses"][0])
+    emit("gluon_fused", layer="bert_24_1024_16 encoder layer + "
+         "SoftmaxCrossEntropyLoss in one HybridBlock",
+         **{k: GLUON_FLASH[k] for k in ("units", "heads", "ffn", "L", "B",
+                                        "lr")},
+         optimizer="adam", dtype="float32", steps=cfg["steps"],
+         losses=f["losses"], three_call_losses=t["losses"],
+         loss_rel_err=rel, losses_bitwise_equal=f["losses"] == t["losses"],
+         param_err_of_tol=param_err, grads_untouched=grads_untouched,
+         ms_per_step=f["ms_per_step"],
+         three_call_ms_per_step=t["ms_per_step"],
+         first_step_ms=f["first_ms"][0], launches=f["launches"],
+         launches_three_call=t["launches"],
+         graph_launches_per_traced_step=len(graph_launches)
+         / cfg["traced_steps"], replays=replays, capture_s=capture_s,
+         trace=trace, poison=poison,
+         first_loss_after_reset_rel_err=first_after,
+         loss_rtol=GLUON_HYBRID_LOSS_RTOL,
+         first_loss_rtol=GLUON_HYBRID_FIRST_RTOL,
+         param_tol=GLUON_HYBRID_PARAM_TOL)
+    check(all(np.isfinite(f["losses"])), f"gluon_fused: losses {f['losses']}")
+    check(rel[0] <= GLUON_HYBRID_FIRST_RTOL
+          and max(rel) <= GLUON_HYBRID_LOSS_RTOL,
+          f"gluon_fused: losses {rel} from the three-call recipe")
+    check(param_err <= 1.0, f"gluon_fused: parameters {param_err} of "
+                            f"{GLUON_HYBRID_PARAM_TOL} from the recipe")
+    check(grads_untouched, "gluon_fused: FusedTrainStep wrote .grad")
+    check(f["launches"] == dict.fromkeys(FLASH_NAMES, 1),
+          f"gluon_fused: B1-B3 wrapper launches {f['launches']}, want 1 "
+          f"each (the first, eager step)")
+    check(trace["records_per_step"] == dict.fromkeys(FLASH_NAMES, 1.0)
+          and len(graph_launches) == cfg["traced_steps"],
+          f"gluon_fused: {trace['records_per_step']} B1-B3 records and "
+          f"{graph_launches} graph launches in {cfg['traced_steps']} steps")
+    check(poison["guidance"] and poison["counts_rolled_back"]
+          and all(np.isfinite(poison["losses_after_reset"]))
+          and first_after <= GLUON_HYBRID_FIRST_RTOL
+          and poison["launches_after_reset"]
+          == dict.fromkeys(FLASH_NAMES, 1),
+          f"gluon_fused: the injected failure {poison}")
+    return dict(launches=f["launches"],
+                traced={k: v * cfg["traced_steps"]
+                        for k, v in trace["records_per_step"].items()})
+
+
+# --------------------------------------------------------------- gluon_moe
+# One encoder layer at Switch-Base-8's published widths (Fedus et al.
+# 2021; google/switch-base-8 config.json: d_model 768, num_heads 12,
+# d_ff 3072, num_experts 8, relu; router capacity factor 1.25 in
+# training, aux loss weight 0.01): qkv -> F.flash_selfatt -> proj,
+# residual + LayerNorm, gluon.contrib.MoEFFN, residual + LayerNorm, a
+# two-way head on position 0 with SoftmaxCrossEntropyLoss + 0.01 x the
+# Switch aux loss.  One layer at those widths, not the T5 model.  Batch 8
+# x L 512 (4096 tokens: capacity 640 a expert), fp32 with TF32 off, Adam
+# at lr 1e-4, trained by FusedTrainStep (one CUDA graph a step) against
+# the three-call recipe from the same weights (GLUON_FUSED's bounds), the
+# first step at batch 2 against the same FusedTrainStep on the host, and
+# the router's expert choices on the card against the host's.
+SWITCH = dict(units=768, heads=12, ffn=3072, experts=8,
+              capacity_factor=1.25, aux_weight=0.01, L=512, B=8,
+              host_B=2, dist_B=2, steps=3, timed_steps=10, traced_steps=3,
+              lr=1e-4, optimizer_replays=10,
+              valid=(377, 280, 179, 450, 112, 92, 230, 64))
+# the first step's loss, card vs host at batch 2 (GLUON_FLASH's bound:
+# the attention's and the experts' sums in another order)
+SWITCH_HOST_RTOL = 1e-4
+
+
+def _switch_layer(mx):
+    """The Switch-Base-8-width encoder layer (comment above ``SWITCH``):
+    ``layer(x, valid_length) -> (logits, aux_loss)``; ``moe_input`` is
+    the tokens the MoE layer routes."""
+    from mxnet_tpu_torch.gluon.contrib import MoEFFN
+    nn, cfg = mx.gluon.nn, SWITCH
+    units, heads = cfg["units"], cfg["heads"]
+
+    class SwitchLayer(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.qkv = nn.Dense(3 * units, flatten=False,
+                                    in_units=units)
+                self.proj = nn.Dense(units, flatten=False, in_units=units)
+                self.ln1 = nn.LayerNorm(in_channels=units)
+                self.moe = MoEFFN(units, cfg["ffn"], cfg["experts"],
+                                  capacity_factor=cfg["capacity_factor"],
+                                  activation="relu")
+                self.ln2 = nn.LayerNorm(in_channels=units)
+                self.head = nn.Dense(2, in_units=units)
+
+        def _attend(self, F, x, valid_length):
+            att = F.flash_selfatt(self.qkv(x), valid_length, heads=heads)
+            return self.ln1(x + self.proj(att))
+
+        def moe_input(self, x, valid_length):
+            return self._attend(mx.nd, x, valid_length)
+
+        def hybrid_forward(self, F, x, valid_length):
+            h = self._attend(F, x, valid_length)
+            m, aux = self.moe(h)
+            h = self.ln2(h + m)
+            return (self.head(F.squeeze(F.slice_axis(h, axis=0, begin=0,
+                                                     end=1), axis=0)),
+                    aux)
+
+    return SwitchLayer()
+
+
+def _switch_loss_block(mx, inner):
+    """The layer and its loss as one HybridBlock: ``block(x,
+    valid_length, label)`` is each example's cross entropy plus
+    ``aux_weight`` x the aux loss."""
+
+    class WithLoss(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.inner = inner
+                self.loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def hybrid_forward(self, F, x, valid_length, label):
+            logits, aux = self.inner(x, valid_length)
+            return self.loss(logits, label) + SWITCH["aux_weight"] * aux
+
+    return WithLoss()
+
+
+def _switch_batch(B, seed):
+    return _encoder_batch(dict(L=SWITCH["L"], B=B, units=SWITCH["units"],
+                               valid=SWITCH["valid"]), seed=seed)
+
+
+def _switch_weights(mx, path):
+    """The layer's weights from seed 0 (Xavier, drawn on the host),
+    saved."""
+    mx.random.seed(0)
+    with mx.cpu(0):
+        net = _switch_layer(mx)
+        net.initialize(mx.init.Xavier())
+        net.save_parameters(path)
+
+
+def _switch_routing(torch, mx, net, x, valid):
+    """The MoE layer's routing of the batch's tokens under the layer's
+    weights, by the port's routing op (``ops.moe.moe_top1_dispatch``: the
+    ``_route`` and ``_dispatch`` that ``moe_ffn`` runs) over the gates'
+    logits: each token's expert, its top-1 minus top-2 gate, the tokens
+    each expert is chosen by, and the tokens dropped past the capacity
+    (routed, given no slot).  A pass of its own, outside the step."""
+    from mxnet_tpu_torch.ops.moe import moe_top1_dispatch
+    with mx.autograd.pause(), torch.no_grad():
+        h = net.moe_input(mx.nd.array(x), mx.nd.array(valid))._data
+        hs = h.reshape(-1, h.shape[-1]).float()
+        logits = hs @ net.moe.gate_weight.data()._data.float()
+        _c, dispatch, _aux = moe_top1_dispatch(
+            logits, capacity_factor=SWITCH["capacity_factor"])
+        gates = torch.softmax(logits, -1)
+    top = torch.topk(gates, 2, dim=-1).values
+    expert = torch.argmax(gates, dim=-1)
+    return dict(expert=expert.cpu().numpy(),
+                margin=(top[:, 0] - top[:, 1]).cpu().numpy(),
+                counts=torch.bincount(expert, minlength=gates.shape[1])
+                .tolist(), capacity=int(dispatch.shape[-1]),
+                dropped=int(hs.shape[0] - dispatch.sum()))
+
+
+def _switch_run(mx, path, batch, mode):
+    """The layer from ``path`` with its loss: ``FusedTrainStep`` or the
+    three-call recipe over ``batch`` (NDArrays)."""
+    from mxnet_tpu_torch.gluon.contrib import FusedTrainStep
+    net = _switch_layer(mx)
+    net.load_parameters(path)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": SWITCH["lr"]})
+    block = _switch_loss_block(mx, net)
+    if mode == "fused":
+        fused = FusedTrainStep(block, trainer)
+        return dict(net=net, trainer=trainer, fused=fused,
+                    step=functools.partial(fused, *batch,
+                                           batch_size=batch[-1].shape[0]))
+    block.hybridize()
+    return dict(net=net, trainer=trainer,
+                step=_gluon_stepper(mx, trainer, batch, block=block))
+
+
+def _switch_host_check(torch, mx, path):
+    """The first FusedTrainStep step at batch 2, card and host, from the
+    same weights: both losses, and the router's choices token by token
+    (those that differ with their gate margins)."""
+    x, v, y = _switch_batch(SWITCH["host_B"], seed=2)
+    out = {}
+    for name, ctx in (("card", mx.gpu(0)), ("host", mx.cpu(0))):
+        with ctx:
+            batch = tuple(mx.nd.array(a) for a in (x, v, y))
+            run = _switch_run(mx, path, batch, "fused")
+            routing = _switch_routing(torch, mx, run["net"], x, v)
+            loss = float(run["step"]().mean().asscalar())
+            out[name] = dict(loss=loss, routing=routing)
+            del run
+    card, host = out["card"]["routing"], out["host"]["routing"]
+    differ = np.flatnonzero(card["expert"] != host["expert"])
+    return dict(
+        card_loss=out["card"]["loss"], host_loss=out["host"]["loss"],
+        loss_rel_err=abs(out["card"]["loss"] - out["host"]["loss"])
+        / abs(out["host"]["loss"]),
+        tokens=int(card["expert"].size), experts_agree=not differ.size,
+        differing_tokens=[dict(token=int(t), card=int(card["expert"][t]),
+                               host=int(host["expert"][t]),
+                               host_margin=float(host["margin"][t]))
+                          for t in differ[:16]],
+        smallest_margin=float(host["margin"].min()),
+        card_counts=card["counts"], host_counts=host["counts"])
+
+
+def phase_gluon_moe(torch):
+    """``gluon_moe``: the Switch-Base-8-width layer (module comment above
+    ``SWITCH``) trained by ``FusedTrainStep`` at batch 8 x L 512.
+    Returns B1-B3's wrapper launches in the fused run and their records
+    in its traced steps."""
+    import mxnet_tpu_torch as mx
+    cfg = SWITCH
+    x, v, y = _switch_batch(cfg["B"], seed=1)
+    tmp = tempfile.mkdtemp(prefix="mxnet-gluon-moe-")
+    try:
+        path = os.path.join(tmp, "switch.npz")
+        _switch_weights(mx, path)
+        host = _switch_host_check(torch, mx, path)
+        _free(torch)
+        with mx.gpu(0):
+            batch = tuple(mx.nd.array(a) for a in (x, v, y))
+            runs = {m: _switch_run(mx, path, batch, m)
+                    for m in ("fused", "three_call")}
+            fused = runs["fused"]
+
+            def keep(i):
+                # each step's weights, for the routing pass below (a copy
+                # to the host: nothing of the path launches)
+                if i + 1 < cfg["steps"]:
+                    fused["net"].save_parameters(
+                        os.path.join(tmp, f"step{i + 1}.npz"))
+
+            for mode, r in runs.items():
+                _dist_counts(zero=True)
+                r["losses"], r["first_ms"] = _gluon_loop(
+                    r["step"], cfg["steps"], sync=torch.cuda.synchronize,
+                    on_step=keep if mode == "fused" else None)
+                r["launches"] = _dist_counts()
+            param_err = _gluon_param_err(fused["net"],
+                                         runs["three_call"]["net"])
+            routing = _switch_routing(torch, mx, fused["net"], x, v)
+            # the tokens each counted step dropped, from the weights it
+            # started from
+            rnet = _switch_layer(mx)
+            dropped = []
+            for i in range(cfg["steps"]):
+                rnet.load_parameters(
+                    path if i == 0 else os.path.join(tmp, f"step{i}.npz"))
+                dropped.append(_switch_routing(torch, mx, rnet, x,
+                                               v)["dropped"])
+            del rnet
+            for r in runs.values():
+                _l, ms = _gluon_loop(r["step"], cfg["timed_steps"],
+                                     sync=torch.cuda.synchronize)
+                r["ms_per_step"] = float(np.median(ms))
+            # the optimizer's kernels: the sequence one replay of the
+            # Trainer's own update graph over the same parameters runs
+            # (their .grad buffers: FusedTrainStep leaves them untouched),
+            # found again at the end of each traced FusedTrainStep replay
+            opt_step = functools.partial(fused["trainer"].step, cfg["B"])
+            with _profiled(torch, warm=lambda: [opt_step(), opt_step()],
+                           where="gluon_moe optimizer") as prof:
+                for _ in range(cfg["traced_steps"]):
+                    opt_step()
+            opt_seq = [n for n, _us in _kernel_sequence(torch, prof)]
+            k = len(opt_seq) // cfg["traced_steps"]
+            tail = opt_seq[:k] if opt_seq == opt_seq[:k] \
+                * cfg["traced_steps"] else None
+            optimizer_alone_ms = Timer(torch, torch.device("cuda:0"))(
+                opt_step, iters=cfg["optimizer_replays"])
+            trace = _trace_steps(torch, fused["step"], cfg["traced_steps"],
+                                 fused["ms_per_step"], warm=fused["step"],
+                                 where="gluon_moe", names=FLASH_NAMES,
+                                 tail=tail)
+            graph_launches = TRACE_LAUNCHES[-1]["counted"]
+            n_params = sum(int(np.prod(p.shape)) for p in
+                           fused["net"].collect_params().values())
+            for r in runs.values():
+                for k in ("net", "trainer", "fused", "step"):
+                    r.pop(k, None)
+        _free(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    f, t = runs["fused"], runs["three_call"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(f["losses"], t["losses"])]
+    fam = trace["device_ms_per_step_by_family"] or {}
+    attention = sum(trace["device_ms_per_step_by_name"].values())
+    device = trace["device_ms_per_step"] or 0.0
+    # one trace's split: the optimizer is its kernels' runs inside the
+    # traced replays, one a replay, or not given
+    optimizer = trace.get("tail_device_ms_per_step") \
+        if trace.get("tail_runs") == cfg["traced_steps"] else None
+    split = dict(einsums_gemm=fam.get("gemm"), attention_b1_b3=attention,
+                 optimizer=optimizer,
+                 other=None if optimizer is None
+                 else device - (fam.get("gemm") or 0.0) - attention
+                 - optimizer)
+    emit("gluon_moe", layer="Switch-Base-8 widths (google/switch-base-8): "
+         "flash attention + MoEFFN, one encoder layer",
+         **{k: cfg[k] for k in ("units", "heads", "ffn", "experts",
+                                "capacity_factor", "L", "B", "lr")},
+         tokens=cfg["L"] * cfg["B"], capacity=routing["capacity"],
+         optimizer="adam", dtype="float32", parameters=n_params,
+         path="FusedTrainStep: one CUDA graph a step",
+         losses=f["losses"], three_call_losses=t["losses"],
+         loss_rel_err=rel, param_err_of_tol=param_err,
+         tokens_dropped_per_step=dropped,
+         tokens_dropped_from="ops.moe.moe_top1_dispatch over each counted "
+         "step's starting weights, a pass outside the step",
+         expert_counts_after=routing["counts"],
+         ms_per_step=f["ms_per_step"],
+         three_call_ms_per_step=t["ms_per_step"],
+         first_step_ms=f["first_ms"][0], device_ms_split=split,
+         optimizer_kernels_a_replay=len(tail or ()),
+         optimizer_runs_found=trace.get("tail_runs"),
+         optimizer_alone_ms=optimizer_alone_ms,
+         launches=f["launches"], launches_three_call=t["launches"],
+         graph_launches_per_traced_step=len(graph_launches)
+         / cfg["traced_steps"], trace=trace, host_check=host,
+         loss_rtol=GLUON_HYBRID_LOSS_RTOL, param_tol=GLUON_HYBRID_PARAM_TOL,
+         host_rtol=SWITCH_HOST_RTOL)
+    check(all(np.isfinite(f["losses"])), f"gluon_moe: losses {f['losses']}")
+    check(rel[0] <= GLUON_HYBRID_FIRST_RTOL
+          and max(rel) <= GLUON_HYBRID_LOSS_RTOL and param_err <= 1.0,
+          f"gluon_moe: losses {rel}, parameters {param_err} of tolerance "
+          f"from the three-call recipe")
+    check(host["loss_rel_err"] <= SWITCH_HOST_RTOL,
+          f"gluon_moe: the first loss at batch 2 on the card "
+          f"{host['card_loss']} vs the host {host['host_loss']}")
+    check(f["launches"] == dict.fromkeys(FLASH_NAMES, 1),
+          f"gluon_moe: B1-B3 wrapper launches {f['launches']}, want 1 each")
+    check(trace["records_per_step"] == dict.fromkeys(FLASH_NAMES, 1.0)
+          and len(graph_launches) == cfg["traced_steps"],
+          f"gluon_moe: {trace['records_per_step']} B1-B3 records and "
+          f"{graph_launches} graph launches in {cfg['traced_steps']} steps")
+    return dict(launches=f["launches"],
+                traced={k: v * cfg["traced_steps"]
+                        for k, v in trace["records_per_step"].items()})
+
+
+# ------------------------------------------------------------- faster_rcnn
+# examples/faster_rcnn.py's recipe at its own sizes: 128x128 images,
+# batch 8, FPN channels 32, rpn_pre_topk 64, rpn_post_topk 16, Adam at
+# lr 5e-4, 120 iterations of the eager record / backward / step loop over
+# 256 one-rectangle images from seed 0 (the example's synth_rec drawn
+# straight into arrays: no JPEG round trip, which waits for the io /
+# image slice; reshuffled every epoch as ImageRecordIter(shuffle=True)
+# does), then the held-out top-detection recall over 64 images from
+# seed 1, held to the example's --min-recall 0.5.  The first iteration's
+# RPN loss against the host's from the same weights and batch, and its
+# ROI loss against the host's over the card's proposals (proposals are a
+# top-k: near-equal scores may order otherwise; whether they agree is
+# reported).
+FASTER_RCNN = dict(img=128, batch=8, channels=32, pre=64, post=16, lr=5e-4,
+                   iters=120, train_images=256, eval_images=64,
+                   min_recall=0.5)
+FASTER_RCNN_COLORS = {1: (200, 60, 40), 2: (40, 200, 60)}
+FASTER_RCNN_HOST_RTOL = 1e-4
+
+
+def _frcnn_images(n, seed):
+    """``synth_rec`` of examples/faster_rcnn.py into arrays: images (n, 3,
+    IMG, IMG) scaled to [0, 1] and labels (n, 5) [cls, x0, y0, x1, y1] in
+    pixels, from the same draws."""
+    img = FASTER_RCNN["img"]
+    rng = np.random.RandomState(seed)
+    imgs = np.zeros((n, 3, img, img), np.float32)
+    labels = np.zeros((n, 5), np.float32)
+    for i in range(n):
+        cls = rng.randint(1, 3)
+        w = rng.randint(28, 72)
+        h = rng.randint(28, 72)
+        x0 = rng.randint(4, img - w - 4)
+        y0 = rng.randint(4, img - h - 4)
+        pic = rng.randint(0, 60, (img, img, 3)).astype(np.uint8)
+        pic[y0:y0 + h, x0:x0 + w] = np.array(
+            FASTER_RCNN_COLORS[cls], np.uint8) + rng.randint(
+                -20, 20, 3).astype(np.int16).astype(np.uint8)
+        imgs[i] = pic.transpose(2, 0, 1) / 255.0
+        labels[i] = [cls, x0, y0, x0 + w, y0 + h]
+    return imgs, labels
+
+
+def _frcnn_net(mx):
+    """The example's backbone and ``FasterRCNN`` on the port."""
+    from mxnet_tpu_torch.gluon.contrib import detection as det
+    nn, cfg = mx.gluon.nn, FASTER_RCNN
+
+    class Feats(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.s1 = nn.HybridSequential()
+                for _ in range(3):
+                    self.s1.add(nn.Conv2D(32, 3, strides=2, padding=1,
+                                          activation="relu"))
+                self.s2 = nn.Conv2D(48, 3, strides=2, padding=1,
+                                    activation="relu")
+                self.s3 = nn.Conv2D(64, 3, strides=2, padding=1,
+                                    activation="relu")
+
+        def hybrid_forward(self, F, x):
+            c3 = self.s1(x)
+            c4 = self.s2(c3)
+            c5 = self.s3(c4)
+            return c3, c4, c5
+
+    return det.FasterRCNN(Feats(), (32, 48, 64), num_classes=2,
+                          image_size=(cfg["img"], cfg["img"]),
+                          channels=cfg["channels"],
+                          rpn_pre_topk=cfg["pre"],
+                          rpn_post_topk=cfg["post"])
+
+
+def _frcnn_step(mx, net, trainer, x, lab):
+    """One iteration of the example's loop: (loss, rpn loss, roi loss,
+    the proposals and their keep mask)."""
+    nd = mx.nd
+    gt_b = nd.array(lab[:, None, 1:5])
+    gtc_b = nd.array(lab[:, None, 0].astype(np.int32), dtype="int32")
+    with mx.autograd.record():
+        levels, anchors, obj, reg = net.rpn_forward(x)
+        rloss = net.rpn_loss(anchors, obj, reg, gt_b)
+        rois_b, _sc, keep_b = net.proposals(anchors, obj, reg)
+        closs = net.rcnn_loss(levels, rois_b, gt_b, gtc_b, keep=keep_b)
+        loss = rloss + closs
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss, rloss, closs, rois_b, keep_b
+
+
+def _frcnn_trainer(mx, net):
+    params = {k: p for k, p in net.collect_params().items()
+              if p.grad_req != "null"}
+    return mx.gluon.Trainer(params, "adam",
+                            {"learning_rate": FASTER_RCNN["lr"]})
+
+
+def _frcnn_recall(mx, net, imgs, labels):
+    """The example's ``evaluate``: the share of images whose top
+    detection has IoU >= 0.5 with the ground truth and its class."""
+    hits = 0
+    bs = FASTER_RCNN["batch"]
+    for s in range(0, len(imgs), bs):
+        cls, boxes, rscores = net(mx.nd.array(imgs[s:s + bs]))
+        prob = mx.nd.softmax(cls, axis=-1).asnumpy()
+        boxes, rs = boxes.asnumpy(), rscores.asnumpy()
+        for b, lab in enumerate(labels[s:s + bs]):
+            fg = np.where(np.isfinite(rs[b])[:, None], prob[b, :, 1:], 0.0)
+            r, c = np.unravel_index(np.argmax(fg), fg.shape)
+            pb, gb = boxes[b, r, c], lab[1:5]
+            ix = max(0.0, min(pb[2], gb[2]) - max(pb[0], gb[0]))
+            iy = max(0.0, min(pb[3], gb[3]) - max(pb[1], gb[1]))
+            inter = ix * iy
+            union = ((pb[2] - pb[0]) * (pb[3] - pb[1])
+                     + (gb[2] - gb[0]) * (gb[3] - gb[1]) - inter)
+            hits += (c + 1 == int(lab[0])
+                     and inter / max(union, 1e-9) >= 0.5)
+    return hits / len(imgs)
+
+
+def phase_faster_rcnn(torch):
+    """``faster_rcnn``: examples/faster_rcnn.py's loop and held-out recall
+    on the card (module comment above ``FASTER_RCNN``)."""
+    import mxnet_tpu_torch as mx
+    cfg = FASTER_RCNN
+    imgs, labels = _frcnn_images(cfg["train_images"], seed=0)
+    eval_imgs, eval_labels = _frcnn_images(cfg["eval_images"], seed=1)
+    order = np.random.RandomState(0)
+    batches, per_epoch = [], cfg["train_images"] // cfg["batch"]
+    while len(batches) < cfg["iters"]:
+        perm = order.permutation(cfg["train_images"])
+        batches += [perm[i * cfg["batch"]:(i + 1) * cfg["batch"]]
+                    for i in range(per_epoch)]
+    batches = batches[:cfg["iters"]]
+    tmp = tempfile.mkdtemp(prefix="mxnet-frcnn-")
+    try:
+        path = os.path.join(tmp, "frcnn.npz")
+        mx.random.seed(0)
+        with mx.cpu(0):
+            init = _frcnn_net(mx)
+            init.initialize(mx.init.Xavier())
+            init(mx.nd.zeros((1, 3, cfg["img"], cfg["img"])))
+            init.save_parameters(path)
+        with mx.gpu(0):
+            net = _frcnn_net(mx)
+            net.load_parameters(path)
+            trainer = _frcnn_trainer(mx, net)
+            losses, first = [], None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, idx in enumerate(batches):
+                loss, rloss, closs, rois, keep = _frcnn_step(
+                    mx, net, trainer, mx.nd.array(imgs[idx]), labels[idx])
+                losses.append(loss)
+                if i == 0:
+                    first = dict(rpn=float(rloss.asscalar()),
+                                 roi=float(closs.asscalar()),
+                                 rois=rois.cpu().numpy(),
+                                 keep=keep.cpu().numpy())
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            losses = [float(v.asscalar()) for v in losses]
+            t0 = time.perf_counter()
+            recall = _frcnn_recall(mx, net, eval_imgs, eval_labels)
+            eval_s = time.perf_counter() - t0
+            devices = sorted({str(p.data().data_torch.device)
+                              for p in net.collect_params().values()})
+            del net, trainer
+        with mx.cpu(0):
+            host = _frcnn_net(mx)
+            host.load_parameters(path)
+            idx = batches[0]
+            x, lab = mx.nd.array(imgs[idx]), labels[idx]
+            gt_b = mx.nd.array(lab[:, None, 1:5])
+            gtc_b = mx.nd.array(lab[:, None, 0].astype(np.int32),
+                                dtype="int32")
+            levels, anchors, obj, reg = host.rpn_forward(x)
+            h_rpn = float(host.rpn_loss(anchors, obj, reg, gt_b).asscalar())
+            h_rois, _s, h_keep = host.proposals(anchors, obj, reg)
+            h_roi = float(host.rcnn_loss(
+                levels, first["rois"], gt_b, gtc_b,
+                keep=first["keep"]).asscalar())
+            same_keep = bool(np.array_equal(h_keep.numpy(), first["keep"]))
+            rois_err = float(np.abs(np.where(
+                first["keep"][..., None], h_rois.numpy() - first["rois"],
+                0.0)).max()) if same_keep else None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free(torch)
+    rpn_rel = abs(first["rpn"] - h_rpn) / abs(h_rpn)
+    roi_rel = abs(first["roi"] - h_roi) / abs(h_roi)
+    head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    emit("faster_rcnn", example="examples/faster_rcnn.py",
+         data="synth_rec drawn into arrays (no JPEG)",
+         **{k: cfg[k] for k in ("img", "batch", "channels", "pre", "post",
+                                "lr", "iters", "train_images",
+                                "eval_images")},
+         optimizer="adam", dtype="float32", devices=devices,
+         train_seconds=train_s, iter_ms=train_s / cfg["iters"] * 1e3,
+         eval_seconds=eval_s, recall=recall, min_recall=cfg["min_recall"],
+         first_losses=losses[:5], last_losses=losses[-5:],
+         mean_loss_first10=head, mean_loss_last10=tail,
+         first_iter=dict(rpn=first["rpn"], roi=first["roi"],
+                         host_rpn=h_rpn, host_roi_on_card_proposals=h_roi,
+                         rpn_rel_err=rpn_rel, roi_rel_err=roi_rel,
+                         proposals_keep_agree=same_keep,
+                         kept_proposals_max_abs_err=rois_err),
+         host_rtol=FASTER_RCNN_HOST_RTOL)
+    check(all(d.startswith("cuda") for d in devices),
+          f"faster_rcnn: weights on {devices}")
+    check(all(np.isfinite(losses)) and tail < head,
+          f"faster_rcnn: losses {head} -> {tail}")
+    check(rpn_rel <= FASTER_RCNN_HOST_RTOL
+          and roi_rel <= FASTER_RCNN_HOST_RTOL,
+          f"faster_rcnn: first iteration's losses vs the host: rpn "
+          f"{rpn_rel}, roi {roi_rel}")
+    check(recall >= cfg["min_recall"],
+          f"faster_rcnn: held-out recall {recall} below "
+          f"{cfg['min_recall']}")
 
 
 # ---------------------------------------------------------------- symbolic
@@ -9176,6 +10030,9 @@ def main():
     gluon_hybrid = phase_gluon_hybrid(torch)
     phase_gluon_mnist(torch)
     phase_gluon_ssd(torch)
+    gluon_fused = phase_gluon_fused(torch)
+    gluon_moe = phase_gluon_moe(torch)
+    phase_faster_rcnn(torch)
     symbolic = phase_symbolic(torch, gluon_hybrid["encoder"])
     phase_word_lm(torch)
     phase_model_zoo(torch)
@@ -9272,7 +10129,12 @@ def main():
             launches_symbolic=symbolic["launches"][name],
             traced_symbolic_kernel_records=symbolic["traced"][name],
             launches_symbolic_bucketing={
-                L: c[name] for L, c in symbolic["bucketing"].items()})
+                L: c[name] for L, c in symbolic["bucketing"].items()},
+            launches_gluon_fused=gluon_fused["launches"][name],
+            traced_gluon_fused_kernel_records=gluon_fused["traced"][name],
+            launches_gluon_moe=gluon_moe["launches"][name],
+            traced_gluon_moe_kernel_records=gluon_moe["traced"][name],
+            launches_dist_ep=dist_launches["dist_ep"][name])
         if key == "fwd":
             # the predict path (fp32): the bucket graphs' captures launch
             # B1 from the wrapper; their replays are counted from trace

@@ -41,6 +41,7 @@ from . import executor
 from . import module
 from . import callback
 from . import compat
+from . import test_utils
 
 
 def waitall():
@@ -53,4 +54,4 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "NDArray", "random", "init", "initializer", "lr_scheduler",
            "optimizer", "gluon", "kvstore", "kv", "metric", "recordio",
            "io", "attribute", "AttrScope", "symbol", "sym", "Symbol", "executor",
-           "module", "callback", "compat", "waitall"]
+           "module", "callback", "compat", "test_utils", "waitall"]

@@ -94,6 +94,21 @@ def update_aux_state(param: Parameter, new_value, ctx=None):
                 arr._data.copy_(data.detach())
 
 
+def _resolve_shapes(block, inputs, train_mode):
+    """One eager pass over ``inputs`` when a parameter of ``block`` waits
+    for its shape, only then (``FusedTrainStep`` and
+    ``parallel.functionalize`` both start with it).  A hybridized block
+    finds deferred shapes through its own plain pass, so the block's
+    hybridization is left as it is."""
+    params = block.collect_params().values()
+    if not any(p._deferred_init is not None or not p._data for p in params):
+        return
+    from .. import autograd
+    xs = [x if isinstance(x, NDArray) else NDArray(x) for x in inputs]
+    with autograd.pause(train_mode=train_mode):
+        block(*xs)
+
+
 def _prod(t):
     out = 1
     for x in t:

@@ -173,6 +173,7 @@ class _FusedUpdate:
         self.outs = None                # the last call's outputs
         self.warm = False
         self.failed = None
+        self.launched = False           # the last call began its update
         self.applied = False            # the last call's update ran
         self.copies = 0
         self.replays = 0
@@ -250,7 +251,7 @@ class _FusedUpdate:
 
     def __call__(self, weights, grads, others, states):
         """Update (after the backward, with ``backward``) in place."""
-        self.applied = False
+        self.applied = self.launched = False
         if self.failed is not None:
             raise KernelError(
                 f"Trainer: the fused update's CUDA graph for this key "
@@ -262,6 +263,7 @@ class _FusedUpdate:
         self.outs = None
         if self.graphs is None:
             self._refresh()
+            self.launched = True
             self.outs = self._body()
             self.applied = True
             self._written(False)
@@ -269,12 +271,14 @@ class _FusedUpdate:
         with self.graphs.on_stream() as caller:
             self._refresh()
             if not self.warm:
+                self.launched = True
                 self.outs = self._body()
                 self.applied = self.warm = True
                 self._written(False)
                 self._keep(caller)
                 self._capture()
                 return
+            self.launched = True
             try:
                 self.graph.replay()
             except Exception as e:

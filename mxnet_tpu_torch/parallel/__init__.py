@@ -2,11 +2,15 @@
 process-group runtime (:mod:`.dist`), the device mesh, sharding rules
 and Megatron tensor parallelism, ``ShardedTrainer`` (dp / tp, with
 int8/fp8 gradient compression), ring attention and the GPipe pipeline,
-its optimizers, and its durability — checkpoints (sharded across ranks),
-the step watchdog and the supervisor — and the serving replica layer's
-placement (``replica_groups``, ``replica_mesh``)."""
+its optimizers, ``functionalize`` (a Gluon block as a function of
+tensors, and as the ``nn.Module`` the trainer runs), MoE expert
+parallelism over ``ep`` (:mod:`.expert`), and its durability —
+checkpoints (sharded across ranks), the step watchdog and the
+supervisor — and the serving replica layer's placement
+(``replica_groups``, ``replica_mesh``)."""
 from . import dist
 from .checkpoint import CheckpointManager, load_checkpoint, save_checkpoint
+from .functional import GluonModule, functionalize
 from .mesh import Mesh, make_mesh
 from .pipeline import make_pipeline_mesh, pipeline_apply
 from .placement import ReplicaMesh, replica_groups, replica_mesh
@@ -24,4 +28,4 @@ __all__ = ["Mesh", "make_mesh", "replica_groups",
            "make_pipeline_mesh", "CheckpointManager", "save_checkpoint",
            "load_checkpoint", "TrainingSupervisor", "StepWatchdog",
            "run_with_deadline", "TrainStepTimeoutError", "CrashLoopError",
-           "dist"]
+           "functionalize", "GluonModule", "dist"]

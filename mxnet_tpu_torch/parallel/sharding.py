@@ -41,7 +41,8 @@ from ..base import MXNetError
 
 __all__ = ["PartitionSpec", "P", "ShardingRules", "MEGATRON_RULES",
            "partition_params", "local_shard", "gather_params",
-           "all_reduce_", "broadcast_", "all_gather", "TensorParallel"]
+           "all_reduce_", "all_reduce_sum", "broadcast_", "all_gather",
+           "TensorParallel"]
 
 
 class PartitionSpec(tuple):
@@ -231,6 +232,26 @@ class _ReduceFromTP(torch.autograd.Function):
         return grad, None
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """All-reduce forward and all-reduce of the gradient backward: the
+    sum over the group of a value every rank then uses alike (the
+    derivative of a sum that each rank's loss reads)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.contiguous().clone(), ctx.group), None
+
+
+def all_reduce_sum(x, group):
+    """``x`` summed over ``group``, differentiable (:class:`_AllReduceSum`)."""
+    return _AllReduceSum.apply(x, group)
+
+
 class _GatherFromTP(torch.autograd.Function):
     """All-gather along ``dim`` forward, this rank's slice of the gradient
     backward."""
@@ -248,12 +269,20 @@ class _GatherFromTP(torch.autograd.Function):
 
 class TensorParallel:
     """A tp group as the model layers see it: ``size``, this rank's
-    ``rank`` in it, and the three collectives.  ``spec_of(param)`` is the
-    placement of a (full) parameter of the bound block."""
+    ``rank`` in it, and the four collectives.  ``spec_of(param)`` is the
+    placement of a (full) parameter of the bound block; ``mesh``, when
+    given, is the whole mesh (the groups of its other axes: an
+    expert-parallel layer's ``ep`` and ``dp``)."""
 
-    def __init__(self, group, size, rank, spec_of):
+    def __init__(self, group, size, rank, spec_of, mesh=None):
         self.group, self.size, self.rank = group, int(size), int(rank)
         self.spec_of = spec_of
+        self.mesh = mesh
+
+    def with_spec_of(self, spec_of):
+        """The same group over another ``spec_of``."""
+        return TensorParallel(self.group, self.size, self.rank, spec_of,
+                              self.mesh)
 
     def copy(self, x):
         return _CopyToTP.apply(x, self)
@@ -263,6 +292,9 @@ class TensorParallel:
 
     def gather(self, x, dim=-1):
         return _GatherFromTP.apply(x, self, dim % x.dim())
+
+    def sum(self, x):
+        return all_reduce_sum(x, self.group)
 
     def _specs(self, weight, bias):
         return (tuple(self.spec_of(weight)),

@@ -4,8 +4,9 @@ of a block, step by step.
 The PyTorch port of ``mxnet_tpu.parallel.ShardedTrainer`` at dp = 1.
 The trainer holds its own copy of the block's parameters (cast to
 ``dtype`` where floating, as the JAX ``_own`` does), runs the block
-through ``torch.func.functional_call`` — the counterpart of
-``functionalize`` — and updates the trainable ones (``requires_grad``)
+through ``torch.func.functional_call`` — a Gluon block as a
+:class:`.functional.GluonModule`, over ``functionalize`` — and updates
+the trainable ones (``requires_grad``)
 in place with the optimizers of :mod:`.optim`.  ``write_back()`` copies
 the trained values, buffers included, into the block.
 
@@ -44,7 +45,9 @@ does not divide is refused).  Parameters follow ``rules`` (default
 the block's ``gluon_names()``): each rank holds its local shards as
 plain tensors, and the block's layers bound to the tp group run the
 Megatron collectives (``models.*.bind_tensor_parallel``), so flash
-attention runs on the rank's ``heads / tp`` heads.  The loss returned
+attention runs on the rank's ``heads / tp`` heads; a Gluon block's
+``MoEFFN`` layers run their ``E / ep`` experts and route over the whole
+dp batch (:mod:`.expert`).  The loss returned
 is the global mean and the gradients the dp mean, all-reduced in
 float32 buckets of at most 25 MiB over the dp group (floating
 buffers, BatchNorm's running statistics, are averaged with them);
@@ -265,9 +268,27 @@ class _StepProgram:
         self.capture_s = time.perf_counter() - t0
 
 
+def _gluon_module(block, example_inputs, device):
+    """A Gluon block as the trainer's ``nn.Module``
+    (:class:`.functional.GluonModule`), its deferred shapes resolved on
+    the example inputs placed on the trainer's device."""
+    from ..context import context_of
+    from ..ndarray import NDArray
+    from .functional import GluonModule
+    ctx = context_of(device)
+    xs = [x if isinstance(x, NDArray) else NDArray(np.asarray(x), ctx=ctx)
+          for x in example_inputs]
+    return GluonModule(block, *xs)
+
+
 class ShardedTrainer:
-    """A training step for an ``nn.Module`` on a :class:`Mesh`: one card,
-    or this rank's part of a multi-rank mesh (module docstring).
+    """A training step for an ``nn.Module`` or a Gluon block on a
+    :class:`Mesh`: one card, or this rank's part of a multi-rank mesh
+    (module docstring).  A Gluon block (``gluon.Block``) is run as a
+    :class:`.functional.GluonModule`: its parameters by their Gluon
+    names, those with ``grad_req="null"`` (BatchNorm's running
+    statistics) as buffers; ``write_back()`` copies into the block's
+    arrays.
 
     ``loss_fn(outputs, *labels) -> scalar`` is written in torch over raw
     tensors.  ``step(*batch)`` takes the block's ``n_inputs =
@@ -308,6 +329,8 @@ class ShardedTrainer:
                              f"{type(rules).__name__}")
         self.mesh = mesh
         self.device = mesh.device
+        if not isinstance(block, torch.nn.Module):
+            block = _gluon_module(block, example_inputs, self.device)
         self.block = block
         self.loss_fn = loss_fn
         self.compression = _qz.CompressionSpec.parse(compression)
@@ -408,20 +431,27 @@ class ShardedTrainer:
 
     # ------------------------------------------------------ multi-rank
     def _bind_tensor_parallel(self, named):
-        """The block's layers bound to the tp group: ``[(module,
-        binding)]`` from each module's ``bind_tensor_parallel``.  A
+        """The block's layers bound to the mesh: ``[(module, binding)]``
+        from each module's ``bind_tensor_parallel`` (the transformer
+        layers' tp, a Gluon block's ``MoEFFN`` layers' ep, tp and dp
+        routing: :mod:`.expert`).  A
         parameter placed across a mesh axis of size > 1 that no layer
         runs split raises: nothing computes on a shard as if it were the
         whole."""
         mesh = self.mesh
         split = {n for n, spec in self.placements.items()
                  if any(a is not None and mesh.shape[a] > 1 for a in spec)}
-        if not split:
+        # an expert-parallel layer routes over the whole dp batch even
+        # when nothing is split
+        if not split and (mesh.groups is None or mesh.shape["dp"] == 1):
             return []
-        spec_of_id = {id(p): self.placements[n] for n, p in named.items()}
+        # the layers see only the axes that split (size > 1)
+        spec_of_id = {id(p): P(*[a if a is not None and mesh.shape[a] > 1
+                                 else None for a in self.placements[n]])
+                      for n, p in named.items()}
         tp = TensorParallel(mesh.group("tp"), mesh.shape["tp"],
                             mesh.coords["tp"],
-                            lambda p: spec_of_id.get(id(p), P()))
+                            lambda p: spec_of_id.get(id(p), P()), mesh=mesh)
         bound, claimed = [], set()
         for module in self.block.modules():
             bind = getattr(module, "bind_tensor_parallel", None)
@@ -437,7 +467,8 @@ class ShardedTrainer:
                 f"ShardedTrainer: the rules split {unclaimed[:4]} "
                 f"({[self.placements[n] for n in unclaimed[:4]]}) but no "
                 f"layer of the block runs them split; only the "
-                f"transformer layers' tensor parallelism is ported")
+                f"transformer layers' tensor parallelism and MoEFFN's "
+                f"expert parallelism are ported")
         return bound
 
     @contextlib.contextmanager

@@ -198,10 +198,10 @@ def test_module_default_context_is_the_card():
 
 @pytest.mark.parametrize("name", ["detection", "FusedTrainStep", "MoEFFN"])
 def test_gluon_contrib_names_still_to_come_raise(name):
-    from mxnet_tpu_torch.base import MXNetError
+    """The last names of ROADMAP 6.4b are ported: each resolves, and an
+    unknown name raises a plain AttributeError, as in the JAX package."""
     from mxnet_tpu_torch.gluon import contrib
-    with pytest.raises(MXNetError, match=r"ROADMAP 6\.4b"):
-        getattr(contrib, name)
+    assert name in contrib.__all__ and getattr(contrib, name) is not None
     with pytest.raises(AttributeError):
         contrib.no_such_name
-    assert {"nn", "rnn", "estimator"} <= set(dir(contrib))
+    assert {"nn", "rnn", "estimator", name} <= set(dir(contrib))

@@ -241,6 +241,45 @@ OUT["pre_split"] = np.array(split)
 pbatch = tuple(IN["pb%d" % i] for i in range(6))
 OUT["pre_losses"] = np.array([float(ptr.step(*pbatch)) for _ in range(3)])
 
+# -- dp 2 x ep 2: a Gluon MoE layer whose experts split over ep
+import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch.gluon.contrib import MoEFFN
+
+class Net(tmx.gluon.HybridBlock):
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        with self.name_scope():
+            self.moe = MoEFFN(units=8, hidden_size=16, num_experts=4,
+                              capacity_factor=MOE_CF)
+
+    def hybrid_forward(self, F, x):
+        out, aux = self.moe(x)
+        return out + x, aux
+
+with tmx.cpu(0):
+    mnet = Net()
+    mnet.initialize()
+    mnet.collect_params().load_dict(
+        {k[3:]: v for k, v in IN.items() if k.startswith("ep:")})
+
+def moe_loss(outputs, y):
+    out, aux = outputs
+    return ((out - y) ** 2).mean() + 0.01 * aux.float()
+
+for dp, tp in MOE_MESHES:
+    mep = tpar.make_mesh(dp=dp, tp=tp, ep=2, device="cpu")
+    assert mep.coords["ep"] == RANK % 2
+    etr = tpar.ShardedTrainer(mnet, moe_loss, mep,
+                              example_inputs=(IN["ep_x"],), n_labels=1, **opt)
+    w1 = next(n for n in etr.params if n.endswith("expert_w1"))
+    key = "ep%d%d" % (dp, tp)
+    OUT[key + "_w1_spec"] = np.array([str(a) for a in etr.placements[w1]])
+    OUT[key + "_w1_local"] = np.array(etr.params[w1].shape)
+    OUT[key + "_losses"] = np.array(
+        [float(etr.step(IN["ep_x"], IN["ep_y"])) for _ in range(3)])
+    OUT.update({key + ":" + n: t.numpy() for n, t in
+                etr.gathered_params().items()})
+
 # -- compression (dp = 4)
 mesh4 = tpar.make_mesh(dp=4, device="cpu")
 try:
@@ -327,10 +366,64 @@ def job(tmp_path_factory):
     cp_params, cbatch = _tiny_setup()
     inputs.update({"cp:" + k: v for k, v in cp_params.items()})
     inputs.update({"cb%d" % i: a for i, a in enumerate(cbatch)})
-    body = ("SPLIT_RULES = %r\n" % (SPLIT_RULES,) + CLASSIFIER
+    moe, ep_x, ep_y = _jax_moe()
+    inputs.update({"ep:" + k: v.data().asnumpy()
+                   for k, v in moe.collect_params().items()})
+    inputs.update(ep_x=ep_x, ep_y=ep_y)
+    body = ("SPLIT_RULES = %r\nMOE_CF = %r\nMOE_MESHES = %r\n"
+            % (SPLIT_RULES, MOE_CF, MOE_MESHES)
+            + CLASSIFIER
             + "mse = lambda o, t: ((o - t) ** 2).mean()\n" + WORKER)
     outs = run_job(tmp, 4, body, inputs, timeout=400)
     return outs, inputs
+
+
+# the MoE cases, (dp, tp) with ep 2: at capacity factor 1.0 the 48
+# tokens' global routing drops 0 of the first dp rank's 24 tokens and 2
+# of the second's, where routing each rank's tokens alone would drop 3
+# and 4; at dp 1 x tp 2 each rank holds 2 experts' half hidden width
+MOE_CF = 1.0
+MOE_MESHES = ((2, 1), (1, 2))
+
+
+def _jax_moe():
+    """The JAX net of ``test_moe.py::test_expert_parallel_sharded_step``
+    (seed 2) at ``MOE_CF``, and its batch."""
+    from mxnet_tpu.gluon.contrib import MoEFFN as JMoEFFN
+
+    class Net(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.moe = JMoEFFN(units=8, hidden_size=16, num_experts=4,
+                                   capacity_factor=MOE_CF)
+
+        def hybrid_forward(self, F, x):
+            out, aux = self.moe(x)
+            return out + x, aux
+
+    mx.random.seed(2)
+    net = Net()
+    net.initialize(mx.init.Xavier())
+    x = np.random.RandomState(4).randn(8, 6, 8).astype(np.float32)
+    y = np.random.RandomState(5).randn(8, 6, 8).astype(np.float32)
+    return net, x, y
+
+
+def _drops(wg, x, tokens, capacity_factor, E=4):
+    """Tokens past their expert's capacity in each half of ``x``'s
+    tokens, routing ``tokens`` at a time (all of them: the global
+    routing)."""
+    xs = x.reshape(-1, x.shape[-1])
+    onehot = np.eye(E)[(xs @ wg).argmax(1)]
+    dropped = []
+    for s in range(0, len(xs), tokens):
+        part = onehot[s:s + tokens]
+        pos = (np.cumsum(part, 0) * part).max(1) - 1
+        dropped.append(pos >= max(1, int(capacity_factor * tokens / E)))
+    dropped = np.concatenate(dropped)
+    half = len(xs) // 2
+    return int(dropped[:half].sum()), int(dropped[half:].sum())
 
 
 def _tiny_setup():
@@ -389,6 +482,51 @@ def test_sharded_trainer_bert_dp2_tp2_matches_jax(job):
         for g, v in got.items():
             key = g if g.startswith("bertmodel0_") else pre + g
             np.testing.assert_allclose(v, want[key], atol=1e-4, err_msg=g)
+
+
+@pytest.mark.parametrize("dp,tp", MOE_MESHES)
+def test_expert_parallel_sharded_step(job, dp, tp):
+    """The twin of ``test_moe.py::test_expert_parallel_sharded_step``:
+    dp 2 x ep 2 (each rank holding 2 of the 4 experts) and dp 1 x tp 2 x
+    ep 2 (2 experts' half hidden width), three AdamW steps against the
+    JAX trainer on the same mesh (one pjit program over the global
+    batch): losses and gathered parameters within atol 1e-5.  At this
+    capacity the global routing drops tokens unevenly across dp, and
+    routing each dp shard alone would drop others."""
+    outs, inputs = job
+    jnet, x, y = _jax_moe()
+    wg = next(v.data().asnumpy() for k, v in jnet.collect_params().items()
+              if k.endswith("gate_weight"))
+    assert _drops(wg, x, 48, MOE_CF) == (0, 2)
+    assert _drops(wg, x, 24, MOE_CF) == (3, 4)
+    mesh = jpar.make_mesh(dp=dp, tp=tp, sp=1, ep=2,
+                          devices=jax.devices()[:4])
+    assert mesh.shape["ep"] == 2
+
+    def loss_fn(outputs, y):
+        out, aux = outputs
+        return ((out - y) ** 2).mean() + 0.01 * aux.astype(jnp.float32)
+
+    jtr = jpar.ShardedTrainer(jnet, loss_fn, mesh, optimizer="adamw",
+                              optimizer_params={"learning_rate": 1e-3},
+                              example_inputs=(nd.array(x),), n_labels=1)
+    jl = [float(jax.device_get(jtr.step(nd.array(x), nd.array(y))))
+          for _ in range(3)]
+    w1 = [n for n in jtr.params if n.endswith("expert_w1")]
+    assert jtr.params[w1[0]].sharding.spec[0] == "ep"
+    key = "ep%d%d" % (dp, tp)
+    for o in outs:
+        assert list(o[key + "_w1_spec"]) == ["ep", "None", "tp"]
+        assert list(o[key + "_w1_local"]) == [2, 8, 16 // tp]
+        np.testing.assert_allclose(o[key + "_losses"], jl, atol=1e-5)
+        # the Gluon names up to the blocks' counters
+        got = {re.sub(r"\d+_", "_", k[len(key) + 1:]): v
+               for k, v in o.items() if k.startswith(key + ":")}
+        want = {re.sub(r"\d+_", "_", n): np.asarray(v)
+                for n, v in jtr.params.items()}
+        assert set(got) == set(want) and len(want) == 5
+        for n, v in want.items():
+            np.testing.assert_allclose(got[n], v, atol=1e-5, err_msg=n)
 
 
 def test_embedding_and_decoder_split_match_jax(job):
