@@ -460,7 +460,20 @@ Run after ``gluon_ssd`` (``gluon.contrib``, fp32 with TF32 off):
 31. ``faster_rcnn`` — ``examples/faster_rcnn.py``'s recipe on synthetic
    arrays (module comment above ``FASTER_RCNN``): 120 eager iterations,
    held-out recall at least 0.5, the first iteration's RPN and ROI
-   losses against the host.
+   losses against the host;
+32. ``bert_squad`` — (module comment above ``SQUAD_EXAMPLE``) the SQuAD
+   example's recipe to exact-match 0.9; the Gluon BERT-large +
+   ``BERTForQA`` with the flash path at B 8 x L 384, ragged lengths:
+   one eager step against the dense-mask path from the same weights
+   (loss 1e-5 relative, each gradient 1e-4 of its max|g|), the first
+   loss against the host at B 2 x L 128, 2 eager and 10 hybridized
+   steps (one graph a step, the first loss 1e-5 relative of the eager
+   one from the same state), 24 B1 / B2 / B3 records a traced step;
+33. ``nmt`` — (module comment above ``NMT_EXAMPLE``) the NMT example's
+   recipe to beam exact-match 0.9, equal to ``beam_search_host``;
+   transformer-big trained 2 eager + 10 hybridized steps, then its
+   beam search (one graph replay a decode step, one host sync a 4
+   steps) against the same step run eagerly, bit for bit.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
@@ -501,7 +514,9 @@ and ``launches_symbolic_bucketing`` (each bucket's first step) from
 ``FusedTrainStep``'s eager first step) with
 ``traced_gluon_fused_kernel_records`` /
 ``traced_gluon_moe_kernel_records`` (their traced replays), and
-``launches_dist_ep`` (one rank's, 3 steps); B4 gives ``launches_gluon_nd`` (the
+``launches_dist_ep`` (one rank's, 3 steps), ``launches_bert_squad`` and
+``traced_bert_squad_kernel_records`` (its hybridized steps) and
+``launches_nmt`` (none); B4 gives ``launches_gluon_nd`` (the
 ``nd.ragged_paged_attention_op`` call)), the
 ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -604,8 +619,14 @@ PROFILE_POSITIONS = (377, 280, 179, 450, 112, 92, 230, 64)
 GEMM_TAGS = ("gemm", "cutlass", "sm90_", "nvjet")
 
 
+# the script's start: each phase's line says how far in it ended
+_T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase,
+                      "at_s": round(time.perf_counter() - _T0, 1),
+                      **fields}), flush=True)
 
 
 def check(cond, msg):
@@ -2068,7 +2089,7 @@ def _predict_traffic(vocab):
 
 
 def _bert_classifier(torch, dev, seed, use_flash=True):
-    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.models import torch_bert as models
     bert = models.bert_24_1024_16(
         use_flash=use_flash, dropout=0.0, device=dev,
         generator=torch.Generator().manual_seed(seed))
@@ -3608,7 +3629,7 @@ def _export_bert(torch, dev, tmp):
 
 def _small_classifier(torch):
     """The ``ARTIFACT_SMALL`` classifier on the CPU, seed 2, eval."""
-    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.models import torch_bert as models
     bert = models.BERTModel(**ARTIFACT_SMALL, dropout=0.0, use_flash=True,
                             device="cpu",
                             generator=torch.Generator().manual_seed(2))
@@ -4235,7 +4256,7 @@ def phase_train_parity(torch, dev):
     """BERT-large ``BERTForPretrain``, fp32, dropout 0: the flash path
     (kernels B1-B3) against the dense additive-mask path on the same
     weights and batch — loss and every parameter gradient."""
-    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.models import torch_bert as models
     V = BERT_LARGE["vocab_size"]
     dense = models.BERTForPretrain(models.bert_24_1024_16(
         dropout=0.0, device=dev, generator=torch.Generator().manual_seed(0)))
@@ -4300,7 +4321,8 @@ def _flash_counters():
 
 
 def _trainer(torch, head, feats, dtype, mode, dev="cuda"):
-    from mxnet_tpu_torch import models, parallel
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.models import torch_bert as models
     return parallel.ShardedTrainer(
         head, models.pretrain_loss, parallel.make_mesh(dp=1, device=dev),
         optimizer="adamw", optimizer_params={"learning_rate": 1e-4},
@@ -4446,7 +4468,7 @@ def _dropout_replays(torch, dev, feats, labels, dropout):
     trainer's first step (eager, captured), a snapshot of its state,
     a replay, the snapshot copied back in place, a replay.  Returns the
     two replays' losses and the graph's replay count."""
-    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.models import torch_bert as models
     head = models.BERTForPretrain(models.bert_24_1024_16(
         dropout=dropout, num_layers=2, use_flash=True, device=dev,
         generator=torch.Generator().manual_seed(1)))
@@ -4489,7 +4511,7 @@ def phase_train_graphs(torch, dev, head, feats, labels):
     equality is reported.  A second eager trainer stepping alongside
     from the same weights, never synchronised, gives the eager path's
     own repeatability (reported): the embeddings' weight gradient is a
-    sorted segment sum (``models/bert.py``), so it is expected bit for
+    sorted segment sum (``models/torch_bert.py``), so it is expected bit for
     bit; PyTorch's own embedding backward of the two-row token-type
     table was not, and AdamW turns a rounding difference in a zero
     gradient (the key bias's, exactly zero in exact arithmetic) into a
@@ -4723,7 +4745,7 @@ def _durability_trainer(torch, dev, example, model_kw, dtype="bfloat16",
     """A graphs ``ShardedTrainer`` (adamw, lr 1e-4) over a new
     ``BERTForPretrain`` on ``bert_24_1024_16`` (``model_kw`` overrides its
     widths; the card runs BERT-large's) from ``seed``."""
-    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.models import torch_bert as models
     kw = dict(model_kw)
     if num_layers is not None:
         kw["num_layers"] = num_layers
@@ -5262,14 +5284,15 @@ def _dist_out(outdir, job, rank, result):
 
 def _dist_head(torch, dev, use_flash=True):
     """BERT-large ``BERTForPretrain`` (dropout 0) from seed 0 on ``dev``."""
-    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.models import torch_bert as models
     return models.BERTForPretrain(models.bert_24_1024_16(
         dropout=0.0, use_flash=use_flash, device=dev,
         generator=torch.Generator().manual_seed(0)))
 
 
 def _dist_trainer(torch, head, mesh, feats, dtype, graphs, **kw):
-    from mxnet_tpu_torch import models, parallel
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.models import torch_bert as models
     return parallel.ShardedTrainer(
         head, models.pretrain_loss, mesh, optimizer="adamw",
         optimizer_params={"learning_rate": DIST_LR}, example_inputs=feats,
@@ -9937,6 +9960,691 @@ def phase_ops_card(torch, dev):
           f"{rnn_err} of the limit, parameter gradient {rnn_grad_err}")
 
 
+# -------------------------------------------------------------- bert_squad
+# (a) examples/bert_squad.py's own recipe at its defaults (the example
+# imports jax, so this is its loop over the port): a from-scratch BERT of
+# vocab 64, units 128, 2 layers, 4 heads, hidden 512 with BERTForQA,
+# batch 32 of synthetic [CLS] q [SEP] passage [SEP] episodes, 1500 steps
+# of SpanLoss hybridized with static_alloc, AdamW at 1e-3, wd 0.01 under
+# PolyScheduler with warm-up, held to the example's convergence gate on
+# 256 held-out episodes.  (b) BERT-large SQuAD fine-tuning: the Gluon
+# bert_24_1024_16 (Devlin et al. 2019) + BERTForQA with use_flash=True at
+# L 384, the max_seq_length of Google's run_squad.py, batch 8 with ragged
+# valid lengths, AdamW at run_squad.py's 3e-5, wd 0.01, fp32 with TF32
+# off, dropout 0 (the example's); 2 eager steps, then 10 steps of the
+# three-call recipe hybridized (one CUDA graph a step).  The first loss,
+# at batch 2 x L 128 from the same weights, is held to the port on the
+# host; at the path's own B 8 x L 384 ragged batch, one eager step of the
+# flash path is held to the dense additive-mask path from the same
+# weights (loss and every gradient); the first hybridized loss is held to
+# the eager loss from the same state.  No real SQuAD data: seeded
+# episodes of the example's form.
+SQUAD_EXAMPLE = dict(vocab=64, units=128, layers=2, heads=4, hidden=512,
+                     batch=32, steps=1500, lr=1e-3, wd=0.01, q_len=8,
+                     p_len=48, ans_len=4, eval_every=50, eval_batch=64,
+                     final_batch=256, min_em=0.9)
+SQUAD_LARGE = dict(vocab=30522, max_length=512, L=384, B=8, q_len=64,
+                   ans_len=4, valid=(384, 371, 330, 301, 288, 257, 200, 129),
+                   host_L=128, host_valid=(128, 101), lr=3e-5, wd=0.01,
+                   eager_steps=2, steps=10, traced_steps=3, em_reps=5)
+SQUAD_HOST_RTOL = 1e-4          # first loss, card vs host, relative
+# (b)'s flash path against the dense additive-mask path at B 8 x L 384:
+# the loss relative, each gradient of its own dense max|g|; a gradient
+# nought up to rounding (its dense max|g| at most SQUAD_NOUGHT of the
+# model's largest: the span classifier's bias and the last LayerNorm's
+# beta, which a shift of every position leaves unchanged, and the unused
+# pooler) is held to SQUAD_PARITY_GRAD_TOL of the model's largest
+SQUAD_PARITY_LOSS_RTOL = 1e-5
+SQUAD_PARITY_GRAD_TOL = 1e-4
+SQUAD_NOUGHT = 1e-5
+SQUAD_FIRST_RTOL = 1e-5         # first hybridized loss vs the eager one
+
+
+PAGED_NAMES = ("ragged_paged_attention", "ragged_paged_verify")
+
+
+def _kernel_counts(zero=False):
+    """Every kernel wrapper's launch count, B1-B5 (zeroed first with
+    ``zero``)."""
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    counters = _flash_counters() + (pa.ragged_paged_attention,
+                                    pa.ragged_paged_verify)
+    if zero:
+        for c in counters:
+            c.launches = 0
+    return {c.__name__: c.launches for c in counters}
+
+
+def _squad_batch(rng, B, vocab, q_len, p_len, ans_len):
+    """examples/bert_squad.py's ``make_batch`` in numpy: [CLS] q [SEP]
+    passage [SEP], the answer span after a marker token in the passage
+    and copied into the question; (tokens, segments, valid lengths,
+    starts, ends)."""
+    cls, sep, mark = 1, 2, 3
+    L = 1 + q_len + 1 + p_len + 1
+    toks = np.zeros((B, L), np.int32)
+    segs = np.zeros((B, L), np.int32)
+    starts = np.zeros((B,), np.int32)
+    ends = np.zeros((B,), np.int32)
+    for b in range(B):
+        passage = rng.randint(4, vocab, p_len)
+        s = rng.randint(1, p_len - ans_len)
+        passage[s - 1] = mark
+        q = np.zeros(q_len, np.int32)
+        q[:ans_len] = passage[s:s + ans_len]
+        toks[b] = np.concatenate([[cls], q, [sep], passage, [sep]])
+        p_off = 1 + q_len + 1
+        segs[b, p_off:] = 1
+        starts[b] = p_off + s
+        ends[b] = p_off + s + ans_len - 1
+    return toks, segs, np.full((B,), L, np.float32), starts, ends
+
+
+def _squad_ragged(rng, valid, L, vocab, q_len, ans_len):
+    """Episodes of the example's form padded to ``L``, row ``b`` holding
+    ``valid[b]`` tokens (its passage that much shorter)."""
+    rows = [_squad_batch(rng, 1, vocab, q_len, v - q_len - 3, ans_len)
+            for v in valid]
+    toks = np.zeros((len(valid), L), np.int32)
+    segs = np.zeros((len(valid), L), np.int32)
+    for b, (t, s, _v, _s, _e) in enumerate(rows):
+        toks[b, :t.shape[1]] = t[0]
+        segs[b, :s.shape[1]] = s[0]
+    return (toks, segs, np.asarray(valid, np.float32),
+            np.concatenate([r[3] for r in rows]),
+            np.concatenate([r[4] for r in rows]))
+
+
+def _nd_batch(mx, arrays):
+    return tuple(mx.nd.array(a, dtype="int32") if a.dtype == np.int32
+                 else mx.nd.array(a) for a in arrays)
+
+
+def _span_loss(mx, qa_net):
+    """examples/bert_squad.py's ``SpanLoss`` over the port: the QA head
+    and the start / end softmax cross entropy in one HybridBlock."""
+    class SpanLoss(mx.gluon.HybridBlock):
+        def __init__(self, qa, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.qa = qa
+
+        def hybrid_forward(self, F, toks, segs, vlen, starts, ends):
+            scores = self.qa(toks, segs, vlen)              # (B, L, 2)
+            start_logits = F.squeeze(
+                F.slice_axis(scores, axis=2, begin=0, end=1), axis=2)
+            end_logits = F.squeeze(
+                F.slice_axis(scores, axis=2, begin=1, end=2), axis=2)
+            l1 = F.pick(F.log_softmax(start_logits), starts, axis=1)
+            l2 = F.pick(F.log_softmax(end_logits), ends, axis=1)
+            return -0.5 * (F.mean(l1) + F.mean(l2))
+
+    return SpanLoss(qa_net)
+
+
+def _squad_em(mx, qa_net, batch):
+    """The example's exact-match: the arg-max start and end both right."""
+    toks, segs, vlen, starts, ends = batch
+    with mx.autograd.pause(train_mode=False):
+        scores = qa_net(toks, segs, vlen).asnumpy()
+    return float(np.mean((scores[:, :, 0].argmax(axis=1) == starts.asnumpy())
+                         & (scores[:, :, 1].argmax(axis=1)
+                            == ends.asnumpy())))
+
+
+def _squad_example(torch, mx):
+    """(a): the example's loop; returns its readings."""
+    cfg = SQUAD_EXAMPLE
+    mx.random.seed(0)
+    rng = np.random.RandomState(0)
+    shape = (cfg["vocab"], cfg["q_len"], cfg["p_len"], cfg["ans_len"])
+    with mx.gpu(0):
+        bert = mx.models.get_bert_model(
+            "bert_12_768_12", vocab_size=cfg["vocab"], units=cfg["units"],
+            hidden_size=cfg["hidden"], num_layers=cfg["layers"],
+            num_heads=cfg["heads"], max_length=128, dropout=0.0)
+        bert.initialize(mx.init.Normal(0.02))
+        qa = mx.models.BERTForQA(bert)
+        qa.initialize(mx.init.Normal(0.02))
+        step_blk = _span_loss(mx, qa)
+        step_blk.hybridize(static_alloc=True)
+        sched = mx.lr_scheduler.PolyScheduler(
+            max_update=cfg["steps"], base_lr=cfg["lr"], pwr=1,
+            final_lr=cfg["lr"] / 5, warmup_steps=max(1, cfg["steps"] // 20))
+        trainer = mx.gluon.Trainer(qa.collect_params(), "adamw",
+                                   {"learning_rate": cfg["lr"],
+                                    "lr_scheduler": sched, "wd": cfg["wd"]})
+        losses, ems = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(1, cfg["steps"] + 1):
+            batch = _nd_batch(mx, _squad_batch(rng, cfg["batch"], *shape))
+            with mx.autograd.record():
+                loss = step_blk(*batch)
+            loss.backward()
+            trainer.step(cfg["batch"])
+            if step % cfg["eval_every"] == 0 or step == 1:
+                losses.append(float(loss.asnumpy()))
+                ems.append(_squad_em(mx, qa, _nd_batch(mx, _squad_batch(
+                    rng, cfg["eval_batch"], *shape))))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        em = _squad_em(mx, qa, _nd_batch(mx, _squad_batch(
+            rng, cfg["final_batch"], *shape)))
+        programs = step_blk._cached_op.stats()["programs"]
+    return dict(steps=cfg["steps"], train_s=train_s,
+                ms_per_step=train_s / cfg["steps"] * 1e3,
+                losses_every_50=losses, em_every_50=ems, final_em=em,
+                cached_programs=programs)
+
+
+def _squad_large_host_check(mx, qa):
+    """The first loss at batch 2 x L 128 on the card and on the host from
+    the card's weights (both eager): (card, host)."""
+    cfg = SQUAD_LARGE
+    arrays = _squad_ragged(np.random.RandomState(1), cfg["host_valid"],
+                           cfg["host_L"], cfg["vocab"], 16, cfg["ans_len"])
+    with mx.gpu(0), mx.autograd.record():
+        card = float(_span_loss(mx, qa)(*_nd_batch(mx, arrays)).asnumpy())
+    with mx.cpu(0):
+        host = mx.models.BERTForQA(mx.models.bert_24_1024_16(
+            vocab_size=cfg["vocab"], dropout=0.0, use_flash=True))
+        host.initialize()
+        weights = qa._collect_params_with_prefix()
+        for name, p in host._collect_params_with_prefix().items():
+            p.set_data(weights[name].data())
+        with mx.autograd.record():
+            loss = _span_loss(mx, host)(*_nd_batch(mx, arrays))
+        return [card, float(loss.asnumpy())]
+
+
+def _squad_large_parity(mx, qa, batch):
+    """(b)'s flash path (B1-B3) against the dense additive-mask path at
+    the path's own shapes: one eager SpanLoss forward and backward of
+    each from ``qa``'s weights on (b)'s ragged batch.  Returns the two
+    losses, each gradient's error over its own dense max|g| (over the
+    model's largest |g| for a gradient nought up to rounding) and those
+    gradients' dense max|g| over the model's largest."""
+    cfg = SQUAD_LARGE
+    dense = mx.models.BERTForQA(mx.models.bert_24_1024_16(
+        vocab_size=cfg["vocab"], dropout=0.0, use_flash=False))
+    dense.initialize()
+    weights = qa._collect_params_with_prefix()
+    for name, p in dense._collect_params_with_prefix().items():
+        p.set_data(weights[name].data())
+    losses, grads = {}, {}
+    for tag, net in (("flash", qa), ("dense", dense)):
+        with mx.autograd.record():
+            loss = _span_loss(mx, net)(*batch)
+        loss.backward()
+        losses[tag] = float(loss.asnumpy())
+        grads[tag] = {n: p.grad().data_torch
+                      for n, p in net._collect_params_with_prefix().items()
+                      if p.grad_req != "null"}
+    own = {n: float(g.abs().max()) for n, g in grads["dense"].items()}
+    scale = max(own.values())
+    nought = {n: m / scale for n, m in own.items()
+              if m <= SQUAD_NOUGHT * scale}
+    errs = {n: float((grads["flash"][n] - g).abs().max())
+            / (scale if n in nought else own[n])
+            for n, g in grads["dense"].items()}
+    return losses, errs, nought
+
+
+def phase_bert_squad(torch):
+    """``bert_squad``: (a) the SQuAD example's recipe, (b) BERT-large
+    SQuAD fine-tuning (module comment above ``SQUAD_EXAMPLE``).  Returns
+    B1-B3's wrapper launches on (b)'s path and their records in its
+    traced steps."""
+    import mxnet_tpu_torch as mx
+    example = _squad_example(torch, mx)
+    _free(torch)
+    cfg = SQUAD_LARGE
+    rng = np.random.RandomState(0)
+    arrays = _squad_ragged(rng, cfg["valid"], cfg["L"], cfg["vocab"],
+                           cfg["q_len"], cfg["ans_len"])
+    mx.random.seed(0)
+    with mx.gpu(0):
+        bert = mx.models.bert_24_1024_16(vocab_size=cfg["vocab"],
+                                         dropout=0.0, use_flash=True)
+        qa = mx.models.BERTForQA(bert)
+        qa.initialize(mx.init.Normal(0.02))
+        host_losses = _squad_large_host_check(mx, qa)
+        _free(torch)
+        batch = _nd_batch(mx, arrays)
+        parity_losses, grad_errs, nought = _squad_large_parity(mx, qa, batch)
+        _free(torch)
+        step_blk = _span_loss(mx, qa)
+        trainer = mx.gluon.Trainer(qa.collect_params(), "adamw",
+                                   {"learning_rate": cfg["lr"],
+                                    "wd": cfg["wd"]})
+        step = _gluon_stepper(mx, trainer, batch, block=step_blk)
+        _kernel_counts(zero=True)
+        eager_losses, eager_ms = _gluon_loop(step, cfg["eager_steps"],
+                                             sync=torch.cuda.synchronize)
+        eager_launches = _kernel_counts()
+        # the eager loss from the state the first hybridized step starts
+        # from
+        with mx.autograd.record():
+            eager_loss = float(step_blk(*batch).asnumpy())
+        step_blk.hybridize(static_alloc=True)
+        _kernel_counts(zero=True)
+        losses, ms = _gluon_loop(step, cfg["steps"],
+                                 sync=torch.cuda.synchronize)
+        launches = _kernel_counts()
+        ms_per_step = float(np.median(ms[2:]))
+        trace = _trace_steps(torch, step, cfg["traced_steps"], ms_per_step,
+                             warm=step, where="bert_squad",
+                             names=FLASH_NAMES)
+        graph_launches = TRACE_LAUNCHES[-1]["counted"]
+        em_ms = []
+        for _ in range(cfg["em_reps"] + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            em = _squad_em(mx, qa, batch)
+            em_ms.append((time.perf_counter() - t0) * 1e3)
+        memory = dict(allocated=torch.cuda.memory_allocated(),
+                      peak=torch.cuda.max_memory_allocated())
+        del step, trainer, step_blk, qa, bert, batch
+    _free(torch)
+    host_rel = abs(host_losses[0] - host_losses[1]) / abs(host_losses[1])
+    parity_rel = abs(parity_losses["flash"] - parity_losses["dense"]) \
+        / abs(parity_losses["dense"])
+    worst = max((e, n) for n, e in grad_errs.items())
+    first_rel = abs(losses[0] - eager_loss) / abs(eager_loss)
+    layers = 24
+    emit("bert_squad", example=example,
+         model="bert_24_1024_16 + BERTForQA, use_flash", L=cfg["L"],
+         B=cfg["B"], valid=list(cfg["valid"]), optimizer="adamw",
+         lr=cfg["lr"], dtype="float32",
+         first_loss_card_host=host_losses, first_loss_rel_err=host_rel,
+         first_loss_rtol=SQUAD_HOST_RTOL,
+         parity=dict(losses=parity_losses, loss_rel_err=parity_rel,
+                     worst_grad_err=worst[0], worst_grad_tensor=worst[1],
+                     grad_tensors=len(grad_errs),
+                     nought_max_over_largest=nought,
+                     nought_errs={n: grad_errs[n] for n in nought}),
+         eager_loss_before_hybridize=eager_loss,
+         first_hybrid_rel_err=first_rel, eager_losses=eager_losses,
+         eager_ms=eager_ms, losses=losses, step_ms=ms,
+         ms_per_step=ms_per_step,
+         samples_per_s=cfg["B"] / ms_per_step * 1e3,
+         launches_eager=eager_launches, launches=launches,
+         graph_launches_per_traced_step=len(graph_launches)
+         / cfg["traced_steps"], trace=trace,
+         em_forward_ms=float(np.median(em_ms[1:])), em_first_ms=em_ms[0],
+         em=em, memory=memory)
+    check(example["final_em"] >= SQUAD_EXAMPLE["min_em"],
+          f"bert_squad: the example's exact-match {example['final_em']} "
+          f"below {SQUAD_EXAMPLE['min_em']}")
+    check(host_rel <= SQUAD_HOST_RTOL,
+          f"bert_squad: first loss {host_losses} (card, host), {host_rel} "
+          f"relative")
+    check(parity_rel <= SQUAD_PARITY_LOSS_RTOL,
+          f"bert_squad: flash loss {parity_losses['flash']} vs dense "
+          f"{parity_losses['dense']} at L {cfg['L']}, {parity_rel} relative")
+    check(worst[0] <= SQUAD_PARITY_GRAD_TOL,
+          f"bert_squad: flash gradient of {worst[1]} off the dense one by "
+          f"{worst[0]} of its max (nought up to rounding: {nought})")
+    check(first_rel <= SQUAD_FIRST_RTOL,
+          f"bert_squad: first hybridized loss {losses[0]} vs the eager "
+          f"{eager_loss}, {first_rel} relative")
+    check(all(np.isfinite(eager_losses + losses)),
+          f"bert_squad: losses {eager_losses + losses}")
+    check(eager_launches == {**dict.fromkeys(FLASH_NAMES,
+                                             layers * cfg["eager_steps"]),
+                             **dict.fromkeys(PAGED_NAMES, 0)},
+          f"bert_squad: eager kernel launches {eager_launches}")
+    check(launches == {**dict.fromkeys(FLASH_NAMES, 2 * layers),
+                       **dict.fromkeys(PAGED_NAMES, 0)},
+          f"bert_squad: hybridized B1-B3 wrapper launches {launches}, want "
+          f"{2 * layers} each (the signature's first call and the full "
+          f"step's eager warm-up)")
+    check(trace["records_per_step"] == dict.fromkeys(FLASH_NAMES,
+                                                     float(layers))
+          and len(graph_launches) == cfg["traced_steps"],
+          f"bert_squad: {trace['records_per_step']} B1-B3 records and "
+          f"{len(graph_launches)} graph launches in {cfg['traced_steps']} "
+          f"traced steps")
+    return dict(launches=launches,
+                traced={k: v * cfg["traced_steps"]
+                        for k, v in trace["records_per_step"].items()})
+
+
+
+# --------------------------------------------------------------------- nmt
+# (a) examples/nmt_transformer.py's own recipe at its defaults (the
+# example imports jax): the reversal-with-shift corpus of 3000 pairs,
+# transformer_base at vocab 24, units 64, hidden 256, 2 + 2 layers, 4
+# heads, hybridize(bucket_shapes=...), SmoothedSoftmaxCELoss, Adam at
+# 3e-3 with its per-epoch decay, 14 epochs of batch 32, then the beam
+# search (beam 4) on the 64 held-out sentences, held to the example's
+# --min-match 0.9 and, token for token, to beam_search_host.
+# (b) transformer-big (Vaswani et al. 2017: units 1024, hidden 4096, 6 + 6
+# layers, 16 heads) with a 32768-token shared vocabulary and tied
+# embeddings (the 32K joint BPE of Ott et al. 2018, "Scaling NMT"),
+# dropout 0.1, fp32: 2 eager + 10 hybridized Adam steps at batch 32, source
+# and target bucket 64 (ragged lengths inside); then the beam search at
+# B 32, beam 4, Ls 64, max_decode_len 64, alpha 0.6 (one CUDA graph a
+# decode step) against the same step run eagerly (graphs=False), and at
+# max_decode_len 8 on 2 sentences against beam_search_host (reported
+# only: random weights make near-ties).  No WMT data: seeded tokens.
+NMT_EXAMPLE = dict(vocab=24, units=64, layers=2, heads=4, pairs=3000,
+                   test=64, min_len=3, max_len=10, epochs=14, batch=32,
+                   lr=3e-3, beam=4, min_match=0.9)
+NMT_BIG = dict(vocab=32768, B=32, Ls=64, Lt=64, dropout=0.1, lr=1e-4,
+               eager_steps=2, steps=10, traced_steps=3, beam=4,
+               max_decode_len=64, alpha=0.6, searches=3, host_B=2,
+               host_len=8, eos=1)
+# The searches end on id 1, a token no label of the training batch holds:
+# 12 steps on random tokens teach the model one preference, the batch's
+# EOS 3 (the one id that every row holds), and with it every beam ends
+# within 4 steps; with id 1 no beam finishes early and each search runs
+# its 64 decode steps.
+
+
+def _nmt_pairs(n, vocab, min_len, max_len, rng):
+    """The example's corpus: the target is the reversed source with a +1
+    vocabulary rotation."""
+    pairs = []
+    for _ in range(n):
+        L = rng.randint(min_len, max_len + 1)
+        src = rng.randint(4, vocab, (L,)).astype(np.int32)
+        tgt = ((src[::-1] - 4 + 1) % (vocab - 4)) + 4
+        pairs.append((src, tgt.astype(np.int32)))
+    return pairs
+
+
+def _nmt_buckets(max_len):
+    return tuple(range(4, max_len + 8, 4))
+
+
+def _nmt_batches(pairs, batch_size, max_len, rng):
+    """The example's padded, length-bucketed batches (numpy)."""
+    bks = _nmt_buckets(max_len)
+    order = rng.permutation(len(pairs))
+    window = 8 * batch_size
+    for w0 in range(0, len(order), window):
+        idx = sorted(order[w0:w0 + window], key=lambda i: len(pairs[i][0]))
+        for b0 in range(0, len(idx), batch_size):
+            chunk = [pairs[i] for i in idx[b0:b0 + batch_size]]
+            if len(chunk) < batch_size:
+                continue
+            Ls = min(b for b in bks if b >= max(len(s) for s, _ in chunk))
+            Lt = min(b for b in bks
+                     if b >= max(len(t) for _, t in chunk) + 1)
+            src = np.zeros((batch_size, Ls), np.int32)
+            tgt_in = np.zeros((batch_size, Lt), np.int32)
+            tgt_out = np.zeros((batch_size, Lt), np.int32)
+            sv = np.zeros((batch_size,), np.float32)
+            tv = np.zeros((batch_size,), np.float32)
+            for i, (s, t) in enumerate(chunk):
+                src[i, :len(s)] = s
+                tgt_in[i, 0] = 2
+                tgt_in[i, 1:len(t) + 1] = t
+                tgt_out[i, :len(t)] = t
+                tgt_out[i, len(t)] = 3
+                sv[i], tv[i] = len(s), len(t) + 1
+            yield src, tgt_in, tgt_out, sv, tv
+
+
+def _nmt_hyp(row):
+    hyp = []
+    for tok in row[1:]:
+        if tok == 3:
+            break
+        hyp.append(int(tok))
+    return hyp
+
+
+def _nmt_example(torch, mx):
+    """(a): the example's loop and its beam decode; returns readings."""
+    cfg = NMT_EXAMPLE
+    mx.random.seed(0)
+    rng = np.random.RandomState(0)
+    train = _nmt_pairs(cfg["pairs"], cfg["vocab"], cfg["min_len"],
+                       cfg["max_len"], rng)
+    test = _nmt_pairs(cfg["test"], cfg["vocab"], cfg["min_len"],
+                      cfg["max_len"], rng)
+    with mx.gpu(0):
+        model = mx.models.transformer_base(
+            src_vocab_size=cfg["vocab"], units=cfg["units"],
+            hidden_size=4 * cfg["units"], num_layers=cfg["layers"],
+            num_heads=cfg["heads"], dropout=0.0,
+            max_length=cfg["max_len"] + 4)
+        model.initialize(mx.init.Xavier())
+        model.hybridize(bucket_shapes={1: list(_nmt_buckets(cfg["max_len"]))})
+        loss_fn = mx.models.SmoothedSoftmaxCELoss(smoothing=0.1)
+        trainer = mx.gluon.Trainer(model.collect_params(), "adam",
+                                   {"learning_rate": cfg["lr"]})
+        epoch_loss, steps = [], 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for epoch in range(cfg["epochs"]):
+            trainer.set_learning_rate(cfg["lr"] / (1.0 + 0.35 * epoch) ** 0.5)
+            total, n = 0.0, 0
+            for arrays in _nmt_batches(train, cfg["batch"], cfg["max_len"],
+                                       rng):
+                src, tgt_in, tgt_out, sv, tv = _nd_batch(mx, arrays)
+                with mx.autograd.record():
+                    logits = model(src, tgt_in, sv, tv)
+                    loss = loss_fn(logits, tgt_out, tv).mean()
+                loss.backward()
+                trainer.step(cfg["batch"])
+                total += float(loss.asnumpy())
+                n += 1
+            epoch_loss.append(total / n)
+            steps += n
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        group = {}
+        for s, t in test:
+            group.setdefault(len(s), []).append((s, t))
+        correct, same, searches = 0, True, []
+        t0 = time.perf_counter()
+        outs = {}
+        for L, items in sorted(group.items()):
+            src = mx.nd.array(np.stack([s for s, _ in items]), dtype="int32")
+            sv = mx.nd.array(np.full((len(items),), L, np.float32))
+            outs[L] = (src, sv, model.beam_search(
+                src, sv, bos=2, eos=3, beam_size=cfg["beam"],
+                max_decode_len=cfg["max_len"] + 2).asnumpy())
+            searches.append(dict(model._beam_decoder.last, L=L))
+            correct += sum(_nmt_hyp(row) == list(t)
+                           for row, (_s, t) in zip(outs[L][2], items))
+        decode_s = time.perf_counter() - t0
+        # the oracle decodes one growing prefix at a time: eagerly, not
+        # a CUDA graph per prefix length
+        model.hybridize(False)
+        t0 = time.perf_counter()
+        for L, (src, sv, out) in outs.items():
+            for b in range(out.shape[0]):
+                host = _beam_host_row(model, src, sv, b, bos=2, eos=3,
+                                      beam_size=cfg["beam"],
+                                      max_decode_len=cfg["max_len"] + 2)
+                same &= list(out[b][:host.size]) == host.tolist()
+        host_s = time.perf_counter() - t0
+    return dict(epochs=cfg["epochs"], steps=steps, train_s=train_s,
+                ms_per_step=train_s / steps * 1e3, epoch_loss=epoch_loss,
+                beam_exact_match=correct / len(test), decode_s=decode_s,
+                searches=searches, equals_beam_search_host=same,
+                host_oracle_s=host_s)
+
+
+def _nmt_big_batch(rng, cfg):
+    B, Ls, Lt, V = cfg["B"], cfg["Ls"], cfg["Lt"], cfg["vocab"]
+    sv = rng.randint(Ls // 2 + 1, Ls + 1, B).astype(np.float32)
+    tv = rng.randint(Lt // 2 + 1, Lt + 1, B).astype(np.float32)
+    src = rng.randint(4, V, (B, Ls)).astype(np.int32)
+    tgt_in = rng.randint(4, V, (B, Lt)).astype(np.int32)
+    tgt_in[:, 0] = 2
+    tgt_out = np.roll(tgt_in, -1, axis=1)
+    for b in range(B):
+        src[b, int(sv[b]):] = 0
+        tgt_in[b, int(tv[b]):] = 0
+        tgt_out[b, int(tv[b]) - 1] = 3
+        tgt_out[b, int(tv[b]):] = 0
+    return src, tgt_in, tgt_out, sv, tv
+
+
+def _beam_syncs(steps, max_len):
+    """Host syncs of a search that ran ``steps`` decode steps: a read of
+    ``finished`` every 4 steps short of ``max_len``, and the result's."""
+    from mxnet_tpu_torch.models.decoding import CHECK_EVERY
+    return sum(1 for n in range(1, steps + 1)
+               if n % CHECK_EVERY == 0 and n < max_len) + 1
+
+
+def _beam_host_row(model, src, sv, b, **kw):
+    """``beam_search_host`` of sentence ``b`` alone: its rows end where
+    each best beam ends, so sentences of a batch do not stack."""
+    one = (src.slice_axis(axis=0, begin=b, end=b + 1),
+           sv.slice_axis(axis=0, begin=b, end=b + 1))
+    return model.beam_search_host(*one, **kw).asnumpy()[0]
+
+
+def _first_diff(a, b):
+    diff = np.argwhere(a != b)
+    return None if diff.size == 0 else [int(i) for i in diff[0]]
+
+
+def phase_nmt(torch):
+    """``nmt``: (a) the NMT example's recipe, (b) transformer-big training
+    and beam search (module comment above ``NMT_EXAMPLE``)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.decoding import TransformerBeamDecoder
+    example = _nmt_example(torch, mx)
+    _free(torch)
+    cfg = NMT_BIG
+    rng = np.random.RandomState(0)
+    arrays = _nmt_big_batch(rng, cfg)
+    mx.random.seed(0)
+    with mx.gpu(0):
+        model = mx.models.transformer_big(cfg["vocab"], tie_weights=True,
+                                          dropout=cfg["dropout"])
+        model.initialize(mx.init.Xavier())
+        src, tgt_in, tgt_out, sv, tv = _nd_batch(mx, arrays)
+        loss_fn = mx.models.SmoothedSoftmaxCELoss(smoothing=0.1)
+        trainer = mx.gluon.Trainer(model.collect_params(), "adam",
+                                   {"learning_rate": cfg["lr"]})
+
+        def step():
+            with mx.autograd.record():
+                loss = loss_fn(model(src, tgt_in, sv, tv), tgt_out,
+                               tv).mean()
+            loss.backward()
+            trainer.step(cfg["B"])
+            return loss
+
+        _kernel_counts(zero=True)
+        eager_losses, eager_ms = _gluon_loop(step, cfg["eager_steps"],
+                                             sync=torch.cuda.synchronize)
+        model.hybridize(static_alloc=True)
+        losses, ms = _gluon_loop(step, cfg["steps"],
+                                 sync=torch.cuda.synchronize)
+        ms_per_step = float(np.median(ms[2:]))
+        trace = _trace_steps(torch, step, cfg["traced_steps"], ms_per_step,
+                             warm=step, where="nmt_train")
+        graph_launches = TRACE_LAUNCHES[-1]["counted"]
+        del trainer
+        _free(torch)
+        kw = dict(bos=2, eos=cfg["eos"], beam_size=cfg["beam"],
+                  max_decode_len=cfg["max_decode_len"], alpha=cfg["alpha"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = model.beam_search(src, sv, **kw).asnumpy()
+        first_s = time.perf_counter() - t0
+        dec = model._beam_decoder
+        prog = next(iter(dec._progs.values()))
+        search_ms, lasts = [], []
+        for _ in range(cfg["searches"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = model.beam_search(src, sv, **kw).asnumpy()
+            search_ms.append((time.perf_counter() - t0) * 1e3)
+            lasts.append(dict(dec.last))
+        search_trace = _trace_steps(
+            torch, lambda: model.beam_search(src, sv, **kw), 1,
+            float(np.median(search_ms)),
+            warm=lambda: model.beam_search(src, sv, **kw), where="nmt_beam")
+        search_launches = TRACE_LAUNCHES[-1]["counted"]
+        eager_dec = TransformerBeamDecoder(model, graphs=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_ids = eager_dec(src, sv, **kw).asnumpy()
+        eager_search_ms = (time.perf_counter() - t0) * 1e3
+        s2 = src.slice_axis(axis=0, begin=0, end=cfg["host_B"])
+        v2 = sv.slice_axis(axis=0, begin=0, end=cfg["host_B"])
+        kw8 = dict(kw, max_decode_len=cfg["host_len"])
+        short = model.beam_search(s2, v2, **kw8).asnumpy()
+        model.hybridize(False)
+        host = [_beam_host_row(model, s2, v2, b, **kw8)
+                for b in range(cfg["host_B"])]
+        launches = _kernel_counts()
+        # the step graph's pool: the segments it reserves (its own
+        # memory pool, read from the allocator's snapshot)
+        capture_s = prog.capture_s
+        pool_bytes = _pool_reserved(torch, prog.pool)
+        del model, dec, eager_dec, prog
+    _free(torch)
+    steps_taken = lasts[-1]["steps"]
+    host_same = all(list(short[b][:h.size]) == h.tolist()
+                    for b, h in enumerate(host))
+    beam = dict(B=cfg["B"], beam=cfg["beam"], Ls=cfg["Ls"],
+                max_decode_len=cfg["max_decode_len"], alpha=cfg["alpha"],
+                first_search_s=first_s, ms_per_search=search_ms,
+                ms_per_decode_step=float(np.median(search_ms)) / steps_taken,
+                searches=lasts, capture_s=capture_s, pool_bytes=pool_bytes,
+                trace=search_trace,
+                device_ms_per_decode_step=(search_trace["device_ms_per_step"]
+                                           or 0.0) / steps_taken,
+                graph_launches_per_traced_search=len(search_launches),
+                eager_ms_per_search=eager_search_ms,
+                tokens_equal_eager=bool(np.array_equal(ids, eager_ids)),
+                first_differing_position=_first_diff(ids, eager_ids),
+                first_search_equal=bool(np.array_equal(first, ids)),
+                host_oracle_len8_equal=host_same,
+                host_oracle_len8=dict(graph=short.tolist(),
+                                      host=[h.tolist() for h in host]))
+    emit("nmt", example=example,
+         model="transformer_big, vocab 32768 shared, tied embeddings",
+         B=cfg["B"], Ls=cfg["Ls"], Lt=cfg["Lt"], dtype="float32",
+         optimizer="adam", lr=cfg["lr"], eager_losses=eager_losses,
+         eager_ms=eager_ms, losses=losses, step_ms=ms,
+         ms_per_step=ms_per_step,
+         target_tokens_per_s=float(arrays[4].sum()) / ms_per_step * 1e3,
+         graph_launches_per_traced_step=len(graph_launches)
+         / cfg["traced_steps"], trace=trace, beam=beam, launches=launches)
+    check(example["beam_exact_match"] >= NMT_EXAMPLE["min_match"],
+          f"nmt: the example's beam exact-match "
+          f"{example['beam_exact_match']} below {NMT_EXAMPLE['min_match']}")
+    check(example["equals_beam_search_host"],
+          "nmt: the graph beam search differs from beam_search_host on "
+          "the example's held-out sentences")
+    check(all(np.isfinite(eager_losses + losses)),
+          f"nmt: transformer-big losses {eager_losses + losses}")
+    check(beam["tokens_equal_eager"] and beam["first_search_equal"],
+          f"nmt: the graph beam search's tokens differ from the eager "
+          f"step's at {beam['first_differing_position']}")
+    check(all(s["replays"] == s["steps"] and s["eager_steps"] == 0
+              and s["syncs"] == _beam_syncs(s["steps"],
+                                            cfg["max_decode_len"])
+              for s in lasts),
+          f"nmt: searches {lasts}: want one replay a decode step and one "
+          f"host sync a 4 steps")
+    # the step graph's launches (the encoder's and the embedding's
+    # CachedOp graphs launch once a search beside them)
+    step_records, step_launches = collections.Counter(
+        search_launches).most_common(1)[0]
+    check(step_launches == steps_taken,
+          f"nmt: {step_launches} launches of the {step_records}-record step "
+          f"graph in a traced search of {steps_taken} decode steps "
+          f"({search_launches})")
+    check(launches == dict.fromkeys((*FLASH_NAMES, *PAGED_NAMES), 0),
+          f"nmt: the NMT path launched kernels {launches}")
+    return dict(launches=launches)
+
+
 def _sig_stats_rows(stats):
     return [{k: s[k] for k in ("inputs", "training", "instances",
                                "capture_s", "pool_bytes")}
@@ -10037,6 +10745,8 @@ def main():
     phase_word_lm(torch)
     phase_model_zoo(torch)
     phase_ops_card(torch, dev)
+    bert_squad = phase_bert_squad(torch)
+    nmt = phase_nmt(torch)
     phase_graphs(torch, dev, lm)
     replayed = phase_serve_trace(torch, lm)
     predict_traced = phase_predict_trace(torch, predict)
@@ -10074,6 +10784,8 @@ def main():
             launches_traffic=traffic["launches"][name],
             traced_traffic_kernel_records=traffic_traced[name],
             **by_dtype["float32"], bfloat16=by_dtype["bfloat16"])
+        entry["launches_bert_squad"] = bert_squad["launches"][name]
+        entry["launches_nmt"] = nmt["launches"][name]
         if name == "ragged_paged_attention":
             entry["launches_gluon_nd"] = gluon_launches[name]
         # every row of the kernels phase, with the plan's split
@@ -10134,7 +10846,10 @@ def main():
             traced_gluon_fused_kernel_records=gluon_fused["traced"][name],
             launches_gluon_moe=gluon_moe["launches"][name],
             traced_gluon_moe_kernel_records=gluon_moe["traced"][name],
-            launches_dist_ep=dist_launches["dist_ep"][name])
+            launches_dist_ep=dist_launches["dist_ep"][name],
+            launches_bert_squad=bert_squad["launches"][name],
+            traced_bert_squad_kernel_records=bert_squad["traced"][name],
+            launches_nmt=nmt["launches"][name])
         if key == "fwd":
             # the predict path (fp32): the bucket graphs' captures launch
             # B1 from the wrapper; their replays are counted from trace

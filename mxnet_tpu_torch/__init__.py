@@ -13,6 +13,7 @@ attention and paged attention sources in ``csrc/``) are built by
 ``ops.build`` when first launched, never at import.  The package imports
 ``torch`` and numpy, never ``jax`` or ``mxnet_tpu``.
 """
+from . import base
 from .base import MXNetError
 from . import context
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
@@ -42,11 +43,24 @@ from . import module
 from . import callback
 from . import compat
 from . import test_utils
+from . import engine
+
+# bound at first use (the JAX package imports them with the package): an
+# exported artifact's loader imports the package root for its operators,
+# and serving, deploy, parallel and models stay out of that process
+_ON_FIRST_USE = ("parallel", "models", "serving", "deploy")
 
 
 def waitall():
     """Block until every queued computation has finished."""
-    nd.waitall()
+    engine.waitall()
+
+
+def __getattr__(name):
+    if name in _ON_FIRST_USE:
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
@@ -54,4 +68,5 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "NDArray", "random", "init", "initializer", "lr_scheduler",
            "optimizer", "gluon", "kvstore", "kv", "metric", "recordio",
            "io", "attribute", "AttrScope", "symbol", "sym", "Symbol", "executor",
-           "module", "callback", "compat", "test_utils", "waitall"]
+           "module", "callback", "compat", "test_utils", "waitall", "base",
+           "engine", "parallel", "models", "serving", "deploy"]

@@ -41,7 +41,7 @@ from .base import MXNetError, get_env
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "backward",
-           "grad", "Function", "mark_variables"]
+           "grad", "Function", "mark_variables", "get_symbol"]
 
 
 class _AGState(threading.local):
@@ -497,3 +497,10 @@ class Function:
                                      *tensors)
         res = [NDArray._wrap(t, c) for t, c in zip(outs, self._out_ctxs)]
         return res[0] if self._single else res
+
+
+def get_symbol(x):
+    """Reference: ``autograd.get_symbol``.  The tape is not exported as a
+    Symbol: trace a HybridBlock with ``mx.sym`` inputs instead."""
+    raise MXNetError("get_symbol: use HybridBlock tracing / mx.sym instead "
+                     "(tape-to-symbol export is not supported)")

@@ -1,17 +1,25 @@
 """Foundation utilities of the PyTorch port: errors and environment knobs.
 
-The port's own copy of what serving needs from ``mxnet_tpu.base``
-(``MXNetError``, ``declare_env``/``get_env``, ``entropy_rng``); the
-port imports nothing of the JAX package.  Every ``MXNET_*`` knob keeps
+The port's own copy of ``mxnet_tpu.base``: the errors, the generic
+:class:`Registry`, the type tuples, ``declare_env``/``get_env``, the
+deterministic-surface declarations and ``entropy_rng``; the port
+imports nothing of the JAX package.  Every ``MXNET_*`` knob keeps
 its name, so one environment configures either package.
 """
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict
+import threading
+from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["KernelError", "MXNetError", "declare_env", "entropy_rng",
-           "env_truthy", "get_env"]
+__all__ = ["KernelError", "MXNetError", "NotImplementedForSymbol",
+           "Registry", "declare_deterministic", "declare_env",
+           "entropy_rng", "env_truthy", "get_env", "list_deterministic",
+           "string_types", "numeric_types", "integer_types"]
+
+string_types = (str,)
+numeric_types = (float, int)
+integer_types = (int,)
 
 
 class MXNetError(RuntimeError):
@@ -24,6 +32,77 @@ class KernelError(MXNetError):
     failed to build, to load or to launch, or refused its inputs.
     Nothing degrades around it — the decode engine fails the request
     rather than serve it down a path without the kernel."""
+
+
+class NotImplementedForSymbol(MXNetError):
+    """Raised when an NDArray-only operation is attempted on a Symbol."""
+
+    def __init__(self, function, alias=None, *args):
+        super().__init__()
+        self.function = function.__name__ if callable(function) \
+            else str(function)
+        self.alias = alias
+        self.args_ = [str(type(a)) for a in args]
+
+    def __str__(self):
+        msg = f"Function {self.function}"
+        if self.alias:
+            msg += f" (alias {self.alias})"
+        if self.args_:
+            msg += " with arguments (" + ",".join(self.args_) + ")"
+        msg += " is not supported for Symbol and only available in NDArray."
+        return msg
+
+
+class Registry:
+    """Generic name -> object registry (reference: ``dmlc::Registry``)."""
+
+    _registries: Dict[str, "Registry"] = {}
+
+    def __init__(self, name: str):
+        self.name = name
+        self._entries: Dict[str, Any] = {}
+        self._lock = threading.Lock()
+        Registry._registries[name] = self
+
+    @classmethod
+    def get(cls, name: str) -> "Registry":
+        if name not in cls._registries:
+            Registry(name)
+        return cls._registries[name]
+
+    def register(self, name: str, obj: Any = None, override: bool = False):
+        """Register ``obj`` under ``name``; usable as a decorator."""
+        if obj is None:
+            def _decorator(fn):
+                self.register(name, fn, override=override)
+                return fn
+            return _decorator
+        with self._lock:
+            if name in self._entries and not override:
+                raise MXNetError(
+                    f"'{name}' already registered in registry '{self.name}'")
+            self._entries[name] = obj
+        return obj
+
+    def find(self, name: str) -> Optional[Any]:
+        return self._entries.get(name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
+
+    def __getitem__(self, name: str) -> Any:
+        if name not in self._entries:
+            raise MXNetError(
+                f"'{name}' is not registered in registry '{self.name}'. "
+                f"Known: {sorted(self._entries)[:20]}...")
+        return self._entries[name]
+
+    def list_names(self) -> List[str]:
+        return sorted(self._entries)
+
+    def items(self):
+        return self._entries.items()
 
 
 # ---------------------------------------------------------------------------
@@ -54,6 +133,21 @@ def get_env(name: str, default=None, typ: Callable = None):
 
 def env_truthy(name: str, default: bool = False) -> bool:
     return get_env(name, default, bool)
+
+
+_DETERMINISTIC_REGISTRY: Dict[str, str] = {}
+
+
+def declare_deterministic(name: str, note: str = ""):
+    """Declare ``name`` (a fully-qualified function or class path) a
+    deterministic surface: equal inputs must give identical outputs."""
+    _DETERMINISTIC_REGISTRY[name] = note
+    return name
+
+
+def list_deterministic() -> Dict[str, str]:
+    """{declared surface: contract note}."""
+    return dict(_DETERMINISTIC_REGISTRY)
 
 
 def entropy_rng():

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import copy
 import hashlib
+import inspect
 import itertools
 import json
 import os
@@ -280,6 +281,11 @@ def export_stablehlo(module, *example_inputs, path, emit_text=False,
                    for x in xs)
         batch = torch.export.Dim("b")
         dynamic_shapes = tuple({0: batch} for _ in xs)
+        if any(p.kind is p.VAR_POSITIONAL for p in
+               inspect.signature(target.forward).parameters.values()):
+            # ``forward(self, *inputs)`` (a Gluon block's GluonModule):
+            # the inputs are one tuple argument
+            dynamic_shapes = (dynamic_shapes,)
     was_training = module.training
     module.eval()
     target.eval()

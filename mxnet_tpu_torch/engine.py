@@ -15,6 +15,26 @@ PyTorch orders device work on streams, so the JAX package's array
 version counters have no counterpart here.  Its one sync helper,
 :func:`sync_outputs`, waits on a dispatched batch's stream and rethrows
 the batch's asynchronous device errors at that point.
+
+The reference's engine names keep their meaning under torch:
+
+- :class:`Engine` (``engine()`` is the process-wide one) holds the bulk
+  size.  Torch launches each eager op as it is called, so the size
+  fuses nothing: ``set_bulk_size`` records it and returns the previous
+  one (``MXNET_EXEC_BULK_EXEC_TRAIN`` / ``_MAX_NODE_TRAIN`` set the
+  start, 15 by default), and :class:`bulk` sets it for a ``with``
+  block.  A hybridized block is the port's fusion: one CUDA graph.
+- :func:`waitall` runs a deferred backward and every lazy forward, then
+  waits for the card (``mx.nd.waitall``).
+- :class:`Var` is the reference's per-array variable: a version count
+  and a deferred exception, raised at :meth:`Var.check`.  Torch keeps
+  the versions of its own tensors, so no array carries one.
+- :func:`is_naive` is true under ``MXNET_ENGINE_TYPE=NaiveEngine``;
+  torch's eager ops run in order either way.
+
+``_CAPTURE_LOCK`` serialises every CUDA graph capture in the process:
+serving's bucket programs and paged decoders, and the beam decoder's
+step.
 """
 from __future__ import annotations
 
@@ -22,16 +42,30 @@ import threading
 import time
 
 from . import runtime_metrics as _rm
-from .base import KernelError, MXNetError, env_truthy
+from .base import KernelError, MXNetError, env_truthy, get_env
 
-__all__ = ["make_lock", "make_condition", "make_thread", "forget_thread",
-           "check_thread_leaks", "watch_races", "sync_outputs"]
+__all__ = ["Engine", "engine", "waitall", "is_naive", "set_bulk_size",
+           "bulk", "Var", "make_lock", "make_condition", "make_thread",
+           "forget_thread", "check_thread_leaks", "thread_registry",
+           "sanitizer_active", "watch_races", "sync_outputs"]
 
 # ---------------------------------------------------------------------------
 # Concurrency sanitizer (MXNET_ENGINE_SANITIZE=1)
 # ---------------------------------------------------------------------------
 
 _SANITIZE = env_truthy("MXNET_ENGINE_SANITIZE", False)
+
+# every CUDA graph capture in the process runs under this lock: a capture
+# is rare (one per bucket, version or beam signature) and takes a
+# device-wide synchronise on entry, so serialising them costs nothing on a
+# hot path and rules out two captures interleaving their allocations
+_CAPTURE_LOCK = threading.Lock()
+
+
+def sanitizer_active() -> bool:
+    """Whether lock-order recording is on for locks created from now
+    on."""
+    return _SANITIZE
 
 
 class _LockOrders:
@@ -240,6 +274,18 @@ class _ThreadRegistry:
             # mxlint: disable=lock-discipline
             del self._threads[t]
 
+    def rows(self):
+        now = time.monotonic()
+        with self._mu:
+            self._prune()
+            return [
+                {"name": t.name, "owner": info["owner"],
+                 "site": info["site"], "daemon": info["daemon"],
+                 "age_s": now - info["created"],
+                 "abandoned": info["abandoned"]}
+                for t, info in sorted(self._threads.items(),
+                                      key=lambda kv: kv[1]["created"])]
+
     def check_leaks(self, grace_s=1.0):
         """Raise ``MXNetError`` if any registered, non-abandoned thread
         is still alive after ``grace_s`` (split across the survivors —
@@ -276,6 +322,12 @@ class _ThreadRegistry:
 
 
 _THREADS = _ThreadRegistry()
+
+
+def thread_registry():
+    """Live registered-thread rows (owner, site, daemon, age); empty when
+    the sanitizer is off."""
+    return _THREADS.rows()
 
 
 def _caller_site(depth=2):
@@ -477,3 +529,107 @@ def sync_outputs(arrays, site="serving", stream=None):
             _rm.ENGINE_SYNC_SECONDS.observe(time.perf_counter() - t0,
                                             site=site)
     return arrays
+
+
+# ---------------------------------------------------------------------------
+# The reference's engine surface (module docstring)
+# ---------------------------------------------------------------------------
+class Var:
+    """A version count and a deferred exception (reference:
+    ``ThreadedVar``)."""
+
+    __slots__ = ("version", "exc", "__weakref__")
+
+    def __init__(self):
+        self.version = 0
+        self.exc = None
+
+    def bump(self):
+        self.version += 1
+
+    def set_exception(self, exc: BaseException):
+        self.exc = exc
+
+    def check(self):
+        if self.exc is not None:
+            exc, self.exc = self.exc, None
+            raise exc
+
+
+_INSTANCE_LOCK = threading.Lock()
+
+
+class Engine:
+    """The process-wide engine (reference: ``Engine::Get()``)."""
+
+    _instance = None
+
+    def __init__(self):
+        if str(get_env("MXNET_EXEC_BULK_EXEC_TRAIN", "1")) == "0":
+            self._bulk_size = 1
+        else:
+            self._bulk_size = int(
+                get_env("MXNET_EXEC_BULK_EXEC_MAX_NODE_TRAIN", 15))
+        self._lock = threading.Lock()
+
+    @classmethod
+    def get(cls) -> "Engine":
+        if cls._instance is None:
+            with _INSTANCE_LOCK:
+                if cls._instance is None:
+                    cls._instance = Engine()
+        return cls._instance
+
+    def wait_for_all(self):
+        waitall()
+
+    def wait_for_var(self, arr):
+        arr.wait_to_read()
+
+    @property
+    def is_naive(self) -> bool:
+        return get_env("MXNET_ENGINE_TYPE") == "NaiveEngine"
+
+    def set_bulk_size(self, size: int) -> int:
+        with self._lock:
+            old, self._bulk_size = self._bulk_size, int(size)
+        return old
+
+    @property
+    def bulk_size(self) -> int:
+        return self._bulk_size
+
+
+def engine() -> Engine:
+    return Engine.get()
+
+
+def waitall():
+    """``mx.nd.waitall``: run what is deferred, then wait for the card."""
+    from . import ndarray
+    ndarray.waitall()
+
+
+def is_naive() -> bool:
+    return Engine.get().is_naive
+
+
+def set_bulk_size(size: int) -> int:
+    """Set the bulk size; returns the previous one."""
+    return Engine.get().set_bulk_size(size)
+
+
+class bulk:
+    """``with bulk(size):`` sets the bulk size for the block."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._old = None
+
+    def __enter__(self):
+        self._old = Engine.get().set_bulk_size(self.size)
+        return self
+
+    def __exit__(self, *exc):
+        Engine.get().set_bulk_size(self._old)
+        return False

@@ -397,6 +397,22 @@ class HybridBlock(Block):
                  for name, p in self.collect_params().items()})
         return sym_file
 
+    def export_stablehlo(self, *example_inputs, path, emit_text=False,
+                         dynamic_batch=False, version=None,
+                         precompile=(), quantize=None):
+        """Export this block's inference forward as a deployable artifact:
+        ``deploy.export_stablehlo`` of the block as an ``nn.Module``
+        (``parallel.functional.GluonModule``, inference mode)."""
+        from .. import deploy
+        from ..parallel.functional import GluonModule
+        xs = [x._data if isinstance(x, NDArray) else x
+              for x in example_inputs]
+        module = GluonModule(self, *example_inputs, train_mode=False)
+        return deploy.export_stablehlo(
+            module, *xs, path=path, emit_text=emit_text,
+            dynamic_batch=dynamic_batch, version=version,
+            precompile=precompile, quantize=quantize)
+
 
 class SymbolBlock(HybridBlock):
     """A Symbol graph as a block (reference: gluon.SymbolBlock).  The

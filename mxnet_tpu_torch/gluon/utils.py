@@ -1,9 +1,10 @@
 """Gluon utilities of the PyTorch port (reference:
 python/mxnet/gluon/utils.py): ``split_data``, ``split_and_load`` and
-``clip_global_norm``.  ``download`` and ``check_sha1`` get no
+``clip_global_norm``, and ``check_sha1``.  ``download`` gets no
 counterpart: the port runs without a network."""
 from __future__ import annotations
 
+import hashlib
 import warnings
 import weakref
 from collections import OrderedDict
@@ -17,7 +18,7 @@ from ..ndarray import NDArray
 from ..ndarray.ndarray import count_write
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm",
-           "clip_programs"]
+           "clip_programs", "check_sha1"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -186,3 +187,15 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
                           "clip_global_norm")
         return t
     return NDArray._wrap(total, arrays[0].context)
+
+
+def check_sha1(filename, sha1_hash):
+    """Whether the file's SHA-1 hex digest is ``sha1_hash``."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        while True:
+            data = f.read(1048576)
+            if not data:
+                break
+            sha1.update(data)
+    return sha1.hexdigest() == sha1_hash

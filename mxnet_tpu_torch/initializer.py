@@ -20,7 +20,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Initializer", "Uniform", "Normal", "Constant", "Zero", "One",
-           "Xavier", "MSRAPrelu", "InitDesc", "create", "register"]
+           "Xavier", "MSRAPrelu", "Orthogonal", "LSTMBias", "Bilinear",
+           "InitDesc", "create", "register"]
 
 _REG = {}
 
@@ -167,6 +168,62 @@ class MSRAPrelu(Xavier):
     def __init__(self, factor_type="avg", slope=0.25):
         super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """A scaled orthogonal matrix over the weight flattened to
+    (shape[0], prod(shape[1:])): orthonormal rows (a wide weight) or
+    columns, from the QR factorization of a normal draw.  The JAX
+    package's version reshapes a non-square factor to the weight's shape
+    and fails there; square weights are drawn alike."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        flat = (shape[0], int(np.prod(shape[1:])))
+        a = torch.randn(flat, dtype=torch.float32, device=arr._data.device)
+        wide = flat[0] < flat[1]
+        # the orthonormal factor of the taller orientation, its columns'
+        # signs fixed by R's diagonal
+        q, r = torch.linalg.qr(a.T if wide else a)
+        q = q * torch.sign(torch.diagonal(r))
+        _fill(arr, self.scale * (q.T if wide else q).reshape(shape))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros with the forget gate's quarter set to ``forget_bias`` (gate
+    order i, f, g, o)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = torch.zeros(arr.shape, dtype=torch.float32)
+        n = arr.shape[0] // 4
+        b[n:2 * n] = self.forget_bias
+        _fill(arr, b.to(arr._data.device))
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel over the last two axes."""
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        weight = np.zeros(shape, dtype=np.float32)
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight.flat[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        _fill(arr, torch.from_numpy(weight).to(arr._data.device))
 
 
 def create(init, **kwargs):

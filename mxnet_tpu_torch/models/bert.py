@@ -1,370 +1,225 @@
-"""BERT: encoder, model, and the MLM + NSP pretraining head and loss.
+"""BERT as Gluon blocks: the encoder, the model, the pretraining heads
+and loss, and the classification and SQuAD span heads.
 
 The PyTorch port of ``mxnet_tpu/models/bert.py`` (GluonNLP's
-``bert_12_768_12`` / ``bert_24_1024_16``).  The internal layout is
-(L, B, C) time-major, the layout of the interleaved attention, with (B, L)
-int token inputs at the API boundary: ``model(inputs, token_types,
-valid_length)``.  ``use_flash=True`` sends each layer's self-attention
-through :mod:`mxnet_tpu_torch.ops.flash_attention` (kernels B1-B3 on the
-card) with the valid lengths as per-row key lengths; ``use_flash=False``
-is the dense path with an additive (B*H, L, L) mask (``_make_mask``).
+``bert_12_768_12`` / ``bert_24_1024_16``), as ``HybridBlock``\\ s under
+the JAX package's names and parameter prefixes: ``initialize``,
+``collect_params``, ``hybridize`` (one CUDA graph a step on the card)
+and ``gluon.Trainer`` work on them, and a JAX block's
+``save_parameters`` file loads with ``load_parameters``.  The internal
+layout is (L, B, C) time-major with (B, L) int token inputs at the API
+boundary: ``model(inputs, token_types, valid_length)``.
 
-Every model takes ``device=`` (default ``"cuda"``) and draws its weights
-from ``generator`` (a CPU ``torch.Generator``, seed 0 when omitted) by
-the JAX package's ``initialize()`` rule: embeddings and positions
-N(0, 0.01), dense weights U(-0.07, 0.07), zero biases, unit LayerNorm
-gains.  ``load_numpy_params`` takes ``{name: np.ndarray}`` from the JAX
-block's ``collect_params()`` with the top block's prefix removed.
-``BERTClassifier`` is the sentence-pair classification head that
-``serving.ModelRepository.add_block`` serves; ``BERTForQA`` is not
-ported yet (ROADMAP).
-
-The word and token-type embeddings take their weight gradient as a plain
-sorted segment sum (:class:`_SortedSegmentEmbedding`), the same bits on
-every run: PyTorch's CUDA embedding backward sums a row that many
-positions share in a run-dependent order (on the card the 2-row
-token-type table's gradient differed between two backward passes), which
-kept fp32 training from resuming bit for bit.
+``use_flash=True`` passes ``valid_length`` to each layer's
+``F.flash_selfatt`` as its key lengths (B1 forward, B2/B3 backward on
+the card; no (L, L) mask is made); ``use_flash=False`` adds the
+additive (B*H, L, L) mask of :meth:`BERTModel._make_mask`, built on the
+inputs' device.  The ``nn.Module`` form, which serving and tensor
+parallelism run, is :mod:`.torch_bert`.
 """
 from __future__ import annotations
 
-import re
-
-import torch
-import torch.nn.functional as F
-from torch import nn
-
 from ..base import MXNetError
-from .transformer_blocks import (_META, TransformerEncoderCell, _LayerNorm,
-                                 _dense_names, _materialize, _scoped,
-                                 load_gluon_params)
+from .. import ndarray as nd
+from ..gluon import nn
+from ..gluon.block import HybridBlock
+from .transformer_blocks import TransformerEncoderCell
 
-__all__ = ["BERTEncoder", "BERTModel", "BERTClassifier", "BERTForPretrain",
-           "BERTPretrainLoss", "pretrain_loss", "bert_12_768_12",
+__all__ = ["BERTEncoder", "BERTModel", "BERTForPretrain", "BERTPretrainLoss",
+           "BERTForQA", "BERTClassifier", "bert_12_768_12",
            "bert_24_1024_16", "get_bert_model"]
 
 NEG_INF = -1e9
-# the parameters the JAX BERT declares init="normal"
-_NORMAL_INIT = ("word_embed.weight", "token_type_embed.weight",
-                "position_weight")
 
 
-class _SortedSegmentEmbedding(torch.autograd.Function):
-    """``F.embedding(idx, weight)`` whose weight gradient is a sorted
-    segment sum: the output gradient's rows stably sorted by index, each
-    table row's run summed in order (``torch.segment_reduce``, fp32) — one
-    order on every run, on every device, and no shape that depends on the
-    data, so a captured training step replays it."""
-
-    @staticmethod
-    def forward(ctx, weight, idx):
-        ctx.save_for_backward(idx)
-        ctx.rows, ctx.dtype = weight.shape[0], weight.dtype
-        return F.embedding(idx, weight)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (idx,) = ctx.saved_tensors
-        flat = idx.reshape(-1)
-        order = torch.argsort(flat, stable=True)
-        counts = torch.zeros(ctx.rows, dtype=torch.long,
-                             device=flat.device).scatter_add_(
-            0, flat, torch.ones_like(flat))
-        rows = grad.reshape(flat.numel(), -1).index_select(0, order)
-        dw = torch.segment_reduce(rows.float(), "sum", lengths=counts,
-                                  unsafe=True)
-        return dw.to(ctx.dtype), None
-
-
-def _embed(table, idx):
-    """``table(idx)`` (an ``nn.Embedding``) with the sorted-segment-sum
-    weight gradient."""
-    return _SortedSegmentEmbedding.apply(table.weight, idx.long())
-
-
-class BERTEncoder(nn.Module):
+class BERTEncoder(HybridBlock):
     """Learned positions + LayerNorm + a stack of post-norm GELU
     :class:`TransformerEncoderCell` layers over (L, B, C)."""
 
     def __init__(self, units=768, hidden_size=3072, num_layers=12,
                  num_heads=12, dropout=0.1, max_length=512,
-                 layer_norm_eps=1e-12, use_flash=False, device="cuda",
-                 generator=None):
-        super().__init__()
+                 layer_norm_eps=1e-12, use_flash=False, **kwargs):
+        super().__init__(**kwargs)
         self._units = units
         self._num_heads = num_heads
         self._max_length = max_length
-        self.position_weight = nn.Parameter(
-            torch.empty(max_length, units, device=_META))
-        self.layer_norm = _LayerNorm(units, layer_norm_eps, _META)
-        self.dropout_layer = nn.Dropout(dropout)
-        self.transformer_cells = nn.ModuleList(
-            TransformerEncoderCell(units, hidden_size, num_heads, dropout,
-                                   activation="gelu",
-                                   layer_norm_eps=layer_norm_eps,
-                                   use_flash=use_flash, device=_META)
-            for _ in range(num_layers))
-        _materialize(self, device, generator, _NORMAL_INIT)
+        with self.name_scope():
+            self.position_weight = self.params.get(
+                "position_weight", shape=(max_length, units),
+                init="normal")
+            self.layer_norm = nn.LayerNorm(in_channels=units,
+                                           epsilon=layer_norm_eps)
+            self.dropout_layer = nn.Dropout(dropout)
+            self.transformer_cells = nn.HybridSequential()
+            for _ in range(num_layers):
+                self.transformer_cells.add(TransformerEncoderCell(
+                    units, hidden_size, num_heads, dropout,
+                    activation="gelu", layer_norm_eps=layer_norm_eps,
+                    use_flash=use_flash))
 
-    def forward(self, x, mask=None, valid_length=None):
-        # x: (L, B, C)
+    def hybrid_forward(self, F, x, mask=None, valid_length=None,
+                       position_weight=None):
         L = x.shape[0]
-        x = x + self.position_weight[:L, None]
+        pos = position_weight.slice_axis(axis=0, begin=0, end=L)
+        x = x + pos.expand_dims(1)
         x = self.dropout_layer(self.layer_norm(x))
         for cell in self.transformer_cells:
             x = cell(x, mask, valid_length)
         return x
 
-    def gluon_names(self):
-        names = {"position_weight": self.position_weight,
-                 **_scoped("layernorm0_", self.layer_norm.gluon_names())}
-        for i, cell in enumerate(self.transformer_cells):
-            names.update(_scoped(f"transformerencodercell{i}_",
-                                 cell.gluon_names()))
-        return names
 
-
-class BERTModel(nn.Module):
+class BERTModel(HybridBlock):
     """Embeddings + encoder + pooler (GluonNLP ``BERTModel``).
 
-    Call: ``model(inputs, token_types, valid_length)`` with (B, L) int
-    tokens and (B,) valid lengths.  Returns ``(sequence_output (B, L, C),
-    pooled_output (B, C))``, or the sequence output alone without a
-    pooler."""
+    Call: ``model(inputs, token_types, valid_length)`` with (B, L) ints;
+    returns (sequence_output (B, L, C), pooled_output (B, C)), or the
+    sequence output alone with ``use_pooler=False``."""
 
     def __init__(self, units=768, hidden_size=3072, num_layers=12,
                  num_heads=12, vocab_size=30522, token_type_vocab_size=2,
                  max_length=512, dropout=0.1, layer_norm_eps=1e-12,
-                 use_pooler=True, use_flash=False, device="cuda",
-                 generator=None):
-        super().__init__()
+                 use_pooler=True, use_flash=False, **kwargs):
+        super().__init__(**kwargs)
         self._units = units
         self._num_heads = num_heads
-        self._vocab_size = vocab_size
         self._use_pooler = use_pooler
         self._use_flash = use_flash
-        self._tp = None                 # set while bound to a tp group
-        self.word_embed = nn.Embedding(vocab_size, units, device=_META)
-        self.token_type_embed = nn.Embedding(token_type_vocab_size, units,
-                                             device=_META)
-        self.encoder = BERTEncoder(units, hidden_size, num_layers, num_heads,
-                                   dropout, max_length, layer_norm_eps,
-                                   use_flash=use_flash, device=_META)
-        if use_pooler:
-            self.pooler = nn.Linear(units, units, device=_META)
-        _materialize(self, device, generator, _NORMAL_INIT)
+        with self.name_scope():
+            self.word_embed = nn.Embedding(vocab_size, units,
+                                           weight_initializer="normal")
+            self.token_type_embed = nn.Embedding(token_type_vocab_size,
+                                                 units,
+                                                 weight_initializer="normal")
+            self.encoder = BERTEncoder(units, hidden_size, num_layers,
+                                       num_heads, dropout, max_length,
+                                       layer_norm_eps, use_flash=use_flash)
+            if use_pooler:
+                self.pooler = nn.Dense(units, in_units=units,
+                                       activation="tanh", flatten=False)
 
-    def _make_mask(self, valid_length, L):
-        """Additive (B*H, L, L) mask: 0 where key < valid_length, else
-        ``NEG_INF``."""
-        steps = torch.arange(L, device=valid_length.device)
-        keys_ok = (steps[None, :] < valid_length.reshape(-1, 1).float())
-        mask = (1.0 - keys_ok.float()) * NEG_INF                 # (B, L)
-        B = mask.shape[0]
-        return mask.reshape(B, 1, 1, L).expand(
-            B, self._num_heads, L, L).reshape(B * self._num_heads, L, L)
+    def _make_mask(self, F, valid_length, L):
+        """Additive (B*H, L, L) mask: 0 where the key is below the row's
+        valid length, NEG_INF past it; made on ``valid_length``'s device."""
+        steps = nd.arange(L, ctx=valid_length.context)          # (L,)
+        keys_ok = F.broadcast_lesser(
+            steps.reshape((1, L)),
+            valid_length.reshape((-1, 1)).astype("float32"))    # (B, L)
+        mask = (1.0 - keys_ok) * NEG_INF
+        mask = mask.reshape((-1, 1, 1, L))
+        mask = mask.broadcast_to((mask.shape[0], self._num_heads, L, L))
+        return mask.reshape((-1, L, L))
 
-    def bind_tensor_parallel(self, tp):
-        """The tensor-parallel layout of the embeddings under ``tp``: a
-        table split on its units (``P(None, "tp")``) looks up its local
-        columns and all-gathers them before the embedding LayerNorm.
-        Returns ``(binding, the tables it runs split)``."""
-        split, names = [], set()
-        for name in ("word_embed", "token_type_embed"):
-            weight = getattr(self, name).weight
-            spec = tuple(tp.spec_of(weight))
-            if spec[:1] not in ((), (None,)):
-                raise MXNetError(f"BERTModel: an embedding table split on "
-                                 f"its rows ({spec}) is not supported")
-            if spec[1:2] == ("tp",):
-                split.append(weight)
-                names.add(name)
-        if not split:
-            return None, []
-        return (tp, names), split
-
-    def _lookup(self, name, idx):
-        emb = _embed(getattr(self, name), idx)
-        if self._tp is not None and name in self._tp[1]:
-            emb = self._tp[0].gather(emb, -1)
-        return emb
-
-    def forward(self, inputs, token_types=None, valid_length=None):
+    def hybrid_forward(self, F, inputs, token_types=None, valid_length=None):
         L = inputs.shape[1]
-        emb = self._lookup("word_embed", inputs)
+        emb = self.word_embed(inputs)
         if token_types is not None:
-            emb = emb + self._lookup("token_type_embed", token_types)
-        x = emb.transpose(0, 1)                                 # (L, B, C)
+            emb = emb + self.token_type_embed(token_types)
+        x = emb.swapaxes(0, 1)                                  # (L, B, C)
         if self._use_flash:
-            # padding rides the flash kernels' lengths vector; no O(L^2)
-            # mask is ever materialised
-            out = self.encoder(x, None, valid_length=valid_length)
+            # padding rides the flash kernel's lengths
+            out = self.encoder(x, None, valid_length)
         else:
             mask = None
             if valid_length is not None:
-                mask = self._make_mask(valid_length, L)
+                mask = self._make_mask(F, valid_length, L)
             out = self.encoder(x, mask)
-        seq = out.transpose(0, 1)                               # (B, L, C)
+        seq = out.swapaxes(0, 1)                                # (B, L, C)
         if not self._use_pooler:
             return seq
-        return seq, torch.tanh(self.pooler(seq[:, 0]))
-
-    def gluon_names(self):
-        names = {"embedding0_weight": self.word_embed.weight,
-                 "embedding1_weight": self.token_type_embed.weight,
-                 **_scoped("bertencoder0_", self.encoder.gluon_names())}
-        if self._use_pooler:
-            names.update(_dense_names("dense0_", self.pooler))
-        return names
-
-    def load_numpy_params(self, np_params):
-        """Load the JAX ``BERTModel``'s parameters: ``{name: array}``
-        from its ``collect_params()`` with the ``bertmodel<N>_`` prefix
-        removed."""
-        load_gluon_params(self.gluon_names(), np_params, "BERTModel")
-        return self
+        pooled = self.pooler(seq.slice_axis(axis=1, begin=0, end=1)
+                             .squeeze(axis=1))
+        return seq, pooled
 
 
-class BERTForPretrain(nn.Module):
-    """MLM + NSP heads over a :class:`BERTModel` (GluonNLP
-    ``BERTForPretrain``).  The heads are drawn from ``generator`` on the
-    BERT model's device unless ``device`` says otherwise."""
+class BERTForPretrain(HybridBlock):
+    """MLM + NSP heads over :class:`BERTModel` (GluonNLP
+    ``BERTForPretrain``)."""
 
-    def __init__(self, bert: BERTModel, vocab_size=None, device=None,
-                 generator=None):
-        super().__init__()
+    def __init__(self, bert: BERTModel, vocab_size=None, **kwargs):
+        super().__init__(**kwargs)
         units = bert._units
-        self._vocab_size = vocab_size or bert._vocab_size
-        self.bert = bert
-        self.mlm_dense = nn.Linear(units, units, device=_META)
-        self.mlm_norm = _LayerNorm(units, 1e-12, _META)
-        self.mlm_decoder = nn.Linear(units, self._vocab_size, device=_META)
-        self.nsp_classifier = nn.Linear(units, 2, device=_META)
-        self._tp = None                 # set while bound to a tp group
-        if device is None:
-            device = bert.word_embed.weight.device
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        for head in (self.mlm_dense, self.mlm_norm, self.mlm_decoder,
-                     self.nsp_classifier):
-            _materialize(head, device, generator)
+        self._vocab_size = vocab_size or bert.word_embed._input_dim
+        with self.name_scope():
+            self.bert = bert
+            self.mlm_dense = nn.Dense(units, in_units=units, flatten=False)
+            self.mlm_norm = nn.LayerNorm(in_channels=units, epsilon=1e-12)
+            self.mlm_decoder = nn.Dense(self._vocab_size, in_units=units,
+                                        flatten=False)
+            self.nsp_classifier = nn.Dense(2, in_units=units)
 
-    def bind_tensor_parallel(self, tp):
-        """The tensor-parallel layout of the MLM decoder under ``tp``: split
-        on the vocabulary (``P("tp", None)``, bias with it), it computes
-        its local logits and all-gathers them before the loss (which sees
-        full logits, as the JAX ``loss_fn`` does).  Returns ``(binding,
-        the parameters it runs split)``."""
-        if not tp.column(self.mlm_decoder.weight, self.mlm_decoder.bias):
-            return None, []
-        return tp, [self.mlm_decoder.weight, self.mlm_decoder.bias]
-
-    def forward(self, inputs, token_types, valid_length, masked_positions):
+    def hybrid_forward(self, F, inputs, token_types, valid_length,
+                       masked_positions):
         seq, pooled = self.bert(inputs, token_types, valid_length)
-        gathered = _gather_positions(seq, masked_positions)     # (B, M, C)
-        h = self.mlm_norm(F.gelu(self.mlm_dense(gathered)))
-        tp = self._tp
-        if tp is None:
-            mlm_scores = self.mlm_decoder(h)                    # (B, M, V)
-        else:
-            mlm_scores = tp.gather(self.mlm_decoder(tp.copy(h)), -1)
+        gathered = _gather_positions(F, seq, masked_positions)  # (B, M, C)
+        h = F._contrib_gelu_erf(self.mlm_dense(gathered))
+        mlm_scores = self.mlm_decoder(self.mlm_norm(h))         # (B, M, V)
         nsp_scores = self.nsp_classifier(pooled)                # (B, 2)
         return mlm_scores, nsp_scores
 
-    def gluon_names(self):
-        return {**_scoped("bertmodel0_", self.bert.gluon_names()),
-                **_dense_names("dense0_", self.mlm_dense),
-                **_scoped("layernorm0_", self.mlm_norm.gluon_names()),
-                **_dense_names("dense1_", self.mlm_decoder),
-                **_dense_names("dense2_", self.nsp_classifier)}
 
-    def load_numpy_params(self, np_params):
-        """Load the JAX ``BERTForPretrain``'s parameters: ``{name:
-        array}`` from its ``collect_params()`` with the
-        ``bertforpretrain<N>_`` prefix removed; the BERT model's own
-        parameters keep their ``bertmodel<N>_`` prefix (any N)."""
-        np_params = {re.sub(r"^bertmodel\d+_", "bertmodel0_", k): v
-                     for k, v in np_params.items()}
-        load_gluon_params(self.gluon_names(), np_params, "BERTForPretrain")
-        return self
+class BERTPretrainLoss(HybridBlock):
+    """The MLM + NSP loss inside the block, so that one hybridized
+    program holds the whole step's forward."""
 
+    def __init__(self, pretrain: "BERTForPretrain", **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.pretrain = pretrain
 
-class BERTClassifier(nn.Module):
-    """Sentence-pair classification head over a :class:`BERTModel`
-    (GluonNLP ``BERTClassifier``): dropout, then a dense layer on the
-    pooled output.  Call: ``clf(inputs, token_types, valid_length)`` ->
-    (B, num_classes) logits.  The dense layer is drawn from
-    ``generator`` on the BERT model's device unless ``device`` says
-    otherwise."""
-
-    def __init__(self, bert: BERTModel, num_classes=2, dropout=0.1,
-                 device=None, generator=None):
-        super().__init__()
-        if not bert._use_pooler:
-            raise MXNetError("BERTClassifier: the BERT model needs its "
-                             "pooler (use_pooler=True)")
-        self.bert = bert
-        self.dropout = nn.Dropout(dropout)
-        self.classifier = nn.Linear(bert._units, num_classes, device=_META)
-        if device is None:
-            device = bert.word_embed.weight.device
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        _materialize(self.classifier, device, generator)
-
-    def forward(self, inputs, token_types, valid_length=None):
-        _, pooled = self.bert(inputs, token_types, valid_length)
-        return self.classifier(self.dropout(pooled))
-
-    def gluon_names(self):
-        # the JAX head's Dense sits in a HybridSequential after a Dropout
-        return {**_scoped("bertmodel0_", self.bert.gluon_names()),
-                **_dense_names("dense0_", self.classifier)}
-
-    def load_numpy_params(self, np_params):
-        """Load the JAX ``BERTClassifier``'s parameters: ``{name:
-        array}`` from its ``collect_params()`` with the
-        ``bertclassifier<N>_`` prefix removed; the BERT model's own
-        parameters keep their ``bertmodel<N>_`` prefix (any N)."""
-        np_params = {re.sub(r"^bertmodel\d+_", "bertmodel0_", k): v
-                     for k, v in np_params.items()}
-        load_gluon_params(self.gluon_names(), np_params, "BERTClassifier")
-        return self
-
-
-class BERTPretrainLoss(nn.Module):
-    """MLM + NSP loss: mean negative log-likelihood of ``mlm_labels`` at
-    the masked positions plus that of ``nsp_labels``, in fp32."""
-
-    def __init__(self, pretrain: BERTForPretrain):
-        super().__init__()
-        self.pretrain = pretrain
-
-    def forward(self, inputs, token_types, valid_length, masked_positions,
-                mlm_labels, nsp_labels):
+    def hybrid_forward(self, F, inputs, token_types, valid_length,
+                       masked_positions, mlm_labels, nsp_labels):
         mlm_scores, nsp_scores = self.pretrain(
             inputs, token_types, valid_length, masked_positions)
-        return pretrain_loss((mlm_scores, nsp_scores), mlm_labels,
-                             nsp_labels)
+        mlm_lp = F.log_softmax(mlm_scores.astype("float32"), axis=-1)
+        nsp_lp = F.log_softmax(nsp_scores.astype("float32"), axis=-1)
+        mlm_loss = 0.0 - F.pick(mlm_lp, mlm_labels, axis=-1).mean()
+        nsp_loss = 0.0 - F.pick(nsp_lp, nsp_labels, axis=-1).mean()
+        return mlm_loss + nsp_loss
 
 
-def pretrain_loss(outputs, mlm_labels, nsp_labels):
-    """The MLM + NSP loss over ``(mlm_scores, nsp_scores)``, the
-    ``loss_fn`` a trainer of :class:`BERTForPretrain` takes."""
-    mlm_scores, nsp_scores = outputs
-    mlm_lp = torch.log_softmax(mlm_scores.float(), dim=-1)
-    nsp_lp = torch.log_softmax(nsp_scores.float(), dim=-1)
-    mlm_loss = -mlm_lp.gather(-1, mlm_labels.long()[..., None]).mean()
-    nsp_loss = -nsp_lp.gather(-1, nsp_labels.long()[..., None]).mean()
-    return mlm_loss + nsp_loss
-
-
-def _gather_positions(seq, positions):
+def _gather_positions(F, seq, positions):
     """seq (B, L, C), positions (B, M) -> (B, M, C)."""
     B, L, C = seq.shape
-    offset = torch.arange(B, device=seq.device)[:, None] * L
-    idx = (positions.long() + offset).reshape(-1)
-    return seq.reshape(B * L, C)[idx].reshape(B, -1, C)
+    M = positions.shape[1]
+    flat = seq.reshape((B * L, C))
+    offset = nd.arange(B, ctx=seq.context).reshape((B, 1)) * L
+    idx = (positions.astype("float32") + offset).reshape((-1,))
+    out = F.take(flat, idx.astype("int32"), axis=0)
+    return out.reshape((B, M, C))
+
+
+class BERTClassifier(HybridBlock):
+    """Sentence-pair classification head (GluonNLP ``BERTClassifier``)."""
+
+    def __init__(self, bert: BERTModel, num_classes=2, dropout=0.1,
+                 **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.bert = bert
+            self.classifier = nn.HybridSequential()
+            self.classifier.add(nn.Dropout(dropout))
+            self.classifier.add(nn.Dense(num_classes,
+                                         in_units=bert._units))
+
+    def hybrid_forward(self, F, inputs, token_types, valid_length=None):
+        _, pooled = self.bert(inputs, token_types, valid_length)
+        return self.classifier(pooled)
+
+
+class BERTForQA(HybridBlock):
+    """SQuAD span head (GluonNLP ``BertForQA``): (B, L, 2) start / end
+    logits."""
+
+    def __init__(self, bert: BERTModel, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.bert = bert
+            self.span_classifier = nn.Dense(2, in_units=bert._units,
+                                            flatten=False)
+
+    def hybrid_forward(self, F, inputs, token_types, valid_length=None):
+        seq, _ = self.bert(inputs, token_types, valid_length)
+        return self.span_classifier(seq)                        # (B, L, 2)
 
 
 _BERT_CONFIGS = {
@@ -377,9 +232,6 @@ _BERT_CONFIGS = {
 
 def get_bert_model(model_name="bert_12_768_12", vocab_size=30522,
                    dropout=0.1, max_length=512, use_pooler=True, **kwargs):
-    """A :class:`BERTModel` of a named configuration; ``kwargs``
-    override its widths and pass ``use_flash``, ``device`` and
-    ``generator``."""
     if model_name not in _BERT_CONFIGS:
         raise MXNetError(f"unknown bert config {model_name!r}; "
                          f"known: {sorted(_BERT_CONFIGS)}")
@@ -395,5 +247,5 @@ def bert_12_768_12(**kwargs):
 
 
 def bert_24_1024_16(**kwargs):
-    """BERT-large (GluonNLP name): 24 layers, 1024 units, 16 heads."""
+    """BERT-large (GluonNLP name)."""
     return get_bert_model("bert_24_1024_16", **kwargs)

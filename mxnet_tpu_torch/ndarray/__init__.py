@@ -101,6 +101,48 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
     return NDArray._wrap(out, ctx)
 
 
+def linspace(start, stop, num, endpoint=True, ctx=None, dtype="float32"):
+    ctx, dev = _device(ctx)
+    if endpoint:
+        out = torch.linspace(start, stop, num, dtype=torch.float64,
+                             device=dev)
+    else:
+        step = (stop - start) / num
+        out = start + step * torch.arange(num, dtype=torch.float64,
+                                          device=dev)
+    return NDArray._wrap(out.to(to_torch_dtype(dtype)), ctx)
+
+
+def eye(N, M=0, k=0, ctx=None, dtype="float32"):
+    """An (N, M or N) array with ones on the ``k``-th diagonal."""
+    ctx, dev = _device(ctx)
+    cols = M if M else N
+    rows = torch.arange(N, device=dev)[:, None]
+    out = (torch.arange(cols, device=dev)[None, :] - rows) == k
+    return NDArray._wrap(out.to(to_torch_dtype(dtype)), ctx)
+
+
+def moveaxis(arr, source, destination):
+    return NDArray._wrap(torch.movedim(arr._data, source, destination),
+                         arr.context)
+
+
+def stack_arrays(arrays, axis=0):
+    return op.stack(*arrays, axis=axis)
+
+
+def from_numpy(arr, zero_copy=True):
+    """A host array as an NDArray on the current context (copied to the
+    device; ``zero_copy`` is a hint, as in the JAX package)."""
+    return array(arr)
+
+
+def from_dlpack(ext):
+    """An NDArray over a DLPack tensor or capsule (an object with
+    ``__dlpack__``, or a capsule), sharing its memory."""
+    return NDArray._wrap(torch.from_dlpack(ext))
+
+
 def zeros_like(arr, **kw):
     return NDArray._wrap(torch.zeros_like(arr._data.detach()), arr.context)
 
@@ -186,4 +228,5 @@ for _name in _reg.list_ops():
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "arange", "empty",
            "zeros_like", "ones_like", "concatenate", "add_n", "save",
            "load", "waitall", "op", "random", "sparse", "CSRNDArray",
-           "RowSparseNDArray", "dtype_name"]
+           "RowSparseNDArray", "dtype_name", "linspace", "eye", "moveaxis",
+           "stack_arrays", "from_numpy", "from_dlpack"]

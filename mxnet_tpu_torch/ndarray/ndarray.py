@@ -276,6 +276,19 @@ class NDArray:
     wait_to_write = wait_to_read
 
     # --------------------------------------------------------------- convert
+    def to_dlpack_for_read(self):
+        """A DLPack capsule over the array's memory (no copy)."""
+        self.wait_to_read()
+        return torch.utils.dlpack.to_dlpack(self._data.detach())
+
+    to_dlpack_for_write = to_dlpack_for_read
+
+    def __dlpack__(self, *args, **kwargs):
+        return self._data.detach().__dlpack__(*args, **kwargs)
+
+    def __dlpack_device__(self):
+        return self._data.__dlpack_device__()
+
     def asnumpy(self) -> np.ndarray:
         from .. import autograd
         autograd.flush_if_pending_grad(self)

@@ -20,16 +20,20 @@ graph node instead (``symbol.invoke_symbolic``).
 from __future__ import annotations
 
 import inspect
+import time
 from typing import Any, Callable, Dict, List, Sequence
 
 import torch
 
-from ..base import MXNetError
+from .. import runtime_metrics as _rm
+from ..base import MXNetError, Registry
 
-__all__ = ["OpDef", "register", "get_op", "list_ops", "invoke", "alias",
-           "make_frontend"]
+__all__ = ["OpDef", "OP_REGISTRY", "register", "get_op", "list_ops",
+           "invoke", "alias", "make_frontend"]
 
-_OPS: Dict[str, "OpDef"] = {}
+# the op table, as the JAX package's ``Registry("op")``
+OP_REGISTRY = Registry("op")
+_OPS: Dict[str, "OpDef"] = OP_REGISTRY._entries
 
 
 class OpDef:
@@ -166,6 +170,8 @@ def invoke(opdef: OpDef, inputs, kwargs: Dict[str, Any], out=None):
     record = is_recording() and opdef.differentiable
     if record:
         _mark_leaves(raw)
+    # the metrics plane costs one load and a branch while it is off
+    t0 = time.perf_counter() if _rm._ENABLED else None
     try:
         with torch.set_grad_enabled(record):
             result = opdef.fn(*raw, **kwargs)
@@ -173,6 +179,8 @@ def invoke(opdef: OpDef, inputs, kwargs: Dict[str, Any], out=None):
         raise
     except Exception as e:
         raise MXNetError(f"operator {opdef.name} failed: {e}") from e
+    if t0 is not None:
+        _rm.record_op_invoke(opdef.name, time.perf_counter() - t0)
     nout = opdef.n_outputs(kwargs)
     outs_raw = (result,) if nout == 1 and not isinstance(
         result, (tuple, list)) else tuple(result)

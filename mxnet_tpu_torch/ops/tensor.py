@@ -902,7 +902,9 @@ def cumprod(data, *, axis=None, dtype=None):
         _scan_dtype(data, dtype))
 
 
-register("digamma")(lambda data: torch.digamma(data))
+@register("digamma")
+def digamma(data):
+    return torch.digamma(data)
 
 
 @register("unravel_index", differentiable=False)

@@ -11,7 +11,8 @@ supervisor — and the serving replica layer's placement
 from . import dist
 from .checkpoint import CheckpointManager, load_checkpoint, save_checkpoint
 from .functional import GluonModule, functionalize
-from .mesh import Mesh, make_mesh
+from .mesh import Mesh, make_mesh, mesh_axis_size
+from .optim import adamw_init, adamw_update, sgd_init, sgd_update
 from .pipeline import make_pipeline_mesh, pipeline_apply
 from .placement import ReplicaMesh, replica_groups, replica_mesh
 from .ring_attention import ring_attention, ring_self_attention
@@ -28,4 +29,5 @@ __all__ = ["Mesh", "make_mesh", "replica_groups",
            "make_pipeline_mesh", "CheckpointManager", "save_checkpoint",
            "load_checkpoint", "TrainingSupervisor", "StepWatchdog",
            "run_with_deadline", "TrainStepTimeoutError", "CrashLoopError",
-           "functionalize", "GluonModule", "dist"]
+           "functionalize", "GluonModule", "dist", "mesh_axis_size",
+           "sgd_init", "sgd_update", "adamw_init", "adamw_update"]

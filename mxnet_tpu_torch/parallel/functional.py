@@ -9,7 +9,8 @@ with every parameter read from ``params`` (``{Gluon name: tensor}``,
 on the inputs' device) instead of the block's own arrays, and torch
 records the products, so
 ``torch.autograd`` differentiates the outputs with respect to the
-tensors given.  The forward's in-place writes of states without a
+tensors given (under ``torch.no_grad()``, an export's trace, nothing
+records).  The forward's in-place writes of states without a
 gradient (BatchNorm's running statistics) land in the tensors given,
 which ``aux`` returns by name.
 
@@ -68,6 +69,7 @@ def functionalize(block, *example_inputs, train_mode=True):
     without a gradient, by name, after the forward.  ``init_params``:
     ``{name: tensor}`` of the block's current values (the block's own
     tensors, not copies)."""
+    from .. import autograd
     from ..gluon.block import _resolve_shapes
     from ..gluon.cached_op import _TRACING, _flatten, recording
     from ..ndarray import NDArray
@@ -83,10 +85,11 @@ def functionalize(block, *example_inputs, train_mode=True):
                              f"{missing[0]!r}")
         tensors = [_as_input(param_tensors[n]) for n in names]
         xs = [NDArray._wrap(_as_input(t)) for t in input_tensors]
+        mode = recording(train_mode) if torch.is_grad_enabled() \
+            else autograd.pause(train_mode=train_mode)
         tok = _TRACING.set(True)
         try:
-            with _reading(list(params.values()), tensors), \
-                    recording(train_mode):
+            with _reading(list(params.values()), tensors), mode:
                 out = block.forward(*xs)
         finally:
             _TRACING.reset(tok)

@@ -16,7 +16,7 @@ import torch.distributed as tdist
 
 from ..base import MXNetError
 
-__all__ = ["Mesh", "make_mesh"]
+__all__ = ["Mesh", "make_mesh", "mesh_axis_size"]
 
 AXES = ("dp", "tp", "sp", "ep")
 
@@ -69,6 +69,10 @@ def _check_device(device):
         raise MXNetError("no CUDA device; pass device='cpu' to train on "
                          "the CPU")
     return device
+
+
+def mesh_axis_size(mesh: Mesh, axis: str) -> int:
+    return mesh.shape[axis]
 
 
 def make_mesh(dp=None, tp=1, sp=1, ep=1, devices=None, device="cuda"):

@@ -34,7 +34,8 @@ import torch
 from .ops.registry import register
 from .ops.tensor import _dtype, device_for
 
-__all__ = ["seed", "get_state", "set_state", "uniform", "normal"]
+__all__ = ["seed", "get_state", "set_state", "uniform", "normal", "randint",
+           "randn"]
 
 
 def seed(seed_state: int):
@@ -86,6 +87,20 @@ def normal(loc=0.0, scale=1.0, shape=None, dtype=torch.float32,
     ``device``."""
     return torch.empty(_shape(shape), dtype=dtype, device=device).normal_(
         float(loc), float(scale))
+
+
+def randint(low, high, shape=None, dtype="int32", ctx=None, out=None):
+    """An NDArray of integers drawn uniformly from [low, high):
+    ``mx.nd.random.randint``."""
+    from .ndarray import random as nd_random
+    return nd_random.randint(low, high, shape, dtype, ctx, out)
+
+
+def randn(*shape, loc=0.0, scale=1.0, dtype="float32", ctx=None):
+    """An NDArray of normal draws of ``shape``: ``mx.nd.random.randn``."""
+    from .ndarray import random as nd_random
+    return nd_random.randn(*shape, loc=loc, scale=scale, dtype=dtype,
+                           ctx=ctx)
 
 
 # ---------------------------------------------------------------------------

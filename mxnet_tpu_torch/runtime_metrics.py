@@ -42,6 +42,7 @@ __all__ = [
     "counter", "gauge", "histogram", "enable", "disable", "enabled",
     "reset", "snapshot", "dump_prometheus", "chrome_counter_events",
     "sample_memory", "grad_norm_enabled", "publish_grad_norm",
+    "record_op_invoke",
 ]
 
 # fast-path switch read by every instrumentation site (module attribute
@@ -639,6 +640,13 @@ MEMORY_LIVE_BYTES = gauge(
     "memory.live_bytes",
     "Live accelerator bytes per device (host RSS fallback when the "
     "backend reports no memory_stats).", labelnames=("device",))
+OP_INVOKE = counter(
+    "op.invoke", "Imperative op invocations via ops.registry.invoke.",
+    labelnames=("op",))
+OP_DISPATCH_SECONDS = histogram(
+    "op.dispatch.seconds",
+    "Host-side dispatch latency per imperative op call.",
+    labelnames=("op",))
 ENGINE_SYNC_SECONDS = histogram(
     "engine.sync.seconds",
     "Time blocked in bounded sync points (engine.sync_outputs: one "
@@ -894,6 +902,12 @@ TRAIN_BOTTLENECK = gauge(
     "comm_bound (collective dominates).  A non-compute verdict "
     "requires its phases to reach the StepAttribution threshold "
     "(default 25%) of windowed wall time.")
+
+
+def record_op_invoke(opname: str, seconds: float):
+    """Count one imperative op call and its host dispatch time."""
+    OP_INVOKE.inc(op=opname)
+    OP_DISPATCH_SECONDS.observe(seconds, op=opname)
 
 
 def publish_grad_norm(grads) -> Optional[float]:

@@ -1577,7 +1577,7 @@ class _Program:
         # serialised with every other capture in the process (bucket
         # programs too): a replica added under load captures while its
         # siblings, of this model or another, go on replaying
-        from .repository import _CAPTURE_LOCK
+        from ..engine import _CAPTURE_LOCK
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:

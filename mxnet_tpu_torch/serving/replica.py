@@ -835,7 +835,7 @@ class ReplicaSet:
             # an autoscaler do not grow the reserved memory
             import gc
             import torch
-            from .repository import _CAPTURE_LOCK
+            from ..engine import _CAPTURE_LOCK
             gc.collect()
             with _CAPTURE_LOCK:     # never beside another capture
                 torch.cuda.empty_cache()

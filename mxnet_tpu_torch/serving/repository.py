@@ -174,11 +174,6 @@ def _snapshot(module):
     return snap
 
 
-# every capture in the process runs under this lock: a capture is rare
-# (one per bucket and version) and takes a device-wide synchronise on
-# entry, so serialising them costs nothing on the serving path and rules
-# out two captures interleaving their allocations
-_CAPTURE_LOCK = threading.Lock()
 
 
 class _BlockProgram:
@@ -271,7 +266,7 @@ class _BlockProgram:
         with self._on_stream(), torch.no_grad():
             self._forward()
             t0 = time.perf_counter()
-            with _CAPTURE_LOCK:
+            with engine._CAPTURE_LOCK:
                 graph = torch.cuda.CUDAGraph()
                 try:
                     with torch.cuda.graph(graph, pool=self.pool,

@@ -12,7 +12,7 @@ batch's gradients are taken twice from the same weights (eager, no
 optimizer step) and every parameter whose gradient differs bitwise between
 the two is named: that says which backward is not repeatable.  Last,
 the cost of the embeddings' sorted-segment-sum weight gradient
-(``models/bert.py``) against ``F.embedding``'s own backward, on the
+(``models/torch_bert.py``) against ``F.embedding``'s own backward, on the
 training batch's word and token-type indices at BERT-large width, fp32
 and bf16: milliseconds of one forward + backward, CUDA events, median of
 30 calls after 3.
@@ -37,7 +37,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from mxnet_tpu_torch import models  # noqa: E402
+from mxnet_tpu_torch.models import torch_bert as models  # noqa: E402
 from mxnet_tpu_torch.ops import build  # noqa: E402
 from mxnet_tpu_torch.parallel import StepWatchdog  # noqa: E402
 
@@ -84,7 +84,7 @@ def _median_ms(fn, n=30):
 def embedding_backward_ms(dev, feats):
     """ms of one embedding forward + backward: the sorted segment sum
     (``_embed``) against ``F.embedding``, per table and dtype."""
-    from mxnet_tpu_torch.models.bert import _embed
+    from mxnet_tpu_torch.models.torch_bert import _embed
     out = {}
     units = cs.BERT_LARGE["units"]
     for name, rows, idx in (("word", cs.BERT_LARGE["vocab_size"], feats[0]),

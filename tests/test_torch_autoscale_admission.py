@@ -785,7 +785,7 @@ def test_tenant_gated_bert_predict_matches_jax_model_server():
     from mxnet_tpu import nd
     from mxnet_tpu import serving as jserving
     from mxnet_tpu.models.bert import BERTClassifier as JaxClassifier
-    from mxnet_tpu_torch import models as tm
+    from mxnet_tpu_torch.models import torch_bert as tm
 
     mx.random.seed(0)
     jbert = jm.get_bert_model("bert_12_768_12", use_flash=True, **BERT_KW)

@@ -19,9 +19,9 @@ from mxnet_tpu import models as jm
 from mxnet_tpu import nd
 from mxnet_tpu.models import transformer_blocks as jtb
 from mxnet_tpu.models.bert import BERTPretrainLoss as JaxPretrainLoss
-from mxnet_tpu_torch import models as tm
+from mxnet_tpu_torch.models import torch_bert as tm
 from mxnet_tpu_torch.base import MXNetError
-from mxnet_tpu_torch.models import transformer_blocks as ttb
+from mxnet_tpu_torch.models import torch_blocks as ttb
 
 ATOL = 1e-5
 KW = dict(vocab_size=64, units=32, hidden_size=64, num_layers=2,
@@ -243,7 +243,7 @@ def test_sorted_segment_embedding_gradient(rows):
     rounding — a 2-row table (every position shares a row, as the
     token-type table) and a 64-row one with rows no index reaches — and
     is the same bits on a second backward."""
-    from mxnet_tpu_torch.models.bert import _embed
+    from mxnet_tpu_torch.models.torch_bert import _embed
     torch.manual_seed(0)
     table = torch.nn.Embedding(rows, 16)
     idx = torch.randint(0, min(rows, 40), (6, 50))
@@ -264,7 +264,7 @@ def test_sorted_segment_embedding_gradient(rows):
 
 
 def test_sorted_segment_embedding_keeps_the_table_dtype():
-    from mxnet_tpu_torch.models.bert import _embed
+    from mxnet_tpu_torch.models.torch_bert import _embed
     table = torch.nn.Embedding(4, 8).to(torch.bfloat16)
     idx = torch.tensor([[0, 3, 3, 1]])
     out = _embed(table, idx)

@@ -29,7 +29,7 @@ from mxnet_tpu import faults as jfaults
 from mxnet_tpu.parallel import CheckpointManager as JaxCheckpointManager
 from mxnet_tpu_torch import engine as tengine
 from mxnet_tpu_torch import faults
-from mxnet_tpu_torch import models as tm
+from mxnet_tpu_torch.models import torch_bert as tm
 from mxnet_tpu_torch import parallel as tpar
 import mxnet_tpu_torch.parallel.checkpoint as cp
 from mxnet_tpu_torch.base import MXNetError

@@ -500,7 +500,7 @@ def bert_art(tmp_path_factory):
     ``dynamic_batch=True`` from batch-1 examples: (jclf, tclf, path)."""
     from mxnet_tpu import models as jm
     from mxnet_tpu.models.bert import BERTClassifier as JaxClassifier
-    from mxnet_tpu_torch import models as tm
+    from mxnet_tpu_torch.models import torch_bert as tm
 
     mx.random.seed(0)
     jbert = jm.get_bert_model("bert_12_768_12", use_flash=True, **BERT_KW)

@@ -438,7 +438,7 @@ def _bert_twins():
     of the JAX parameter whose values it holds."""
     from mxnet_tpu import models as jm
     from mxnet_tpu.models.bert import BERTClassifier as JaxClassifier
-    from mxnet_tpu_torch import models as tm
+    from mxnet_tpu_torch.models import torch_bert as tm
 
     mx.random.seed(0)
     jbert = jm.get_bert_model("bert_12_768_12", use_flash=True, **BERT_KW)

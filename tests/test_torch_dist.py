@@ -261,7 +261,8 @@ def jax_losses(head, mesh, batch, steps, lr=1e-3):
 
 CLASSIFIER = '''
 import re
-from mxnet_tpu_torch import models as tm, parallel as tpar
+from mxnet_tpu_torch import parallel as tpar
+from mxnet_tpu_torch.models import torch_bert as tm
 
 def classifier(use_flash=False):
     kw = dict(vocab_size=96, units=64, hidden_size=128, num_layers=2,

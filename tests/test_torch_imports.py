@@ -8,8 +8,10 @@ every import statement), ``import mxnet_tpu_torch`` (which brings in
 loads neither and builds no kernel, the adapter's, the multi-rank entry
 points' and ``Module``'s default device refuses to fall back to the
 CPU, the kernel build reports a missing ``nvcc`` as
-:class:`MXNetError`, and the ``gluon.contrib`` names not ported yet
-raise :class:`MXNetError` naming ROADMAP 6.4b.
+:class:`MXNetError`, the ``gluon.contrib`` names not ported yet
+raise :class:`MXNetError` naming ROADMAP 6.4b, and every module the two
+packages share has the JAX module's public names but an explicit list
+of exceptions.
 """
 import ast
 import os
@@ -205,3 +207,105 @@ def test_gluon_contrib_names_still_to_come_raise(name):
     with pytest.raises(AttributeError):
         contrib.no_such_name
     assert {"nn", "rnn", "estimator", name} <= set(dir(contrib))
+
+
+# Public names of the JAX package that the port has not, by module: the
+# names a later ROADMAP item brings, and the JAX-only ones.
+NAME_EXCEPTIONS = {
+    "": {"contrib": "6.8", "image": "6.7", "library": "6.8",
+         "monitor": "6.8", "np": "6.8", "npx": "6.8", "operator": "6.8",
+         "profiler": "6.8", "runtime": "6.8", "subgraph": "6.8",
+         "util": "6.8", "tpu": "JAX-only", "num_tpus": "JAX-only"},
+    "context": {"tpu": "JAX-only", "num_tpus": "JAX-only"},
+    "compile_cache": {"aot_program": "waiting item 2",
+                      "enable_jax_persistent_cache": "JAX-only"},
+    "gluon.utils": {"download": "needs a network"},
+    "io": dict.fromkeys(("CSVIter", "ImageRecordIter", "MNISTIter",
+                         "PrefetchingIter", "ResizeIter"), "6.7"),
+    "io.io": dict.fromkeys(("CSVIter", "ImageRecordIter", "MNISTIter",
+                            "PrefetchingIter", "ResizeIter"), "6.7"),
+    "ops": {"pallas_kernels": "JAX-only", "shape_rules": "6.8"},
+    # registered ops whose port functions live in ops/nn.py
+    "ops.contrib": {"gelu_erf": "ops.nn", "gelu_tanh": "ops.nn"},
+    # the JAX registry's hot-path OpDef that skips its signature harvest
+    "ops.registry": {"LightOpDef": "JAX-only"},
+    "parallel.sharding": {"global_device_put": "JAX-only"},
+    "random": {"next_key": "JAX-only", "trace_key_scope": "JAX-only"},
+    "runtime_metrics": {"dump_tensorboard": "6.8"},
+}
+
+
+def _shared_modules():
+    """Every module of the port with a module of the same path in the
+    JAX package ("" is the package root)."""
+    out = []
+    for root, _dirs, names in os.walk(os.path.join(REPO, "mxnet_tpu_torch")):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(root, n),
+                                  os.path.join(REPO, "mxnet_tpu_torch"))
+            parts = rel[:-3].split(os.sep)
+            if parts[-1] == "__init__":
+                parts = parts[:-1]
+            jax_path = os.path.join(REPO, "mxnet_tpu", *parts)
+            if os.path.exists(jax_path + ".py") or os.path.exists(
+                    os.path.join(jax_path, "__init__.py")):
+                out.append(".".join(parts))
+    return sorted(out)
+
+
+def _public(mod):
+    """``__all__``, else the names without an underscore that the module
+    (or a module under it) defines."""
+    import types
+    names = getattr(mod, "__all__", None)
+    if names is not None:
+        return set(names)
+    out = set()
+    for n in dir(mod):
+        if n.startswith("_"):
+            continue
+        v = getattr(mod, n)
+        owner = v.__name__ if isinstance(v, types.ModuleType) \
+            else getattr(v, "__module__", None)
+        if owner and (owner == mod.__name__
+                      or owner.startswith(mod.__name__ + ".")):
+            out.add(n)
+    return out
+
+
+def _missing_names():
+    """{module: sorted public names of the JAX module the port's lacks}
+    over the shared modules."""
+    import importlib
+    missing = {}
+    for rel in _shared_modules():
+        suffix = "." + rel if rel else ""
+        jax_mod = importlib.import_module("mxnet_tpu" + suffix)
+        port_mod = importlib.import_module("mxnet_tpu_torch" + suffix)
+        lack = sorted(n for n in _public(jax_mod) if not hasattr(port_mod, n))
+        if lack:
+            missing[rel] = lack
+    return missing
+
+
+def test_public_names_match_the_jax_package():
+    """In a fresh interpreter: a package's attributes include the
+    submodules imported so far, which other tests of a worker change."""
+    import json
+    import subprocess
+    import sys
+    assert {"", "engine", "initializer", "ndarray", "random", "base",
+            "models", "models.bert", "models.transformer",
+            "models.decoding", "parallel", "ops"} <= set(_shared_modules())
+    code = ("import json, sys\n"
+            f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+            "import test_torch_imports as t\n"
+            "print(json.dumps(t._missing_names()))\n")
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    missing = json.loads(out.stdout.strip().splitlines()[-1])
+    assert missing == {k: sorted(v) for k, v in NAME_EXCEPTIONS.items()}

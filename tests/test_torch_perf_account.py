@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from mxnet_tpu import perf_account as jax_pa
-from mxnet_tpu_torch import models as tm
+from mxnet_tpu_torch.models import torch_bert as tm
 from mxnet_tpu_torch import parallel as tpar
 from mxnet_tpu_torch import perf_account as pa
 from mxnet_tpu_torch import runtime_metrics as rm

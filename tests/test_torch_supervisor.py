@@ -41,7 +41,7 @@ from mxnet_tpu import nd
 from mxnet_tpu import parallel as jpar
 from mxnet_tpu_torch import engine as tengine
 from mxnet_tpu_torch import faults, io
-from mxnet_tpu_torch import models as tm
+from mxnet_tpu_torch.models import torch_bert as tm
 from mxnet_tpu_torch import parallel as tpar
 from mxnet_tpu_torch import random as trandom
 from mxnet_tpu_torch import runtime_metrics as rm

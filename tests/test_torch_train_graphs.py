@@ -37,7 +37,7 @@ from mxnet_tpu import parallel as jpar
 from mxnet_tpu.parallel import optim as jopt
 from mxnet_tpu_torch import compile_cache as cc
 from mxnet_tpu_torch import faults
-from mxnet_tpu_torch import models as tm
+from mxnet_tpu_torch.models import torch_bert as tm
 from mxnet_tpu_torch import parallel as tpar
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.faults import InjectedFault
