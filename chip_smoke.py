@@ -431,6 +431,18 @@ Then the Gluon training path (``nd``, ``autograd``, ``gluon``,
    models, one of each family and block kind of the zoo's table, in
    inference on the card against the host from the same weights, logits
    within 1e-4 of max|logit|;
+27b. ``imagenet`` — (module comment above ``IMAGENET``)
+   ``examples/train_imagenet.py``'s RecordIO pipeline: 256 PNG records
+   at 224x224 written by the port's built-in codec, ``ImageRecordIter``
+   (shuffle, mirror, 2 decode threads) feeding the zoo's ResNet-50 in
+   bfloat16 through ``ShardedTrainer`` (SGD) for the example's 60
+   iterations, then the train-set accuracy: the example's criterion,
+   batches on the card equal to the host's, two copies to the card and
+   one back (the loss) a traced step; ms a step, the data wait, the
+   producer's ms a batch with 1 and 2 threads, the idle share; the
+   native library on the card's machine (its JPEG tier against
+   ``CARD_HAS_LIBJPEG``) and the codec tiers; ``ImageIter`` and
+   ``ImageDetIter`` batches on the card equal to the host's;
 28. ``ops_card`` — every op of the op library's 160-name long tail, on the
    card against the port's CPU over ``_ops_card_specs``' seeded inputs
    (module comment above ``OPS_CARD_NEW``: forward bit for bit for
@@ -9266,7 +9278,7 @@ def phase_word_lm(torch):
 # family takes (below).
 MODEL_ZOO = dict(model="resnet50_v1", classes=1000, image=224, batch=32,
                  lr=0.0125, momentum=0.9, wd=1e-4, eager_steps=2, warm=2,
-                 steps=10, traced_steps=3, seed=0)
+                 steps=5, traced_steps=3, seed=0)
 MODEL_ZOO_FIRST_RTOL = 1e-5     # first hybridized loss vs the eager one
 MODEL_ZOO_TOL = 1e-4            # logits, card vs host, of max|logit|
 MODEL_ZOO_BATCH = 2
@@ -9411,6 +9423,473 @@ def phase_model_zoo(torch):
                                        and r["device"].startswith("cuda"))]
     check(tried == kinds and not bad,
           f"model_zoo: card vs host logits {bad}, families {tried}")
+    return resnet["step_ms"]
+
+
+# -------------------------------------------------------------- imagenet
+# examples/train_imagenet.py's pipeline as the example runs it on an
+# accelerator (the example imports jax, so this is its recipe, as
+# gluon_ssd is): its synth_rec shard of 256 class-coloured PNG records at
+# the ImageNet shape its docstring names (--model resnet50_v1 --shape
+# 224), written by the port's built-in PNG codec; ImageRecordIter
+# (shuffle, rand_mirror, scale 1/255, 2 decode threads) at batch 32; the
+# zoo's resnet50_v1 with Xavier weights cast to bfloat16 (the batch cast
+# on the card before the step); parallel.ShardedTrainer (dp 1, SGD lr
+# 0.02 momentum 0.9, the example's loss in float32) for the example's 60
+# iterations (7.5 epochs, so reset() runs), then write_back() and the
+# train-set accuracy; then the same recipe in float32.  Checks: the
+# example's criterion (last loss <= 0.9 x the first, accuracy >= 0.5) on
+# the float32 run (bfloat16's trajectory is chaotic: its losses must be
+# finite), every batch on the card, the first 2 batches equal bit for bit
+# to the same iterator's under mx.cpu(0), and per traced step two copies
+# to the card (data, label) and one back (the loss the example reads).
+# The idle share is busy over the traced window's own time: 3 steps in
+# the middle of an epoch after a reset, as the loop meets the producer.
+# (b) the native library built on the card's machine; its JPEG tier must
+# be what the probe of that machine found (CARD_HAS_LIBJPEG: no
+# /usr/include/jpeglib.h, ldconfig lists only CUDA's libnvjpeg; cv2 and
+# PIL import there).  (c) one ImageIter and one ImageDetIter batch under
+# the augmenter lists on the card, equal to the host's, one copy a field.
+CARD_HAS_LIBJPEG = False
+CARD_HAS_CV2 = True
+CARD_HAS_PIL = True
+IMAGENET = dict(model="resnet50_v1", records=256, image=224, classes=6,
+                batch=32, iters=60, lr=0.02, momentum=0.9, threads=2,
+                dtype="bfloat16", seed=0, host_batches=2, drain_steps=4,
+                traced_steps=3, producer_batches=4)
+IMAGENET_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests", "fixtures", "jpeg_records.npz")
+IMAGENET_JPEG_TOL = 6.0       # mean |pixel diff| (tests/test_native.py:158)
+IMAGENET_AUG = dict(records=16, image=64, crop=56, batch=8)
+
+
+def _synth_rec(path, n, shape, n_classes, seed=0):
+    """``train_imagenet.py``'s ``synth_rec`` (im2rec layout), each image
+    encoded by the port's built-in PNG codec (8 threads: zlib releases
+    the GIL; the draws stay in the example's order)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.image import image as image_mod
+    rng = np.random.RandomState(seed)
+    classes, images = [], []
+    for _ in range(n):
+        cls = rng.randint(n_classes)
+        base = np.zeros((shape, shape, 3), np.float32)
+        base[..., cls % 3] = 80 + 40 * (cls // 3)
+        classes.append(cls)
+        images.append(np.clip(base + rng.randn(shape, shape, 3) * 25, 0,
+                              255).astype(np.uint8))
+    with ThreadPoolExecutor(8) as pool:
+        pngs = list(pool.map(image_mod._png_encode, images))
+    rec = recordio.MXIndexedRecordIO(path + ".idx", path + ".rec", "w")
+    for i, (cls, png) in enumerate(zip(classes, pngs)):
+        rec.write_idx(i, recordio.pack(recordio.IRHeader(0, float(cls), i, 0),
+                                       png))
+    rec.close()
+
+
+def _imagenet_iter(mx, rec, cfg, threads=None, **kw):
+    return mx.io.ImageRecordIter(
+        path_imgrec=rec, data_shape=(3, cfg["image"], cfg["image"]),
+        batch_size=cfg["batch"], shuffle=True, rand_mirror=True,
+        scale=1.0 / 255, preprocess_threads=threads or cfg["threads"], **kw)
+
+
+def _copies(torch, prof):
+    """Device copy records of a trace by direction."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = dict(HtoD=0, DtoH=0, DtoD=0)
+    for e in prof.events():
+        if getattr(e, "device_type", None) != cuda:
+            continue
+        for k in out:
+            if f"Memcpy {k}" in e.name:
+                out[k] += 1
+    return out
+
+
+def _imagenet_train(torch, mx, rec, cfg):
+    """(a): the example's loop; returns its numbers."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    mx.random.seed(cfg["seed"])
+    it = _imagenet_iter(mx, rec, cfg)
+    net = vision.get_model(cfg["model"], classes=cfg["classes"])
+    net.initialize(mx.init.Xavier())
+    dtype = cfg["dtype"]
+    if dtype is not None:
+        net.cast(dtype)
+
+    def loss_fn(logits, labels):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(1, labels[:, None].long()).mean()
+
+    example = mx.nd.zeros((cfg["batch"], 3, cfg["image"], cfg["image"]),
+                          dtype=dtype or "float32")
+    trainer = parallel.ShardedTrainer(
+        net, loss_fn, parallel.make_mesh(dp=1, tp=1, sp=1),
+        optimizer="sgd", optimizer_params={"learning_rate": cfg["lr"],
+                                           "momentum": cfg["momentum"]},
+        example_inputs=(example,), n_labels=1,
+        dtype=getattr(torch, dtype) if dtype is not None else None)
+    devices, first = set(), []
+
+    def one():
+        """One iteration of the example's loop: (loss, ms waiting in
+        next(), ms of the whole iteration)."""
+        t0 = time.perf_counter()
+        batch = it.next()
+        t1 = time.perf_counter()
+        x, lab = batch.data[0], batch.label[0]
+        devices.update({x.data_torch.device.type, lab.data_torch.device.type})
+        if len(first) < cfg["host_batches"]:
+            first.append((x.asnumpy(), lab.asnumpy()))
+        if dtype is not None:
+            x = x.astype(dtype)         # the AMP cast, on the card
+        loss = float(trainer.step(x, lab.astype("int32")))
+        t2 = time.perf_counter()
+        return loss, (t1 - t0) * 1e3, (t2 - t0) * 1e3
+
+    losses, waits, step_ms = [], [], []
+    t_train = time.perf_counter()
+    while len(losses) < cfg["iters"]:
+        try:
+            while len(losses) < cfg["iters"]:
+                loss, wait, ms = one()
+                losses.append(loss)
+                waits.append(wait)
+                step_ms.append(ms)
+        except StopIteration:
+            pass
+        it.reset()
+    train_s = time.perf_counter() - t_train
+    per_epoch = -(-cfg["records"] // cfg["batch"])
+    median_ms = float(np.median(step_ms[per_epoch:]))
+
+    # the example's evaluation, right after its iterations
+    trainer.write_back()
+    it.reset()
+    metric = mx.metric.Accuracy()
+    for batch in it:
+        x = batch.data[0]
+        out = net(x.astype(dtype) if dtype is not None else x)
+        metric.update([batch.label[0]], [out])
+    _name, acc = metric.get()
+    # then three traced iterations of the loop (next, step, the loss
+    # read) in the middle of an epoch, as the untraced loop runs them:
+    # the uncounted warm-up resets the iterator (dropping what the
+    # producer queued during the trace's pad) and runs drain_steps
+    # iterations, so each traced next() meets the producer as the loop
+    # does
+    traced = []
+
+    def drain():
+        it.reset()
+        for _ in range(cfg["drain_steps"]):
+            one()
+
+    with _profiled(torch, warm=drain,
+                   where=f"imagenet {dtype or 'float32'}") as prof:
+        t0 = time.perf_counter()
+        for _ in range(cfg["traced_steps"]):
+            traced.append(one())
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) / cfg["traced_steps"] * 1e3
+    n = cfg["traced_steps"]
+    copies = {k: v / n for k, v in _copies(torch, prof).items()}
+    busy_ms = _busy_union_us(torch, prof) / n / 1e3
+    kernels = sum(e.count for e in prof.key_averages()
+                  if _kernel_us(e, torch) is not None) / n
+
+    it.close()
+    progs = list(trainer._programs.values())
+    out = dict(model=cfg["model"], image=cfg["image"], batch=cfg["batch"],
+               records=cfg["records"], iters=cfg["iters"],
+               dtype=dtype or "float32", seed=cfg["seed"],
+               losses=losses, accuracy=float(acc),
+               step_ms=median_ms, step_ms_all=step_ms,
+               wait_ms=float(np.median(waits[per_epoch:])),
+               wait_ms_all=waits, samples_per_s=cfg["batch"] / median_ms * 1e3,
+               train_seconds=train_s, devices=sorted(devices),
+               programs=len(progs), replays=sum(p.replays for p in progs),
+               capture_s=sum(p.capture_s for p in progs),
+               traced_steps=n, traced_step_ms=traced_ms,
+               traced_wait_ms=[w for _l, w, _m in traced],
+               copies_per_step=copies, device_busy_ms_per_step=busy_ms,
+               # idle over the traced window's own time, and the same busy
+               # time over the untraced loop's median step
+               device_idle_share=1.0 - busy_ms / traced_ms,
+               idle_share_of_untraced_median=1.0 - busy_ms / median_ms,
+               device_records_per_step=kernels)
+    return out, first
+
+
+def _imagenet_host_batches(mx, rec, cfg, first):
+    """The first batches of the same iterator under ``mx.cpu(0)`` from
+    the same seed, against the card's."""
+    with mx.cpu(0):
+        it = _imagenet_iter(mx, rec, cfg)
+        host = [it.next() for _ in range(len(first))]
+        it.close()
+    equal = [bool(np.array_equal(b.data[0].asnumpy(), d)
+                  and np.array_equal(b.label[0].asnumpy(), lab))
+             for b, (d, lab) in zip(host, first)]
+    devices = sorted({b.data[0].data_torch.device.type for b in host})
+    return equal, devices
+
+
+def _imagenet_producer(mx, rec, cfg):
+    """The producer's ms a batch (``_next_batch_sync``: read, decode,
+    augment, assemble in pinned memory) with 1 and 2 decode threads."""
+    out = {}
+    for threads in (1, 2):
+        it = _imagenet_iter(mx, rec, cfg, threads=threads)
+        it._stop_producer()
+        it._pos = 0
+        ms = []
+        for _ in range(cfg["producer_batches"]):
+            t0 = time.perf_counter()
+            it._next_batch_sync(it._ctx)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        it.close()
+        out[threads] = dict(ms=float(np.median(ms)), ms_all=ms)
+    return out
+
+
+def _imagenet_native(mx, rec, cfg):
+    """(b): the native library and the codec tiers on this machine."""
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.image import image as image_mod
+    from mxnet_tpu_torch.lib import nativelib
+
+    def imports(name):
+        try:
+            __import__(name)
+            return True
+        except ImportError:
+            return False
+
+    t0 = time.perf_counter()
+    ok = nativelib.available()
+    build_s = time.perf_counter() - t0
+    out = dict(available=ok, build_s=build_s,
+               library=os.path.basename(nativelib.library_path()),
+               jpeg=nativelib.jpeg_available(),
+               jpeg_build_error=nativelib.jpeg_build_error(),
+               cv2=imports("cv2"), pil=imports("PIL.Image"),
+               backend=image_mod._BACKEND)
+    check(ok, "imagenet: the native library did not build or load")
+    reader = nativelib.NativeRecordReader(rec)
+    native = [reader.read_at(o) for o in reader.index()]
+    reader.close()
+    plain, rd = [], recordio.MXRecordIO(rec, "r")
+    while True:
+        s = rd.read()
+        if s is None:
+            break
+        plain.append(s)
+    rd.close()
+    out["records_equal"] = native == plain and len(plain) == cfg["records"]
+    tmp = tempfile.mkdtemp(prefix="mxnet-imagenet-csv-")
+    try:
+        path = os.path.join(tmp, "d.csv")
+        np.savetxt(path, np.random.RandomState(0).randn(64, 9)
+                   .astype(np.float32), delimiter=",", fmt="%.7g")
+        out["csv_equal"] = bool(np.array_equal(
+            nativelib.csv_load(path),
+            np.loadtxt(path, delimiter=",", dtype=np.float32, ndmin=2)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    with np.load(IMAGENET_FIXTURE) as f:
+        pixels = f["pixels"]
+        bufs = [f[f"jpeg_{i}"].tobytes() for i in range(len(pixels))]
+    if out["jpeg"]:
+        cy = np.full(len(bufs), -1.0, np.float32)
+        got, status = nativelib.decode_jpeg_batch(
+            bufs, 0, pixels.shape[1], pixels.shape[2], cy, cy,
+            np.zeros(len(bufs), np.uint8), 2)
+        out["native_jpeg_status"] = status.tolist()
+        out["native_jpeg_mean_abs_diff"] = float(np.abs(
+            got.transpose(0, 2, 3, 1).astype(int) - pixels.astype(int))
+            .mean())
+    if image_mod._BACKEND == "cv2":
+        got = np.stack([image_mod._decode(b) for b in bufs])
+        out["cv2_jpeg_mean_abs_diff"] = float(
+            np.abs(got.astype(int) - pixels.astype(int)).mean())
+    # the built-in codec on this machine: the same PNG batch (no random
+    # draws) through it and through the chain's first tier, bit for bit
+    batches = {}
+    for backend in ("numpy", image_mod._BACKEND):
+        saved = image_mod._BACKEND
+        image_mod._BACKEND = backend
+        try:
+            with mx.cpu(0):
+                it = mx.io.ImageRecordIter(
+                    path_imgrec=rec, data_shape=(3, cfg["image"],
+                                                 cfg["image"]),
+                    batch_size=cfg["batch"], scale=1.0 / 255)
+                batches[backend] = it.next().data[0].asnumpy()
+                it.close()
+        finally:
+            image_mod._BACKEND = saved
+    out["builtin_codec_equal"] = bool(np.array_equal(
+        batches["numpy"], batches[image_mod._BACKEND]))
+    return out
+
+
+def _imagenet_aug(torch, mx, tmp):
+    """(c): one ImageIter and one ImageDetIter batch under the augmenter
+    lists, on the card and on the host from the same seeds."""
+    import random
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.image import image as image_mod
+    cfg = IMAGENET_AUG
+    rng = np.random.RandomState(1)
+    cls_path = os.path.join(tmp, "aug.rec")
+    det_path = os.path.join(tmp, "det.rec")
+    w = recordio.MXIndexedRecordIO(os.path.join(tmp, "aug.idx"), cls_path,
+                                   "w")
+    dw = recordio.MXRecordIO(det_path, "w")
+    for i in range(cfg["records"]):
+        img = rng.randint(0, 255, (cfg["image"], cfg["image"], 3), np.uint8)
+        png = image_mod._png_encode(img)
+        w.write_idx(i, recordio.pack(recordio.IRHeader(0, float(i % 4), i,
+                                                       0), png))
+        box = np.sort(rng.rand(4)).astype(np.float32)
+        lab = np.array([2.0, 5.0, float(i % 3), box[0], box[1], box[2],
+                        box[3]], np.float32)
+        dw.write(recordio.pack(recordio.IRHeader(0, lab, i, 0), png))
+    w.close()
+    dw.close()
+    shape = (3, cfg["crop"], cfg["crop"])
+
+    def cls_iter():
+        return mx.image.ImageIter(
+            batch_size=cfg["batch"], data_shape=shape, path_imgrec=cls_path,
+            aug_list=mx.image.CreateAugmenter(
+                shape, rand_crop=True, rand_mirror=True, mean=True, std=True,
+                brightness=0.2, contrast=0.2, saturation=0.2,
+                pca_noise=0.1))
+
+    def det_iter():
+        return mx.image.ImageDetIter(
+            batch_size=cfg["batch"], data_shape=shape, path_imgrec=det_path,
+            aug_list=mx.image.CreateDetAugmenter(
+                shape, rand_crop=0.5, rand_pad=0.5, rand_mirror=True,
+                mean=True, std=True, brightness=0.2, contrast=0.2,
+                saturation=0.2))
+
+    def first_batch(make):
+        random.seed(0)
+        np.random.seed(0)
+        return make().next()
+
+    def warm(make):
+        # a long run's trace loses the records at its head: a batch of
+        # the same iterator and 64 small kernels, not counted
+        first_batch(make)
+        for _ in range(64):
+            torch.ones(1, device="cuda").add_(1)
+
+    rows = {}
+    for name, make in (("ImageIter", cls_iter), ("ImageDetIter", det_iter)):
+        got = {}
+        for where in ("card", "host"):
+            if where == "card":
+                with mx.gpu(0), _profiled(
+                        torch, warm=functools.partial(warm, make),
+                        where=f"imagenet {name}") as prof:
+                    batch = first_batch(make)
+                    torch.cuda.synchronize()
+                copies = _copies(torch, prof)
+            else:
+                with mx.cpu(0):
+                    batch = first_batch(make)
+            got[where] = (batch.data[0].asnumpy(), batch.label[0].asnumpy(),
+                          batch.data[0].data_torch.device.type,
+                          batch.label[0].data_torch.device.type)
+        rows[name] = dict(
+            equal=bool(np.array_equal(got["card"][0], got["host"][0])
+                       and np.array_equal(got["card"][1], got["host"][1])),
+            card_devices=list(got["card"][2:]),
+            host_devices=list(got["host"][2:]),
+            copies=copies, data_shape=list(got["card"][0].shape),
+            label_shape=list(got["card"][1].shape))
+    return rows
+
+
+def phase_imagenet(torch, model_zoo_step_ms=None):
+    """``imagenet``: ``train_imagenet.py``'s RecordIO pipeline into
+    ResNet-50 on the card (module comment above ``IMAGENET``)."""
+    import mxnet_tpu_torch as mx
+    cfg = IMAGENET
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mxnet-imagenet-")
+    try:
+        prefix = os.path.join(tmp, "synth_imagenet")
+        _synth_rec(prefix, cfg["records"], cfg["image"], cfg["classes"])
+        rec = prefix + ".rec"
+        synth_s = time.perf_counter() - t0
+        native = _imagenet_native(mx, rec, cfg)
+        # the example's AMP path (bfloat16), then the same recipe in
+        # float32, which holds the example's learning criterion
+        train, first = _imagenet_train(torch, mx, rec, cfg)
+        train32, _ = _imagenet_train(torch, mx, rec, dict(cfg, dtype=None))
+        host_equal, host_devices = _imagenet_host_batches(mx, rec, cfg,
+                                                          first)
+        producer = _imagenet_producer(mx, rec, cfg)
+        aug = _imagenet_aug(torch, mx, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free(torch)
+    emit("imagenet", train=train, train_float32=train32,
+         host_batches_equal=host_equal,
+         host_devices=host_devices, producer_ms_per_batch=producer,
+         native=native, augmenters=aug,
+         model_zoo_fixed_batch_step_ms=model_zoo_step_ms,
+         synth_seconds=synth_s, seconds=time.perf_counter() - t0)
+    # the learning criterion holds the float32 run: the bfloat16
+    # trajectory is chaotic (ROADMAP 6.7), so its losses are only
+    # required to be finite
+    losses = train32["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] <= 0.9 * losses[0]
+          and train32["accuracy"] >= 0.5,
+          f"imagenet: float32 did not learn the synthetic classes (losses "
+          f"{losses[0]} -> {losses[-1]}, accuracy {train32['accuracy']})")
+    check(all(np.isfinite(train["losses"])),
+          f"imagenet: bfloat16 losses {train['losses']}")
+    check(all(host_equal) and host_devices == ["cpu"],
+          f"imagenet: card batches vs mx.cpu(0)'s {host_equal} "
+          f"{host_devices}")
+    for run in (train, train32):
+        check(run["devices"] == ["cuda"],
+              f"imagenet {run['dtype']}: batches on {run['devices']}")
+        check(run["copies_per_step"]["HtoD"] == 2
+              and run["copies_per_step"]["DtoH"] == 1,
+              f"imagenet {run['dtype']}: copies a traced step "
+              f"{run['copies_per_step']} (want 2 to the card, 1 back)")
+        check(run["programs"] == 1,
+              f"imagenet {run['dtype']}: {run['programs']} step programs")
+    check(native["jpeg"] == CARD_HAS_LIBJPEG
+          and native["cv2"] == CARD_HAS_CV2 and native["pil"] == CARD_HAS_PIL,
+          f"imagenet: this machine's decode tiers {native} differ from "
+          f"the probe's (libjpeg {CARD_HAS_LIBJPEG}, cv2 {CARD_HAS_CV2}, "
+          f"PIL {CARD_HAS_PIL})")
+    check(native["records_equal"] and native["csv_equal"]
+          and native["builtin_codec_equal"],
+          f"imagenet: native library or codec tiers {native}")
+    if CARD_HAS_LIBJPEG:
+        check(not any(native["native_jpeg_status"])
+              and native["native_jpeg_mean_abs_diff"] < IMAGENET_JPEG_TOL,
+              f"imagenet: native JPEG decode {native}")
+    if "cv2_jpeg_mean_abs_diff" in native:
+        check(native["cv2_jpeg_mean_abs_diff"] < IMAGENET_JPEG_TOL,
+              f"imagenet: cv2 JPEG decode {native}")
+    for name, row in aug.items():
+        check(row["equal"] and row["card_devices"] == ["cuda", "cuda"]
+              and row["host_devices"] == ["cpu", "cpu"]
+              and row["copies"]["HtoD"] == 2,
+              f"imagenet: {name} {row}")
 
 
 # ---------------------------------------------------------------- ops_card
@@ -10743,7 +11222,8 @@ def main():
     phase_faster_rcnn(torch)
     symbolic = phase_symbolic(torch, gluon_hybrid["encoder"])
     phase_word_lm(torch)
-    phase_model_zoo(torch)
+    zoo_step_ms = phase_model_zoo(torch)
+    phase_imagenet(torch, zoo_step_ms)
     phase_ops_card(torch, dev)
     bert_squad = phase_bert_squad(torch)
     nmt = phase_nmt(torch)

@@ -33,6 +33,8 @@ from . import kvstore as kv
 from . import metric
 from . import recordio
 from . import io
+from . import image
+from . import lib
 from . import attribute
 from .attribute import AttrScope
 from . import symbol
@@ -67,6 +69,6 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "current_context", "num_gpus", "autograd", "nd", "ndarray",
            "NDArray", "random", "init", "initializer", "lr_scheduler",
            "optimizer", "gluon", "kvstore", "kv", "metric", "recordio",
-           "io", "attribute", "AttrScope", "symbol", "sym", "Symbol", "executor",
+           "io", "image", "lib", "attribute", "AttrScope", "symbol", "sym", "Symbol", "executor",
            "module", "callback", "compat", "test_utils", "waitall", "base",
            "engine", "parallel", "models", "serving", "deploy"]

@@ -24,11 +24,6 @@ from ..dataset import Dataset
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
            "ImageFolderDataset"]
 
-# what a decoded image file needs (ROADMAP Queue A, the "input" tail)
-_IMAGE_ITEM = ("image files need the image decoder, which is not ported "
-               "yet (ROADMAP Queue A item 6, the input tail: image/)")
-
-
 def _host_array(data):
     return nd.array(data, dtype="uint8", ctx=cpu(0))
 
@@ -186,9 +181,10 @@ class CIFAR100(CIFAR10):
 
 
 class ImageFolderDataset(Dataset):
-    """``<root>/<class>/<item>`` folders; ``.npy`` items load as uint8
-    arrays on the host, image files raise :class:`MXNetError` (no
-    decoder yet)."""
+    """``<root>/<class>/<item>`` folders (reference:
+    ImageFolderDataset): ``.npy`` items and image files (decoded by
+    ``image.imread`` with ``flag``) load as HWC uint8 arrays on the
+    host."""
 
     def __init__(self, root, flag=1, transform=None):
         self._root = os.path.expanduser(root)
@@ -212,10 +208,13 @@ class ImageFolderDataset(Dataset):
         return len(self.items)
 
     def __getitem__(self, idx):
+        from .... import image as img_mod
         path, label = self.items[idx]
-        if not path.endswith(".npy"):
-            raise MXNetError(f"ImageFolderDataset: {path!r}: {_IMAGE_ITEM}")
-        img = _host_array(np.load(path))
+        if path.endswith(".npy"):
+            img = _host_array(np.load(path))
+        else:
+            with cpu(0):
+                img = img_mod.imread(path, self._flag)
         if self._transform is not None:
             return self._transform(img, label)
         return img, label

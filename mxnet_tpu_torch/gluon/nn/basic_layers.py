@@ -187,7 +187,14 @@ class BatchNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         from ... import autograd
+        from ...ndarray import NDArray
 
+        # a half-precision input is normalised in float32 and the output
+        # cast back to its dtype, as the reference's AMP runs BatchNorm
+        half = isinstance(x, NDArray) and \
+            str(x.dtype) in ("float16", "torch.bfloat16")
+        if half:
+            in_dtype, x = x.dtype, x.astype("float32")
         axis = self._axis if self._axis >= 0 else x.ndim + self._axis
         red = tuple(i for i in range(x.ndim) if i != axis)
         bshape = tuple(x.shape[i] if i == axis else 1 for i in range(x.ndim))
@@ -216,6 +223,8 @@ class BatchNorm(HybridBlock):
             out = out * gamma.reshape(bshape)
         if self._center:
             out = out + beta.reshape(bshape)
+        if half:
+            out = out.astype(in_dtype)
         return out
 
 

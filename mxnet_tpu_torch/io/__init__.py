@@ -1,5 +1,9 @@
-"""Data iterators of the PyTorch port (the iterator tier of
-``mxnet_tpu.io``)."""
-from .io import DataBatch, DataDesc, DataIter, NDArrayIter
+"""Data iterators of the PyTorch port (reference: python/mxnet/io/ +
+src/io/; the counterpart of ``mxnet_tpu.io``)."""
+from .io import (DataDesc, DataBatch, DataIter, ResizeIter,
+                 PrefetchingIter, NDArrayIter, CSVIter, MNISTIter,
+                 ImageRecordIter)
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
+           "PrefetchingIter", "NDArrayIter", "CSVIter", "MNISTIter",
+           "ImageRecordIter"]

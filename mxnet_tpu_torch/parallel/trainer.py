@@ -104,10 +104,15 @@ _OPTIMS = {
 
 
 def _tensors(batch):
-    """The step's arrays as tensors (a numpy array without a copy)."""
+    """The step's arrays as tensors (a numpy array without a copy, an
+    NDArray as its tensor where it lies: a batch already on the card
+    does not go back through the host)."""
+    from ..ndarray import NDArray
     out = []
     for b in batch:
-        if isinstance(b, np.ndarray):
+        if isinstance(b, NDArray):
+            b = b._data.detach()
+        elif isinstance(b, np.ndarray):
             b = torch.from_numpy(b)
         elif not isinstance(b, torch.Tensor):
             b = torch.as_tensor(b)
@@ -296,6 +301,7 @@ class ShardedTrainer:
     arrays or tensors), moves them to the mesh's device, and returns the
     loss tensor of that step (before the update).  ``example_inputs``
     only sets how many inputs the block takes: the port traces nothing.
+    The inputs reach the block in the dtype the caller gives them.
 
     ``graphs=True`` (the default) runs each batch signature as a
     :class:`_StepProgram` (one CUDA graph on the card); at most

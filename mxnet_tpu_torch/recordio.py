@@ -10,9 +10,10 @@ existing ``.rec`` / ``.idx`` datasets (im2rec output):
 - image record payload: ``IRHeader`` (flag, label, id, id2) + image bytes;
   ``flag > 0`` carries that many extra label floats.
 
-The reader and writer are Python over buffered file IO.
-``pack_img`` / ``unpack_img`` need an image codec, which the port does
-not have yet: they raise :class:`MXNetError`.
+The reader and writer are Python over buffered file IO (the native
+tier is ``lib.nativelib``).  ``pack_img`` / ``unpack_img`` encode and
+decode with the ``image`` module's codec chain (cv2, PIL, the built-in
+PNG codec).
 """
 from __future__ import annotations
 
@@ -197,19 +198,45 @@ def unpack(s: bytes):
     return header, s
 
 
-# what an image codec needs (ROADMAP Queue A, the "input" tail)
-_IMAGE_ITEM = ("the image codec is not ported yet (ROADMAP Queue A item "
-               "6, the input tail: image/)")
-
-
 def pack_img(header, img, quality=95, img_fmt=".jpg"):
-    """Encode an HWC uint8 image and pack it (reference: ``pack_img``):
-    raises :class:`MXNetError` until the image codec is ported."""
-    raise MXNetError(f"pack_img: {_IMAGE_ITEM}")
+    """Encode an HWC uint8 image and pack it (reference: ``pack_img``)
+    with the ``image`` module's codec chain: ``img`` is in cv2's channel
+    order (BGR), as the reference's.  The built-in codec writes PNG
+    whatever ``img_fmt`` says, as the JAX package's numpy backend does."""
+    from .image import image as _image
+    if img_fmt not in (".jpg", ".jpeg", ".png"):
+        raise MXNetError(f"unsupported image format {img_fmt!r}")
+    arr = np.asarray(img)
+    if _image._BACKEND == "cv2":
+        import cv2
+        params = [cv2.IMWRITE_JPEG_QUALITY, quality] \
+            if img_fmt in (".jpg", ".jpeg") \
+            else [cv2.IMWRITE_PNG_COMPRESSION, quality // 10]
+        ok, buf = cv2.imencode(img_fmt, arr, params)
+        if not ok:
+            raise MXNetError("image encode failed")
+        return pack(header, buf.tobytes())
+    rgb = arr[:, :, ::-1] if arr.ndim == 3 and arr.shape[2] == 3 else arr
+    return pack(header, _image.imencode(np.ascontiguousarray(rgb), img_fmt,
+                                        quality))
 
 
 def unpack_img(s, iscolor=1):
-    """The header and decoded image of a record (reference:
-    ``unpack_img``): raises :class:`MXNetError` until the image codec is
-    ported."""
-    raise MXNetError(f"unpack_img: {_IMAGE_ITEM}")
+    """-> (IRHeader, HWC uint8 numpy image in cv2's channel order, BGR)
+    (reference: ``unpack_img``), with the ``image`` module's codec
+    chain."""
+    from .image import image as _image
+    header, payload = unpack(s)
+    if _image._BACKEND == "cv2":
+        import cv2
+        img = cv2.imdecode(np.frombuffer(payload, dtype=np.uint8), iscolor)
+        if img is None:
+            raise MXNetError("image decode failed")
+        return header, img
+    try:
+        img = _image._decode(payload, 1 if iscolor else 0)
+    except MXNetError as e:
+        raise MXNetError(f"image decode failed: {e}") from e
+    if iscolor:
+        return header, np.ascontiguousarray(img[:, :, ::-1])
+    return header, img[:, :, 0]

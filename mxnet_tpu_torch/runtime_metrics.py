@@ -830,6 +830,17 @@ COMPILE_CACHE = counter(
     "nvcc-built kernel libraries (mxnet_tpu_torch.ops.build).",
     labelnames=("event",))
 
+IO_BATCHES = counter(
+    "io.batches", "Batches produced by data iterators.")
+IO_NATIVE_DECODE = counter(
+    "io.decode.native", "Images decoded by the native C++ JPEG tier.")
+IO_PYTHON_DECODE = counter(
+    "io.decode.python",
+    "Images decoded on the Python tier (cv2, PIL or the built-in codec).")
+IO_PREFETCH_DEPTH = gauge(
+    "io.prefetch.depth",
+    "Prefetch queue depth observed at the last consumer read.")
+
 KV_PUSH = counter("kvstore.push", "kvstore push() calls (per key).")
 KV_PUSH_BYTES = counter(
     "kvstore.push.bytes",

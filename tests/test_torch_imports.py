@@ -212,7 +212,7 @@ def test_gluon_contrib_names_still_to_come_raise(name):
 # Public names of the JAX package that the port has not, by module: the
 # names a later ROADMAP item brings, and the JAX-only ones.
 NAME_EXCEPTIONS = {
-    "": {"contrib": "6.8", "image": "6.7", "library": "6.8",
+    "": {"contrib": "6.8", "library": "6.8",
          "monitor": "6.8", "np": "6.8", "npx": "6.8", "operator": "6.8",
          "profiler": "6.8", "runtime": "6.8", "subgraph": "6.8",
          "util": "6.8", "tpu": "JAX-only", "num_tpus": "JAX-only"},
@@ -220,10 +220,6 @@ NAME_EXCEPTIONS = {
     "compile_cache": {"aot_program": "waiting item 2",
                       "enable_jax_persistent_cache": "JAX-only"},
     "gluon.utils": {"download": "needs a network"},
-    "io": dict.fromkeys(("CSVIter", "ImageRecordIter", "MNISTIter",
-                         "PrefetchingIter", "ResizeIter"), "6.7"),
-    "io.io": dict.fromkeys(("CSVIter", "ImageRecordIter", "MNISTIter",
-                            "PrefetchingIter", "ResizeIter"), "6.7"),
     "ops": {"pallas_kernels": "JAX-only", "shape_rules": "6.8"},
     # registered ops whose port functions live in ops/nn.py
     "ops.contrib": {"gelu_erf": "ops.nn", "gelu_tanh": "ops.nn"},
