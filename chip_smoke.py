@@ -186,7 +186,8 @@ Phases, each printed as one JSON line:
    step and on a graph's first (eager, captured) step, by 0 on a
    replay; their sums are reported by dtype and mode;
 8b. ``durability`` — ``TrainingSupervisor.run`` over the captured bf16
-   BERT-large step (depth not cut, dropout 0, adamw lr 1e-4), batches
+   step of BERT-large's widths at ``DURABILITY_LAYERS`` (4) layers
+   (dropout 0, adamw lr 1e-4), batches
    from an ``io.NDArrayIter`` over 48 rows made like the training batch,
    12 steps, a verified ``CheckpointManager`` checkpoint every 4
    (``max_to_keep`` 2, async writes, in a ``tempfile.mkdtemp()``
@@ -404,7 +405,10 @@ Then the Gluon training path (``nd``, ``autograd``, ``gluon``,
    package's symbol file ``tests/fixtures/jax_symbol_graph.json`` on the
    card against the host; a ``BucketingModule`` of the layer over L
    128 / 256 / 512 (one weight object per name, at most 6 programs,
-   B1-B3 at each L);
+   B1-B3 at each L); the LeNet ``Module.fit`` runs with
+   ``monitor=Monitor(interval=16)`` (weights, gradients and the output
+   statted at that interval), and a hybridized Gluon LeNet launches as
+   many graphs a step monitored as not (``SYMBOLIC_MONITOR``);
 26. ``word_lm`` — ``examples/word_language_model.py``'s loop at its own
    sizes (module comment above ``WORD_LM``): 3 epochs on the card,
    perplexity below the unigram's, the first 3 losses within 1e-5
@@ -486,6 +490,21 @@ Run after ``gluon_ssd`` (``gluon.contrib``, fp32 with TF32 off):
    transformer-big trained 2 eager + 10 hybridized steps, then its
    beam search (one graph replay a decode step, one host sync a 4
    steps) against the same step run eagerly, bit for bit.
+34. ``amp`` — (module comment above ``AMP``) ``bert_squad``'s BERT-large
+   SQuAD step under ``contrib.amp.init("bfloat16")``: 24 records each of
+   the bf16 B1-B3 kernels a traced step, float32 parameters and
+   gradients, a forced overflow skipped; float16 over LeNet (the
+   scaler's back-off and growth) and over a flash layer (refused with
+   ``KernelError``).
+35. ``quantize`` — (module comment above ``QUANT_NET``) ``quantize_net``
+   over a BERT-large ``BERTClassifier`` (24 B1 records a replay of its
+   int8 graph), ``optimize_for(backend="inference")`` (no Dropout, 24 B1
+   records a replay), ``examples/quantize_int8.py``'s recipe,
+   ``quantize_model`` through ``Module``, and two layers at BERT-large
+   width quantized on the card against the host.
+36. ``np_card`` — (module comment above ``NP_CARD_TOL``) a table of
+   ``mx.np`` / ``mx.npx`` calls on the card against the host, and an
+   ``mx.np`` block hybridized into one CUDA graph.
 
 Then the kernel summary line (each kernel's fp32 numbers, and its bf16
 ones under ``bfloat16``; ``launches`` is its wrapper's count on the
@@ -527,8 +546,13 @@ and ``launches_symbolic_bucketing`` (each bucket's first step) from
 ``traced_gluon_fused_kernel_records`` /
 ``traced_gluon_moe_kernel_records`` (their traced replays), and
 ``launches_dist_ep`` (one rank's, 3 steps), ``launches_bert_squad`` and
-``traced_bert_squad_kernel_records`` (its hybridized steps) and
-``launches_nmt`` (none); B4 gives ``launches_gluon_nd`` (the
+``traced_bert_squad_kernel_records`` (its hybridized steps),
+``launches_nmt`` (none), and ``launches_amp_bf16`` /
+``traced_amp_bf16_kernel_records`` (``amp``'s hybridized steps, bf16
+kernels); B1 also gives ``launches_quantize``,
+``traced_quantize_kernel_records`` and
+``traced_optimize_for_kernel_records`` (three traced replays each);
+B4 gives ``launches_gluon_nd`` (the
 ``nd.ragged_paged_attention_op`` call)), the
 ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -4712,7 +4736,11 @@ WATCHDOG_TURN_STEPS = 10
 # the SIGTERM children: 2 layers at BERT-large widths, bf16, a verified
 # checkpoint every step; the signalled child waits for the signal between
 # two steps once it has completed SIGNAL_AT
-SIGNAL_STEPS, SIGNAL_AT, SIGNAL_LAYERS = 10, 5, 2
+SIGNAL_STEPS, SIGNAL_AT, SIGNAL_LAYERS = 4, 2, 2
+# durability's two supervised trainers: BERT-large widths at this depth
+# (each save and restore moves the whole state: 24 layers took 5.3-5.9 s
+# a save, and the phase ~115 s of the script's 1200 s)
+DURABILITY_LAYERS = 4
 CHILD_TIMEOUT_S = 300
 
 
@@ -4992,8 +5020,9 @@ def phase_durability(torch, dev, feats, labels, step_ms, model_kw=None):
               f"durability: flash wrappers launched {launches}, want "
               f"{2 * layers} each (two captures)")
         state = sup.debug_state()
-        emit("durability", model="bert_24_1024_16", dtype="bfloat16",
-             graphs=True, batch=DURABILITY_B, rows=DURABILITY_ROWS,
+        emit("durability", model="bert_24_1024_16", num_layers=layers,
+             dtype="bfloat16", graphs=True, batch=DURABILITY_B,
+             rows=DURABILITY_ROWS,
              steps=DURABILITY_STEPS, save_every=DURABILITY_SAVE_EVERY,
              max_to_keep=2, filesystem=fs, spec=DURABILITY_SPEC.format(
                  stall_ms=stall_ms), fired=got["fired"],
@@ -5012,7 +5041,7 @@ def phase_durability(torch, dev, feats, labels, step_ms, model_kw=None):
              watchdog=watchdog, round_trip=contract,
              launches=launches)
         return dict(trainer=tr, sup=sup, mngr=got["mngr"], root=root,
-                    launches=launches)
+                    launches=launches, layers=layers)
     except BaseException:
         shutil.rmtree(root, ignore_errors=True)
         raise
@@ -5028,7 +5057,7 @@ def phase_durability_trace(torch, ctx):
     checkpoints."""
     kernels = _flash_counters()
     tr, sup = ctx["trainer"], ctx["sup"]
-    layers = BERT_LARGE["num_layers"]
+    layers = ctx["layers"]
     try:
         counted = [k.launches for k in kernels]
         replays = _replays(tr)
@@ -8293,6 +8322,12 @@ SYMBOLIC_LENET = dict(n=2048, features=64, classes=10, batch=128, epochs=5,
 # accuracy 1.0 (its final score); the card must reach that less 0.02
 SYMBOLIC_LENET_MIN_ACCURACY = 1.0 - 0.02
 SYMBOLIC_ENCODER = dict(steps=5, lr=0.01, traced_steps=3)
+# Module.fit(monitor=Monitor(interval, pattern)) on the card's LeNet run:
+# the weights, their gradients and the output statted every interval-th
+# batch; a monitored hybridized Gluon LeNet (gluon_mnist's, batch 64,
+# Adam) launches as many graphs a step as the unmonitored one
+SYMBOLIC_MONITOR = dict(interval=16, pattern=r".*weight(_grad)?$|output0",
+                        batch=64, steps=6, traced_steps=3)
 SYMBOLIC_BUCKETS = (128, 256, 512)
 SYMBOLIC_BUCKET_STEPS = 2
 # a SymbolBlock against the block it came from: the same kernels on the
@@ -8326,11 +8361,12 @@ def _lenet_symbol_data():
     return data, labels.astype(np.float32)
 
 
-def _lenet_symbol_fit(torch, mx, where, epochs, arg_params=None):
+def _lenet_symbol_fit(torch, mx, where, epochs, arg_params=None,
+                      monitor=None):
     """``examples/lenet_symbol.py``'s ``main`` on ``where`` (its weights
-    ``arg_params`` when given): the module, the first batches' outputs,
-    ms a batch, seconds an epoch, programs after the first batch, the
-    final score."""
+    ``arg_params`` when given; ``fit(monitor=monitor)``): the module, the
+    first batches' outputs, ms a batch, seconds an epoch, programs after
+    the first batch, the final score."""
     from mxnet_tpu_torch.module import Module
     cfg = SYMBOLIC_LENET
     data, labels = _lenet_symbol_data()
@@ -8370,7 +8406,7 @@ def _lenet_symbol_fit(torch, mx, where, epochs, arg_params=None):
         mod.fit(it, num_epoch=epochs, optimizer="sgd",
                 optimizer_params={"learning_rate": cfg["lr"]},
                 eval_metric="acc", batch_end_callback=on_batch,
-                epoch_end_callback=on_epoch,
+                epoch_end_callback=on_epoch, monitor=monitor,
                 arg_params=None if arg_params is None else {
                     k: mx.nd.array(v) for k, v in arg_params.items()})
         score = mod.score(it, mx.metric.Accuracy())
@@ -8383,11 +8419,43 @@ def _lenet_symbol_fit(torch, mx, where, epochs, arg_params=None):
                 device=str(mod._exec.arg_dict["fc1_weight"]._data.device))
 
 
+def _symbol_monitor(mx):
+    """The card run's ``Monitor`` and the list its ``toc_print`` results
+    go to."""
+    mon = mx.monitor.Monitor(interval=SYMBOLIC_MONITOR["interval"],
+                             pattern=SYMBOLIC_MONITOR["pattern"])
+    seen, real = [], mon.toc_print
+
+    def toc_print():
+        res = real()
+        seen.append(res)
+        return res
+
+    mon.toc_print = toc_print
+    return mon, seen
+
+
+def _monitor_summary(seen, batches):
+    """Which batches were statted, with which names; whether every stat
+    is finite."""
+    statted = [i for i, res in enumerate(seen) if res]
+    names = sorted({n for res in seen for _s, n, _v in res})
+    finite = all(isinstance(v, float) and np.isfinite(v)
+                 for res in seen for _s, _n, v in res)
+    want = [i for i in range(batches)
+            if i % SYMBOLIC_MONITOR["interval"] == 0]
+    return dict(interval=SYMBOLIC_MONITOR["interval"], statted=statted,
+                want=want, names=names, finite=finite,
+                calls=len(seen))
+
+
 def _phase_lenet_symbol(torch, mx):
     cfg = SYMBOLIC_LENET
     host = _lenet_symbol_fit(torch, mx, mx.cpu(0), 1)
+    mon, seen = _symbol_monitor(mx)
     card = _lenet_symbol_fit(torch, mx, mx.gpu(0), cfg["epochs"],
-                             arg_params=host["init"])
+                             arg_params=host["init"], monitor=mon)
+    monitored = _monitor_summary(seen, len(card["ms"]))
     rel = [float(np.abs(a - b).max() / np.abs(b).max())
            for a, b in zip(card["outs"], host["outs"])]
     steps = len(card["ms"])
@@ -8404,9 +8472,15 @@ def _phase_lenet_symbol(torch, mx):
                programs_after_first_batch=card["programs_after_first_batch"],
                programs_after_score=card["programs_after_score"],
                capture_s={str(k): p.capture_s for k, p in
-                          card["module"]._exec._programs.items()})
+                          card["module"]._exec._programs.items()},
+               monitor=monitored)
     check(card["device"].startswith("cuda"),
           f"symbolic lenet: trained on {card['device']}")
+    check(monitored["statted"] == monitored["want"]
+          and monitored["calls"] == len(card["ms"]) and monitored["finite"]
+          and {"fc1_weight", "fc1_weight_grad", "fc2_weight",
+               "fc2_weight_grad"} <= set(monitored["names"]),
+          f"symbolic lenet: the monitor's stats {monitored}")
     check(all(e <= t for e, t in zip(rel, GLUON_LENET_RTOL))
           and len(rel) == cfg["host_batches"],
           f"symbolic lenet: first batches vs the host {rel}")
@@ -8738,6 +8812,54 @@ def _phase_bucketing(torch, mx, path):
     return out
 
 
+def _monitored_lenet(torch, mx, lenet_path):
+    """A hybridized Gluon LeNet trained by Adam, traced for
+    ``traced_steps`` steps without and then with a ``Monitor`` (interval
+    1, ``tic`` before and ``toc`` after each step): graph launches and
+    records a step in each, and the names the monitor statted."""
+    cfg = SYMBOLIC_MONITOR
+    rs = np.random.RandomState(3)
+    x = rs.rand(cfg["batch"], 1, 28, 28).astype(np.float32)
+    y = rs.randint(0, 10, cfg["batch"]).astype(np.float32)
+    with mx.gpu(0):
+        net = _lenet(mx)
+        net.load_parameters(lenet_path, ctx=mx.gpu(0))
+        net.hybridize(static_alloc=True)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 1e-3})
+        batch = (mx.nd.array(x), mx.nd.array(y))
+        plain = _gluon_stepper(mx, trainer, batch, net=net)
+        mon = mx.monitor.Monitor(interval=1)
+        seen = []
+
+        def watched():
+            mon.tic()
+            loss = plain()
+            seen.append(mon.toc())
+            return loss
+
+        for _ in range(cfg["steps"]):
+            plain()
+        torch.cuda.synchronize()
+        out = {}
+        for tag, step in (("plain", plain), ("monitored", watched)):
+            if tag == "monitored":
+                mon.install(net)
+            _trace_steps(torch, step, cfg["traced_steps"], 1.0, warm=step,
+                         where=f"symbolic_monitor_{tag}")
+            launches = TRACE_LAUNCHES[-1]["counted"]
+            out[tag] = dict(graph_launches_per_step=len(launches)
+                            / cfg["traced_steps"],
+                            records_per_graph_launch=launches)
+        mon.uninstall()
+        names = sorted({n for res in seen for _s, n, _v in res})
+        del net, trainer
+    out["statted"] = names
+    out["finite"] = all(isinstance(v, float) and np.isfinite(v)
+                        for res in seen for _s, _n, v in res)
+    return out
+
+
 def phase_symbolic(torch, hybrid=None):
     """``symbolic``: the symbolic API on the card (module comment above
     ``SYMBOLIC_LENET``).  ``hybrid`` is ``gluon_hybrid``'s hybridized
@@ -8755,6 +8877,7 @@ def phase_symbolic(torch, hybrid=None):
                        rs.rand(1, 1, 28, 28).astype(np.float32))
         _encoder_weights(mx, GLUON_FLASH, enc_path)
         lenet = _phase_lenet_symbol(torch, mx)
+        monitored = _monitored_lenet(torch, mx, lenet_path)
         _free(torch)
         encoder, launches, traced = _phase_encoder_module(
             torch, mx, enc_path, hybrid)
@@ -8763,8 +8886,16 @@ def phase_symbolic(torch, hybrid=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("symbolic", dtype="float32", lenet_symbol=lenet,
+         monitored_hybrid_lenet=monitored,
          encoder_module=encoder, symbol_block=block, bucketing=bucketing,
          seconds=time.perf_counter() - t0)
+    names = monitored["statted"]
+    check(monitored["plain"]["graph_launches_per_step"]
+          == monitored["monitored"]["graph_launches_per_step"]
+          and monitored["finite"]
+          and any(n.endswith("weight") for n in names)
+          and any(n.endswith("weight_grad") for n in names),
+          f"symbolic: the monitored hybridized LeNet {monitored}")
     return dict(launches=launches, traced=traced,
                 bucketing={r["L"]: r["launches"] for r in bucketing[
                     "buckets"]})
@@ -11124,6 +11255,754 @@ def phase_nmt(torch):
     return dict(launches=launches)
 
 
+def _dtname(dtype):
+    """A torch dtype's name without the ``torch.`` prefix."""
+    return str(dtype).replace("torch.", "")
+
+
+# --------------------------------------------------------------------- amp
+# (a) examples/bert_squad.py's BERT-large + BERTForQA (flash, dropout 0,
+# fp32 weights) at SQUAD_LARGE's B 8 x L 384 ragged batch under
+# contrib.amp.init("bfloat16"): gluon.Trainer AdamW 3e-5 behind
+# amp.init_trainer, the loss scaled by amp.scale_loss; 2 eager and 10
+# hybridized steps.  The first AMP loss is held to the fp32 loss of the
+# same weights, the first hybridized loss to the eager AMP loss from the
+# same state; a traced step must hold 24 records each of the bf16
+# (wgmma) B1 / B2 / B3 kernels; parameters and gradients stay float32; a
+# forced overflow (a loss scale past float32's and bf16's range) must
+# skip the step, the parameters bitwise unchanged and the scale halved.
+# Then amp.init("float16") over gluon_mnist's LeNet: 10 steps of the
+# scaler's real back-off and growth (scale 2^16, window 2), each skipped
+# step's parameters bitwise unchanged, the first loss against the host's
+# fp16 run; and over a flash encoder layer, which must raise KernelError
+# (B1-B3 take fp32 and bf16 only).  amp._deinit() runs in a finally, and
+# every model here is built after init and dropped before _deinit, so no
+# CachedOp program crosses the switch.
+AMP = dict(eager_steps=2, steps=10, traced_steps=3)
+AMP_FP32_RTOL = 2e-2        # first AMP loss vs the fp32 loss, same weights
+AMP_FIRST_RTOL = 1e-3       # first hybridized loss vs the eager AMP loss
+AMP_OVERFLOW_SCALE = 2.0 ** 140   # past float32's (and bf16's) 3.4e38
+# the bf16 kernels of B1-B3 (a traced step's records)
+AMP_BF16_NAMES = {"flash_attention_fwd": "flash_fwd_wgmma",
+                  "flash_attention_bwd_dq": "flash_bwd_dq_wgmma",
+                  "flash_attention_bwd_dkv": "flash_bwd_dkv_wgmma"}
+AMP_FP16 = dict(steps=10, init_scale=2.0 ** 16, window=2, batch=64,
+                lr=1e-3)
+# fp16 LeNet's first loss, card vs host: fp16 products accumulate in
+# another order on each (cuDNN / the CPU's kernels), 2^-10 a rounding
+AMP_FP16_HOST_RTOL = 1e-2
+
+
+def _amp_step(mx, amp, trainer, block, batch, rows):
+    """One AMP step of the loss block: record, ``scale_loss`` backward,
+    ``trainer.step`` (the overflow check first, ``init_trainer``)."""
+    def step():
+        with mx.autograd.record():
+            loss = block(*batch)
+        with amp.scale_loss(loss, trainer) as scaled:
+            scaled.backward()
+        trainer.step(rows)
+        return loss
+    return step
+
+
+def _count_host_reads(scaler):
+    """Count the scaler's overflow reads (one host read each)."""
+    reads = []
+    real = scaler.has_overflow
+
+    def counted(params):
+        reads.append(1)
+        return real(params)
+
+    scaler.has_overflow = counted
+    return reads
+
+
+def _amp_bert(torch, mx, amp):
+    """(a)'s BERT-large part (module comment above ``AMP``)."""
+    cfg, big = AMP, SQUAD_LARGE
+    rng = np.random.RandomState(0)
+    arrays = _squad_ragged(rng, big["valid"], big["L"], big["vocab"],
+                           big["q_len"], big["ans_len"])
+    mx.random.seed(0)
+    with mx.gpu(0):
+        bert = mx.models.bert_24_1024_16(vocab_size=big["vocab"],
+                                         dropout=0.0, use_flash=True)
+        qa = mx.models.BERTForQA(bert)
+        qa.initialize(mx.init.Normal(0.02))
+        batch = _nd_batch(mx, arrays)
+        step_blk = _span_loss(mx, qa)
+        fp32_loss = float(step_blk(*batch).asnumpy())
+        amp.init("bfloat16")
+        trainer = mx.gluon.Trainer(qa.collect_params(), "adamw",
+                                   {"learning_rate": big["lr"],
+                                    "wd": big["wd"]})
+        amp.init_trainer(trainer)
+        scaler = trainer._amp_loss_scaler
+        reads = _count_host_reads(scaler)
+        step = _amp_step(mx, amp, trainer, step_blk, batch, big["B"])
+        _kernel_counts(zero=True)
+        eager_losses, eager_ms = _gluon_loop(step, cfg["eager_steps"],
+                                             sync=torch.cuda.synchronize)
+        eager_launches = _kernel_counts()
+        params = [p for p in qa.collect_params().values()]
+        dtypes = sorted({(_dtname(p.data()._data.dtype),
+                          _dtname(p.grad()._data.dtype))
+                         for p in params if p.grad_req != "null"})
+        with mx.autograd.record():
+            eager_loss = float(step_blk(*batch).asnumpy())
+        step_blk.hybridize(static_alloc=True)
+        _kernel_counts(zero=True)
+        del reads[:]
+        losses, ms = _gluon_loop(step, cfg["steps"],
+                                 sync=torch.cuda.synchronize)
+        launches = _kernel_counts()
+        reads_per_step = len(reads) / cfg["steps"]
+        ms_per_step = float(np.median(ms[2:]))
+        trace = _trace_steps(torch, step, cfg["traced_steps"], ms_per_step,
+                             warm=step, where="amp", names=AMP_BF16_NAMES)
+        graph_launches = TRACE_LAUNCHES[-1]["counted"]
+        # a forced overflow: the step is skipped
+        before = {n: p.data()._data.clone()
+                  for n, p in qa.collect_params().items()}
+        skipped0 = scaler.stats["skipped"]
+        scaler.loss_scale = AMP_OVERFLOW_SCALE
+        step()
+        torch.cuda.synchronize()
+        changed = [n for n, p in qa.collect_params().items()
+                   if not torch.equal(p.data()._data, before[n])]
+        overflow = dict(scale_before=AMP_OVERFLOW_SCALE,
+                        scale_after=scaler.loss_scale,
+                        skipped=scaler.stats["skipped"] - skipped0,
+                        params_changed=changed)
+        del before, step, trainer, step_blk, qa, bert, batch
+    return dict(fp32_loss=fp32_loss, eager_losses=eager_losses,
+                eager_ms=eager_ms, eager_launches=eager_launches,
+                eager_loss_before_hybridize=eager_loss, losses=losses,
+                step_ms=ms, ms_per_step=ms_per_step, launches=launches,
+                overflow_reads_per_step=reads_per_step, trace=trace,
+                graph_launches=graph_launches, dtypes=dtypes,
+                overflow=overflow)
+
+
+def _amp_fp16_lenet(torch, mx, amp, ctx, path, x, y):
+    """(a)'s fp16 LeNet run on ``ctx`` from the weights at ``path``: the
+    scaler's sequence, skipped steps, losses."""
+    cfg = AMP_FP16
+    with ctx:
+        net = _lenet(mx)
+        net.load_parameters(path, ctx=ctx)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": cfg["lr"]})
+        amp.init_trainer(trainer)
+        scaler = trainer._amp_loss_scaler
+        scaler.loss_scale = cfg["init_scale"]
+        scaler._scale_window = cfg["window"]
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        xs, ys = mx.nd.array(x), mx.nd.array(y)
+        scales, losses, skipped_unchanged, out_dtypes = [], [], [], set()
+        for _ in range(cfg["steps"]):
+            before = [p.data()._data.clone()
+                      for p in net.collect_params().values()]
+            skipped0 = scaler.stats["skipped"]
+            with mx.autograd.record():
+                out = net(xs)
+                loss = loss_fn(out, ys)
+            out_dtypes.add(_dtname(out._data.dtype))
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward()
+            trainer.step(x.shape[0])
+            if scaler.stats["skipped"] > skipped0:
+                skipped_unchanged.append(all(
+                    torch.equal(p.data()._data, b) for p, b in zip(
+                        net.collect_params().values(), before)))
+            scales.append(scaler.loss_scale)
+            losses.append(float(loss.mean().asscalar()))
+        return dict(scales=scales, losses=losses,
+                    skipped=scaler.stats["skipped"],
+                    skipped_unchanged=skipped_unchanged,
+                    output_dtypes=sorted(out_dtypes))
+
+
+def _amp_fp16(torch, mx, amp):
+    """(a)'s float16 part: LeNet on the card and the host, then the flash
+    encoder layer's refusal."""
+    cfg = AMP_FP16
+    rs = np.random.RandomState(0)
+    x = rs.rand(cfg["batch"], 1, 28, 28).astype(np.float32)
+    y = rs.randint(0, 10, cfg["batch"]).astype(np.float32)
+    tmp = tempfile.mkdtemp(prefix="mxnet-amp-")
+    try:
+        path = os.path.join(tmp, "lenet.npz")
+        _lenet_weights(mx, path, x[:1])
+        amp.init("float16")
+        card = _amp_fp16_lenet(torch, mx, amp, mx.gpu(0), path, x, y)
+        host = _amp_fp16_lenet(torch, mx, amp, mx.cpu(0), path, x, y)
+        refused = None
+        with mx.gpu(0):
+            cfg_l = dict(GLUON_FLASH, L=128, B=2)
+            layer = _encoder_layer(mx, cfg_l["units"], cfg_l["heads"],
+                                   cfg_l["ffn"])
+            layer.initialize(mx.init.Normal(0.02))
+            xe, valid, _ye = _encoder_batch(cfg_l)
+            try:
+                layer(mx.nd.array(xe), mx.nd.array(valid))
+                torch.cuda.synchronize()
+            except mx.base.KernelError as e:
+                refused = str(e)[:200]
+            del layer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(card=card, host=host, flash_refusal=refused,
+                first_loss_rel_err=abs(card["losses"][0] - host["losses"][0])
+                / abs(host["losses"][0]))
+
+
+def phase_amp(torch):
+    """``amp``: contrib.amp on the card (module comment above ``AMP``).
+    Returns B1-B3's wrapper launches on the bf16 path and their bf16
+    records in its traced steps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    t0 = time.perf_counter()
+    try:
+        bert = _amp_bert(torch, mx, amp)
+        _free(torch)
+        amp.amp._deinit()
+        fp16 = _amp_fp16(torch, mx, amp)
+    finally:
+        amp.amp._deinit()
+    _free(torch)
+    cfg, layers = AMP, 24
+    fp32_rel = abs(bert["eager_losses"][0] - bert["fp32_loss"]) \
+        / abs(bert["fp32_loss"])
+    first_rel = abs(bert["losses"][0] - bert["eager_loss_before_hybridize"]) \
+        / abs(bert["eager_loss_before_hybridize"])
+    trace, glaunch = bert["trace"], bert["graph_launches"]
+    emit("amp", model="bert_24_1024_16 + BERTForQA, use_flash",
+         target_dtype="bfloat16", L=SQUAD_LARGE["L"], B=SQUAD_LARGE["B"],
+         optimizer="adamw", lr=SQUAD_LARGE["lr"],
+         fp32_loss=bert["fp32_loss"], first_amp_loss_rel_err=fp32_rel,
+         eager_losses=bert["eager_losses"], eager_ms=bert["eager_ms"],
+         eager_loss_before_hybridize=bert["eager_loss_before_hybridize"],
+         first_hybrid_rel_err=first_rel, losses=bert["losses"],
+         step_ms=bert["step_ms"], ms_per_step=bert["ms_per_step"],
+         param_grad_dtypes=bert["dtypes"],
+         launches_eager=bert["eager_launches"], launches=bert["launches"],
+         graph_launches_per_step=len(glaunch) / cfg["traced_steps"],
+         records_per_graph_launch=glaunch,
+         host_overflow_reads_per_step=bert["overflow_reads_per_step"],
+         trace=trace, overflow=bert["overflow"], fp16=fp16,
+         seconds=time.perf_counter() - t0)
+    check(fp32_rel <= AMP_FP32_RTOL,
+          f"amp: first AMP loss {bert['eager_losses'][0]} vs fp32 "
+          f"{bert['fp32_loss']}, {fp32_rel} relative")
+    check(first_rel <= AMP_FIRST_RTOL,
+          f"amp: first hybridized loss {bert['losses'][0]} vs eager "
+          f"{bert['eager_loss_before_hybridize']}, {first_rel} relative")
+    alll = bert["eager_losses"] + bert["losses"]
+    check(all(np.isfinite(alll)) and bert["losses"][-1] < alll[0],
+          f"amp: losses {alll} (finite, falling)")
+    check(bert["dtypes"] == [("float32", "float32")],
+          f"amp: parameter / gradient dtypes {bert['dtypes']}")
+    check(trace["records_per_step"] == dict.fromkeys(AMP_BF16_NAMES,
+                                                     float(layers)),
+          f"amp: bf16 B1-B3 records a traced step "
+          f"{trace['records_per_step']}, want {layers} each")
+    check(bert["overflow_reads_per_step"] == 1.0,
+          f"amp: {bert['overflow_reads_per_step']} overflow reads a step")
+    ov = bert["overflow"]
+    check(not ov["params_changed"] and ov["skipped"] == 1
+          and ov["scale_after"] == AMP_OVERFLOW_SCALE / 2,
+          f"amp: forced overflow {ov}")
+    seq = [AMP_FP16["init_scale"]] + fp16["card"]["scales"]
+    check(fp16["card"]["skipped"] >= 1
+          and all(fp16["card"]["skipped_unchanged"])
+          and fp16["card"]["output_dtypes"] == ["float16"]
+          and any(b < a for a, b in zip(seq, seq[1:]))
+          and any(b > a for a, b in zip(seq, seq[1:])),
+          f"amp: fp16 LeNet's scale must back off and grow: {fp16['card']}")
+    check(fp16["first_loss_rel_err"] <= AMP_FP16_HOST_RTOL,
+          f"amp: fp16 LeNet first loss card {fp16['card']['losses'][0]} vs "
+          f"host {fp16['host']['losses'][0]}")
+    check(fp16["flash_refusal"] is not None
+          and "float32 or bfloat16" in fp16["flash_refusal"],
+          f"amp: float16 through the flash layer was not refused "
+          f"({fp16['flash_refusal']})")
+    return dict(launches=bert["launches"],
+                traced={k: v * cfg["traced_steps"]
+                        for k, v in trace["records_per_step"].items()})
+
+
+# ---------------------------------------------------------------- quantize
+# (b) contrib.quantization on the card.  BERT-large as a Gluon
+# BERTClassifier (bert_24_1024_16, flash, dropout 0, seed 0) at predict's
+# shape, L 128 x batch 16: quantize_net with naive calibration over 4
+# batches (the hooks copy every Dense input to the host), hybridized:
+# each replay one CUDA graph holding 24 B1 records, its logits within
+# QUANT_REPLAY_TOL of the int8 eager forward; the sequence output's
+# correlation with fp32 and its max error; the int8 replay's device ms
+# beside the fp32 Gluon replay's (and ``predict``'s bucket 16).  The
+# same weights with dropout 0.1 through optimize_for(backend="inference"):
+# no Dropout node, logits within QUANT_OPT_TOL of the block's eval
+# forward, 24 B1 records a replay.  Then examples/quantize_int8.py's
+# recipe (entropy, 4 batches), quantize_model over
+# examples/lenet_symbol.py's symbol through Module, and two layers at
+# BERT-large width quantized on the card against the host.
+QUANT_NET = dict(L=128, B=16, calib_batches=4, replays=10, traced=3)
+QUANT_REPLAY_TOL = 1e-5     # int8 replay vs int8 eager, of max|logit|
+QUANT_OPT_TOL = 1e-5        # optimize_for's SymbolBlock vs the block
+QUANT_MIN_CORR = 0.99       # int8 vs fp32 (tests/test_quantization.py)
+QUANT_EXAMPLE = dict(batch=8, calib=4)
+QUANT_HOST = dict(num_layers=2, B=4, L=128)
+
+
+def _quant_inputs(rng, vocab, B, L):
+    """A (B, 3, L) float array: token ids, token types (second half 1)
+    and the valid length (16..L), one row a sample."""
+    x = np.zeros((B, 3, L), np.float32)
+    x[:, 0] = rng.randint(0, vocab, (B, L))
+    x[:, 1, L // 2:] = 1
+    x[:, 2] = rng.randint(16, L + 1, B)[:, None]
+    return x
+
+
+def _packed(mx, clf):
+    """The classifier over one (B, 3, L) array (``_quant_inputs``), so
+    that a calibration batch is one array, as quantize_net takes it."""
+    class Packed(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.clf = clf
+
+        def hybrid_forward(self, F, x):
+            return self.clf(*_unpack(F, x))
+
+    return Packed(prefix="packed_")
+
+
+def _unpack(F, x):
+    ids = F.squeeze(F.slice_axis(x, axis=1, begin=0, end=1), axis=1)
+    types = F.squeeze(F.slice_axis(x, axis=1, begin=1, end=2), axis=1)
+    valid = F.reshape(F.slice_axis(F.slice_axis(
+        x, axis=1, begin=2, end=3), axis=2, begin=0, end=1), shape=(-1,))
+    return ids, types, valid
+
+
+def _quant_classifier(mx, dropout, num_layers=24):
+    bert = mx.models.get_bert_model("bert_24_1024_16", vocab_size=30522,
+                                    dropout=dropout, use_flash=True,
+                                    num_layers=num_layers)
+    return mx.models.BERTClassifier(bert, num_classes=2, dropout=dropout)
+
+
+def _cop_replay_ms(timer, block, iters):
+    """Device ms of one replay of ``block``'s inference forward graph
+    (its CachedOp's one signature) on the CachedOp's stream."""
+    prog = next(iter(block._cached_op._cache.values()))
+    with prog.graphs.on_stream():
+        return timer(prog.infer.fwd.replay, iters=iters, warmup=2)
+
+
+def _corr(a, b):
+    return float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+
+
+def _quant_bert(torch, mx, qt, timer, path):
+    """(b)'s int8 BERT-large; the fp32 weights saved at ``path``."""
+    cfg = QUANT_NET
+    rng = np.random.RandomState(0)
+    calib = [_quant_inputs(rng, 30522, cfg["B"], cfg["L"])
+             for _ in range(cfg["calib_batches"])]
+    x = _quant_inputs(rng, 30522, cfg["B"], cfg["L"])
+    mx.random.seed(0)
+    with mx.gpu(0):
+        clf = _quant_classifier(mx, 0.0)
+        clf.initialize(mx.init.Normal(0.02))
+        net = _packed(mx, clf)
+        X = mx.nd.array(x)
+        logits32 = net(X).asnumpy()
+        seq32 = clf.bert(*_unpack(mx.nd, X))[0].asnumpy()
+        clf.save_parameters(path)
+        net.hybridize(static_alloc=True)
+        net(X)
+        fp32_ms = _cop_replay_ms(timer, net, cfg["replays"])
+        net.hybridize(False)
+        _free(torch)
+        t0 = time.perf_counter()
+        qt.quantize_net(net, calib_mode="naive",
+                        calib_data=[mx.nd.array(c) for c in calib],
+                        num_calib_batches=cfg["calib_batches"])
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        kinds = collections.Counter(type(b).__name__
+                                    for b in net._iter_blocks())
+        eager = net(X).asnumpy()
+        seq8 = clf.bert(*_unpack(mx.nd, X))[0].asnumpy()
+        net.hybridize(static_alloc=True)
+        _kernel_counts(zero=True)
+        first = net(X).asnumpy()
+        launches = _kernel_counts()
+        replay = net(X).asnumpy()
+        records = _kernel_records(
+            torch, lambda: [net(X) for _ in range(cfg["traced"])],
+            FLASH_NAMES, warm=lambda: net(X), where="quantize")
+        glaunch = TRACE_LAUNCHES[-1]["counted"]
+        int8_ms = _cop_replay_ms(timer, net, cfg["replays"])
+        del net, clf, X
+    _free(torch)
+    scale = float(np.abs(eager).max())
+    return dict(kinds=dict(kinds), calibration_host_s=calib_s,
+                logits_corr_fp32=_corr(eager, logits32),
+                logits_max_abs_err_fp32=float(np.abs(eager - logits32).max()),
+                seq_corr_fp32=_corr(seq8, seq32),
+                seq_max_abs_err_fp32=float(np.abs(seq8 - seq32).max()),
+                seq_max_abs_fp32=float(np.abs(seq32).max()),
+                first_vs_eager=float(np.abs(first - eager).max()) / scale,
+                replay_vs_eager=float(np.abs(replay - eager).max()) / scale,
+                replay_bitwise_equal_eager=bool((replay == eager).all()),
+                launches=launches, records=records,
+                records_per_graph_launch=glaunch,
+                int8_replay_ms=int8_ms, fp32_replay_ms=fp32_ms)
+
+
+def _quant_optimize_for(torch, mx, path):
+    """(b)'s optimize_for: the classifier with dropout 0.1 from the
+    weights at ``path`` through the ``inference`` pass."""
+    cfg = QUANT_NET
+    x = _quant_inputs(np.random.RandomState(1), 30522, cfg["B"], cfg["L"])
+    with mx.gpu(0):
+        clf = _quant_classifier(mx, 0.1)
+        clf.load_parameters(path, ctx=mx.gpu(0))
+        inputs = _unpack(mx.nd, mx.nd.array(x))
+        want = clf(*inputs).asnumpy()
+        blk = clf.optimize_for(*inputs, backend="inference")
+        ops = collections.Counter(n.op.name for n in blk._out_sym._topo()
+                                  if n.op is not None)
+        blk.hybridize(static_alloc=True)
+        blk(*inputs)
+        got = blk(*inputs).asnumpy()
+        records = _kernel_records(
+            torch, lambda: [blk(*inputs) for _ in range(QUANT_NET["traced"])],
+            FLASH_NAMES, warm=lambda: blk(*inputs), where="optimize_for")
+        glaunch = TRACE_LAUNCHES[-1]["counted"]
+        bparams = blk.collect_params()
+        shared = all(bparams[n] is p for n, p in
+                     clf.collect_params().items() if n in bparams) \
+            and len(bparams) == len(clf.collect_params())
+        del blk, clf, inputs
+    _free(torch)
+    return dict(dropout_nodes=ops.get("Dropout", 0),
+                flash_nodes=ops.get("_contrib_flash_selfatt", 0),
+                max_err=float(np.abs(got - want).max())
+                / float(np.abs(want).max()),
+                records=records, records_per_graph_launch=glaunch,
+                shares_parameters=shared)
+
+
+def _quant_example(torch, mx, qt):
+    """examples/quantize_int8.py's recipe on the card (entropy, 4
+    calibration batches of 8 x 3 x 32 x 32; inputs from numpy)."""
+    cfg = QUANT_EXAMPLE
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (cfg["batch"], 3, 32, 32)).astype(np.float32)
+    calib = [rng.uniform(-1, 1, (cfg["batch"], 3, 32, 32)).astype(
+        np.float32) for _ in range(cfg["calib"])]
+    nn = mx.gluon.nn
+    mx.random.seed(0)
+    with mx.gpu(0):
+        net = nn.HybridSequential()
+        net.add(nn.Conv2D(32, 3, padding=1, activation="relu"),
+                nn.MaxPool2D(2),
+                nn.Conv2D(64, 3, padding=1, activation="relu"),
+                nn.MaxPool2D(2), nn.Dense(128, activation="relu"),
+                nn.Dense(10))
+        net.initialize(mx.init.Xavier())
+        ref = net(mx.nd.array(x)).asnumpy()
+        t0 = time.perf_counter()
+        qnet = qt.quantize_net(net, calib_mode="entropy",
+                               calib_data=[mx.nd.array(c) for c in calib])
+        calib_s = time.perf_counter() - t0
+        qnet.hybridize(static_alloc=True)
+        out = qnet(mx.nd.array(x)).asnumpy()
+        again = qnet(mx.nd.array(x)).asnumpy()
+        del net, qnet
+    return dict(corr=_corr(out, ref),
+                max_abs_err=float(np.abs(out - ref).max()),
+                calibration_host_s=calib_s,
+                replay_equal=bool((again == out).all()))
+
+
+def _quant_model(torch, mx, qt):
+    """quantize_model over examples/lenet_symbol.py's symbol (seeded
+    weights, naive calibration on one batch) run through Module on the
+    card, against the float Module."""
+    data, labels = _lenet_symbol_data()
+    rng = np.random.RandomState(0)
+    args = {"fc1_weight": rng.randn(128, 64).astype(np.float32) * 0.1,
+            "fc1_bias": np.zeros(128, np.float32),
+            "fc2_weight": rng.randn(10, 128).astype(np.float32) * 0.1,
+            "fc2_bias": np.zeros(10, np.float32)}
+    B = SYMBOLIC_LENET["batch"]
+    outs = {}
+    with mx.gpu(0):
+        a = {k: mx.nd.array(v) for k, v in args.items()}
+        x, y = mx.nd.array(data[:B]), mx.nd.array(labels[:B])
+        qsym, qargs, aux = qt.quantize_model(
+            _lenet_symbol(mx), a, data_names=("data", "softmax_label"),
+            calib_mode="naive", calib_data=[(x, y)])
+        for tag, s, p in (("int8", qsym, qargs),
+                          ("fp32", _lenet_symbol(mx), a)):
+            mod = mx.module.Module(s, data_names=("data",),
+                                   label_names=("softmax_label",),
+                                   context=mx.gpu(0))
+            mod.bind(data_shapes=[("data", (B, 64))],
+                     label_shapes=[("softmax_label", (B,))],
+                     for_training=False)
+            mod.set_params(p, aux)
+            mod.forward(mx.io.DataBatch(data=[x], label=[y]),
+                        is_train=False)
+            outs[tag] = mod.get_outputs()[0].asnumpy()
+            outs[tag + "_device"] = str(mod.get_outputs()[0]._data.device)
+    return dict(quantized_args=sorted(qargs)[:4] + ["..."],
+                corr=_corr(outs["int8"], outs["fp32"]),
+                max_abs_err=float(np.abs(outs["int8"] - outs["fp32"]).max()),
+                device=outs["int8_device"])
+
+
+def _quant_card_host(torch, mx, qt, tmp):
+    """Two layers at BERT-large width quantized (naive, one calibration
+    batch) on the card and on the host from the same weights: the int8
+    logits within one int8 step of the output's range (max|logit| /
+    127: a float32 rounding boundary, met in another order on each, may
+    flip one step)."""
+    cfg = QUANT_HOST
+    rng = np.random.RandomState(2)
+    calib = _quant_inputs(rng, 30522, cfg["B"], cfg["L"])
+    x = _quant_inputs(rng, 30522, cfg["B"], cfg["L"])
+    path = os.path.join(tmp, "bert2.npz")
+    outs = {}
+    for tag, ctx in (("host", mx.cpu(0)), ("card", mx.gpu(0))):
+        with ctx:
+            clf = _quant_classifier(mx, 0.0, num_layers=cfg["num_layers"])
+            if tag == "host":
+                mx.random.seed(3)
+                clf.initialize(mx.init.Normal(0.02))
+                net = _packed(mx, clf)
+                net(mx.nd.array(calib))
+                clf.save_parameters(path)
+            else:
+                clf.load_parameters(path, ctx=ctx)
+                net = _packed(mx, clf)
+            qt.quantize_net(net, calib_mode="naive",
+                            calib_data=[mx.nd.array(calib)])
+            outs[tag] = net(mx.nd.array(x)).asnumpy()
+            del net, clf
+    tol = float(np.abs(outs["host"]).max()) / 127.0
+    err = float(np.abs(outs["card"] - outs["host"]).max())
+    return dict(num_layers=cfg["num_layers"], B=cfg["B"], L=cfg["L"],
+                max_abs_err=err, tol=tol,
+                bitwise_equal_share=float(np.mean(outs["card"]
+                                                  == outs["host"])))
+
+
+def phase_quantize(torch, timer):
+    """``quantize``: contrib.quantization and optimize_for on the card
+    (module comment above ``QUANT_NET``).  Returns B1's wrapper launches
+    and records on the int8 and optimize_for paths."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as qt
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mxnet-quantize-")
+    try:
+        path = os.path.join(tmp, "clf.npz")
+        bert = _quant_bert(torch, mx, qt, timer, path)
+        opt = _quant_optimize_for(torch, mx, path)
+        example = _quant_example(torch, mx, qt)
+        model = _quant_model(torch, mx, qt)
+        card_host = _quant_card_host(torch, mx, qt, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free(torch)
+    cfg, layers = QUANT_NET, 24
+    emit("quantize", model="bert_24_1024_16 BERTClassifier, use_flash",
+         L=cfg["L"], B=cfg["B"], calib_mode="naive",
+         calib_batches=cfg["calib_batches"], int8=bert,
+         optimize_for=opt,
+         quantize_int8_example=example, quantize_model=model,
+         card_vs_host=card_host, seconds=time.perf_counter() - t0)
+    check(bert["kinds"].get("QuantizedDense") == 4 * layers + 2
+          and "Dense" not in bert["kinds"],
+          f"quantize: blocks after quantize_net {bert['kinds']}")
+    check(bert["replay_vs_eager"] <= QUANT_REPLAY_TOL
+          and bert["first_vs_eager"] <= QUANT_REPLAY_TOL,
+          f"quantize: int8 replay vs eager {bert['replay_vs_eager']} "
+          f"(first call {bert['first_vs_eager']}) of max|logit|")
+    check(bert["records"]["flash_attention_fwd"] == layers * cfg["traced"]
+          and bert["records_per_graph_launch"]
+          and len(bert["records_per_graph_launch"]) == cfg["traced"],
+          f"quantize: {bert['records']} B1 records and "
+          f"{len(bert['records_per_graph_launch'])} graph launches over "
+          f"{cfg['traced']} replays")
+    check(bert["launches"]["flash_attention_fwd"] == layers,
+          f"quantize: B1 wrapper launches {bert['launches']} (the capture's "
+          f"eager first call)")
+    check(bert["seq_corr_fp32"] >= QUANT_MIN_CORR,
+          f"quantize: int8 sequence output correlation "
+          f"{bert['seq_corr_fp32']}")
+    check(opt["dropout_nodes"] == 0 and opt["flash_nodes"] == layers
+          and opt["max_err"] <= QUANT_OPT_TOL and opt["shares_parameters"],
+          f"quantize: optimize_for {opt}")
+    check(opt["records"]["flash_attention_fwd"] == layers * cfg["traced"]
+          and len(opt["records_per_graph_launch"]) == cfg["traced"],
+          f"quantize: optimize_for B1 records {opt['records']}")
+    check(example["corr"] >= QUANT_MIN_CORR and example["replay_equal"],
+          f"quantize: examples/quantize_int8.py {example}")
+    check(model["corr"] >= QUANT_MIN_CORR
+          and model["device"].startswith("cuda"),
+          f"quantize: quantize_model through Module {model}")
+    check(card_host["max_abs_err"] <= card_host["tol"],
+          f"quantize: card vs host {card_host}")
+    return dict(launches=bert["launches"], traced=bert["records"],
+                optimize_for=opt["records"])
+
+
+# ----------------------------------------------------------------- np_card
+# (d) a table of mx.np / mx.npx calls on the card against the port's CPU
+# (ops_card's rule: integer and boolean outputs equal, elementwise
+# float32 within rtol 1e-5 / atol 1e-6; products and reductions, whose
+# sums run in another order on each, within 1e-5 of max|out|;
+# decompositions 1e-4 of max), and one mx.np Gluon block hybridized into
+# a CUDA graph (one graph launch a call, its output within 1e-6 of max of
+# the eager call).
+NP_CARD_TOL = (1e-5, 1e-6)
+NP_CARD_SUM_TOL = 1e-5
+NP_CARD_DECOMP_TOL = 1e-4
+NP_CARD_SUMS = ("matmul", "einsum", "sum", "mean_int", "var", "fft.rfft",
+                "npx.fully_connected", "npx.softmax", "linalg.norm")
+
+
+def _np_card_cases(np_, npx):
+    """[(name, fn(arrays...), [numpy inputs])]."""
+    r = np.random.RandomState(0)
+    f = r.randn(64, 48).astype(np.float32)
+    g = r.randn(48, 32).astype(np.float32)
+    p = r.rand(64, 48).astype(np.float32) + 0.5
+    i = r.randint(-50, 50, (64, 48)).astype(np.int32)
+    v = r.randn(1000).astype(np.float32)
+    sq = (r.randn(16, 16) + 4 * np.eye(16)).astype(np.float32)
+    return [
+        ("add", lambda a, b: np_.add(a, b), [f, p]),
+        ("matmul", lambda a, b: np_.matmul(a, b), [f, g]),
+        ("einsum", lambda a, b: np_.einsum("ij,jk->ik", a, b), [f, g]),
+        ("dot_int", lambda a: np_.dot(a, np_.ones((48, 3), dtype="int32")),
+         [i]),
+        ("sum", lambda a: np_.sum(a, axis=0), [f]),
+        ("mean_int", lambda a: np_.mean(a, axis=1), [i]),
+        ("var", lambda a: np_.var(a, axis=1), [f]),
+        ("cumsum", lambda a: np_.cumsum(a, axis=1), [i]),
+        ("argsort", lambda a: np_.argsort(a, axis=1), [f]),
+        ("sort", lambda a: np_.sort(a), [v]),
+        ("where", lambda a, b: np_.where(a > 0, a, b), [f, p]),
+        ("clip", lambda a: np_.clip(a, -0.5, 0.5), [f]),
+        ("exp_log", lambda a: np_.log(np_.exp(a) + 1), [f]),
+        ("transpose", lambda a: np_.transpose(a), [f]),
+        ("concatenate", lambda a, b: np_.concatenate([a, b], axis=0),
+         [f, p]),
+        ("take", lambda a: np_.take(a, np_.array([0, 5, 63], dtype="int32"),
+                                    axis=0), [f]),
+        ("pad", lambda a: np_.pad(a, 2, mode="reflect"), [f]),
+        ("unique", lambda a: np_.unique(a), [i]),
+        ("histogram", lambda a: np_.histogram(a, bins=16)[0], [v]),
+        ("linalg.inv", lambda a: np_.linalg.inv(a), [sq]),
+        ("linalg.norm", lambda a: np_.linalg.norm(a), [f]),
+        ("fft.rfft", lambda a: np_.abs(np_.fft.rfft(a)), [v]),
+        ("npx.relu", lambda a: npx.relu(a), [f]),
+        ("npx.softmax", lambda a: npx.softmax(a), [f]),
+        ("npx.fully_connected", lambda a, b: npx.fully_connected(
+            a, np_.transpose(b), np_.zeros((32,)), num_hidden=32), [f, g]),
+        ("npx.one_hot", lambda a: npx.one_hot(np_.abs(a) % 7, 7), [i]),
+        ("npx.topk", lambda a: npx.topk(a, k=3), [f]),
+    ]
+
+
+def _np_block(mx):
+    """A user HybridBlock written in mx.np / mx.npx over a weight."""
+    np_, npx = mx.np, mx.npx
+
+    class NpMLP(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.w = self.params.get("w", shape=(48, 32))
+
+        def hybrid_forward(self, F, x, w):
+            h = np_.tanh(np_.matmul(x, w))
+            return np_.sum(npx.relu(h) * np_.cos(h), axis=-1)
+
+    return NpMLP(prefix="npmlp_")
+
+
+def phase_np_card(torch):
+    """``np_card`` (module comment above ``NP_CARD_TOL``)."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    rows, worst = [], {}
+    for name, fn, inputs in _np_card_cases(mx.np, mx.npx):
+        outs = {}
+        for tag, ctx in (("card", mx.gpu(0)), ("host", mx.cpu(0))):
+            with ctx:
+                res = fn(*[mx.np.array(a) for a in inputs])
+                outs[tag] = (res.asnumpy(), _dtname(res._data.dtype),
+                             str(res._data.device))
+        card, host = outs["card"], outs["host"]
+        err, ok = None, card[0].shape == host[0].shape \
+            and card[1] == host[1]
+        if ok and card[0].dtype.kind in "biu":
+            err = float(np.abs(card[0].astype(np.int64)
+                               - host[0].astype(np.int64)).max(initial=0))
+            ok = err == 0
+        elif ok:
+            scale = float(np.abs(host[0]).max()) or 1.0
+            err = float(np.abs(card[0] - host[0]).max())
+            if name in NP_CARD_SUMS:
+                ok = err <= NP_CARD_SUM_TOL * scale
+            elif name.startswith("linalg"):
+                ok = err <= NP_CARD_DECOMP_TOL * scale
+            else:
+                ok = bool(np.allclose(card[0], host[0], rtol=NP_CARD_TOL[0],
+                                      atol=NP_CARD_TOL[1]))
+        ok = ok and card[2].startswith("cuda")
+        worst[name] = err
+        if not ok:
+            rows.append(dict(name=name, card=card[1:], host=host[1:],
+                             err=err))
+    x = np.random.RandomState(1).randn(64, 48).astype(np.float32)
+    with mx.gpu(0):
+        blk = _np_block(mx)
+        blk.initialize(mx.init.Normal(0.1))
+        X = mx.nd.array(x)
+        eager = blk(X).asnumpy()
+        blk.hybridize(static_alloc=True)
+        blk(X)
+        replay = blk(X).asnumpy()
+        _kernel_records(torch, lambda: [blk(X) for _ in range(3)],
+                        FLASH_NAMES, warm=lambda: blk(X), where="np_card")
+        glaunch = TRACE_LAUNCHES[-1]["counted"]
+        del blk
+    block_err = float(np.abs(replay - eager).max()) / float(
+        np.abs(eager).max())
+    emit("np_card", functions=len(worst), max_errs=worst, failed=rows,
+         block_rel_err=block_err, block_records_per_graph_launch=glaunch,
+         seconds=time.perf_counter() - t0)
+    check(not rows, f"np_card: card vs host {rows}")
+    check(block_err <= 1e-6 and len(glaunch) == 3,
+          f"np_card: the mx.np block's replay {block_err} of max, "
+          f"{len(glaunch)} graph launches over 3 calls")
+
+
 def _sig_stats_rows(stats):
     return [{k: s[k] for k in ("inputs", "training", "instances",
                                "capture_s", "pool_bytes")}
@@ -11194,7 +12073,8 @@ def main():
     train_launches, (trainers, step_ms), batch = phase_train(
         torch, dev, head, feats, labels)
     durability = phase_durability(torch, dev, feats, labels,
-                                  step_ms["graphs"])
+                                  step_ms["graphs"],
+                                  model_kw=dict(num_layers=DURABILITY_LAYERS))
     phase_durability_rng(torch, dev, feats)
     phase_durability_signal(torch, cache_dir)
     shutil.rmtree(os.path.dirname(cache_dir), ignore_errors=True)
@@ -11227,6 +12107,9 @@ def main():
     phase_ops_card(torch, dev)
     bert_squad = phase_bert_squad(torch)
     nmt = phase_nmt(torch)
+    amp_run = phase_amp(torch)
+    quant = phase_quantize(torch, timer)
+    phase_np_card(torch)
     phase_graphs(torch, dev, lm)
     replayed = phase_serve_trace(torch, lm)
     predict_traced = phase_predict_trace(torch, predict)
@@ -11329,7 +12212,9 @@ def main():
             launches_dist_ep=dist_launches["dist_ep"][name],
             launches_bert_squad=bert_squad["launches"][name],
             traced_bert_squad_kernel_records=bert_squad["traced"][name],
-            launches_nmt=nmt["launches"][name])
+            launches_nmt=nmt["launches"][name],
+            launches_amp_bf16=amp_run["launches"][name],
+            traced_amp_bf16_kernel_records=amp_run["traced"][name])
         if key == "fwd":
             # the predict path (fp32): the bucket graphs' captures launch
             # B1 from the wrapper; their replays are counted from trace
@@ -11353,7 +12238,11 @@ def main():
                 traced_replicas_kernel_records=replicas_traced["b1_records"],
                 traced_replicas_replays=replicas_traced["b1_replays"],
                 launches_traffic=traffic["launches"][name],
-                traced_traffic_kernel_records=traffic_traced[name])
+                traced_traffic_kernel_records=traffic_traced[name],
+                launches_quantize=quant["launches"][name],
+                traced_quantize_kernel_records=quant["traced"][name],
+                traced_optimize_for_kernel_records=quant[
+                    "optimize_for"][name])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -46,6 +46,11 @@ from . import callback
 from . import compat
 from . import test_utils
 from . import engine
+from . import monitor
+from . import subgraph
+from . import np
+from . import npx
+from . import contrib
 
 # bound at first use (the JAX package imports them with the package): an
 # exported artifact's loader imports the package root for its operators,
@@ -71,4 +76,5 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "optimizer", "gluon", "kvstore", "kv", "metric", "recordio",
            "io", "image", "lib", "attribute", "AttrScope", "symbol", "sym", "Symbol", "executor",
            "module", "callback", "compat", "test_utils", "waitall", "base",
-           "engine", "parallel", "models", "serving", "deploy"]
+           "engine", "parallel", "models", "serving", "deploy", "monitor",
+           "subgraph", "np", "npx", "contrib"]

@@ -381,6 +381,26 @@ class HybridBlock(Block):
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
 
+    def optimize_for(self, x, *args, backend=None, **backend_opts):
+        """Trace this block to a Symbol graph, run the registered
+        subgraph-backend pass over it, and return a ``SymbolBlock`` over
+        the rewritten graph sharing this block's parameters, run once on
+        the example inputs (reference: HybridBlock.optimize_for)."""
+        from .. import symbol as sym_mod
+        if backend is None:
+            raise MXNetError("optimize_for requires backend=<name>")
+        n_in = 1 + len(args)
+        data_syms = [sym_mod.var("data")] if n_in == 1 else \
+            [sym_mod.var(f"data{i}") for i in range(n_in)]
+        out = self(*data_syms)
+        if isinstance(out, (list, tuple)):
+            out = sym_mod.Group(list(out))
+        opt = out.optimize_for(backend, **backend_opts)
+        blk = SymbolBlock(opt, data_syms, params=self.collect_params())
+        # the example inputs validate the rewritten graph end to end
+        blk(x, *args)
+        return blk
+
     def export(self, path, epoch=0):
         """Write the block's graph (its forward over a Symbol input named
         ``data``) to ``path-symbol.json`` and its parameters, by name, to

@@ -123,15 +123,27 @@ from ..ndarray import NDArray, dtype_name
 from ..ndarray.ndarray import home_writes
 from ..ops.registry import OpDef, invoke
 
-__all__ = ["CachedOp", "before_write", "nb_cached_programs", "run_lazy"]
+__all__ = ["CachedOp", "before_write", "in_program",
+           "nb_cached_programs", "run_lazy"]
 
 # set while a CachedOp runs its block's forward: the children run their
 # plain forward inside the parent's program
 _TRACING = contextvars.ContextVar("mxnet_tpu_torch_cached_op_tracing",
                                   default=False)
+# set while a program runs its block's forward (not during the plain
+# pass that resolves deferred shapes): a forward hook sees the program's
+# tensors there, which a host read would break under capture
+_IN_PROGRAM = contextvars.ContextVar("mxnet_tpu_torch_cached_op_program",
+                                     default=False)
 _N_CACHED_PROGRAMS = 0
 # the lazy forwards not run yet, in the order they were recorded
 _LAZY = []
+
+
+def in_program():
+    """A CachedOp program (or a functionalized block) is running its
+    block's forward on this thread."""
+    return _IN_PROGRAM.get()
 
 
 def nb_cached_programs():
@@ -563,10 +575,11 @@ class _HybridProgram:
     def run(self, tensors):
         """The block's forward over ``tensors``: flat output tensors."""
         xs = [NDArray._wrap(t, self.ctx) for t in tensors]
-        tok = _TRACING.set(True)
+        tok, in_prog = _TRACING.set(True), _IN_PROGRAM.set(True)
         try:
             out = self.block.forward(*xs)
         finally:
+            _IN_PROGRAM.reset(in_prog)
             _TRACING.reset(tok)
         flat, self.tree = _flatten(out)
         return [a._data for a in flat]

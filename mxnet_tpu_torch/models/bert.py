@@ -59,9 +59,9 @@ class BERTEncoder(HybridBlock):
 
     def hybrid_forward(self, F, x, mask=None, valid_length=None,
                        position_weight=None):
-        L = x.shape[0]
-        pos = position_weight.slice_axis(axis=0, begin=0, end=L)
-        x = x + pos.expand_dims(1)
+        # the first L positions, written with ops a Symbol also composes
+        pos = F.slice_like(position_weight, x, axes=(0,))
+        x = F.broadcast_add(x, F.expand_dims(pos, axis=1))
         x = self.dropout_layer(self.layer_norm(x))
         for cell in self.transformer_cells:
             x = cell(x, mask, valid_length)
@@ -110,24 +110,25 @@ class BERTModel(HybridBlock):
         return mask.reshape((-1, L, L))
 
     def hybrid_forward(self, F, inputs, token_types=None, valid_length=None):
-        L = inputs.shape[1]
+        # F.* ops throughout, so that the flash model also composes over
+        # Symbols (HybridBlock.export, optimize_for)
         emb = self.word_embed(inputs)
         if token_types is not None:
             emb = emb + self.token_type_embed(token_types)
-        x = emb.swapaxes(0, 1)                                  # (L, B, C)
+        x = F.swapaxes(emb, dim1=0, dim2=1)                     # (L, B, C)
         if self._use_flash:
             # padding rides the flash kernel's lengths
             out = self.encoder(x, None, valid_length)
         else:
             mask = None
             if valid_length is not None:
-                mask = self._make_mask(F, valid_length, L)
+                mask = self._make_mask(F, valid_length, inputs.shape[1])
             out = self.encoder(x, mask)
-        seq = out.swapaxes(0, 1)                                # (B, L, C)
+        seq = F.swapaxes(out, dim1=0, dim2=1)                   # (B, L, C)
         if not self._use_pooler:
             return seq
-        pooled = self.pooler(seq.slice_axis(axis=1, begin=0, end=1)
-                             .squeeze(axis=1))
+        pooled = self.pooler(F.squeeze(
+            F.slice_axis(seq, axis=1, begin=0, end=1), axis=1))
         return seq, pooled
 
 

@@ -91,11 +91,6 @@ class BaseModule:
         """The reference's training loop (BaseModule.fit)."""
         if num_epoch is None:
             raise MXNetError("fit: num_epoch must be given")
-        if monitor is not None:
-            raise MXNetError(
-                "fit(monitor=...) needs monitor.py, which the PyTorch port "
-                "does not have yet (ROADMAP item 6.4b, 'other': "
-                "monitor.py)")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -112,11 +107,15 @@ class BaseModule:
         eval_metric = _as_metric(eval_metric)
         validation_metric = (_as_metric(validation_metric)
                              if validation_metric else eval_metric)
+        if monitor is not None:
+            monitor.install(self)
 
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 t_step = time.perf_counter() if _rm._ENABLED else None
                 self.forward_backward(data_batch)
                 self.update()
@@ -126,6 +125,8 @@ class BaseModule:
                         time.perf_counter() - t_step,
                         exemplar=ctx.trace_id if ctx is not None
                         else None)
+                if monitor is not None:
+                    monitor.toc_print()
                 self.update_metric(eval_metric, data_batch.label)
                 if batch_end_callback is not None:
                     param = _BatchEndParam(epoch=epoch, nbatch=nbatch,

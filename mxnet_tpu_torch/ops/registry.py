@@ -27,6 +27,7 @@ import torch
 
 from .. import runtime_metrics as _rm
 from ..base import MXNetError, Registry
+from . import shape_rules
 
 __all__ = ["OpDef", "OP_REGISTRY", "register", "get_op", "list_ops",
            "invoke", "alias", "make_frontend"]
@@ -37,13 +38,13 @@ _OPS: Dict[str, "OpDef"] = OP_REGISTRY._entries
 
 
 class OpDef:
-    """A registered operator: ``fn`` over tensors, its arity, and whether
+    """A registered operator: ``fn`` over tensors, its arity, whether
     autograd records it (``differentiable=False`` cuts the tape, as for
-    integer and comparison ops)."""
+    integer and comparison ops), and its shape rule (``shape_rules``)."""
 
     __slots__ = ("name", "fn", "num_inputs", "num_outputs",
                  "differentiable", "mutates_rng", "params", "open_schema",
-                 "aliases", "aux_update")
+                 "aliases", "aux_update", "shape_rule")
 
     def __init__(self, name: str, fn: Callable, num_inputs, num_outputs,
                  differentiable: bool, schema: bool = False,
@@ -70,6 +71,32 @@ class OpDef:
             self.open_schema = any(
                 p.kind == inspect.Parameter.VAR_KEYWORD
                 for p in sig.parameters.values())
+        # the declarative inference rule of this name, if it has one
+        self.shape_rule = shape_rules.rule_for(name)
+
+    def infer_signature(self, input_sigs, kwargs=None):
+        """The output signature without running the op: ``input_sigs`` is
+        a list of ``(shape, dtype)`` pairs (dims ints, ``shape_rules.Dim``
+        symbols or None for unknown; dtype a name or None).  Returns
+        ``(shape, dtype)``, possibly partly unknown, or None when the op
+        has no rule; raises :class:`MXNetError` on a provably infeasible
+        signature."""
+        if self.shape_rule is None:
+            return None
+        shapes, dtypes = [], []
+        for shape, dtype in input_sigs:
+            if shape is None:
+                shapes.append(None)
+            else:
+                shapes.append(tuple(
+                    shape_rules.lit(d) if isinstance(d, int)
+                    else d for d in shape))
+            dtypes.append(dtype)
+        try:
+            return self.shape_rule(shapes, dtypes, dict(kwargs or ()))
+        except shape_rules.ShapeError as e:
+            raise MXNetError(
+                f"operator {self.name}: infeasible signature: {e}") from e
 
     def n_outputs(self, kwargs) -> int:
         if callable(self.num_outputs):

@@ -71,7 +71,7 @@ def functionalize(block, *example_inputs, train_mode=True):
     tensors, not copies)."""
     from .. import autograd
     from ..gluon.block import _resolve_shapes
-    from ..gluon.cached_op import _TRACING, _flatten, recording
+    from ..gluon.cached_op import _IN_PROGRAM, _TRACING, _flatten, recording
     from ..ndarray import NDArray
     _resolve_shapes(block, example_inputs, train_mode)
     params = OrderedDict(block.collect_params().items())
@@ -87,11 +87,12 @@ def functionalize(block, *example_inputs, train_mode=True):
         xs = [NDArray._wrap(_as_input(t)) for t in input_tensors]
         mode = recording(train_mode) if torch.is_grad_enabled() \
             else autograd.pause(train_mode=train_mode)
-        tok = _TRACING.set(True)
+        tok, in_prog = _TRACING.set(True), _IN_PROGRAM.set(True)
         try:
             with _reading(list(params.values()), tensors), mode:
                 out = block.forward(*xs)
         finally:
+            _IN_PROGRAM.reset(in_prog)
             _TRACING.reset(tok)
         flat, tree = _flatten(out)
         outs = tuple(a._data for a in flat)

@@ -268,11 +268,11 @@ class Symbol:
 
     # -- serialization ------------------------------------------------------
     def optimize_for(self, backend, **kwargs):
-        """The subgraph-backend pass (reference: Symbol.optimize_for) is
-        not ported yet."""
-        raise MXNetError(
-            "Symbol.optimize_for needs subgraph.py, which the PyTorch port "
-            "does not have yet (ROADMAP item 6.4b, 'other': subgraph.py)")
+        """Apply a registered subgraph-backend pass and return the
+        rewritten Symbol (reference: Symbol.optimize_for over the
+        ``SubgraphProperty`` registry, ``subgraph.py``)."""
+        from ..subgraph import optimize_symbol
+        return optimize_symbol(self, backend, **kwargs)
 
     def tojson(self) -> str:
         """nnvm-style JSON, the JAX package's layout."""

@@ -212,22 +212,22 @@ def test_gluon_contrib_names_still_to_come_raise(name):
 # Public names of the JAX package that the port has not, by module: the
 # names a later ROADMAP item brings, and the JAX-only ones.
 NAME_EXCEPTIONS = {
-    "": {"contrib": "6.8", "library": "6.8",
-         "monitor": "6.8", "np": "6.8", "npx": "6.8", "operator": "6.8",
-         "profiler": "6.8", "runtime": "6.8", "subgraph": "6.8",
-         "util": "6.8", "tpu": "JAX-only", "num_tpus": "JAX-only"},
+    "": {"library": "6.8b", "operator": "6.8b", "profiler": "6.8b",
+         "runtime": "6.8b", "util": "6.8b", "tpu": "JAX-only",
+         "num_tpus": "JAX-only"},
     "context": {"tpu": "JAX-only", "num_tpus": "JAX-only"},
     "compile_cache": {"aot_program": "waiting item 2",
                       "enable_jax_persistent_cache": "JAX-only"},
+    "contrib": {"onnx": "6.8b", "text": "6.8b", "tensorboard": "6.8b"},
     "gluon.utils": {"download": "needs a network"},
-    "ops": {"pallas_kernels": "JAX-only", "shape_rules": "6.8"},
+    "ops": {"pallas_kernels": "JAX-only"},
     # registered ops whose port functions live in ops/nn.py
     "ops.contrib": {"gelu_erf": "ops.nn", "gelu_tanh": "ops.nn"},
     # the JAX registry's hot-path OpDef that skips its signature harvest
     "ops.registry": {"LightOpDef": "JAX-only"},
     "parallel.sharding": {"global_device_put": "JAX-only"},
     "random": {"next_key": "JAX-only", "trace_key_scope": "JAX-only"},
-    "runtime_metrics": {"dump_tensorboard": "6.8"},
+    "runtime_metrics": {"dump_tensorboard": "6.8b"},
 }
 
 

@@ -198,11 +198,21 @@ def test_inputs_need_grad_and_input_grads_match_jax():
 
 
 def test_fit_refuses_a_monitor():
+    """``fit(monitor=)`` takes a ``Monitor`` (installed, ticked and
+    printed every batch, as in the JAX package) and refuses an object
+    that is not one, as the JAX package's fit does."""
     x, y = _toy_data(n=16)
-    it = mx.io.NDArrayIter(x, y, batch_size=16, label_name="softmax_label")
+    for pkg in (mx, jmx):
+        it = pkg.io.NDArrayIter(x, y, batch_size=8,
+                                label_name="softmax_label")
+        mod = pkg.module.Module(_mlp_symbol(pkg), context=pkg.cpu())
+        with pytest.raises(AttributeError, match="install"):
+            mod.fit(it, num_epoch=1, monitor=object())
+    it = mx.io.NDArrayIter(x, y, batch_size=8, label_name="softmax_label")
     mod = mx.module.Module(_mlp_symbol(mx), context=mx.cpu())
-    with pytest.raises(mx.MXNetError, match="monitor.py"):
-        mod.fit(it, num_epoch=1, monitor=object())
+    mon = mx.monitor.Monitor(interval=1, pattern=".*weight$")
+    mod.fit(it, num_epoch=1, monitor=mon)
+    assert mon.step == 2 and any(m is mod for m in mon._modules)
 
 
 # ------------------------------------------------- TestModuleRebind twins

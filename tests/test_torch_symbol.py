@@ -174,8 +174,14 @@ def test_symbolic_dispatch_through_nd_invoke():
 
 
 def test_optimize_for_names_the_missing_item():
-    with pytest.raises(mx.MXNetError, match="subgraph"):
-        mx.sym.var("x").optimize_for("default")
+    """``optimize_for`` runs a registered subgraph backend; an unknown
+    one is named in the error, as in the JAX package."""
+    for pkg in (mx, jmx):
+        with pytest.raises(pkg.MXNetError,
+                           match="unknown subgraph backend 'default'"):
+            pkg.sym.var("x").optimize_for("default")
+    opt = mx.sym.Dropout(mx.sym.var("x"), p=0.5).optimize_for("inference")
+    assert [n.op for n in opt._topo()] == [None]
 
 
 # ------------------------------------------------------------------ JSON
